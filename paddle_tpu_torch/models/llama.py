@@ -1,0 +1,247 @@
+"""Llama model family in PyTorch — the port of `paddle_tpu/models/llama.py`.
+
+Same configuration (`LlamaConfig` and its five presets), same parameter
+names as the JAX model's `named_parameters()` (`llama.embed_tokens.weight`,
+`llama.layers.{i}.self_attn.q_proj.weight`, ...), and the same Linear
+layout: paddle stores a Linear weight as `[in, out]` and computes
+`x @ W`, so weights cross between the two packages by name and value
+(`load_reference_arrays`) without a transpose.
+
+This slice serves the model (`models/llama_decode.py` reads the
+parameters through `collect_decode_state`); the training forward comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import resolve_device
+
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "load_reference_arrays"]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    initializer_range: float = 0.02
+    dtype: str = "bfloat16"          # compute/param dtype
+    use_flash_attention: bool = True
+    recompute: bool = False
+    recompute_policy: str = "full"
+    sequence_parallel: bool = False
+    sp_mode: str = "ulysses"
+    moe_num_experts: int = 0         # 0 = dense MLP
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_shared_expert_intermediate: int = 0
+    moe_aux_loss_weight: float = 0.01
+    moe_gate: str = "gshard"
+    moe_dropless: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @staticmethod
+    def presets() -> dict:
+        return {
+            # Meta's Llama-3-8B shape
+            "llama3-8b": LlamaConfig(
+                vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                num_hidden_layers=32, num_attention_heads=32,
+                num_key_value_heads=8, max_position_embeddings=8192,
+                rope_theta=500000.0),
+            "llama2-7b": LlamaConfig(),
+            # small configs for tests / CPU dry-runs
+            "tiny": LlamaConfig(
+                vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=128,
+                dtype="float32"),
+            "qwen2-moe-tiny": LlamaConfig(
+                vocab_size=256, hidden_size=64, intermediate_size=96,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=128,
+                dtype="float32", moe_num_experts=8, moe_top_k=2,
+                moe_shared_expert_intermediate=96),
+            "debug-4l": LlamaConfig(
+                vocab_size=1024, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=4, num_attention_heads=8,
+                num_key_value_heads=4, max_position_embeddings=512,
+                dtype="float32"),
+        }
+
+    @classmethod
+    def from_preset(cls, name: str, **overrides) -> "LlamaConfig":
+        cfg = cls.presets()[name]
+        return dataclasses.replace(cfg, **overrides)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embedding
+# --------------------------------------------------------------------------
+
+
+def _rope_tables_at(positions, head_dim: int, theta: float, dtype):
+    """cos/sin (len(positions), head_dim) for ABSOLUTE positions —
+    half-split (Llama) convention.  Tables are built in fp32 (the angle
+    arithmetic needs it) and cast to `dtype`, where the rotation runs."""
+    inv_freq = 1.0 / (theta ** (
+        torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=positions.device) / head_dim))
+    freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)            # (S, D)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Model layers: parameter containers with the JAX model's names
+# --------------------------------------------------------------------------
+
+
+def _normal(shape, cfg, device, generator):
+    # drawn directly on `device` in the model dtype: the 8B model's
+    # fp32 host copy alone would be 32 GB
+    w = torch.empty(shape, dtype=cfg.torch_dtype, device=device)
+    return nn.Parameter(w.normal_(0.0, cfg.initializer_range,
+                                  generator=generator))
+
+
+class Linear(nn.Module):
+    """Bias-free Linear in paddle's `[in, out]` layout (`y = x @ W`)."""
+
+    def __init__(self, in_features, out_features, cfg, device, generator):
+        super().__init__()
+        self.weight = _normal((in_features, out_features), cfg, device,
+                              generator)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num, dim, cfg, device, generator):
+        super().__init__()
+        self.weight = _normal((num, dim), cfg, device, generator)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim, cfg, device):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.ones(dim, dtype=cfg.torch_dtype, device=device))
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        h, nh, nkv, hd = (cfg.hidden_size, cfg.num_attention_heads,
+                          cfg.num_key_value_heads, cfg.head_dim)
+        self.q_proj = Linear(h, nh * hd, cfg, device, generator)
+        self.k_proj = Linear(h, nkv * hd, cfg, device, generator)
+        self.v_proj = Linear(h, nkv * hd, cfg, device, generator)
+        self.o_proj = Linear(nh * hd, h, cfg, device, generator)
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU feed-forward."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        h, inter = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Linear(h, inter, cfg, device, generator)
+        self.up_proj = Linear(h, inter, cfg, device, generator)
+        self.down_proj = Linear(inter, h, cfg, device, generator)
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.self_attn = LlamaAttention(cfg, device, generator)
+        self.mlp = LlamaMLP(cfg, device, generator)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg,
+                                                device)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, cfg,
+                                      device, generator)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(cfg, device, generator)
+             for _ in range(cfg.num_hidden_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg, device)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama causal LM, initialised on `device` (the CUDA card unless
+    the caller passes `device="cpu"`) in `config.dtype`, with
+    Normal(0, initializer_range) weights drawn from a `torch.Generator`
+    on `device` seeded with `seed`.  Tied heads (`tie_word_embeddings`)
+    read the embedding; untied ones own `lm_head.weight`
+    `[hidden, vocab]`."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed=0):
+        super().__init__()
+        if config.moe_num_experts > 1:
+            raise NotImplementedError(
+                "MoE Llama is not ported yet (ROADMAP: kernel K5, "
+                "grouped matmul)")
+        device = resolve_device(device)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
+        self.config = config
+        self.llama = LlamaModel(config, device, generator)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size,
+                               config, device, generator))
+
+    @property
+    def device(self) -> torch.device:
+        return self.llama.embed_tokens.weight.device
+
+
+def load_reference_arrays(model: nn.Module, arrays: dict) -> None:
+    """Copy `{parameter name: numpy array}` into `model` by name —
+    e.g. `{n: np.asarray(p._data) for n, p in
+    jax_model.named_parameters()}` from the JAX package.  Every name
+    must match both ways and every shape exactly; values are cast to
+    each parameter's dtype on its device."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in params.items():
+            a = np.asarray(arrays[name])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(p.shape)}")
+            # numpy has no bfloat16: widen to fp32 for the crossing
+            t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+            p.copy_(t.to(device=p.device, dtype=p.dtype))

@@ -1,0 +1,55 @@
+"""Device roofline tables (public specs) for `chip_smoke.py`'s kernel
+bounds.
+
+`peak_*` take the card's marketing name (`torch.cuda.get_device_name()`)
+and match lowercase substrings, longest key first ("h100 pcie" before
+"h100").  A card that is not in the tables raises: a bound taken from
+some other card's rates would misstate how far a kernel is from it.
+"""
+
+from __future__ import annotations
+
+__all__ = ["PEAK_FLOPS", "PEAK_FP32_FLOPS", "PEAK_HBM_BW", "peak_flops",
+           "peak_hbm_bw"]
+
+# dense bf16 tensor-core FLOP/s per card (NVIDIA data sheets)
+PEAK_FLOPS = {
+    "h100": 989e12,          # H100 SXM5 (name "NVIDIA H100 80GB HBM3")
+    "h100 pcie": 756e12,
+}
+
+# fp32 FLOP/s outside the tensor cores (NVIDIA data sheets): the rate
+# of kernels that compute in fp32 on the CUDA cores
+PEAK_FP32_FLOPS = {
+    "h100": 67e12,
+    "h100 pcie": 51e12,
+}
+
+# device-memory bandwidth per card (NVIDIA data sheets): the decode
+# step is bandwidth-bound (reads all params + the KV pool per token),
+# so its roofline is bytes/s, not FLOP/s
+PEAK_HBM_BW = {
+    "h100": 3.35e12,
+    "h100 pcie": 2.0e12,
+}
+
+
+def _peak_lookup(table, kind) -> float:
+    name = str(kind).lower()
+    for key in sorted(table, key=len, reverse=True):
+        if key in name:
+            return table[key]
+    raise KeyError(f"no peak rates for card {kind!r}; known: "
+                   f"{sorted(table)}")
+
+
+def peak_flops(kind, dtype="bfloat16") -> float:
+    """Peak FLOP/s of card `kind` for work in `dtype` ("bfloat16" on
+    the tensor cores, "float32" on the CUDA cores)."""
+    table = PEAK_FP32_FLOPS if str(dtype) in ("float32", "torch.float32") \
+        else PEAK_FLOPS
+    return _peak_lookup(table, kind)
+
+
+def peak_hbm_bw(kind) -> float:
+    return _peak_lookup(PEAK_HBM_BW, kind)
