@@ -19,6 +19,15 @@ the result line:
               PyTorch call that computes the same function
               (scaled_dot_product_attention on the pre-gathered view —
               a yardstick the port never calls);
+  3b. train_kernels
+              flash attention forward (K1) and backward (K2: dQ, dK/dV)
+              and the fused softmax cross-entropy forward and backward
+              (K3) against their plain versions at the trainer shape
+              (q (2, 2048, 32, 128), k/v (2, 2048, 8, 128) bf16, causal;
+              logits (2, 2048, 128256) bf16) and in fp32 at smaller
+              shapes, then timed in turns beside their bounds and one
+              PyTorch call each (scaled_dot_product_attention,
+              cross_entropy: yardsticks the port never calls);
   4. serve    Llama-3-8B (random weights from a seed, bf16, all 32
               layers) served through LLMEngine: 8 greedy requests of the
               prompt-length mix [37 .. 512] x 32 new tokens, once with a
@@ -32,7 +41,20 @@ the result line:
               logits held within a stated bound per live slot;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path are token-exact;
-  6. server   LLMServer answers three requests with the engine's tokens.
+  6. server   LLMServer answers three requests with the engine's tokens;
+  7. train    Llama-3-8B at full width, 4 layers, bf16, random weights:
+              6 TrainSteps (AdamW, global-norm clip) on one 2 x 2048
+              batch with finite, falling loss and exactly 4 K1, 4 dQ,
+              4 dK/dV, 1 K3f and 1 K3b launches per step; step time,
+              tokens/s, MFU, peak memory; one profiled step (device
+              time by kernel family, idle share); one step with
+              recompute "full" against the same step without it; and
+              per layer, K1 / K2 against their plain versions on the
+              layer's own inputs;
+  8. train_parity
+              debug-4l in fp32, kernels against plain versions on the
+              card: loss, every gradient, and the parameters after two
+              TrainSteps.
 
 Then one line {"kernels": [...]} (every ported kernel with its launches
 on the paths above, error, tolerance and times), the card's name and
@@ -44,6 +66,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -239,13 +262,13 @@ def phase_kernels(torch):
             F.scaled_dot_product_attention(q4, views[i][0], views[i][1],
                                            attn_mask=mask, enable_gqa=True)
 
-        launches = PA.paged_attention.launches
+        launches = PA.LAUNCHES["paged_attention"]
         p1 = _time_ms(torch, plain, copies, 20)
         k1 = _time_ms(torch, kern, copies, 50)
         k2 = _time_ms(torch, kern, copies, 50)
         p2 = _time_ms(torch, plain, copies, 20)
         lib_ms = _time_ms(torch, lib, copies, 50)
-        PA.paged_attention.launches = launches   # timing launches don't count
+        PA.LAUNCHES["paged_attention"] = launches   # timing doesn't count
         bound_ms, bound_by = _bound(mode, q, out, table, pos, kind)
         results[mode] = {"max_abs_err": err,
                          "err_per_slot": err_b.tolist(),
@@ -291,13 +314,13 @@ def _serve_once(torch, model, kv_dtype):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    PA.paged_attention.launches = 0
+    PA.LAUNCHES["paged_attention"] = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(p, SERVE_NEW, on_token=on_token) for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = PA.paged_attention.launches
+    launches = PA.LAUNCHES["paged_attention"]
     steps = int(eng.metrics()["llm_engine_decode_steps_total"]["series"]
                 [""]["value"])
     layers = model.config.num_hidden_layers
@@ -459,13 +482,13 @@ def phase_serve_parity(torch, model, kv_dtype):
             alt, _ = step(*args, kernel="gather")
         finally:
             D._attend = attend
-        before = PA.paged_attention.launches
+        before = PA.LAUNCHES["paged_attention"]
         D.paged_attention = kernel_checked
         try:
             logits, pool = step(*args, kernel=kernel)
         finally:
             D.paged_attention = kernel_fn
-        require(PA.paged_attention.launches - before
+        require(PA.LAUNCHES["paged_attention"] - before
                 == cfg.num_hidden_layers, "serve parity: kernel not run")
         for key, x, y in (("cuda_vs_gather", logits, ref),
                           ("fp32probs_vs_gather", alt, ref),
@@ -569,12 +592,12 @@ def phase_parity(torch, model):
     launches = 0
     for kernel in ("gather", "cuda"):
         eng = LLMEngine(model, decode_kernel=kernel, **DEBUG_KW)
-        PA.paged_attention.launches = 0
+        PA.LAUNCHES["paged_attention"] = 0
         reqs = [eng.submit(p, 24) for p in _debug_prompts()]
         eng.run()
         streams[kernel] = [list(r.tokens) for r in reqs]
         if kernel == "cuda":
-            launches = PA.paged_attention.launches
+            launches = PA.LAUNCHES["paged_attention"]
             steps = eng.metrics()["llm_engine_decode_steps_total"][
                 "series"][""]["value"]
             require(launches == model.config.num_hidden_layers * steps,
@@ -602,6 +625,632 @@ def phase_server(torch, model, engine_tokens):
           "driver_stopped": not srv._thread.is_alive()})
 
 
+# --------------------------------------------------------------------------
+# training slice: kernels K1 (flash forward), K2 (flash backward: dQ and
+# dK/dV) and K3 (fused softmax cross-entropy, forward and backward)
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_LAYERS = 4          # full width; 32 layers need ~64 GB of state
+TRAIN_STEPS = 6
+FLASH_SHAPE = dict(H=32, Hkv=8, D=128)          # llama3-8b attention
+# smaller fp32 cases: (B, S, H, Hkv, D); S = 300 has a ragged last tile,
+# D = 32 is debug-4l's head_dim
+FLASH_FP32_CASES = [(1, 512, 8, 2, 128), (2, 300, 8, 4, 32)]
+XENT_FP32_ROWS = (2, 256)
+# kernel vs plain on the same inputs.  O, dQ: per (b, query row, head);
+# dK, dV: per (b, key row, kv head): max|err| over head_dim <= tol x
+# that row's max |plain|.  Rows deep in a causal sequence average ~1000
+# keys and are ~100x smaller than the first rows, so a limit per head
+# or per tensor would not see them.  bf16: both round an fp32 result
+# whose sums run in another order to bf16 once, so they are at most
+# one bf16 ulp (<= 2^-7 x the value) apart.
+FLASH_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+LSE_TOL = 1e-5            # per element, x max(1, |lse|), fp32 in both
+# dlogits per element: |err| <= tol x |plain| (a typical non-label
+# entry is ~1e-5 of its row's max, so a per-row limit would not see it)
+XENT_GRAD_TOL = {"bfloat16": 2 ** -7, "float32": 1e-6}
+FLASH_TOL_TEXT = ("O, dQ per (b, query row, head), dK, dV per (b, key "
+                  "row, kv head): max|err| <= {tol} x max|plain| of the "
+                  "row; lse per element |err| <= 1e-05 x max(1, |lse|)")
+XENT_TOL_TEXT = ("loss, lse per row |err| <= 1e-05 x max(1, |lse|); "
+                 "dlogits per element |err| <= {tol} x |plain|")
+TRAIN_KERNELS = {         # name (its key in the module's LAUNCHES) ->
+    #                         (module, replaces)
+    "flash_attention_fwd": ("flash_attention",
+                            "paddle_tpu/ops/pallas_attention.py:62"),
+    "flash_attention_dq": ("flash_attention",
+                           "paddle_tpu/ops/pallas_attention.py:147"),
+    "flash_attention_dkv": ("flash_attention",
+                            "paddle_tpu/ops/pallas_attention.py:185"),
+    "softmax_xent_fwd": ("softmax_xent", "paddle_tpu/ops/pallas_ce.py:47"),
+    "softmax_xent_bwd": ("softmax_xent", "paddle_tpu/ops/pallas_ce.py:89"),
+}
+ALSO_REPLACES = {         # the tiled K2 variant (S > 4096 on the TPU)
+    "flash_attention_dq": "paddle_tpu/ops/pallas_attention.py:283",
+    "flash_attention_dkv": "paddle_tpu/ops/pallas_attention.py:330",
+}
+
+
+def _launches(name):
+    """The LAUNCHES dict of the module that holds kernel `name`."""
+    import importlib
+    mod = TRAIN_KERNELS[name][0]
+    return importlib.import_module(f"paddle_tpu_torch.ops.{mod}").LAUNCHES
+
+
+def _set_train_counts(counts):
+    for name, n in counts.items():
+        _launches(name)[name] = n
+
+
+def _zero_train_counts():
+    _set_train_counts(dict.fromkeys(TRAIN_KERNELS, 0))
+
+
+def _train_counts():
+    return {name: _launches(name)[name] for name in TRAIN_KERNELS}
+
+
+def _per_row_share(got, want, tol):
+    """max over the rows (b, s, head) of (B, S, H, D) tensors of
+    max|got - want| / (tol * max|want|) over head_dim."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    ref = want.abs().amax(-1).clamp_min(1e-30)
+    return (err / (tol * ref)).max().item()
+
+
+def _lse_share(lse, plse):
+    """max over elements of |lse - plse| / (LSE_TOL * max(1, |plse|))."""
+    return ((lse - plse).abs() / (LSE_TOL * plse.abs().clamp_min(1.0))) \
+        .max().item()
+
+
+def _flash_compare(torch, q, k, v, do):
+    """K1 and K2 against their plain versions on the same inputs (K2 on
+    the plain O and lse).  Returns {output: (max abs err, worst share of
+    its limit)}."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    o, lse = FA.flash_fwd(q, k, v, True)
+    po, plse = FA.flash_fwd_plain(q, k, v, True)
+    grads = FA.flash_bwd(q, k, v, po, plse, do, True)
+    torch.cuda.synchronize()
+    plain = FA.flash_bwd_plain(q, k, v, po, plse, do, True)
+    out = {"o": ((o.float() - po.float()).abs().max().item(),
+                 _per_row_share(o, po, tol)),
+           "lse": ((lse - plse).abs().max().item(), _lse_share(lse, plse))}
+    for n, g, p in zip(("dq", "dk", "dv"), grads, plain):
+        require(g.dtype == p.dtype and g.shape == p.shape,
+                f"K2 {n}: {g.dtype} {tuple(g.shape)} vs plain {p.dtype} "
+                f"{tuple(p.shape)}")
+        out[n] = ((g.float() - p.float()).abs().max().item(),
+                  _per_row_share(g, p, tol))
+    return out
+
+
+def _flash_inputs(torch, B, S, H, Hkv, D, dtype, gen):
+    def rnd(h):
+        return torch.randn(B, S, h, D, device="cuda", generator=gen) \
+            .to(dtype)
+    return rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+
+
+def _xent_inputs(torch, B, S, V, dtype, gen):
+    """Logits ~ N(0, 9) and labels in the causal loss's layout: the last
+    position of each sequence carries label -1 (ignored)."""
+    x = (3 * torch.randn(B, S, V, device="cuda", generator=gen)).to(dtype)
+    lab = torch.randint(0, V, (B, S), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    lab[:, -1] = -1
+    return x, lab
+
+
+def _xent_compare(torch, x, lab):
+    from paddle_tpu_torch.ops import softmax_xent as SX
+    dt = str(x.dtype).split(".")[-1]
+    loss, lse = SX.softmax_xent_fwd(x, lab)
+    ploss, plse = SX.softmax_xent_plain(x, lab)
+    g = torch.full(lab.shape, 1.0 / (lab >= 0).sum().item(), device="cuda")
+    d = SX.softmax_xent_bwd(x, lab, plse, g)
+    torch.cuda.synchronize()
+    pd = SX.softmax_xent_bwd_plain(x, lab, plse, g)
+    lim = LSE_TOL * plse.abs().clamp_min(1.0)
+    require(d.dtype == pd.dtype and d.shape == pd.shape, "K3b dtype/shape")
+    require(not d[:, -1].any(), "K3b: ignored rows must be zero")
+    keep = lab >= 0
+    err = (d[keep].float() - pd[keep].float()).abs()
+    lim_d = XENT_GRAD_TOL[dt] * pd[keep].float().abs().clamp_min(1e-30)
+    return {"loss": ((loss - ploss).abs().max().item(),
+                     ((loss - ploss).abs() / lim).max().item()),
+            "lse": ((lse - plse).abs().max().item(),
+                    ((lse - plse).abs() / lim).max().item()),
+            "dlogits": (err.max().item(), (err / lim_d).max().item())}
+
+
+def _pairs(S):
+    return S * (S + 1) // 2           # (query, key) pairs a causal row set keeps
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound_ms(kind, flops, nbytes, flops_dtype="bfloat16"):
+    """The least time for the work on this card: bytes over the memory
+    rate vs operations over the peak for their type."""
+    from paddle_tpu_torch.observability import roofline
+    t_ops = flops / roofline.peak_flops(kind, flops_dtype)
+    t_bytes = nbytes / roofline.peak_hbm_bw(kind)
+    return 1e3 * max(t_ops, t_bytes), \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _in_turns(torch, plain, kern, iters):
+    """Plain, kernel, kernel, plain, each a CUDA-event mean over
+    `iters` launches after warm-up; returns (kernel ms, plain ms, the
+    four turns)."""
+    p1 = _time_ms(torch, lambda i: plain(), 1, iters)
+    k1 = _time_ms(torch, lambda i: kern(), 1, iters)
+    k2 = _time_ms(torch, lambda i: kern(), 1, iters)
+    p2 = _time_ms(torch, lambda i: plain(), 1, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2]
+
+
+def phase_train_kernels(torch):
+    """K1, K2 and K3 against their plain versions at the trainer shape
+    in bf16 and at smaller shapes in fp32; then timed in turns beside
+    their bounds and one PyTorch call each (scaled_dot_product_attention
+    forward / backward, cross_entropy forward / backward: yardsticks the
+    port never calls)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import softmax_xent as SX
+    kind = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    saved = _train_counts()
+    res = {}
+
+    # ---- flash attention: correctness
+    fs = FLASH_SHAPE
+    q, k, v, do = _flash_inputs(torch, TRAIN_B, TRAIN_S, fs["H"],
+                                fs["Hkv"], fs["D"], torch.bfloat16, gen)
+    cmp = {"bfloat16": _flash_compare(torch, q, k, v, do)}
+    for case in FLASH_FP32_CASES:
+        cmp[f"float32 {case}"] = _flash_compare(
+            torch, *_flash_inputs(torch, *case, torch.float32, gen))
+    for key, c in cmp.items():
+        emit({"phase": "train_kernels", "kernel": "flash_attention",
+              "case": key,
+              "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL[
+                  key.split()[0]]),
+              **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+              **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()}})
+        for n, (_, s) in c.items():
+            require(s <= 1.0, f"flash {key} {n}: {s} x its limit")
+
+    # ---- flash attention: times at the trainer shape (bf16, causal)
+    o, lse = FA.flash_fwd(q, k, v, True)
+    delta = FA._delta(o, do)
+    qT, kT, vT, doT = (x.transpose(1, 2) for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qT, kT, vT))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+
+    def lib_fwd():
+        F.scaled_dot_product_attention(qT, kT, vT, is_causal=True,
+                                       enable_gqa=True)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (qg, kg, vg), doT, retain_graph=True)
+
+    fwd_ms, fwd_plain, fwd_turns = _in_turns(
+        torch, lambda: FA.flash_fwd_plain(q, k, v, True),
+        lambda: FA.flash_fwd(q, k, v, True), 5)
+    dq_ms, bwd_plain, dq_turns = _in_turns(
+        torch, lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, True),
+        lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta), 5)
+    dkv_ms, bwd_plain2, dkv_turns = _in_turns(
+        torch, lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, True),
+        lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta), 5)
+    bwd_plain_turns = [dq_turns[0], dq_turns[3], dkv_turns[0],
+                       dkv_turns[3]]
+    lib_fwd_ms = _time_ms(torch, lambda i: lib_fwd(), 1, 10)
+    lib_bwd_ms = _time_ms(torch, lambda i: lib_bwd(), 1, 10)
+    B, S, H, D = q.shape
+    mm = 2.0 * B * H * D * _pairs(S)      # flops of one causal product
+    io = _nbytes(q, k, v)
+    rows = _nbytes(lse, delta)
+    bounds = {"flash_attention_fwd": _bound_ms(kind, 2 * mm,
+                                               io + _nbytes(o, lse)),
+              # S = QK^T, dP = dO V^T, dQ = dS K
+              "flash_attention_dq": _bound_ms(kind, 3 * mm,
+                                              io + _nbytes(do, q) + rows),
+              # S, dP, dV = P^T dO, dK = dS^T Q
+              "flash_attention_dkv": _bound_ms(kind, 4 * mm,
+                                               io + _nbytes(do, k, v) + rows)}
+    b16 = cmp["bfloat16"]
+    res["flash_attention_fwd"] = {
+        "max_abs_err": b16["o"][0], "lse_max_abs_err": b16["lse"][0],
+        "ms": fwd_ms, "plain_ms": fwd_plain, "turns_ms": fwd_turns,
+        "library_ms": lib_fwd_ms,
+        "library": "scaled_dot_product_attention(is_causal, enable_gqa)"}
+    for name, ms, turns, n in (("flash_attention_dq", dq_ms, dq_turns,
+                                ("dq",)),
+                               ("flash_attention_dkv", dkv_ms, dkv_turns,
+                                ("dk", "dv"))):
+        res[name] = {"max_abs_err": max(b16[x][0] for x in n), "ms": ms,
+                     "plain_ms": (bwd_plain + bwd_plain2) / 2,
+                     "plain_computes": "dQ, dK and dV together",
+                     "turns_ms": turns, "plain_turns_ms": bwd_plain_turns,
+                     "library_ms": lib_bwd_ms,
+                     "library": "backward of scaled_dot_product_attention "
+                                "(dQ, dK, dV together)"}
+    del q, k, v, do, o, lse, delta, qT, kT, vT, doT, qg, kg, vg, lib_out
+    torch.cuda.empty_cache()
+
+    # ---- cross-entropy: correctness at the trainer shape (bf16) and
+    # an fp32 case, the full vocabulary
+    V = 128256
+    x, lab = _xent_inputs(torch, TRAIN_B, TRAIN_S, V, torch.bfloat16, gen)
+    xcmp = {"bfloat16": _xent_compare(torch, x, lab)}
+    xcmp["float32"] = _xent_compare(
+        torch, *_xent_inputs(torch, *XENT_FP32_ROWS, V, torch.float32, gen))
+    for key, c in xcmp.items():
+        emit({"phase": "train_kernels", "kernel": "softmax_xent",
+              "case": f"{key} V={V}",
+              "tolerance": XENT_TOL_TEXT.format(tol=XENT_GRAD_TOL[key]),
+              **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+              **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()}})
+        for n, (_, s) in c.items():
+            require(s <= 1.0, f"softmax_xent {key} {n}: {s} x its limit")
+    torch.cuda.empty_cache()
+
+    # ---- cross-entropy: times at the trainer shape (bf16)
+    loss, lse = SX.softmax_xent_fwd(x, lab)
+    g = torch.full(lab.shape, 1.0 / (lab >= 0).sum().item(), device="cuda")
+    x2, lab2 = x.view(-1, V), lab.view(-1).long()
+    xg = x2.detach().requires_grad_()
+    lib_loss = F.cross_entropy(xg, lab2, ignore_index=-1, reduction="none")
+
+    def lib_xent_bwd():
+        torch.autograd.grad(lib_loss, xg, g.view(-1), retain_graph=True)
+
+    xf_ms, xf_plain, xf_turns = _in_turns(
+        torch, lambda: SX.softmax_xent_plain(x, lab),
+        lambda: SX.softmax_xent_fwd(x, lab), 5)
+    xb_ms, xb_plain, xb_turns = _in_turns(
+        torch, lambda: SX.softmax_xent_bwd_plain(x, lab, lse, g),
+        lambda: SX.softmax_xent_bwd(x, lab, lse, g), 5)
+    lib_xf = _time_ms(torch, lambda i: F.cross_entropy(
+        x2, lab2, ignore_index=-1, reduction="none"), 1, 10)
+    lib_xb = _time_ms(torch, lambda i: lib_xent_bwd(), 1, 10)
+    kept = int((lab >= 0).sum().item())
+    row_bytes = V * x.element_size()
+    small = _nbytes(lab) + 2 * 4 * lab.numel()       # labels; loss + lse or lse + g
+    # ~4 fp32 operations per logit (max, subtract, exp, add), CUDA cores
+    bounds["softmax_xent_fwd"] = _bound_ms(
+        kind, 4.0 * kept * V, kept * row_bytes + small, "float32")
+    bounds["softmax_xent_bwd"] = _bound_ms(
+        kind, 4.0 * kept * V, kept * row_bytes + _nbytes(x) + small,
+        "float32")
+    res["softmax_xent_fwd"] = {
+        "max_abs_err": xcmp["bfloat16"]["loss"][0], "ms": xf_ms,
+        "plain_ms": xf_plain, "turns_ms": xf_turns, "library_ms": lib_xf,
+        "library": "cross_entropy(reduction='none', ignore_index=-1)"}
+    res["softmax_xent_bwd"] = {
+        "max_abs_err": xcmp["bfloat16"]["dlogits"][0], "ms": xb_ms,
+        "plain_ms": xb_plain, "turns_ms": xb_turns, "library_ms": lib_xb,
+        "library": "backward of cross_entropy"}
+    del x, lab, x2, lab2, xg, lib_loss, loss, lse, g
+    torch.cuda.empty_cache()
+
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bounds[name]
+        text, tol = ((FLASH_TOL_TEXT, FLASH_TOL) if name.startswith("flash")
+                     else (XENT_TOL_TEXT, XENT_GRAD_TOL))
+        r["tolerance"] = text.format(tol=f"{tol['bfloat16']} (bf16)")
+        emit({"phase": "train_kernels", "kernel": name,
+              "shape": "q (2, 2048, 32, 128), k/v (2, 2048, 8, 128) bf16, "
+                       "causal" if name.startswith("flash") else
+                       "logits (2, 2048, 128256) bf16, 2 x 2047 rows kept",
+              **r})
+    _set_train_counts(saved)             # timing launches do not count
+    return res
+
+
+def _train_setup(torch, cfg, lr, clip, seed):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    crit = LlamaPretrainingCriterion()
+    opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(clip))
+    return model, TrainStep(model, lambda m, ids: crit(m(ids), ids), opt)
+
+
+def _train_ids(torch, cfg, B, S, seed):
+    import numpy as np
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    return torch.from_numpy(ids).to("cuda")
+
+
+def _train_profile(torch, step, ids, step_ms):
+    """Device time of one training step by kernel family, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    dev = _device_times(prof)
+    if dev is None:
+        return {"device_time": "not measured (no device events)"}
+    families = {"k1_flash_fwd": ("flash_fwd_kernel",),
+                "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
+                "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
+                "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
+    split = {f: 0.0 for f in families}
+    split["other"] = 0.0
+    for key, us in dev.items():
+        low = key.lower()
+        fam = next((f for f, words in families.items()
+                    if any(w.lower() in low for w in words)), "other")
+        split[fam] += us / 1e3
+    busy = sum(split.values())
+    # one stream: the card cannot be busy longer than the wall time of
+    # the same step; more means events were counted twice
+    require(busy <= prof_ms, f"train profile: device busy {busy} ms exceeds "
+            f"the profiled step's {prof_ms} ms")
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_step_ms": prof_ms, "device_busy_ms": busy,
+            **{f"{f}_ms": v for f, v in split.items()},
+            "device_idle_share": 1 - busy / step_ms,
+            "device_idle_share_of_profiled_step": 1 - busy / prof_ms,
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+@contextlib.contextmanager
+def _checked_flash():
+    """Every flash_fwd / flash_bwd call inside the block also runs the
+    plain version on the same inputs; yields the worst per-row share of
+    the limit (K1: O and lse; K2: dQ, dK, dV) and the calls."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    worst = {"calls_fwd": 0, "calls_bwd": 0, "o": 0.0, "lse": 0.0,
+             "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    fwd, bwd = FA.flash_fwd, FA.flash_bwd
+
+    def fwd_checked(q, k, v, causal=True, scale=None):
+        o, lse = fwd(q, k, v, causal, scale)
+        po, plse = FA.flash_fwd_plain(q, k, v, causal, scale)
+        tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+        worst["o"] = max(worst["o"], _per_row_share(o, po, tol))
+        worst["lse"] = max(worst["lse"], _lse_share(lse, plse))
+        worst["calls_fwd"] += 1
+        return o, lse
+
+    def bwd_checked(q, k, v, o, lse, do, causal=True, scale=None):
+        got = bwd(q, k, v, o, lse, do, causal, scale)
+        plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+        for n, g, p in zip(("dq", "dk", "dv"), got, plain):
+            worst[n] = max(worst[n], _per_row_share(g, p, tol))
+        worst["calls_bwd"] += 1
+        return got
+
+    FA.flash_fwd, FA.flash_bwd = fwd_checked, bwd_checked
+    try:
+        yield worst
+    finally:
+        FA.flash_fwd, FA.flash_bwd = fwd, bwd
+
+
+def phase_train(torch):
+    """Llama-3-8B at full width, TRAIN_LAYERS layers, bf16, random
+    weights from a seed: TRAIN_STEPS TrainSteps (AdamW lr 1e-4, wd 0.01,
+    global-norm clip 1.0, as bench.py) on one fixed 2 x 2048 batch; one
+    profiled step; one step with recompute "full" against the same step
+    without it; then, per layer, K1 and K2 against their plain versions
+    on that layer's own inputs."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.observability import roofline
+    kind = torch.cuda.get_device_name(0)
+    cfg = LlamaConfig.from_preset("llama3-8b",
+                                  num_hidden_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model, step = _train_setup(torch, cfg, 1e-4, 1.0, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = _train_ids(torch, cfg, TRAIN_B, TRAIN_S, seed=0)
+    # the initial state, kept on the host for the recompute check below
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+    init = {"params": {n: host(p) for n, p in step.params.items()},
+            "buffers": {}, "step": 0,
+            "opt_state": {n: {k: host(v) for k, v in st.items()}
+                          for n, st in step.opt_state.items()}}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step(ids).item())          # .item() synchronises
+        secs.append(time.perf_counter() - t)
+    launches = _train_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    L = TRAIN_LAYERS
+    want = {"flash_attention_fwd": L * TRAIN_STEPS,
+            "flash_attention_dq": L * TRAIN_STEPS,
+            "flash_attention_dkv": L * TRAIN_STEPS,
+            "softmax_xent_fwd": TRAIN_STEPS, "softmax_xent_bwd": TRAIN_STEPS}
+    require(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    require(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    require(launches == want, f"train launches {launches} != {want}")
+    # step 1 pays one-time set-up (cuBLAS handles, library loads)
+    step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    tok_s = tokens / (step_ms / 1e3)
+    # bench.py's formula: 6 N per token + causal attention 6 L h S
+    flops_per_token = 6.0 * n_params + 6.0 * L * cfg.hidden_size * TRAIN_S
+    mfu = tok_s * flops_per_token / roofline.peak_flops(kind, "bfloat16")
+    report = {"phase": "train", "model": f"llama3-8b, {L} layers",
+              "dtype": "bfloat16", "params": n_params, "batch": TRAIN_B,
+              "seq": TRAIN_S, "steps": TRAIN_STEPS, "init_s": init_s,
+              "losses": losses, "step_ms_each": [1e3 * s for s in secs],
+              "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+              "peak_mem_gib": peak_gib, "launches": launches}
+    report.update(_train_profile(torch, step, ids, step_ms))
+    emit(report)
+
+    # recompute "full": the first step again from the initial state,
+    # without and with recompute; the loss is the forward of the same
+    # weights
+    step.set_state_dict(init)
+    _zero_train_counts()
+    loss_plain = step(ids).item()
+    n_plain = _train_counts()
+    after = {n: p.detach().clone() for n, p in step.params.items()}
+    step.set_state_dict(init)
+    del init
+    cfg.recompute = True
+    _zero_train_counts()
+    try:
+        loss_remat = step(ids).item()
+    finally:
+        cfg.recompute = False
+    n_remat = _train_counts()
+    dparam = max((p.float() - after[n].float()).abs().max().item()
+                 for n, p in step.params.items())
+    del after
+    torch.cuda.empty_cache()
+    emit({"phase": "train_recompute", "policy": "full",
+          "loss_first_step": losses[0], "loss": loss_plain,
+          "loss_recompute": loss_remat,
+          "tolerance": "|loss_recompute - loss| <= 2^-8 x |loss|",
+          "max_abs_param_diff_after_step": dparam,
+          "launches": n_plain, "launches_recompute": n_remat})
+    require(n_plain["flash_attention_fwd"] == L
+            and n_remat["flash_attention_fwd"] == 2 * L
+            and n_remat["flash_attention_dq"] == L,
+            f"recompute launches {n_plain} / {n_remat}")
+    require(abs(loss_remat - loss_plain) <= 2 ** -8 * abs(loss_plain),
+            f"recompute loss {loss_remat} vs {loss_plain}")
+
+    # per layer at full width: K1 / K2 on each layer's own inputs
+    with _checked_flash() as worst:
+        loss = step.loss_fn(model, ids)
+        loss.backward()
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    emit({"phase": "train_parity", "model": f"llama3-8b, {L} layers",
+          "dtype": "bfloat16", "check": "per layer: kernel vs plain on "
+          "the layer's own q, k, v (K1) and O, lse, dO (K2)",
+          "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL["bfloat16"]),
+          "worst_err_over_limit": {k: v for k, v in worst.items()
+                                   if not k.startswith("calls")},
+          "layers_checked_fwd": worst["calls_fwd"],
+          "layers_checked_bwd": worst["calls_bwd"]})
+    require(worst["calls_fwd"] == L and worst["calls_bwd"] == L,
+            f"train parity: {worst['calls_fwd']} / {worst['calls_bwd']} "
+            f"layers checked")
+    require(all(v <= 1.0 for k, v in worst.items()
+                if not k.startswith("calls")),
+            f"train parity: a layer's kernel output over its limit {worst}")
+    del model, step, loss
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The flash and cross-entropy wrappers run their plain PyTorch
+    versions on the card inside the block."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import softmax_xent as SX
+    saved = (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
+             SX.softmax_xent_bwd)
+    FA.flash_fwd, FA.flash_bwd = FA.flash_fwd_plain, FA.flash_bwd_plain
+    SX.softmax_xent_fwd = SX.softmax_xent_plain
+    SX.softmax_xent_bwd = SX.softmax_xent_bwd_plain
+    try:
+        yield
+    finally:
+        (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
+         SX.softmax_xent_bwd) = saved
+
+
+PARITY_LRS = (2e-4, 6e-4)       # LinearWarmup(2e-4 -> 1e-3 over 2 steps)
+
+
+def phase_train_parity(torch):
+    """debug-4l in fp32 on the card, the kernels against their plain
+    versions: the loss and every parameter's gradient, then the losses
+    and parameters of two TrainSteps (AdamW under LinearWarmup, global-
+    norm clip 0.5).  Tolerances: loss 1e-5 relative; each gradient
+    within 1e-4 x its max |plain|; each parameter within 5e-2 x the
+    summed lr (Adam scales every element's step to ~lr, so a small
+    gradient's relative rounding shows there)."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.optimizer import lr as tlr
+    cfg = LlamaConfig.from_preset("debug-4l")
+    ids = _train_ids(torch, cfg, 2, 128, seed=4)
+    out = {}
+    for mode in ("plain", "cuda"):
+        sched = tlr.LinearWarmup(1e-3, warmup_steps=2, start_lr=2e-4,
+                                 end_lr=1e-3)
+        model, step = _train_setup(torch, cfg, sched, 0.5, seed=1)
+        _zero_train_counts()
+        with (_plain_kernels() if mode == "plain"
+              else contextlib.nullcontext()):
+            loss = step.loss_fn(model, ids)
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+            for p in model.parameters():
+                p.grad = None
+            losses = []
+            for _ in range(2):
+                losses.append(step(ids).item())
+                sched.step()
+        out[mode] = (loss.item(), grads, losses,
+                     {n: p.detach().clone() for n, p in step.params.items()},
+                     _train_counts())
+        del model, step
+    (lp, gp, lsp, pp, cp), (lk, gk, lsk, pk, ck) = out["plain"], out["cuda"]
+    require(all(v == 0 for v in cp.values()), f"plain run launched {cp}")
+    require(all(v > 0 for v in ck.values()), f"kernel run launches {ck}")
+    g_share = max((gk[n] - gp[n]).abs().max().item()
+                  / (1e-4 * gp[n].abs().max().clamp_min(1e-30).item())
+                  for n in gp)
+    p_err = max((pk[n] - pp[n]).abs().max().item() for n in pp)
+    p_limit = 5e-2 * sum(PARITY_LRS)
+    emit({"phase": "train_parity", "model": "debug-4l", "dtype": "float32",
+          "loss_plain": lp, "loss_cuda": lk, "losses_plain": lsp,
+          "losses_cuda": lsk, "grads_compared": len(gp),
+          "grad_worst_err_over_limit": g_share,
+          "param_max_abs_err_after_2_steps": p_err,
+          "param_limit": p_limit, "launches": ck,
+          "tolerance": "loss 1e-5 rel; grad per param 1e-4 x max|plain|; "
+                       "params 5e-2 x summed lr"})
+    for a, b in zip([lk] + lsk, [lp] + lsp):
+        require(abs(a - b) <= 1e-5 * abs(b),
+                f"debug-4l loss {a} vs plain {b}")
+    require(g_share <= 1.0, f"debug-4l grads: {g_share} x the limit")
+    require(p_err <= p_limit, f"debug-4l params after 2 steps: {p_err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -622,10 +1271,14 @@ def main() -> int:
     phase_env(torch)
     phase_build()
     kernels = phase_kernels(torch)
+    train_kernels = phase_train_kernels(torch)
     serve_launches = phase_serve(torch)
     debug = _debug_model()
     tokens, parity_launches = phase_parity(torch, debug)
     phase_server(torch, debug, tokens)
+    del debug
+    train_launches = phase_train(torch)
+    phase_train_parity(torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
                 "int8": serve_launches["int8"], "float32": parity_launches}
@@ -639,6 +1292,21 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas_paged_attention.py:93",
             "launches": launches[mode], "launches_path": path[mode],
+            "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    for name, r in train_kernels.items():
+        mod, replaces = TRAIN_KERNELS[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{mod}.cu",
+            "replaces": replaces,
+            **({"also_replaces": ALSO_REPLACES[name]}
+               if name in ALSO_REPLACES else {}),
+            "launches": train_launches[name],
+            "launches_path": f"train llama3-8b, {TRAIN_LAYERS} layers, "
+                             f"{TRAIN_STEPS} steps",
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

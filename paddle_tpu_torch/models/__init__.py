@@ -2,7 +2,7 @@
 `LlamaForCausalLM`) under the JAX package's public names."""
 
 from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,
-                    load_reference_arrays)
+                    LlamaPretrainingCriterion, load_reference_arrays)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
-           "load_reference_arrays"]
+           "LlamaPretrainingCriterion", "load_reference_arrays"]

@@ -7,9 +7,13 @@ layout: paddle stores a Linear weight as `[in, out]` and computes
 `x @ W`, so weights cross between the two packages by name and value
 (`load_reference_arrays`) without a transpose.
 
-This slice serves the model (`models/llama_decode.py` reads the
-parameters through `collect_decode_state`); the training forward comes
-with the training slice.
+The training forward mirrors the JAX model layer by layer: embedding;
+per decoder layer RMSNorm (fp32 statistics, output in the input dtype)
+-> GQA attention with half-split RoPE through `flash_attention_xla`
+(kernels K1/K2 on the card) -> residual -> RMSNorm -> SwiGLU ->
+residual; final RMSNorm; the LM head (tied or untied).  The causal-LM
+loss runs the fused softmax cross-entropy (kernels K3f/K3b).  Serving
+reads the same parameters through `models/llama_decode.py`.
 """
 
 from __future__ import annotations
@@ -18,11 +22,16 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..ops.flash_attention import flash_attention_xla
+from ..ops.softmax_xent import softmax_xent
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "llama_loss_fn",
            "load_reference_arrays"]
 
 
@@ -118,8 +127,28 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _apply_rope(q, k, theta):
+    """q, k: (B, S, H, D) at positions 0..S-1.  Tables are built in fp32
+    and the rotation runs in the input dtype, as in the JAX model."""
+    S, D = q.shape[1], q.shape[-1]
+    cos, sin = _rope_tables_at(torch.arange(S, device=q.device), D, theta,
+                               q.dtype)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+
+
+def rms_norm(x, weight, eps):
+    """RMSNorm with fp32 statistics, normalised in fp32, rounded to the
+    input dtype, then scaled by `weight` (the JAX package's
+    `_rms_norm_cj`; its hand-written JVP only saves memory, so autograd
+    on the same formula is its counterpart)."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return y.to(x.dtype) * weight
+
+
 # --------------------------------------------------------------------------
-# Model layers: parameter containers with the JAX model's names
+# Model layers, with the JAX model's parameter names
 # --------------------------------------------------------------------------
 
 
@@ -139,29 +168,59 @@ class Linear(nn.Module):
         self.weight = _normal((in_features, out_features), cfg, device,
                               generator)
 
+    def forward(self, x):
+        return x @ self.weight
+
 
 class Embedding(nn.Module):
     def __init__(self, num, dim, cfg, device, generator):
         super().__init__()
         self.weight = _normal((num, dim), cfg, device, generator)
 
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
 
 class RMSNorm(nn.Module):
     def __init__(self, dim, cfg, device):
         super().__init__()
+        self.eps = cfg.rms_norm_eps
         self.weight = nn.Parameter(
             torch.ones(dim, dtype=cfg.torch_dtype, device=device))
 
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
 
 class LlamaAttention(nn.Module):
+    """GQA self-attention with half-split RoPE."""
+
     def __init__(self, cfg, device, generator):
         super().__init__()
+        self.config = cfg
         h, nh, nkv, hd = (cfg.hidden_size, cfg.num_attention_heads,
                           cfg.num_key_value_heads, cfg.head_dim)
         self.q_proj = Linear(h, nh * hd, cfg, device, generator)
         self.k_proj = Linear(h, nkv * hd, cfg, device, generator)
         self.v_proj = Linear(h, nkv * hd, cfg, device, generator)
         self.o_proj = Linear(nh * hd, h, cfg, device, generator)
+
+    def forward(self, hidden_states, attn_mask=None):
+        cfg = self.config
+        B, S = hidden_states.shape[0], hidden_states.shape[1]
+        nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim)
+        q = self.q_proj(hidden_states).reshape(B, S, nh, hd)
+        k = self.k_proj(hidden_states).reshape(B, S, nkv, hd)
+        v = self.v_proj(hidden_states).reshape(B, S, nkv, hd)
+        q, k = _apply_rope(q, k, cfg.rope_theta)
+        if cfg.sequence_parallel and attn_mask is None:
+            raise NotImplementedError(
+                "sequence-parallel attention is not ported yet (ROADMAP: "
+                "queue 1 item 5, multi-GPU)")
+        out = flash_attention_xla(q, k, v, attn_mask=attn_mask,
+                                  is_causal=True, training=self.training)
+        return self.o_proj(out.reshape(B, S, nh * hd))
 
 
 class LlamaMLP(nn.Module):
@@ -174,6 +233,9 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, inter, cfg, device, generator)
         self.down_proj = Linear(inter, h, cfg, device, generator)
 
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg, device, generator):
@@ -184,16 +246,35 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg,
                                                 device)
 
+    def forward(self, hidden_states, attn_mask=None):
+        h = hidden_states + self.self_attn(
+            self.input_layernorm(hidden_states), attn_mask)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
+        self.config = cfg
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, cfg,
                                       device, generator)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(cfg, device, generator)
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg, device)
+
+    def forward(self, input_ids, attn_mask=None):
+        """Final-normed hidden states.  In training with `recompute`,
+        each decoder layer is rematerialised in the backward
+        (`torch.utils.checkpoint`, policy "full")."""
+        h = self.embed_tokens(input_ids)
+        remat = self.config.recompute and self.training
+        for layer in self.layers:
+            if remat:
+                h = checkpoint(layer, h, attn_mask, use_reentrant=False)
+            else:
+                h = layer(h, attn_mask)
+        return self.norm(h)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -210,6 +291,13 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "MoE Llama is not ported yet (ROADMAP: kernel K5, "
                 "grouped matmul)")
+        if config.recompute and config.recompute_policy != "full":
+            if config.recompute_policy == "dots":
+                raise NotImplementedError(
+                    "recompute policy 'dots' is not ported yet (ROADMAP: "
+                    "queue 1 item 1, recompute policy 'dots')")
+            raise ValueError(f"recompute_policy must be 'full' or 'dots', "
+                             f"got {config.recompute_policy!r}")
         device = resolve_device(device)
         generator = torch.Generator(device=device)
         generator.manual_seed(int(seed))
@@ -222,6 +310,34 @@ class LlamaForCausalLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.llama.embed_tokens.weight.device
+
+    def forward(self, input_ids, attn_mask=None):
+        h = self.llama(input_ids, attn_mask)
+        if self.lm_head is None:
+            return h @ self.llama.embed_tokens.weight.T
+        return self.lm_head(h)
+
+
+def _causal_lm_loss_raw(logits, labels):
+    """Next-token cross entropy, mean over the B * (S - 1) predicted
+    positions: logits[:, :-1] against labels[:, 1:], in fp32 (kernel K3
+    on the card).  The last position gets label -1, which K3 ignores, so
+    the kernel reads the logits in place and its backward writes the
+    whole (B, S, V) gradient."""
+    B, S = labels.shape
+    shifted = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], 1)
+    return softmax_xent(logits, shifted.to(torch.int32)).sum() / (B * (S - 1))
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    def forward(self, logits, labels):
+        return _causal_lm_loss_raw(logits, labels)
+
+
+def llama_loss_fn(model: LlamaForCausalLM, ids):
+    """Training loss — the loss_fn shape `TrainStep` expects (the JAX
+    version adds the MoE aux loss; MoE is not ported)."""
+    return _causal_lm_loss_raw(model(ids), ids)
 
 
 def load_reference_arrays(model: nn.Module, arrays: dict) -> None:

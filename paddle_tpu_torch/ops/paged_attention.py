@@ -5,7 +5,8 @@ The port of `paddle_tpu/ops/pallas_paged_attention.py::paged_attention`:
 one token per slot attends its slot's rows t <= pos[b] of the paged KV
 pool, reading the pool through the slot's block table.  On a CUDA
 tensor `paged_attention` launches `csrc/paged_attention.cu` (built at
-first use, see `_build.py`) or raises; on a CPU tensor it runs
+first use, see `_build.py`) or raises, and adds one to
+`LAUNCHES["paged_attention"]`; on a CPU tensor it runs
 `paged_attention_plain`, the same function in plain PyTorch — gather
 the slot's view through the table, then `_attend`'s masked fp32 softmax
 and P.V.  The CPU tests compare the plain version with the JAX package;
@@ -13,8 +14,9 @@ and P.V.  The CPU tests compare the plain version with the JAX package;
 
 Tolerances (kernel vs plain, on the card): fp32 max abs error <= 1e-5
 (the kernel's online softmax sums in another order); bf16 max abs error
-<= 2e-2 of max |out| (the plain version rounds the probabilities to
-bf16 before P.V, the kernel keeps them in fp32, and orders differ).
+per slot <= 2e-2 of that slot's max |out| (the plain version rounds the
+probabilities to bf16 before P.V, the kernel keeps them in fp32, and
+orders differ).
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ from ..quantization.int8 import dequantize_kv
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_view",
-           "NEG_INF"]
+           "NEG_INF", "LAUNCHES"]
 
 NEG_INF = -1e30          # the gather path's mask fill (`_attend`)
+# launches of the kernel on CUDA tensors; CPU calls count nothing
+LAUNCHES = {"paged_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -133,8 +137,8 @@ def _check(q, kd, vd, ks, vs, table, pos):
 def paged_attention(q, pk, pv, table, pos):
     """Decode attention for one token per slot over the paged pool
     (shapes as `paged_attention_plain`).  A CUDA `q` launches the
-    Hopper kernel (counted in `paged_attention.launches`); a CPU `q`
-    runs the plain version."""
+    Hopper kernel (counted in `LAUNCHES`); a CPU `q` runs the plain
+    version."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pk, pv, table, pos)
     if q.device.type != "cuda":
@@ -161,8 +165,5 @@ def paged_attention(q, pk, pv, table, pos):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(cudaError {err})")
-    paged_attention.launches += 1
+    LAUNCHES["paged_attention"] += 1
     return out
-
-
-paged_attention.launches = 0

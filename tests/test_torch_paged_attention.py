@@ -183,12 +183,12 @@ def test_quantize_rows_match_jax():
 
 def test_cpu_call_runs_plain_and_counts_no_launch():
     q, pk, pv, table, pos = _case()
-    before = PA.paged_attention.launches
+    before = PA.LAUNCHES["paged_attention"]
     out = PA.paged_attention(*(torch.from_numpy(a) for a in
                                (q, pk, pv, table, pos)))
     plain = PA.paged_attention_plain(*(torch.from_numpy(a) for a in
                                        (q, pk, pv, table, pos)))
-    assert PA.paged_attention.launches == before
+    assert PA.LAUNCHES["paged_attention"] == before
     torch.testing.assert_close(out, plain, rtol=0, atol=0)
 
 
@@ -247,10 +247,10 @@ def test_cuda_kernel_matches_plain_on_card():
             tk = _to_torch(pk, dtype).to(dev)
             tv = _to_torch(pv, dtype).to(dev)
         tt, tp = torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev)
-        before = PA.paged_attention.launches
+        before = PA.LAUNCHES["paged_attention"]
         out = PA.paged_attention(tq, tk, tv, tt, tp)
         torch.cuda.synchronize()
-        assert PA.paged_attention.launches == before + 1
+        assert PA.LAUNCHES["paged_attention"] == before + 1
         ref = PA.paged_attention_plain(tq, tk, tv, tt, tp)
         assert out.dtype == ref.dtype
         ok, err = _tol_ok(out.float().cpu(), ref.float().cpu(), dtype)
