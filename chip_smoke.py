@@ -54,7 +54,34 @@ the result line:
   8. train_parity
               debug-4l in fp32, kernels against plain versions on the
               card: loss, every gradient, and the parameters after two
-              TrainSteps.
+              TrainSteps;
+  9. moe_kernels
+              the grouped matmul (K5f: forward, and transposed for the
+              input gradient) and its weight gradient (K5b) against
+              their plain versions at the MoE train path's first-layer
+              shapes (4096 tokens routed top-4 of 60 experts by a gate on
+              random tokens into 31744 buffer rows, d 2048, ff 1408,
+              bf16) and in fp32 at a smaller shape with an expert that
+              has no tiles (its gradient exactly 0, K5b bitwise
+              repeatable); then timed in turns beside their bounds and
+              one PyTorch call each (torch._grouped_mm: a yardstick the
+              port never calls);
+ 10. moe_train
+              the JAX package's MoE Llama at Qwen1.5-MoE-A2.7B widths
+              (vocab 151936, hidden 2048, 16 / 16 heads, 60 experts of
+              ff 1408, top-4, shared expert 5632, dropless), 4 layers,
+              bf16, random weights: 6 TrainSteps of llama_loss_fn (aux
+              included) with finite, falling loss and exactly 4 K1, 4 dQ,
+              4 dK/dV, 1 K3f, 1 K3b, 24 K5f and 12 K5b launches per step;
+              step time, tokens/s, MFU (active parameters), peak memory;
+              one profiled step; the loss and every gradient with
+              recompute "full" against those without it; and per layer,
+              K5f / K5b, K1 / K2 and K3 against their plain versions on
+              the layer's own inputs;
+ 11. moe_parity
+              qwen2-moe-tiny (dropless, 2 heads: head_dim 32) in fp32,
+              kernels against plain versions on the card: loss, every
+              gradient, and the parameters after two TrainSteps.
 
 Then one line {"kernels": [...]} (every ported kernel with its launches
 on the paths above, error, tolerance and times), the card's name and
@@ -960,7 +987,9 @@ def phase_train_kernels(torch):
     return res
 
 
-def _train_setup(torch, cfg, lr, clip, seed):
+def _train_setup(torch, cfg, lr, clip, seed, loss_fn=None):
+    """(model, TrainStep) with AdamW and a global-norm clip; the loss is
+    the causal-LM criterion unless `loss_fn` is given."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaForCausalLM,
                                          LlamaPretrainingCriterion)
@@ -971,7 +1000,8 @@ def _train_setup(torch, cfg, lr, clip, seed):
     opt = AdamW(learning_rate=lr, weight_decay=0.01,
                 parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(clip))
-    return model, TrainStep(model, lambda m, ids: crit(m(ids), ids), opt)
+    return model, TrainStep(model, loss_fn or (lambda m, ids: crit(m(ids),
+                                                                   ids)), opt)
 
 
 def _train_ids(torch, cfg, B, S, seed):
@@ -997,6 +1027,7 @@ def _train_profile(torch, step, ids, step_ms):
     families = {"k1_flash_fwd": ("flash_fwd_kernel",),
                 "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
                 "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
+                "k5_gmm": ("gmm_fwd_kernel", "gmm_drhs_kernel"),
                 "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
     split = {f: 0.0 for f in families}
     split["other"] = 0.0
@@ -1175,20 +1206,22 @@ def phase_train(torch):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """The flash and cross-entropy wrappers run their plain PyTorch
-    versions on the card inside the block."""
+    """The flash, cross-entropy and grouped-matmul wrappers run their
+    plain PyTorch versions on the card inside the block."""
     from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import gmm as G
     from paddle_tpu_torch.ops import softmax_xent as SX
     saved = (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
-             SX.softmax_xent_bwd)
+             SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs)
     FA.flash_fwd, FA.flash_bwd = FA.flash_fwd_plain, FA.flash_bwd_plain
     SX.softmax_xent_fwd = SX.softmax_xent_plain
     SX.softmax_xent_bwd = SX.softmax_xent_bwd_plain
+    G.gmm_fwd, G.gmm_drhs = G.gmm_plain, G.gmm_drhs_plain
     try:
         yield
     finally:
         (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
-         SX.softmax_xent_bwd) = saved
+         SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs) = saved
 
 
 PARITY_LRS = (2e-4, 6e-4)       # LinearWarmup(2e-4 -> 1e-3 over 2 steps)
@@ -1251,6 +1284,552 @@ def phase_train_parity(torch):
     require(p_err <= p_limit, f"debug-4l params after 2 steps: {p_err}")
 
 
+# --------------------------------------------------------------------------
+# MoE slice: kernels K5f (grouped matmul; also the input gradient, reading
+# the weights transposed) and K5b (its weight gradient)
+# --------------------------------------------------------------------------
+
+MOE_LAYERS = 4            # full width; 24 layers hold 14.3 B parameters
+MOE_BM = 256              # moe_dropless_ffn's block_m
+MOE_KERNELS = {           # name (its key in ops/gmm.py's LAUNCHES) -> replaces
+    "gmm_fwd": "paddle_tpu/ops/pallas_gmm.py:40",
+    "gmm_drhs": "paddle_tpu/ops/pallas_gmm.py:94",
+}
+# kernel vs plain on the same inputs, per row of the output (for K5b a
+# row is each (e, k, :)): max|err| <= tol x that row's max |plain|.
+# bf16: both round an fp32 sum, taken in another order, once: at most
+# one bf16 ulp (2^-7 of the value) apart.
+GMM_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+GMM_TOL_TEXT = ("per row of the output (per (e, k, :) for drhs): max|err| "
+                "<= {tol} x max|plain| of the row; experts with no tiles "
+                "exactly 0")
+# the fp32 case: (tokens, experts, top_k, K, N, the expert left without
+# tiles); K and N are multiples of no kernel tile
+GMM_FP32_CASE = (512, 8, 4, 320, 200, 3)
+MOE_PARITY_HEADS = 2      # head_dim 32: K1/K2 take 32, 64 or 128
+
+
+def _moe_cfg():
+    """The JAX package's MoE Llama at the published widths of
+    Qwen1.5-MoE-A2.7B (Qwen/Qwen1.5-MoE-A2.7B config.json), cut to
+    MOE_LAYERS layers, dropless routing, built as bench.py builds its
+    MoE config (from the qwen2-moe-tiny preset)."""
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig.from_preset(
+        "qwen2-moe-tiny", vocab_size=151936, hidden_size=2048,
+        intermediate_size=1408, num_hidden_layers=MOE_LAYERS,
+        num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=8192, rope_theta=1e6, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, dtype="bfloat16", moe_num_experts=60,
+        moe_top_k=4, moe_shared_expert_intermediate=5632,
+        moe_dropless=True)
+
+
+def _moe_counts():
+    from paddle_tpu_torch.ops import gmm as G
+    return {n: G.LAUNCHES[n] for n in MOE_KERNELS}
+
+
+def _set_moe_counts(counts):
+    from paddle_tpu_torch.ops import gmm as G
+    G.LAUNCHES.update(counts)
+
+
+def _zero_all_counts():
+    _zero_train_counts()
+    _set_moe_counts(dict.fromkeys(MOE_KERNELS, 0))
+
+
+def _all_counts():
+    return {**_train_counts(), **_moe_counts()}
+
+
+def _gmm_layer(torch, x, eid, E, k, F, dtype, gen):
+    """One MoE layer's grouped products, routed by `eid` (T * k,): the
+    dispatched buffer, the tiles' experts, the per-expert row counts,
+    the stacked weights (E, d, F) and (E, F, d), and the activations and
+    gradients the layer's backward feeds K5f / K5b (zero on padding
+    rows, as in the model)."""
+    from paddle_tpu_torch.ops import gmm as G
+    from paddle_tpu_torch.ops import moe_ops
+    T, d = x.shape
+    M = G.padded_buffer_size(T * k, E, MOE_BM)
+    src, te, inv_pos = G.sort_slots_by_expert(eid, E, MOE_BM, M)
+    buf = moe_ops._cap_dispatch(x, inv_pos.reshape(T, k),
+                                torch.ones(T, k, dtype=torch.bool,
+                                           device=x.device), src)
+    live = (src < T * k)[:, None]
+
+    def rows(n):
+        return torch.where(live, torch.randn(M, n, device="cuda",
+                                             generator=gen), 0).to(dtype)
+
+    def weights(a, b):
+        return (0.02 * torch.randn(E, a, b, device="cuda", generator=gen)) \
+            .to(dtype)
+    counts = torch.zeros(E, dtype=torch.long, device="cuda").scatter_add_(
+        0, eid.long(), torch.ones_like(eid.long()))
+    return {"buf": buf, "te": te, "counts": counts, "w_up": weights(d, F),
+            "w_down": weights(F, d), "h": rows(F), "g_up": rows(F),
+            "g_down": rows(d)}
+
+
+def _gmm_products(G, L, E):
+    """name -> (kernel call, plain call, is a weight gradient): the five
+    products of one layer (K5f gate/up and down, K5f transposed for the
+    gate/up input gradient, K5b for both weight stacks)."""
+    te = L["te"]
+    return {
+        "fwd_gate_up": (lambda: G.gmm_fwd(L["buf"], L["w_up"], te, MOE_BM),
+                        lambda: G.gmm_plain(L["buf"], L["w_up"], te, MOE_BM),
+                        False),
+        "fwd_down": (lambda: G.gmm_fwd(L["h"], L["w_down"], te, MOE_BM),
+                     lambda: G.gmm_plain(L["h"], L["w_down"], te, MOE_BM),
+                     False),
+        "dlhs_gate_up": (
+            lambda: G.gmm_fwd(L["g_up"], L["w_up"], te, MOE_BM, True),
+            lambda: G.gmm_plain(L["g_up"], L["w_up"], te, MOE_BM, True),
+            False),
+        "drhs_gate_up": (
+            lambda: G.gmm_drhs(L["buf"], L["g_up"], te, E, MOE_BM),
+            lambda: G.gmm_drhs_plain(L["buf"], L["g_up"], te, E, MOE_BM),
+            True),
+        "drhs_down": (
+            lambda: G.gmm_drhs(L["h"], L["g_down"], te, E, MOE_BM),
+            lambda: G.gmm_drhs_plain(L["h"], L["g_down"], te, E, MOE_BM),
+            True),
+    }
+
+
+def _gmm_check(torch, G, L, E, dtype_name):
+    """Every product of the layer against its plain version; K5b twice
+    (bitwise); experts with no tiles exactly zero.  Returns {product:
+    (max abs err, worst share of its limit)}."""
+    tol = GMM_TOL[dtype_name]
+    absent = L["counts"] == 0
+    out = {}
+    for name, (kern, plain, is_drhs) in _gmm_products(G, L, E).items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"K5 {name}: {got.dtype} {tuple(got.shape)} vs plain "
+                f"{want.dtype} {tuple(want.shape)}")
+        if is_drhs:
+            require(not got[absent].any(),
+                    f"K5b {name}: an expert with no tiles is not zero")
+            require(torch.equal(got, kern()),
+                    f"K5b {name}: two runs on the same inputs differ")
+        out[name] = ((got.float() - want.float()).abs().max().item(),
+                     _per_row_share(got, want, tol))
+    return out
+
+
+def _grouped_library(torch, counts, E):
+    """One PyTorch call over the experts' padded row spans (a yardstick
+    the port never calls): torch._grouped_mm where this PyTorch has it,
+    else one torch.matmul per expert (spans read to the host)."""
+    padded = (counts + MOE_BM - 1) // MOE_BM * MOE_BM
+    offs = torch.cumsum(padded, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        return ("torch._grouped_mm(offs = the experts' padded row ends)",
+                lambda a, b: torch._grouped_mm(a, b, offs=offs))
+    ends = offs.tolist()
+    spans = list(zip([0] + ends[:-1], ends))
+
+    def per_expert(a, b):
+        if b.dim() == 3:                      # (M, K) x (E, K, N)
+            out = a.new_zeros(a.shape[0], b.shape[2])
+            for e, (s, t) in enumerate(spans):
+                out[s:t] = torch.matmul(a[s:t], b[e])
+        else:                                 # (K, M) x (M, N) -> (E, K, N)
+            out = a.new_zeros(E, a.shape[0], b.shape[1])
+            for e, (s, t) in enumerate(spans):
+                out[e] = torch.matmul(a[:, s:t], b[s:t])
+        return out
+    return "one torch.matmul per expert over its padded rows", per_expert
+
+
+def phase_moe_kernels(torch):
+    """K5f and K5b against their plain versions at the shapes of the MoE
+    train path's first layer (4096 tokens routed top-4 of 60 by a gate on
+    random tokens into 31744 buffer rows, d 2048, ff 1408, bf16) and in
+    fp32 at a smaller shape with an expert that has no tiles; then timed
+    in turns beside their bounds and one PyTorch call each."""
+    from paddle_tpu_torch.ops import gmm as G
+    from paddle_tpu_torch.ops import moe_ops
+    kind = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    saved = _moe_counts()
+    cfg = _moe_cfg()
+    T, d, F = TRAIN_B * TRAIN_S, cfg.hidden_size, cfg.intermediate_size
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+
+    # ---- fp32, smaller, one expert without tiles
+    Tf, Ef, kf, Kf, Nf, gone = GMM_FP32_CASE
+    pick = torch.tensor([e for e in range(Ef) if e != gone], device="cuda")
+    eid = pick[torch.randint(0, Ef - 1, (Tf * kf,), device="cuda",
+                             generator=gen)]
+    xf = torch.randn(Tf, Kf, device="cuda", generator=gen)
+    Lf = _gmm_layer(torch, xf, eid, Ef, kf, Nf, torch.float32, gen)
+    cmp = {"float32": _gmm_check(torch, G, Lf, Ef, "float32")}
+    require(int(Lf["counts"][gone]) == 0, "fp32 case: no absent expert")
+    del Lf, xf
+
+    # ---- bf16 at the train shape, routed by a gate on random tokens
+    x = torch.randn(T, d, device="cuda", generator=gen).to(torch.bfloat16)
+    lim = math.sqrt(6.0 / (d + E))           # the gate's Xavier init
+    wg = (torch.rand(d, E, device="cuda", generator=gen) * 2 * lim - lim) \
+        .to(torch.bfloat16)
+    _, _, top_idx = moe_ops.gate_probs_and_topk(x @ wg, k)
+    L = _gmm_layer(torch, x, top_idx.reshape(-1), E, k, F, torch.bfloat16,
+                   gen)
+    cmp["bfloat16"] = _gmm_check(torch, G, L, E, "bfloat16")
+    for key, c in cmp.items():
+        emit({"phase": "moe_kernels", "case": key,
+              "tolerance": GMM_TOL_TEXT.format(tol=GMM_TOL[key]),
+              **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+              **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()}})
+        for n, (_, s) in c.items():
+            require(s <= 1.0, f"K5 {key} {n}: {s} x its limit")
+
+    # ---- times at the train shape, in turns, beside bound and library
+    lib_name, lib = _grouped_library(torch, L["counts"], E)
+    rows = T * k                               # the useful (routed) rows
+    mm = 2.0 * rows * d * F                    # flops of one product
+    te = L["te"]
+    lib_calls = {"fwd_gate_up": lambda: lib(L["buf"], L["w_up"]),
+                 "fwd_down": lambda: lib(L["h"], L["w_down"]),
+                 "dlhs_gate_up": lambda: lib(L["g_up"],
+                                             L["w_up"].transpose(1, 2)),
+                 "drhs_gate_up": lambda: lib(L["buf"].t(), L["g_up"]),
+                 "drhs_down": lambda: lib(L["h"].t(), L["g_down"])}
+    io = {"fwd_gate_up": (L["buf"], L["w_up"], L["g_up"], te),
+          "fwd_down": (L["h"], L["w_down"], L["buf"], te),
+          "dlhs_gate_up": (L["g_up"], L["w_up"], L["buf"], te),
+          "drhs_gate_up": (L["buf"], L["g_up"], L["w_up"], te),
+          "drhs_down": (L["h"], L["g_down"], L["w_down"], te)}
+    times = {}
+    for name, (kern, plain, _) in _gmm_products(G, L, E).items():
+        ms, plain_ms, turns = _in_turns(torch, plain, kern, 5)
+        bound_ms, bound_by = _bound_ms(kind, mm, _nbytes(*io[name]))
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
+                       "library_ms": _time_ms(torch, lambda i:
+                                              lib_calls[name](), 1, 10),
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "moe_kernels", "product": name,
+              "shape": f"{rows} routed rows in {te.numel() * MOE_BM} "
+                       f"buffer rows, d {d}, ff {F}, {E} experts, bm "
+                       f"{MOE_BM}, bf16", "library": lib_name,
+              **times[name]})
+    _set_moe_counts(saved)                 # timing launches do not count
+    b16 = cmp["bfloat16"]
+    res = {"gmm_fwd": {**times["fwd_gate_up"],
+                       "max_abs_err": max(b16[n][0] for n in
+                                          ("fwd_gate_up", "fwd_down",
+                                           "dlhs_gate_up")),
+                       "also_used_for": "dlhs: K5f reading the weights "
+                                        "transposed (transpose_rhs)",
+                       "dlhs_ms": times["dlhs_gate_up"]["ms"],
+                       "dlhs_bound_ms": times["dlhs_gate_up"]["bound_ms"],
+                       "dlhs_library_ms": times["dlhs_gate_up"]["library_ms"],
+                       "down_ms": times["fwd_down"]["ms"]},
+           "gmm_drhs": {**times["drhs_gate_up"],
+                        "max_abs_err": max(b16[n][0] for n in
+                                           ("drhs_gate_up", "drhs_down")),
+                        "down_ms": times["drhs_down"]["ms"]}}
+    for r in res.values():
+        r["tolerance"] = GMM_TOL_TEXT.format(tol=f"{GMM_TOL['bfloat16']} "
+                                             f"(bf16)")
+        r["library"] = lib_name
+        r["shape"] = "gate/up of the MoE train path's first layer"
+    del L, x, cmp
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _checked_gmm():
+    """Every gmm_fwd / gmm_drhs call inside the block also runs the plain
+    version on the same inputs; yields the worst per-row share of the
+    limit (K5f forward, K5f transposed, K5b) and the calls."""
+    from paddle_tpu_torch.ops import gmm as G
+    worst = {"calls_fwd": 0, "calls_dlhs": 0, "calls_drhs": 0, "fwd": 0.0,
+             "dlhs": 0.0, "drhs": 0.0}
+    fwd, drhs = G.gmm_fwd, G.gmm_drhs
+
+    def fwd_checked(lhs, rhs, tile_expert, block_m=G.DEFAULT_BM,
+                    transpose_rhs=False):
+        out = fwd(lhs, rhs, tile_expert, block_m, transpose_rhs)
+        ref = G.gmm_plain(lhs, rhs, tile_expert, block_m, transpose_rhs)
+        key = "dlhs" if transpose_rhs else "fwd"
+        tol = GMM_TOL[str(lhs.dtype).split(".")[-1]]
+        worst[key] = max(worst[key], _per_row_share(out, ref, tol))
+        worst[f"calls_{key}"] += 1
+        return out
+
+    def drhs_checked(lhs, dout, tile_expert, num_experts,
+                     block_m=G.DEFAULT_BM):
+        out = drhs(lhs, dout, tile_expert, num_experts, block_m)
+        ref = G.gmm_drhs_plain(lhs, dout, tile_expert, num_experts, block_m)
+        tol = GMM_TOL[str(lhs.dtype).split(".")[-1]]
+        worst["drhs"] = max(worst["drhs"], _per_row_share(out, ref, tol))
+        worst["calls_drhs"] += 1
+        return out
+
+    G.gmm_fwd, G.gmm_drhs = fwd_checked, drhs_checked
+    try:
+        yield worst
+    finally:
+        G.gmm_fwd, G.gmm_drhs = fwd, drhs
+
+
+@contextlib.contextmanager
+def _checked_xent():
+    """Every softmax_xent_fwd / _bwd call inside the block also runs the
+    plain version on the same inputs; yields the worst shares of the
+    limits (loss, lse, dlogits) and the calls."""
+    from paddle_tpu_torch.ops import softmax_xent as SX
+    worst = {"calls": 0, "loss": 0.0, "lse": 0.0, "dlogits": 0.0}
+    fwd, bwd = SX.softmax_xent_fwd, SX.softmax_xent_bwd
+
+    def fwd_checked(logits, labels):
+        loss, lse = fwd(logits, labels)
+        ploss, plse = SX.softmax_xent_plain(logits, labels)
+        lim = LSE_TOL * plse.abs().clamp_min(1.0)
+        worst["loss"] = max(worst["loss"],
+                            ((loss - ploss).abs() / lim).max().item())
+        worst["lse"] = max(worst["lse"],
+                           ((lse - plse).abs() / lim).max().item())
+        worst["calls"] += 1
+        return loss, lse
+
+    def bwd_checked(logits, labels, lse, g):
+        d = bwd(logits, labels, lse, g)
+        pd = SX.softmax_xent_bwd_plain(logits, labels, lse, g)
+        keep = labels >= 0
+        err = (d[keep].float() - pd[keep].float()).abs()
+        lim = XENT_GRAD_TOL[str(logits.dtype).split(".")[-1]] \
+            * pd[keep].float().abs().clamp_min(1e-30)
+        worst["dlogits"] = max(worst["dlogits"], (err / lim).max().item())
+        return d
+
+    SX.softmax_xent_fwd, SX.softmax_xent_bwd = fwd_checked, bwd_checked
+    try:
+        yield worst
+    finally:
+        SX.softmax_xent_fwd, SX.softmax_xent_bwd = fwd, bwd
+
+
+def _moe_active_params(model, cfg):
+    """bench.py's active-parameter count: routed-expert weights count
+    top_k / E of their size, everything else in full."""
+    total = expert = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        if name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"):
+            expert += p.numel()
+    return total, total - expert * (1.0 - cfg.moe_top_k
+                                    / cfg.moe_num_experts)
+
+
+def phase_moe_train(torch):
+    """The MoE Llama at Qwen1.5-MoE-A2.7B widths, MOE_LAYERS layers,
+    bf16, random weights from a seed: TRAIN_STEPS TrainSteps of
+    llama_loss_fn (aux included; AdamW lr 1e-4, wd 0.01, global-norm
+    clip 1.0) on one 2 x 2048 batch; one profiled step; the loss and
+    every gradient with recompute "full" against those without it; then,
+    per layer, K5f / K5b, K1 / K2 and K3 against their plain versions on
+    that layer's own inputs."""
+    from paddle_tpu_torch.models.llama import llama_loss_fn
+    from paddle_tpu_torch.observability import roofline
+    kind = torch.cuda.get_device_name(0)
+    cfg = _moe_cfg()
+    t0 = time.perf_counter()
+    model, step = _train_setup(torch, cfg, 1e-4, 1.0, seed=0,
+                               loss_fn=llama_loss_fn)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, active = _moe_active_params(model, cfg)
+    ids = _train_ids(torch, cfg, TRAIN_B, TRAIN_S, seed=0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step(ids).item())          # .item() synchronises
+        secs.append(time.perf_counter() - t)
+    launches = _all_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    L, n = MOE_LAYERS, TRAIN_STEPS
+    # per layer and step: K1, dQ, dK/dV once; K5f 3x forward (gate, up,
+    # down) + 3x dlhs; K5b 3x (w_gate, w_up, w_down); K3 once per step
+    want = {"flash_attention_fwd": L * n, "flash_attention_dq": L * n,
+            "flash_attention_dkv": L * n, "softmax_xent_fwd": n,
+            "softmax_xent_bwd": n, "gmm_fwd": 6 * L * n,
+            "gmm_drhs": 3 * L * n}
+    require(all(math.isfinite(x) for x in losses), f"moe losses {losses}")
+    require(losses[-1] < losses[0], f"moe loss did not fall: {losses}")
+    require(launches == want, f"moe launches {launches} != {want}")
+    step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    tok_s = tokens / (step_ms / 1e3)
+    # bench.py:391-403: 6 x active params per token + attention 6 L h S
+    flops_per_token = 6.0 * active + 6.0 * L * cfg.hidden_size * TRAIN_S
+    mfu = tok_s * flops_per_token / roofline.peak_flops(kind, "bfloat16")
+    report = {"phase": "moe_train",
+              "model": f"Qwen1.5-MoE-A2.7B widths, {L} layers, dropless",
+              "dtype": "bfloat16", "params": n_params,
+              "active_params": active, "batch": TRAIN_B, "seq": TRAIN_S,
+              "steps": n, "init_s": init_s, "losses": losses,
+              "step_ms_each": [1e3 * s for s in secs], "step_ms": step_ms,
+              "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gib": peak_gib,
+              "launches": launches}
+    report.update(_train_profile(torch, step, ids, step_ms))
+    emit(report)
+
+    # recompute "full": the loss and every gradient of the current
+    # weights, without and with recompute
+    def loss_and_grads(remat):
+        cfg.recompute = remat
+        _zero_all_counts()
+        try:
+            loss = step.loss_fn(model, ids)
+            loss.backward()
+        finally:
+            cfg.recompute = False
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads, _all_counts()
+
+    loss_plain, g_plain, n_plain = loss_and_grads(False)
+    loss_remat, g_remat, n_remat = loss_and_grads(True)
+    bitwise = loss_plain == loss_remat and all(
+        torch.equal(g_plain[k], g_remat[k]) for k in g_plain)
+    g_share = max((g_remat[k].float() - g_plain[k].float()).abs().max()
+                  .item() / (2 ** -8 * g_plain[k].float().abs().max()
+                             .clamp_min(1e-30).item()) for k in g_plain)
+    del g_plain, g_remat
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_recompute", "policy": "full", "loss": loss_plain,
+          "loss_recompute": loss_remat, "bitwise": bitwise,
+          "tolerance": "bitwise expected (deterministic routing and K5b); "
+                       "held to: loss within 2^-8 relative, each gradient "
+                       "within 2^-8 x its max |value|",
+          "grad_worst_err_over_limit": g_share,
+          "launches": n_plain, "launches_recompute": n_remat})
+    require(n_plain["gmm_fwd"] == 6 * L and n_remat["gmm_fwd"] == 9 * L
+            and n_remat["gmm_drhs"] == 3 * L
+            and n_remat["flash_attention_fwd"] == 2 * L,
+            f"moe recompute launches {n_plain} / {n_remat}")
+    require(abs(loss_remat - loss_plain) <= 2 ** -8 * abs(loss_plain),
+            f"moe recompute loss {loss_remat} vs {loss_plain}")
+    require(g_share <= 1.0, f"moe recompute grads: {g_share} x the limit")
+
+    # per layer at full width: every kernel on the layer's own inputs
+    with _checked_gmm() as wg, _checked_flash() as wf, \
+            _checked_xent() as wx:
+        loss = step.loss_fn(model, ids)
+        loss.backward()
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    shares = {**{f"k5_{k}": v for k, v in wg.items()
+                 if not k.startswith("calls")},
+              **{f"k1k2_{k}": v for k, v in wf.items()
+                 if not k.startswith("calls")},
+              **{f"k3_{k}": v for k, v in wx.items() if k != "calls"}}
+    emit({"phase": "moe_train_parity",
+          "model": f"Qwen1.5-MoE-A2.7B widths, {L} layers",
+          "dtype": "bfloat16",
+          "check": "per layer: K5f (forward, transposed), K5b, K1, K2 "
+                   "and K3 (V 151936) against their plain versions on "
+                   "the layer's own inputs",
+          "tolerance": {"k5": GMM_TOL_TEXT.format(tol=GMM_TOL["bfloat16"]),
+                        "k1k2": FLASH_TOL_TEXT.format(
+                            tol=FLASH_TOL["bfloat16"]),
+                        "k3": XENT_TOL_TEXT.format(
+                            tol=XENT_GRAD_TOL["bfloat16"])},
+          "worst_err_over_limit": shares,
+          "calls": {"gmm_fwd": wg["calls_fwd"], "gmm_dlhs": wg["calls_dlhs"],
+                    "gmm_drhs": wg["calls_drhs"], "flash_fwd": wf["calls_fwd"],
+                    "flash_bwd": wf["calls_bwd"], "xent": wx["calls"]}})
+    require(wg["calls_fwd"] == 3 * L and wg["calls_dlhs"] == 3 * L
+            and wg["calls_drhs"] == 3 * L and wf["calls_fwd"] == L
+            and wf["calls_bwd"] == L and wx["calls"] == 1,
+            f"moe train parity: calls {wg} {wf} {wx}")
+    require(all(v <= 1.0 for v in shares.values()),
+            f"moe train parity: a kernel over its limit {shares}")
+    del model, step, loss
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_parity(torch):
+    """qwen2-moe-tiny (dropless, MOE_PARITY_HEADS heads: head_dim 32) in
+    fp32 on the card, the kernels against their plain versions: the
+    loss (aux included), every gradient (router and stacked experts
+    too), then the losses and parameters of two TrainSteps (AdamW under
+    LinearWarmup, global-norm clip 0.5).  Tolerances as train_parity:
+    loss 1e-5 relative; each gradient within 1e-4 x its max |plain|;
+    each parameter within 5e-2 x the summed lr."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import llama_loss_fn
+    from paddle_tpu_torch.optimizer import lr as tlr
+    cfg = LlamaConfig.from_preset("qwen2-moe-tiny", moe_dropless=True,
+                                  num_attention_heads=MOE_PARITY_HEADS,
+                                  num_key_value_heads=MOE_PARITY_HEADS)
+    ids = _train_ids(torch, cfg, 2, 128, seed=6)
+    out = {}
+    for mode in ("plain", "cuda"):
+        sched = tlr.LinearWarmup(1e-3, warmup_steps=2, start_lr=2e-4,
+                                 end_lr=1e-3)
+        model, step = _train_setup(torch, cfg, sched, 0.5, seed=1,
+                                   loss_fn=llama_loss_fn)
+        _zero_all_counts()
+        with (_plain_kernels() if mode == "plain"
+              else contextlib.nullcontext()):
+            loss = step.loss_fn(model, ids)
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+            for p in model.parameters():
+                p.grad = None
+            losses = []
+            for _ in range(2):
+                losses.append(step(ids).item())
+                sched.step()
+        out[mode] = (loss.item(), grads, losses,
+                     {n: p.detach().clone() for n, p in step.params.items()},
+                     _all_counts())
+        del model, step
+    (lp, gp, lsp, pp, cp), (lk, gk, lsk, pk, ck) = out["plain"], out["cuda"]
+    require(all(v == 0 for v in cp.values()), f"plain run launched {cp}")
+    require(all(v > 0 for v in ck.values()), f"kernel run launches {ck}")
+    g_share = max((gk[n] - gp[n]).abs().max().item()
+                  / (1e-4 * gp[n].abs().max().clamp_min(1e-30).item())
+                  for n in gp)
+    p_err = max((pk[n] - pp[n]).abs().max().item() for n in pp)
+    p_limit = 5e-2 * sum(PARITY_LRS)
+    emit({"phase": "moe_parity",
+          "model": f"qwen2-moe-tiny, dropless, {MOE_PARITY_HEADS} heads",
+          "dtype": "float32", "loss_plain": lp, "loss_cuda": lk,
+          "losses_plain": lsp, "losses_cuda": lsk, "grads_compared": len(gp),
+          "grad_worst_err_over_limit": g_share,
+          "param_max_abs_err_after_2_steps": p_err,
+          "param_limit": p_limit, "launches": ck,
+          "tolerance": "loss 1e-5 rel; grad per param 1e-4 x max|plain|; "
+                       "params 5e-2 x summed lr"})
+    for a, b in zip([lk] + lsk, [lp] + lsp):
+        require(abs(a - b) <= 1e-5 * abs(b),
+                f"qwen2-moe-tiny loss {a} vs plain {b}")
+    require(g_share <= 1.0, f"qwen2-moe-tiny grads: {g_share} x the limit")
+    require(p_err <= p_limit, f"qwen2-moe-tiny params after 2 steps: {p_err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1279,6 +1858,9 @@ def main() -> int:
     del debug
     train_launches = phase_train(torch)
     phase_train_parity(torch)
+    moe_kernels = phase_moe_kernels(torch)
+    moe_launches = phase_moe_train(torch)
+    phase_moe_parity(torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
                 "int8": serve_launches["int8"], "float32": parity_launches}
@@ -1311,6 +1893,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for name, r in moe_kernels.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/gmm.cu",
+            "replaces": MOE_KERNELS[name],
+            "launches": moe_launches[name],
+            "launches_path": f"moe_train, Qwen1.5-MoE-A2.7B widths, "
+                             f"{MOE_LAYERS} layers, {TRAIN_STEPS} steps",
+            **r})
     for e in entries:
         require(e["launches"] > 0, f"{e['name']} never launched on its path")
     emit({"kernels": entries})

@@ -10,10 +10,13 @@ layout: paddle stores a Linear weight as `[in, out]` and computes
 The training forward mirrors the JAX model layer by layer: embedding;
 per decoder layer RMSNorm (fp32 statistics, output in the input dtype)
 -> GQA attention with half-split RoPE through `flash_attention_xla`
-(kernels K1/K2 on the card) -> residual -> RMSNorm -> SwiGLU ->
-residual; final RMSNorm; the LM head (tied or untied).  The causal-LM
-loss runs the fused softmax cross-entropy (kernels K3f/K3b).  Serving
-reads the same parameters through `models/llama_decode.py`.
+(kernels K1/K2 on the card) -> residual -> RMSNorm -> SwiGLU, or with
+`moe_num_experts > 1` the mixture-of-experts layer (`nn/moe.py`:
+capacity routing, or dropless routing on kernels K5f/K5b) -> residual;
+final RMSNorm; the LM head (tied or untied).  The causal-LM loss runs
+the fused softmax cross-entropy (kernels K3f/K3b); `llama_loss_fn` adds
+the layers' summed MoE aux loss.  Serving reads the same parameters
+through `models/llama_decode.py` (dense models only).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..nn.moe import MoELayer
 from ..ops.flash_attention import flash_attention_xla
 from ..ops.softmax_xent import softmax_xent
 
@@ -241,15 +245,36 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
         self.self_attn = LlamaAttention(cfg, device, generator)
-        self.mlp = LlamaMLP(cfg, device, generator)
+        if cfg.moe_num_experts > 1:
+            self.mlp = MoELayer(
+                cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts,
+                gate=cfg.moe_gate,
+                # switch routing is top-1 by definition; moe_top_k
+                # applies to the top-k gates only
+                top_k=1 if cfg.moe_gate == "switch" else cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                aux_loss_weight=cfg.moe_aux_loss_weight,
+                shared_expert_hidden=cfg.moe_shared_expert_intermediate,
+                dropless=cfg.moe_dropless, device=device,
+                dtype=cfg.torch_dtype, generator=generator)
+        else:
+            self.mlp = LlamaMLP(cfg, device, generator)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg,
                                                 device)
 
     def forward(self, hidden_states, attn_mask=None):
+        """(hidden states, the MoE layer's weighted aux loss or None).
+        The aux loss is a return value, never state on the layer, so it
+        crosses `torch.utils.checkpoint` like the hidden states."""
         h = hidden_states + self.self_attn(
             self.input_layernorm(hidden_states), attn_mask)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        x = self.post_attention_layernorm(h)
+        if isinstance(self.mlp, MoELayer):
+            y, aux = self.mlp.forward_with_aux(x)
+        else:
+            y, aux = self.mlp(x), None
+        return h + y, aux
 
 
 class LlamaModel(nn.Module):
@@ -264,17 +289,27 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg, device)
 
     def forward(self, input_ids, attn_mask=None):
-        """Final-normed hidden states.  In training with `recompute`,
-        each decoder layer is rematerialised in the backward
+        """Final-normed hidden states; the layers' summed MoE aux loss is
+        kept for `aux_loss()`.  In training with `recompute`, each
+        decoder layer is rematerialised in the backward
         (`torch.utils.checkpoint`, policy "full")."""
         h = self.embed_tokens(input_ids)
         remat = self.config.recompute and self.training
+        aux_total = None
         for layer in self.layers:
             if remat:
-                h = checkpoint(layer, h, attn_mask, use_reentrant=False)
+                h, aux = checkpoint(layer, h, attn_mask, use_reentrant=False)
             else:
-                h = layer(h, attn_mask)
+                h, aux = layer(h, attn_mask)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        self._aux_total = aux_total
         return self.norm(h)
+
+    def aux_loss(self):
+        """Sum of the per-layer MoE load-balance losses of the last
+        forward (None for a dense model or gates without one)."""
+        return getattr(self, "_aux_total", None)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -287,10 +322,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed=0):
         super().__init__()
-        if config.moe_num_experts > 1:
-            raise NotImplementedError(
-                "MoE Llama is not ported yet (ROADMAP: kernel K5, "
-                "grouped matmul)")
         if config.recompute and config.recompute_policy != "full":
             if config.recompute_policy == "dots":
                 raise NotImplementedError(
@@ -335,9 +366,11 @@ class LlamaPretrainingCriterion(nn.Module):
 
 
 def llama_loss_fn(model: LlamaForCausalLM, ids):
-    """Training loss — the loss_fn shape `TrainStep` expects (the JAX
-    version adds the MoE aux loss; MoE is not ported)."""
-    return _causal_lm_loss_raw(model(ids), ids)
+    """Training loss incl. the MoE aux loss — the loss_fn shape
+    `TrainStep` expects."""
+    loss = _causal_lm_loss_raw(model(ids), ids)
+    aux = model.llama.aux_loss()
+    return loss + aux if aux is not None else loss
 
 
 def load_reference_arrays(model: nn.Module, arrays: dict) -> None:

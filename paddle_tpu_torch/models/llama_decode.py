@@ -44,7 +44,11 @@ __all__ = ["collect_decode_state", "init_paged_cache", "paged_write_rows",
 
 def collect_decode_state(model):
     """{role-name -> tensor} for the decode functions, detached from
-    autograd (serving never differentiates)."""
+    autograd (serving never differentiates).  Dense models only."""
+    if model.config.moe_num_experts > 1:
+        raise NotImplementedError(
+            "serving or generating with an MoE model is not ported yet "
+            "(ROADMAP: queue 1 item 2 (i), MoE decode)")
     lm = model.llama
     embed = lm.embed_tokens.weight.detach()
     state = {"embed": embed,

@@ -54,6 +54,9 @@ def test_matcher_is_exact():
 def test_port_files_import_neither_jax_nor_paddle_tpu():
     files = _port_files()
     assert len(files) > 10 and files[-1].exists()
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"paddle_tpu_torch/ops/gmm.py", "paddle_tpu_torch/ops/moe_ops.py",
+            "paddle_tpu_torch/nn/moe.py"} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
     assert not bad, bad
@@ -72,7 +75,9 @@ def test_port_imports_with_jax_blocked(tmp_path):
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['paddle_tpu'] = None; "
             "import paddle_tpu_torch, paddle_tpu_torch.inference, "
-            "paddle_tpu_torch.ops.paged_attention, chip_smoke; print('ok')")
+            "paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops.gmm, "
+            "paddle_tpu_torch.ops.moe_ops, paddle_tpu_torch.nn.moe, "
+            "paddle_tpu_torch.models, chip_smoke; print('ok')")
     out = _run(["-c", code], tmp_path)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
