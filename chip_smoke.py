@@ -9,7 +9,8 @@ the result line:
   1. env      torch / CUDA / nvcc versions, the card's name and power limit;
   2. build    every kernel of the port compiled from paddle_tpu_torch/csrc
               (one nvcc per source, all started together) into
-              build/paddle_tpu_torch/;
+              build/paddle_tpu_torch/, with ptxas's report (registers,
+              spills, static shared memory) of K5's tensor-core kernels;
   3. kernels  the paged-attention kernel (K4) against its plain PyTorch
               version at the engine's decode shapes (8 slots, 32 query /
               8 kv heads, head_dim 128, 16-row blocks, 128-block tables,
@@ -61,11 +62,17 @@ the result line:
               their plain versions at the MoE train path's first-layer
               shapes (4096 tokens routed top-4 of 60 experts by a gate on
               random tokens into 31744 buffer rows, d 2048, ff 1408,
-              bf16) and in fp32 at a smaller shape with an expert that
-              has no tiles (its gradient exactly 0, K5b bitwise
-              repeatable); then timed in turns beside their bounds and
-              one PyTorch call each (torch._grouped_mm: a yardstick the
-              port never calls);
+              bf16: the wgmma variant), at the same widths with an
+              absent expert and many padding tiles past the last
+              expert's span, and in fp32 at a smaller shape with an
+              expert that has no tiles (the fma variant); every absent
+              expert's gradient exactly 0, K5b bitwise repeatable, the
+              kernels skipping the padding tiles the plain versions
+              read; then timed in turns beside their bounds, the
+              CUDA-core kernels bf16 ran on before its tensor-core ones
+              (the fma variant reading every tile, checked and timed in
+              this run) and one PyTorch call each (torch._grouped_mm: a
+              yardstick the port never calls);
  10. moe_train
               the JAX package's MoE Llama at Qwen1.5-MoE-A2.7B widths
               (vocab 151936, hidden 2048, 16 / 16 heads, 60 experts of
@@ -173,7 +180,32 @@ def phase_build():
                    re.findall(r"(\d+) bytes spill stores", log)]
     emit({"phase": "build", "seconds": secs, "kernels": sorted(libs),
           "max_registers": max(regs, default=None),
-          "max_spill_store_bytes": max(spills, default=None)})
+          "max_spill_store_bytes": max(spills, default=None),
+          "gmm_tensor_core_kernels": _ptxas_report(
+              libs["gmm"].with_suffix(".log").read_text(), "wgmma")})
+
+
+def _ptxas_report(log, word):
+    """ptxas's registers, spill stores and static shared memory of each
+    kernel in `log` whose name holds `word` (K5's rings are dynamic
+    shared memory, sized at launch: ops/gmm.py's module docstring)."""
+    import re
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.search(r"\d+(gmm_\w*?kernel)((?:IL|L)[^v]*)?",
+                      block.split("'", 1)[0])
+        if m is None or word not in m.group(1):
+            continue
+        args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+        find = [re.search(pat, block) for pat in (
+            r"Used (\d+) registers", r"(\d+) bytes spill stores",
+            r"(\d+) bytes smem")]
+        out.append({"kernel": m.group(1) + (f"<{', '.join(args)}>"
+                                            if args else ""),
+                    **{key: int(f.group(1)) if f else 0 for key, f in zip(
+                        ("registers", "spill_store_bytes",
+                         "static_smem_bytes"), find)}})
+    return out
 
 
 def _kernel_inputs(torch, mode, copies, gen):
@@ -1027,7 +1059,7 @@ def _train_profile(torch, step, ids, step_ms):
     families = {"k1_flash_fwd": ("flash_fwd_kernel",),
                 "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
                 "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
-                "k5_gmm": ("gmm_fwd_kernel", "gmm_drhs_kernel"),
+                "k5_gmm": ("gmm_fwd", "gmm_drhs"),
                 "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
     split = {f: 0.0 for f in families}
     split["other"] = 0.0
@@ -1306,6 +1338,9 @@ GMM_TOL_TEXT = ("per row of the output (per (e, k, :) for drhs): max|err| "
 # the fp32 case: (tokens, experts, top_k, K, N, the expert left without
 # tiles); K and N are multiples of no kernel tile
 GMM_FP32_CASE = (512, 8, 4, 320, 200, 3)
+# the bf16 case at the train widths with an absent expert and many
+# padding tiles past the last expert's span: (tokens, the absent expert)
+GMM_PAD_CASE = (2048, 7)
 MOE_PARITY_HEADS = 2      # head_dim 32: K1/K2 take 32, 64 or 128
 
 
@@ -1346,10 +1381,10 @@ def _all_counts():
 
 def _gmm_layer(torch, x, eid, E, k, F, dtype, gen):
     """One MoE layer's grouped products, routed by `eid` (T * k,): the
-    dispatched buffer, the tiles' experts, the per-expert row counts,
-    the stacked weights (E, d, F) and (E, F, d), and the activations and
-    gradients the layer's backward feeds K5f / K5b (zero on padding
-    rows, as in the model)."""
+    dispatched buffer, the tiles' experts, the live-tile count, the
+    per-expert row counts, the stacked weights (E, d, F) and (E, F, d),
+    and the activations and gradients the layer's backward feeds K5f /
+    K5b (zero on padding rows, as in the model)."""
     from paddle_tpu_torch.ops import gmm as G
     from paddle_tpu_torch.ops import moe_ops
     T, d = x.shape
@@ -1369,33 +1404,39 @@ def _gmm_layer(torch, x, eid, E, k, F, dtype, gen):
             .to(dtype)
     counts = torch.zeros(E, dtype=torch.long, device="cuda").scatter_add_(
         0, eid.long(), torch.ones_like(eid.long()))
-    return {"buf": buf, "te": te, "counts": counts, "w_up": weights(d, F),
+    return {"buf": buf, "te": te, "live": G.live_tile_count(inv_pos, MOE_BM),
+            "counts": counts, "w_up": weights(d, F),
             "w_down": weights(F, d), "h": rows(F), "g_up": rows(F),
             "g_down": rows(d)}
 
 
-def _gmm_products(G, L, E):
+def _gmm_products(G, L, E, variant=None):
     """name -> (kernel call, plain call, is a weight gradient): the five
     products of one layer (K5f gate/up and down, K5f transposed for the
-    gate/up input gradient, K5b for both weight stacks)."""
+    gate/up input gradient, K5b for both weight stacks).  The kernels
+    skip the padding tiles past the live ones, as the model's calls do;
+    the plain versions read every tile.  With `variant` named, the
+    kernels are that variant reading every tile."""
     te = L["te"]
+    lt = None if variant else L["live"]
+    kw = {"live_tiles": lt, "variant": variant}
     return {
-        "fwd_gate_up": (lambda: G.gmm_fwd(L["buf"], L["w_up"], te, MOE_BM),
-                        lambda: G.gmm_plain(L["buf"], L["w_up"], te, MOE_BM),
-                        False),
-        "fwd_down": (lambda: G.gmm_fwd(L["h"], L["w_down"], te, MOE_BM),
-                     lambda: G.gmm_plain(L["h"], L["w_down"], te, MOE_BM),
-                     False),
+        "fwd_gate_up": (
+            lambda: G.gmm_fwd(L["buf"], L["w_up"], te, MOE_BM, **kw),
+            lambda: G.gmm_plain(L["buf"], L["w_up"], te, MOE_BM), False),
+        "fwd_down": (
+            lambda: G.gmm_fwd(L["h"], L["w_down"], te, MOE_BM, **kw),
+            lambda: G.gmm_plain(L["h"], L["w_down"], te, MOE_BM), False),
         "dlhs_gate_up": (
-            lambda: G.gmm_fwd(L["g_up"], L["w_up"], te, MOE_BM, True),
+            lambda: G.gmm_fwd(L["g_up"], L["w_up"], te, MOE_BM, True, **kw),
             lambda: G.gmm_plain(L["g_up"], L["w_up"], te, MOE_BM, True),
             False),
         "drhs_gate_up": (
-            lambda: G.gmm_drhs(L["buf"], L["g_up"], te, E, MOE_BM),
+            lambda: G.gmm_drhs(L["buf"], L["g_up"], te, E, MOE_BM, **kw),
             lambda: G.gmm_drhs_plain(L["buf"], L["g_up"], te, E, MOE_BM),
             True),
         "drhs_down": (
-            lambda: G.gmm_drhs(L["h"], L["g_down"], te, E, MOE_BM),
+            lambda: G.gmm_drhs(L["h"], L["g_down"], te, E, MOE_BM, **kw),
             lambda: G.gmm_drhs_plain(L["h"], L["g_down"], te, E, MOE_BM),
             True),
     }
@@ -1453,9 +1494,12 @@ def _grouped_library(torch, counts, E):
 def phase_moe_kernels(torch):
     """K5f and K5b against their plain versions at the shapes of the MoE
     train path's first layer (4096 tokens routed top-4 of 60 by a gate on
-    random tokens into 31744 buffer rows, d 2048, ff 1408, bf16) and in
-    fp32 at a smaller shape with an expert that has no tiles; then timed
-    in turns beside their bounds and one PyTorch call each."""
+    random tokens into 31744 buffer rows, d 2048, ff 1408, bf16), at the
+    same widths in bf16 with an absent expert and many padding tiles, and
+    in fp32 at a smaller shape with an expert that has no tiles; then
+    timed in turns beside their bounds, the CUDA-core kernels bf16 ran
+    on before its tensor-core ones (the fma variant reading every tile,
+    checked and timed here) and one PyTorch call each."""
     from paddle_tpu_torch.ops import gmm as G
     from paddle_tpu_torch.ops import moe_ops
     kind = torch.cuda.get_device_name(0)
@@ -1485,9 +1529,29 @@ def phase_moe_kernels(torch):
     L = _gmm_layer(torch, x, top_idx.reshape(-1), E, k, F, torch.bfloat16,
                    gen)
     cmp["bfloat16"] = _gmm_check(torch, G, L, E, "bfloat16")
+
+    # ---- bf16 at the train widths: an absent expert, padding tiles
+    Tp, gone = GMM_PAD_CASE
+    pick = torch.tensor([e for e in range(E) if e != gone], device="cuda")
+    eid = pick[torch.randint(0, E - 1, (Tp * k,), device="cuda",
+                             generator=gen)]
+    xp = torch.randn(Tp, d, device="cuda", generator=gen).to(torch.bfloat16)
+    Lp = _gmm_layer(torch, xp, eid, E, k, F, torch.bfloat16, gen)
+    n_live, n_tiles = int(Lp["live"]), Lp["te"].numel()
+    require(int(Lp["counts"][gone]) == 0 and n_live < n_tiles,
+            f"padding case: absent expert {int(Lp['counts'][gone])} rows, "
+            f"{n_live} live tiles of {n_tiles}")
+    cmp["bfloat16_padding"] = _gmm_check(torch, G, Lp, E, "bfloat16")
+    del Lp, xp
+    cases = {"float32": "", "bfloat16": "",
+             "bfloat16_padding": f"{Tp * k} routed rows, expert {gone} "
+                                 f"absent, {n_live} live tiles of {n_tiles}"}
     for key, c in cmp.items():
+        dt = key.split("_")[0]
         emit({"phase": "moe_kernels", "case": key,
-              "tolerance": GMM_TOL_TEXT.format(tol=GMM_TOL[key]),
+              **({"shape": cases[key]} if cases[key] else {}),
+              "variant": G._variant(getattr(torch, dt), MOE_BM, d, F),
+              "tolerance": GMM_TOL_TEXT.format(tol=GMM_TOL[dt]),
               **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
               **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()}})
         for n, (_, s) in c.items():
@@ -1498,28 +1562,43 @@ def phase_moe_kernels(torch):
     rows = T * k                               # the useful (routed) rows
     mm = 2.0 * rows * d * F                    # flops of one product
     te = L["te"]
+    live_rows = int(L["live"]) * MOE_BM      # rows the kernels read
     lib_calls = {"fwd_gate_up": lambda: lib(L["buf"], L["w_up"]),
                  "fwd_down": lambda: lib(L["h"], L["w_down"]),
                  "dlhs_gate_up": lambda: lib(L["g_up"],
                                              L["w_up"].transpose(1, 2)),
                  "drhs_gate_up": lambda: lib(L["buf"].t(), L["g_up"]),
                  "drhs_down": lambda: lib(L["h"].t(), L["g_down"])}
-    io = {"fwd_gate_up": (L["buf"], L["w_up"], L["g_up"], te),
-          "fwd_down": (L["h"], L["w_down"], L["buf"], te),
-          "dlhs_gate_up": (L["g_up"], L["w_up"], L["buf"], te),
-          "drhs_gate_up": (L["buf"], L["g_up"], L["w_up"], te),
-          "drhs_down": (L["h"], L["g_down"], L["w_down"], te)}
+    # bytes: the inputs' rows in the live tiles (the padding past them
+    # is neither read nor needed), every expert's weights, the whole
+    # output (K5f writes zeros past the live tiles)
+    live = {n: L[n][:live_rows] for n in ("buf", "h", "g_up", "g_down")}
+    io = {"fwd_gate_up": (live["buf"], L["w_up"], L["g_up"], te),
+          "fwd_down": (live["h"], L["w_down"], L["buf"], te),
+          "dlhs_gate_up": (live["g_up"], L["w_up"], L["buf"], te),
+          "drhs_gate_up": (live["buf"], live["g_up"], L["w_up"], te),
+          "drhs_down": (live["h"], live["g_down"], L["w_down"], te)}
+    cuda_core = _gmm_products(G, L, E, variant="fma")
     times = {}
     for name, (kern, plain, _) in _gmm_products(G, L, E).items():
         ms, plain_ms, turns = _in_turns(torch, plain, kern, 5)
-        bound_ms, bound_by = _bound_ms(kind, mm, _nbytes(*io[name]))
+        old = cuda_core[name][0]
+        share = _per_row_share(old(), plain(), GMM_TOL["bfloat16"])
+        require(share <= 1.0, f"K5 {name} on the CUDA cores: {share} x "
+                              f"its limit")
+        nbytes = _nbytes(*io[name])
+        bound_ms, bound_by = _bound_ms(kind, mm, nbytes)
         times[name] = {"ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
+                       "cuda_core_ms": _time_ms(torch, lambda i: old(), 1,
+                                                3),
                        "library_ms": _time_ms(torch, lambda i:
                                               lib_calls[name](), 1, 10),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_bytes": nbytes}
         emit({"phase": "moe_kernels", "product": name,
               "shape": f"{rows} routed rows in {te.numel() * MOE_BM} "
-                       f"buffer rows, d {d}, ff {F}, {E} experts, bm "
+                       f"buffer rows ({int(L['live'])} live tiles of "
+                       f"{te.numel()}), d {d}, ff {F}, {E} experts, bm "
                        f"{MOE_BM}, bf16", "library": lib_name,
               **times[name]})
     _set_moe_counts(saved)                 # timing launches do not count
@@ -1533,16 +1612,26 @@ def phase_moe_kernels(torch):
                        "dlhs_ms": times["dlhs_gate_up"]["ms"],
                        "dlhs_bound_ms": times["dlhs_gate_up"]["bound_ms"],
                        "dlhs_library_ms": times["dlhs_gate_up"]["library_ms"],
-                       "down_ms": times["fwd_down"]["ms"]},
+                       "cuda_core_dlhs_ms":
+                           times["dlhs_gate_up"]["cuda_core_ms"],
+                       "down_ms": times["fwd_down"]["ms"],
+                       "cuda_core_down_ms": times["fwd_down"]["cuda_core_ms"]},
            "gmm_drhs": {**times["drhs_gate_up"],
                         "max_abs_err": max(b16[n][0] for n in
                                            ("drhs_gate_up", "drhs_down")),
-                        "down_ms": times["drhs_down"]["ms"]}}
-    for r in res.values():
+                        "down_ms": times["drhs_down"]["ms"],
+                        "cuda_core_down_ms":
+                            times["drhs_down"]["cuda_core_ms"]}}
+    variant = G._variant(torch.bfloat16, MOE_BM, d, F)
+    for name, r in res.items():
         r["tolerance"] = GMM_TOL_TEXT.format(tol=f"{GMM_TOL['bfloat16']} "
                                              f"(bf16)")
         r["library"] = lib_name
         r["shape"] = "gate/up of the MoE train path's first layer"
+        r["variant"] = f"{variant} (bf16, bm {MOE_BM}); fp32 runs fma"
+        r["cuda_core"] = ("cuda_core_*: the fma variant on bf16 reading "
+                          "every tile, the kernel bf16 ran on before "
+                          "wgmma, timed in this run")
     del L, x, cmp
     torch.cuda.empty_cache()
     return res
@@ -1559,8 +1648,8 @@ def _checked_gmm():
     fwd, drhs = G.gmm_fwd, G.gmm_drhs
 
     def fwd_checked(lhs, rhs, tile_expert, block_m=G.DEFAULT_BM,
-                    transpose_rhs=False):
-        out = fwd(lhs, rhs, tile_expert, block_m, transpose_rhs)
+                    transpose_rhs=False, live_tiles=None):
+        out = fwd(lhs, rhs, tile_expert, block_m, transpose_rhs, live_tiles)
         ref = G.gmm_plain(lhs, rhs, tile_expert, block_m, transpose_rhs)
         key = "dlhs" if transpose_rhs else "fwd"
         tol = GMM_TOL[str(lhs.dtype).split(".")[-1]]
@@ -1569,8 +1658,8 @@ def _checked_gmm():
         return out
 
     def drhs_checked(lhs, dout, tile_expert, num_experts,
-                     block_m=G.DEFAULT_BM):
-        out = drhs(lhs, dout, tile_expert, num_experts, block_m)
+                     block_m=G.DEFAULT_BM, live_tiles=None):
+        out = drhs(lhs, dout, tile_expert, num_experts, block_m, live_tiles)
         ref = G.gmm_drhs_plain(lhs, dout, tile_expert, num_experts, block_m)
         tol = GMM_TOL[str(lhs.dtype).split(".")[-1]]
         worst["drhs"] = max(worst["drhs"], _per_row_share(out, ref, tol))

@@ -22,11 +22,30 @@ belongs to one expert, `tile_expert[i]`:
 On a CUDA tensor `gmm_fwd` / `gmm_drhs` launch `csrc/gmm.cu` (built at
 first use, see `_build.py`) or raise, and add one to their entries of
 `LAUNCHES`; on a CPU tensor they run `gmm_plain` / `gmm_drhs_plain` and
-count nothing.  lhs and rhs must share a dtype (fp32 or bf16 on the
-card); the kernel takes any K and N and a bm that is a multiple of 16.
-`block_n` is accepted where the JAX package takes it: it picks the
-TPU's VMEM tiles and changes no result, and the Hopper kernels tile on
-their own.
+count nothing.  lhs and rhs must share a dtype.  Which kernel runs is
+`_variant(dtype, bm, K, N)`, from the dtype and the row tile alone:
+
+* bf16, bm % 64 == 0 (the MoE path's bm 256) -> "wgmma": Hopper's
+  warpgroup MMA fed by TMA through a ring of shared-memory stages;
+* fp32, and bf16 with another bm (16, 32, 48, ...: no path of the port
+  builds such a buffer, and the 64-row warpgroup tile cannot serve it)
+  -> "fma": the CUDA cores, operands widened to fp32.  The fp32 limit of
+  1e-5 of a row's max is beyond TF32's ~10 mantissa bits, so fp32 never
+  runs on the tensor cores;
+
+every bm a multiple of 16, and in bf16 K and N (the contraction and
+output widths) multiples of 8: TMA moves 16-byte chunks.  Anything else
+raises `ValueError`.  A caller may name the variant (`variant="fma"`
+on bf16 times the CUDA-core kernel against the tensor-core one).  `block_n` is accepted where the JAX
+package takes it: it picks the TPU's VMEM tiles and changes no result,
+and the Hopper kernels tile on their own.
+
+`live_tiles` (port-only, optional): a device int32 count of the leading
+tiles that hold routed rows, `live_tile_count(inv_pos, bm)`.  The tiles
+past it are the padding past the last expert's span, whose rows are zero
+in every buffer `sort_tokens_by_expert` / `sort_slots_by_expert` build:
+K5f writes zeros there without reading them and K5b skips them, which
+changes no result on such a buffer.  None means every tile is live.
 
 Tolerances (kernel vs plain, on the card): per row of the output (for
 K5b a row is each (e, k, :)), max|err| within tol x that row's max
@@ -45,7 +64,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["gmm", "gmm_fwd", "gmm_drhs", "gmm_plain", "gmm_drhs_plain",
-           "padded_buffer_size", "sort_slots_by_expert",
+           "padded_buffer_size", "sort_slots_by_expert", "live_tile_count",
            "sort_tokens_by_expert", "dropless_moe_ffn", "DEFAULT_BM",
            "DEFAULT_BN", "LAUNCHES"]
 
@@ -54,11 +73,13 @@ DEFAULT_BN = 128
 # launches of each kernel on CUDA tensors; CPU calls count nothing
 LAUNCHES = {"gmm_fwd": 0, "gmm_drhs": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the C interface's code of each kernel: (dtype, variant) -> code
+KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
+                (torch.bfloat16, "wgmma"): 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "gmm_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
-    "gmm_drhs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gmm_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _P),
+    "gmm_drhs": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -116,6 +137,14 @@ def sort_slots_by_expert(expert_id, num_experts, block_m, M):
     return src, tile_expert, inv_pos
 
 
+def live_tile_count(inv_pos, block_m):
+    """The leading tiles that hold routed rows, as a device int32 scalar
+    (no wait for the device): the tile of the last routed row, plus one.
+    Every expert's span is a run of whole tiles from row 0, each holding
+    a routed row, so the live tiles are a prefix; the rest is padding."""
+    return (inv_pos.amax() // block_m + 1).to(torch.int32)
+
+
 def sort_tokens_by_expert(x, expert_id, num_experts, block_m=DEFAULT_BM):
     """Static-shape dropless dispatch.  x: (T, H); expert_id: (T,).
     Returns (buf (M, H), tile_expert (M // bm,), inv_pos (T,)) with M =
@@ -151,28 +180,41 @@ def _check(lhs, rhs_or_dout, tile_expert, block_m, what):
     return bm
 
 
+def _zero_dead_tiles(per_tile, live_tiles):
+    """per_tile (n_tiles, ...) with the tiles at and past live_tiles set
+    to zero (unchanged when live_tiles is None)."""
+    if live_tiles is None:
+        return per_tile
+    live = torch.arange(per_tile.shape[0], device=per_tile.device) \
+        < live_tiles.to(per_tile.device)
+    return torch.where(live[:, None, None], per_tile, 0.0)
+
+
 def gmm_plain(lhs, rhs, tile_expert, block_m=DEFAULT_BM,
-              transpose_rhs=False):
+              transpose_rhs=False, live_tiles=None):
     """K5f in plain PyTorch: one fp32 product per tile against its
-    expert's weights (gathered per tile), rounded once to lhs's dtype."""
+    expert's weights (gathered per tile), rounded once to lhs's dtype;
+    zero on the tiles at and past `live_tiles`."""
     bm = _check(lhs, rhs, tile_expert, block_m, "gmm")
     M, K = lhs.shape
     w = rhs.transpose(1, 2) if transpose_rhs else rhs
-    out = torch.bmm(lhs.reshape(M // bm, bm, K).float(),
-                    w[tile_expert.long()].float())
+    out = _zero_dead_tiles(torch.bmm(lhs.reshape(M // bm, bm, K).float(),
+                                     w[tile_expert.long()].float()),
+                           live_tiles)
     return out.reshape(M, w.shape[2]).to(lhs.dtype)
 
 
 def gmm_drhs_plain(lhs, dout, tile_expert, num_experts,
-                   block_m=DEFAULT_BM):
+                   block_m=DEFAULT_BM, live_tiles=None):
     """K5b in plain PyTorch: each tile's lhs^T @ dout in fp32, summed
     per expert in tile order, rounded once to lhs's dtype; experts with
-    no tiles are zero."""
+    no tiles are zero, and tiles at and past `live_tiles` add nothing."""
     bm = _check(lhs, dout, tile_expert, block_m, "gmm drhs")
     M, K = lhs.shape
     N = dout.shape[1]
-    per_tile = torch.bmm(lhs.reshape(M // bm, bm, K).transpose(1, 2).float(),
-                         dout.reshape(M // bm, bm, N).float())
+    per_tile = _zero_dead_tiles(
+        torch.bmm(lhs.reshape(M // bm, bm, K).transpose(1, 2).float(),
+                  dout.reshape(M // bm, bm, N).float()), live_tiles)
     drhs = torch.zeros(num_experts, K, N, dtype=torch.float32,
                        device=lhs.device)
     return drhs.index_add_(0, tile_expert.long(), per_tile).to(lhs.dtype)
@@ -181,6 +223,31 @@ def gmm_drhs_plain(lhs, dout, tile_expert, num_experts,
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+
+
+def _variant(dtype, bm, K, N, variant=None):
+    """The kernel variant a CUDA call runs, from its dtype, row tile bm,
+    contraction width K and output width N (see the module docstring),
+    or `variant` where the caller names one; raises ValueError on what
+    no kernel takes."""
+    if bm % 16:
+        raise ValueError(f"gmm: the kernels take a row tile bm that is a "
+                         f"multiple of 16, got {bm}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gmm: the kernels take float32 or bfloat16, "
+                         f"got {dtype}")
+    if dtype == torch.bfloat16 and (K % 8 or N % 8):
+        raise ValueError(f"gmm: in bfloat16 the kernels take widths that "
+                         f"are multiples of 8 (16-byte rows), got {K} and "
+                         f"{N}")
+    if variant is None:
+        variant = "wgmma" if dtype == torch.bfloat16 and bm % 64 == 0 \
+            else "fma"
+    if (dtype, variant) not in KERNEL_CODES or (variant == "wgmma"
+                                                and bm % 64):
+        raise ValueError(f"gmm: no {variant} kernel takes {dtype} with "
+                         f"bm {bm}")
+    return variant
 
 
 def _call(fn, device, *args):
@@ -192,30 +259,40 @@ def _call(fn, device, *args):
         raise RuntimeError(f"{fn} kernel launch failed (cudaError {err})")
 
 
-def _cuda_operands(lhs, other, tile_expert, bm, what):
-    """Raises on what the kernels do not take; returns lhs and
-    tile_expert as the kernels read them."""
+def _aligned(t):
+    """t contiguous and 16-byte aligned, as TMA reads it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _cuda_operands(lhs, other, tile_expert, live_tiles, what):
+    """Raises on operands the kernels cannot read; returns lhs,
+    tile_expert and the live-tile pointer as the kernels read them."""
     if lhs.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {lhs.device}")
-    if lhs.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: unsupported dtype {lhs.dtype}")
-    if other.device != lhs.device or tile_expert.device != lhs.device:
+    if other.device != lhs.device or tile_expert.device != lhs.device or (
+            live_tiles is not None and live_tiles.device != lhs.device):
         raise ValueError(f"{what}: operands on different devices")
-    if bm % 16:
-        raise ValueError(f"{what}: the kernel takes a row tile bm that is "
-                         f"a multiple of 16, got {bm}")
-    return lhs.contiguous(), tile_expert.to(torch.int32).contiguous()
+    live = None
+    if live_tiles is not None:
+        if live_tiles.numel() != 1:
+            raise ValueError(f"{what}: live_tiles is one count, got shape "
+                             f"{tuple(live_tiles.shape)}")
+        live = live_tiles.reshape(1).to(torch.int32).contiguous()
+    return (_aligned(lhs), tile_expert.to(torch.int32).contiguous(), live,
+            0 if live is None else live.data_ptr())
 
 
-def gmm_fwd(lhs, rhs, tile_expert, block_m=DEFAULT_BM, transpose_rhs=False):
+def gmm_fwd(lhs, rhs, tile_expert, block_m=DEFAULT_BM, transpose_rhs=False,
+            live_tiles=None, variant=None):
     """K5f: lhs (M, C) against rhs (E, C, W) — or (E, W, C) read
     transposed — per bm-row tile; (M, W) in lhs's dtype.  CUDA tensors
-    launch the Hopper kernel (counted in `LAUNCHES`); CPU tensors run
-    `gmm_plain`."""
+    launch the Hopper kernel `_variant` picks, or the named `variant`
+    (counted in `LAUNCHES`); CPU tensors run `gmm_plain`."""
     if lhs.device.type == "cpu":
-        return gmm_plain(lhs, rhs, tile_expert, block_m, transpose_rhs)
+        return gmm_plain(lhs, rhs, tile_expert, block_m, transpose_rhs,
+                         live_tiles)
     bm = _check(lhs, rhs, tile_expert, block_m, "gmm")
-    lhs, te = _cuda_operands(lhs, rhs, tile_expert, bm, "gmm")
     M, C = lhs.shape
     E, R, S = rhs.shape
     W = R if transpose_rhs else S
@@ -223,67 +300,78 @@ def gmm_fwd(lhs, rhs, tile_expert, block_m=DEFAULT_BM, transpose_rhs=False):
         raise ValueError(f"gmm: lhs {tuple(lhs.shape)} does not contract "
                          f"with rhs {tuple(rhs.shape)} "
                          f"(transpose_rhs={transpose_rhs})")
-    if rhs.stride(2) != 1 or rhs.stride(1) != S:
-        rhs = rhs.contiguous()
+    variant = _variant(lhs.dtype, bm, C, W, variant)
+    lhs, te, live, live_ptr = _cuda_operands(lhs, rhs, tile_expert,
+                                             live_tiles, "gmm")
+    rhs = _aligned(rhs)
     out = torch.empty(M, W, dtype=lhs.dtype, device=lhs.device)
     _call("gmm_fwd", lhs.device, lhs.data_ptr(), rhs.data_ptr(),
-          te.data_ptr(), out.data_ptr(), M, C, W, bm, rhs.stride(0),
-          int(transpose_rhs), _DTYPE_CODE[lhs.dtype])
+          te.data_ptr(), live_ptr, out.data_ptr(), M, C, W, bm, E,
+          rhs.stride(0), int(transpose_rhs),
+          KERNEL_CODES[(lhs.dtype, variant)])
     LAUNCHES["gmm_fwd"] += 1
     return out
 
 
-def gmm_drhs(lhs, dout, tile_expert, num_experts, block_m=DEFAULT_BM):
+def gmm_drhs(lhs, dout, tile_expert, num_experts, block_m=DEFAULT_BM,
+             live_tiles=None, variant=None):
     """K5b: (E, K, N) weight gradient of lhs (M, K) and dout (M, N) in
-    lhs's dtype.  CUDA tensors launch the Hopper kernel (counted in
-    `LAUNCHES`); CPU tensors run `gmm_drhs_plain`."""
+    lhs's dtype.  CUDA tensors launch the Hopper kernel `_variant` picks,
+    or the named `variant` (counted in `LAUNCHES`); CPU tensors run
+    `gmm_drhs_plain`."""
     if lhs.device.type == "cpu":
-        return gmm_drhs_plain(lhs, dout, tile_expert, num_experts, block_m)
+        return gmm_drhs_plain(lhs, dout, tile_expert, num_experts, block_m,
+                              live_tiles)
     bm = _check(lhs, dout, tile_expert, block_m, "gmm drhs")
-    lhs, te = _cuda_operands(lhs, dout, tile_expert, bm, "gmm drhs")
-    dout = dout.contiguous()
     M, K = lhs.shape
     N = dout.shape[1]
     if dout.shape[0] != M:
         raise ValueError(f"gmm drhs: dout {tuple(dout.shape)} vs lhs "
                          f"{tuple(lhs.shape)}")
+    variant = _variant(lhs.dtype, bm, K, N, variant)
+    lhs, te, live, live_ptr = _cuda_operands(lhs, dout, tile_expert,
+                                             live_tiles, "gmm drhs")
+    dout = _aligned(dout)
     drhs = torch.empty(num_experts, K, N, dtype=lhs.dtype,
                        device=lhs.device)
     _call("gmm_drhs", lhs.device, lhs.data_ptr(), dout.data_ptr(),
-          te.data_ptr(), drhs.data_ptr(), M, K, N, bm, num_experts,
-          _DTYPE_CODE[lhs.dtype])
+          te.data_ptr(), live_ptr, drhs.data_ptr(), M, K, N, bm,
+          num_experts, KERNEL_CODES[(lhs.dtype, variant)])
     LAUNCHES["gmm_drhs"] += 1
     return drhs
 
 
 class _Gmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs, tile_expert, block_m):
-        ctx.save_for_backward(lhs, rhs, tile_expert)
+    def forward(ctx, lhs, rhs, tile_expert, block_m, live_tiles):
+        ctx.save_for_backward(lhs, rhs, tile_expert, live_tiles)
         ctx.block_m = block_m
-        return gmm_fwd(lhs, rhs, tile_expert, block_m)
+        return gmm_fwd(lhs, rhs, tile_expert, block_m, live_tiles=live_tiles)
 
     @staticmethod
     def backward(ctx, g):
-        lhs, rhs, tile_expert = ctx.saved_tensors
+        lhs, rhs, tile_expert, live_tiles = ctx.saved_tensors
         g = g.contiguous()
         dlhs = drhs = None
         # lhs, rhs and g share one dtype (_check), so both come out in it
         if ctx.needs_input_grad[0]:
             # dlhs[t] = g[t] @ rhs[e]^T — K5f reading rhs transposed
             dlhs = gmm_fwd(g, rhs, tile_expert, ctx.block_m,
-                           transpose_rhs=True)
+                           transpose_rhs=True, live_tiles=live_tiles)
         if ctx.needs_input_grad[1]:
-            drhs = gmm_drhs(lhs, g, tile_expert, rhs.shape[0], ctx.block_m)
-        return dlhs, drhs, None, None
+            drhs = gmm_drhs(lhs, g, tile_expert, rhs.shape[0], ctx.block_m,
+                            live_tiles)
+        return dlhs, drhs, None, None, None
 
 
-def gmm(lhs, rhs, tile_expert, block_m=DEFAULT_BM, block_n=DEFAULT_BN):
+def gmm(lhs, rhs, tile_expert, block_m=DEFAULT_BM, block_n=DEFAULT_BN,
+        live_tiles=None):
     """Ragged grouped matmul: out[t] = lhs[t] @ rhs[expert_of(t)] —
     K5f forward, K5f (transposed) and K5b backward on the card, their
     plain versions on the CPU.  `block_n` changes nothing (see the
-    module docstring)."""
-    return _Gmm.apply(lhs, rhs, tile_expert, block_m)
+    module docstring); `live_tiles` skips the padding past the last
+    expert's span."""
+    return _Gmm.apply(lhs, rhs, tile_expert, block_m, live_tiles)
 
 
 def dropless_moe_ffn(x, expert_id, w_up, w_down, activation=F.silu,
@@ -293,6 +381,8 @@ def dropless_moe_ffn(x, expert_id, w_up, w_down, activation=F.silu,
     E = w_up.shape[0]
     buf, tile_expert, inv_pos = sort_tokens_by_expert(
         x, expert_id, E, block_m)
-    h = activation(gmm(buf, w_up, tile_expert, block_m, block_n))
-    out = gmm(h.to(x.dtype), w_down, tile_expert, block_m, block_n)
+    bm = _fit_block(buf.shape[0], block_m)
+    live = live_tile_count(inv_pos, bm)
+    h = activation(gmm(buf, w_up, tile_expert, block_m, block_n, live))
+    out = gmm(h.to(x.dtype), w_down, tile_expert, block_m, block_n, live)
     return out[inv_pos.long()]

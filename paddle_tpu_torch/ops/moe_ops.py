@@ -30,7 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .gmm import gmm, padded_buffer_size, sort_slots_by_expert
+from .gmm import (gmm, live_tile_count, padded_buffer_size,
+                  sort_slots_by_expert)
 
 __all__ = ["moe_expert_ffn", "moe_dropless_ffn", "gate_probs_and_topk",
            "build_combine_tensor", "load_balance_loss"]
@@ -211,9 +212,12 @@ def moe_dropless_ffn(x, gate_logits, w_gate, w_up, w_down, *, top_k,
     slot = inv_pos.reshape(T, top_k)
     keep = torch.ones(T, top_k, dtype=torch.bool, device=x.device)
     buf = _cap_dispatch(x, slot, keep, src)                 # (M, d)
-    g = gmm(buf, w_gate, tile_expert, block_m, block_n)
-    u = gmm(buf, w_up, tile_expert, block_m, block_n)
+    # the tiles past the last expert's span hold only padding rows (zero
+    # here, and zero in every gradient the backward feeds the kernels)
+    live = live_tile_count(inv_pos, block_m)
+    g = gmm(buf, w_gate, tile_expert, block_m, block_n, live)
+    u = gmm(buf, w_up, tile_expert, block_m, block_n, live)
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
-    o = gmm(h, w_down, tile_expert, block_m, block_n)
+    o = gmm(h, w_down, tile_expert, block_m, block_n, live)
     y = _cap_combine(o, top_vals, slot, keep, src)
     return y, aux.to(x.dtype)

@@ -173,6 +173,119 @@ def test_cpu_calls_count_no_launches():
     assert G.LAUNCHES == before
 
 
+@pytest.mark.parametrize("T,E,bm", [(100, 5, 32), (64, 8, 16), (400, 6, 64),
+                                    (1000, 12, 128)])
+def test_live_tile_count_matches_the_jax_sorts_padded_span(T, E, bm):
+    """live_tile_count from the port's sort is the JAX sort's padded span
+    (every expert's rows padded to bm) over bm; the tiles before it hold
+    routed rows of the JAX buffer and the tiles after it none."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from paddle_tpu.ops.pallas_gmm import sort_slots_by_expert as jsort
+    eid = np.random.RandomState(T + E).randint(0, E - 1, T)   # E-1 absent
+    M = G.padded_buffer_size(T, E, bm)
+    jsrc = np.asarray(jsort(jnp.asarray(eid), E, bm, M)[0])
+    span = int(sum(-(-c // bm) * bm for c in np.bincount(eid, minlength=E)))
+    _, _, inv_pos = G.sort_slots_by_expert(torch.from_numpy(eid), E, bm, M)
+    live = G.live_tile_count(inv_pos, bm)
+    assert live.dtype == torch.int32 and live.dim() == 0
+    assert int(live) == span // bm < M // bm
+    routed = (jsrc.reshape(-1, bm) < T).any(1)
+    assert routed[:int(live)].all() and not routed[int(live):].any()
+
+
+def test_plain_versions_with_live_tiles_change_nothing_on_sorted_buffers():
+    """On buffers sort_tokens_by_expert builds (zero rows past the last
+    expert's span), the plain K5f / K5b and gmm's gradients are equal
+    with and without live_tiles; on other rows live_tiles zeroes K5f's
+    padding tiles and drops them from K5b."""
+    rs = np.random.RandomState(8)
+    T, H, Fh, E, bm = 150, 24, 40, 5, 32
+    x = torch.from_numpy(rs.rand(T, H).astype(np.float32) - 0.5)
+    eid = torch.from_numpy(rs.randint(0, E - 1, T))        # E-1 absent
+    w = torch.from_numpy((rs.rand(E, H, Fh).astype(np.float32) - 0.5))
+    buf, te, inv_pos = G.sort_tokens_by_expert(x, eid, E, bm)
+    live = G.live_tile_count(inv_pos, bm)
+    assert int(live) < te.shape[0]                         # padding tiles
+    g = torch.from_numpy(rs.rand(buf.shape[0], Fh).astype(np.float32))
+    g = torch.where((torch.arange(buf.shape[0]) < int(live) * bm)[:, None],
+                    g, 0)
+    assert torch.equal(G.gmm_plain(buf, w, te, bm, live_tiles=live),
+                       G.gmm_plain(buf, w, te, bm))
+    assert torch.equal(G.gmm_plain(g, w, te, bm, True, live),
+                       G.gmm_plain(g, w, te, bm, True))
+    assert torch.equal(G.gmm_drhs_plain(buf, g, te, E, bm, live),
+                       G.gmm_drhs_plain(buf, g, te, E, bm))
+    grads = []
+    for lt in (None, live):
+        a = buf.clone().requires_grad_()
+        b = w.clone().requires_grad_()
+        out = G.gmm(a, b, te, bm, live_tiles=lt)
+        out.backward(g)
+        grads.append((out, a.grad, b.grad))
+    for p, q in zip(*grads):
+        assert torch.equal(p, q)
+    # rows that are not zero past the span: K5f writes zeros there, K5b
+    # leaves them out
+    ones = torch.ones_like(buf)
+    cut = int(live) * bm
+    assert not G.gmm_plain(ones, w, te, bm, live_tiles=live)[cut:].any()
+    assert G.gmm_plain(ones, w, te, bm)[cut:].abs().sum() > 0
+    gone = G.gmm_drhs_plain(ones, torch.ones_like(g), te, E, bm, live)
+    assert torch.equal(gone, G.gmm_drhs_plain(
+        ones[:cut], torch.ones_like(g)[:cut], te[:int(live)], E, bm))
+
+
+@pytest.mark.parametrize("dtype,bm,K,N,want", [
+    (torch.float32, 256, 2048, 1408, "fma"),
+    (torch.float32, 16, 40, 136, "fma"),
+    (torch.float32, 64, 7, 3, "fma"),
+    (torch.bfloat16, 256, 2048, 1408, "wgmma"),
+    (torch.bfloat16, 128, 64, 96, "wgmma"),
+    (torch.bfloat16, 64, 96, 200, "wgmma"),
+    (torch.bfloat16, 32, 64, 96, "fma"),
+    (torch.bfloat16, 16, 40, 136, "fma"),
+    (torch.bfloat16, 48, 8, 8, "fma"),
+])
+def test_variant_maps_fp32_to_cuda_cores_and_bf16_to_tensor_cores(
+        dtype, bm, K, N, want):
+    """fp32 on the CUDA cores; bf16 on the tensor cores wherever the
+    64-row warpgroup tile divides bm (every buffer the port builds), on
+    the CUDA cores otherwise."""
+    assert G._variant(dtype, bm, K, N) == want
+    assert (dtype, want) in G.KERNEL_CODES
+
+
+@pytest.mark.parametrize("dtype,bm,K,N,match", [
+    (torch.bfloat16, 256, 2044, 1408, "multiples of 8"),
+    (torch.bfloat16, 64, 96, 201, "multiples of 8"),
+    (torch.bfloat16, 8, 64, 64, "multiple of 16"),
+    (torch.float32, 24, 64, 64, "multiple of 16"),
+    (torch.float16, 256, 64, 64, "float32 or bfloat16"),
+])
+def test_variant_raises_on_what_no_kernel_takes(dtype, bm, K, N, match):
+    with pytest.raises(ValueError, match=match):
+        G._variant(dtype, bm, K, N)
+
+
+@pytest.mark.parametrize("dtype,bm,variant,ok", [
+    (torch.bfloat16, 256, "fma", True),
+    (torch.bfloat16, 64, "wgmma", True),
+    (torch.float32, 256, "fma", True),
+    (torch.float32, 256, "wgmma", False),
+    (torch.bfloat16, 32, "wgmma", False),
+    (torch.bfloat16, 256, "mma", False),
+])
+def test_named_variant_is_taken_or_raises(dtype, bm, variant, ok):
+    """A caller may name the variant; one that has no kernel for the
+    dtype or row tile raises instead of running another."""
+    if ok:
+        assert G._variant(dtype, bm, 64, 64, variant) == variant
+    else:
+        with pytest.raises(ValueError, match="no .* kernel takes"):
+            G._variant(dtype, bm, 64, 64, variant)
+
+
 # --------------------------------------------------------------------------
 # on the card: the kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -191,15 +304,20 @@ def _row_share(got, want, tol):
     return share.max().item()
 
 
-def _card_case(M, K, N, E, bm, dtype, seed, absent=(1,)):
+def _card_case(M, K, N, E, bm, dtype, seed, absent=(1,), pad=0):
+    """Sorted tiles of the experts not in `absent`, then `pad` padding
+    tiles of expert E-1 whose rows are zero, as the sort leaves them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n_tiles = M // bm
+    n_live = M // bm - pad
     experts = [e for e in range(E) if e not in absent]
     te = torch.tensor(sorted(experts[i % len(experts)]
-                             for i in range(n_tiles)), dtype=torch.int32)
+                             for i in range(n_live)) + [E - 1] * pad,
+                      dtype=torch.int32)
     lhs = torch.randn(M, K, device="cuda", generator=g).to(dtype)
     rhs = (0.1 * torch.randn(E, K, N, device="cuda", generator=g)).to(dtype)
     dout = torch.randn(M, N, device="cuda", generator=g).to(dtype)
+    lhs[n_live * bm:] = 0
+    dout[n_live * bm:] = 0
     return lhs, rhs, te.cuda(), dout
 
 
@@ -234,6 +352,34 @@ def test_cuda_kernels_match_plain_on_card(dtype):
                           tol) <= 1.0
         assert torch.equal(dr, dr2)                 # no atomics: bitwise
         assert not dr[1].any()                      # absent expert
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_at_train_widths_on_card():
+    """bf16 at the MoE train path's widths (K 2048, N 1408, bm 256, the
+    wgmma variant): expert 1 absent and 3 padding tiles past the last
+    expert's span, which the kernels skip (live_tiles) and the plain
+    versions read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K5 has no CPU or interpret mode")
+    M, K, N, E, bm, pad = 4096, 2048, 1408, 12, 256, 3
+    assert G._variant(torch.bfloat16, bm, K, N) == "wgmma"
+    lhs, rhs, te, dout = _card_case(M, K, N, E, bm, torch.bfloat16, 11,
+                                    pad=pad)
+    live = torch.tensor(M // bm - pad, dtype=torch.int32, device="cuda")
+    out = G.gmm_fwd(lhs, rhs, te, bm, live_tiles=live)
+    dl = G.gmm_fwd(dout, rhs, te, bm, True, live)
+    dr = G.gmm_drhs(lhs, dout, te, E, bm, live)
+    dr2 = G.gmm_drhs(lhs, dout, te, E, bm, live)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    assert _row_share(out, G.gmm_plain(lhs, rhs, te, bm), tol) <= 1.0
+    assert _row_share(dl, G.gmm_plain(dout, rhs, te, bm, True), tol) <= 1.0
+    assert _row_share(dr, G.gmm_drhs_plain(lhs, dout, te, E, bm), tol) <= 1.0
+    assert torch.equal(dr, dr2)                     # no atomics: bitwise
+    assert not dr[1].any()                          # absent expert
+    cut = (M // bm - pad) * bm
+    assert not out[cut:].any() and not dl[cut:].any()
 
 
 @pytest.mark.gpu
