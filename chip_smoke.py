@@ -10,7 +10,8 @@ the result line:
   2. build    every kernel of the port compiled from paddle_tpu_torch/csrc
               (one nvcc per source, all started together) into
               build/paddle_tpu_torch/, with ptxas's report (registers,
-              spills, static shared memory) of K5's tensor-core kernels;
+              spills, static shared memory) of the tensor-core kernels of
+              K5 and of K1/K2;
   3. kernels  the paged-attention kernel (K4) against its plain PyTorch
               version at the engine's decode shapes (8 slots, 32 query /
               8 kv heads, head_dim 128, 16-row blocks, 128-block tables,
@@ -24,11 +25,16 @@ the result line:
               flash attention forward (K1) and backward (K2: dQ, dK/dV)
               and the fused softmax cross-entropy forward and backward
               (K3) against their plain versions at the trainer shape
-              (q (2, 2048, 32, 128), k/v (2, 2048, 8, 128) bf16, causal;
-              logits (2, 2048, 128256) bf16) and in fp32 at smaller
-              shapes, then timed in turns beside their bounds and one
-              PyTorch call each (scaled_dot_product_attention,
-              cross_entropy: yardsticks the port never calls);
+              (q (2, 2048, 32, 128), k/v (2, 2048, 8, 128) bf16, causal:
+              the wgmma variant; logits (2, 2048, 128256) bf16), in bf16
+              at head_dim 128 with ragged, unequal Sq / Sk and no causal
+              mask, and in fp32 at smaller shapes (the fma variant); K2
+              bitwise repeatable; then timed in turns beside their
+              bounds, the CUDA-core kernels bf16 ran on before its
+              tensor-core ones (the fma variant, checked and timed in
+              this run) and one PyTorch call each
+              (scaled_dot_product_attention, cross_entropy: yardsticks
+              the port never calls);
   4. serve    Llama-3-8B (random weights from a seed, bf16, all 32
               layers) served through LLMEngine: 8 greedy requests of the
               prompt-length mix [37 .. 512] x 32 new tokens, once with a
@@ -182,17 +188,20 @@ def phase_build():
           "max_registers": max(regs, default=None),
           "max_spill_store_bytes": max(spills, default=None),
           "gmm_tensor_core_kernels": _ptxas_report(
-              libs["gmm"].with_suffix(".log").read_text(), "wgmma")})
+              libs["gmm"].with_suffix(".log").read_text(), "wgmma"),
+          "flash_tensor_core_kernels": _ptxas_report(
+              libs["flash_attention"].with_suffix(".log").read_text(),
+              "wgmma")})
 
 
 def _ptxas_report(log, word):
     """ptxas's registers, spill stores and static shared memory of each
-    kernel in `log` whose name holds `word` (K5's rings are dynamic
-    shared memory, sized at launch: ops/gmm.py's module docstring)."""
+    kernel in `log` whose name holds `word` (the tensor-core kernels'
+    rings are dynamic shared memory, sized at launch)."""
     import re
     out = []
     for block in log.split("Compiling entry function '")[1:]:
-        m = re.search(r"\d+(gmm_\w*?kernel)((?:IL|L)[^v]*)?",
+        m = re.search(r"\d+((?:gmm|flash)_\w*?kernel)((?:IL|L)[^v]*)?",
                       block.split("'", 1)[0])
         if m is None or word not in m.group(1):
             continue
@@ -693,9 +702,13 @@ TRAIN_B, TRAIN_S = 2, 2048
 TRAIN_LAYERS = 4          # full width; 32 layers need ~64 GB of state
 TRAIN_STEPS = 6
 FLASH_SHAPE = dict(H=32, Hkv=8, D=128)          # llama3-8b attention
-# smaller fp32 cases: (B, S, H, Hkv, D); S = 300 has a ragged last tile,
-# D = 32 is debug-4l's head_dim
-FLASH_FP32_CASES = [(1, 512, 8, 2, 128), (2, 300, 8, 4, 32)]
+# the other cases: (B, Sq, H, Hkv, D, dtype, Sk, causal); Sq = 300 has a
+# ragged last tile, D = 32 is debug-4l's head_dim; the bf16 case runs
+# the wgmma variant with Sk = 77 < one kv tile and no causal mask, the
+# fp32 ones the fma variant
+FLASH_CASES = [(1, 300, 8, 2, 128, "bfloat16", 77, False),
+               (1, 512, 8, 2, 128, "float32", 512, True),
+               (2, 300, 8, 4, 32, "float32", 300, True)]
 XENT_FP32_ROWS = (2, 256)
 # kernel vs plain on the same inputs.  O, dQ: per (b, query row, head);
 # dK, dV: per (b, key row, kv head): max|err| over head_dim <= tol x
@@ -766,17 +779,20 @@ def _lse_share(lse, plse):
         .max().item()
 
 
-def _flash_compare(torch, q, k, v, do):
-    """K1 and K2 against their plain versions on the same inputs (K2 on
-    the plain O and lse).  Returns {output: (max abs err, worst share of
-    its limit)}."""
+def _flash_compare(torch, q, k, v, do, causal=True, variant=None):
+    """K1 and K2 (the given variant, else the one the wrapper picks)
+    against their plain versions on the same inputs (K2 on the plain O
+    and lse).  Returns {output: (max abs err, worst share of its
+    limit)}."""
     from paddle_tpu_torch.ops import flash_attention as FA
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
-    o, lse = FA.flash_fwd(q, k, v, True)
-    po, plse = FA.flash_fwd_plain(q, k, v, True)
-    grads = FA.flash_bwd(q, k, v, po, plse, do, True)
+    o, lse = FA.flash_fwd(q, k, v, causal, variant=variant)
+    po, plse = FA.flash_fwd_plain(q, k, v, causal)
+    grads = (FA.flash_bwd_dq(q, k, v, po, plse, do, causal, variant=variant),
+             *FA.flash_bwd_dkv(q, k, v, po, plse, do, causal,
+                               variant=variant))
     torch.cuda.synchronize()
-    plain = FA.flash_bwd_plain(q, k, v, po, plse, do, True)
+    plain = FA.flash_bwd_plain(q, k, v, po, plse, do, causal)
     out = {"o": ((o.float() - po.float()).abs().max().item(),
                  _per_row_share(o, po, tol)),
            "lse": ((lse - plse).abs().max().item(), _lse_share(lse, plse))}
@@ -789,11 +805,12 @@ def _flash_compare(torch, q, k, v, do):
     return out
 
 
-def _flash_inputs(torch, B, S, H, Hkv, D, dtype, gen):
-    def rnd(h):
-        return torch.randn(B, S, h, D, device="cuda", generator=gen) \
+def _flash_inputs(torch, B, S, H, Hkv, D, dtype, gen, Sk=None):
+    def rnd(s, h):
+        return torch.randn(B, s, h, D, device="cuda", generator=gen) \
             .to(dtype)
-    return rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    Sk = S if Sk is None else Sk
+    return rnd(S, H), rnd(Sk, Hkv), rnd(Sk, Hkv), rnd(S, H)
 
 
 def _xent_inputs(torch, B, S, V, dtype, gen):
@@ -875,10 +892,18 @@ def phase_train_kernels(torch):
     fs = FLASH_SHAPE
     q, k, v, do = _flash_inputs(torch, TRAIN_B, TRAIN_S, fs["H"],
                                 fs["Hkv"], fs["D"], torch.bfloat16, gen)
-    cmp = {"bfloat16": _flash_compare(torch, q, k, v, do)}
-    for case in FLASH_FP32_CASES:
-        cmp[f"float32 {case}"] = _flash_compare(
-            torch, *_flash_inputs(torch, *case, torch.float32, gen))
+    train_variant = FA._variant(q.dtype, fs["D"])
+    cmp = {f"bfloat16 {train_variant}": _flash_compare(torch, q, k, v, do)}
+    for B, S, H, Hkv, D, dt, Sk, causal in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        key = (f"{dt} {FA._variant(dtype, D)} (B {B}, Sq {S}, Sk {Sk}, "
+               f"{H} / {Hkv} heads, D {D}, "
+               f"{'causal' if causal else 'no mask'})")
+        cmp[key] = _flash_compare(
+            torch, *_flash_inputs(torch, B, S, H, Hkv, D, dtype, gen, Sk),
+            causal)
+    # the CUDA-core kernels on the train shape's bf16 (timed below)
+    cmp["bfloat16 fma"] = _flash_compare(torch, q, k, v, do, variant="fma")
     for key, c in cmp.items():
         emit({"phase": "train_kernels", "kernel": "flash_attention",
               "case": key,
@@ -889,9 +914,23 @@ def phase_train_kernels(torch):
         for n, (_, s) in c.items():
             require(s <= 1.0, f"flash {key} {n}: {s} x its limit")
 
-    # ---- flash attention: times at the trainer shape (bf16, causal)
+    # ---- K2: no atomics, so two calls on the same inputs give the same
+    # bits
     o, lse = FA.flash_fwd(q, k, v, True)
     delta = FA._delta(o, do)
+    first = (FA.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta),
+             *FA.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta))
+    again = (FA.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta),
+             *FA.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta))
+    bitwise = {n: torch.equal(x, y)
+               for n, x, y in zip(("dq", "dk", "dv"), first, again)}
+    emit({"phase": "train_kernels", "kernel": "flash_attention",
+          "case": f"bfloat16 {train_variant}, twice on the same inputs",
+          "bitwise_equal": bitwise})
+    require(all(bitwise.values()), f"K2 not bitwise repeatable: {bitwise}")
+    del first, again
+
+    # ---- flash attention: times at the trainer shape (bf16, causal)
     qT, kT, vT, doT = (x.transpose(1, 2) for x in (q, k, v, do))
     qg, kg, vg = (x.detach().requires_grad_() for x in (qT, kT, vT))
     lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
@@ -917,6 +956,14 @@ def phase_train_kernels(torch):
                        dkv_turns[3]]
     lib_fwd_ms = _time_ms(torch, lambda i: lib_fwd(), 1, 10)
     lib_bwd_ms = _time_ms(torch, lambda i: lib_bwd(), 1, 10)
+    # the CUDA-core kernels bf16 ran on before the tensor-core ones
+    core_ms = {
+        "flash_attention_fwd": _time_ms(torch, lambda i: FA.flash_fwd(
+            q, k, v, True, variant="fma"), 1, 3),
+        "flash_attention_dq": _time_ms(torch, lambda i: FA.flash_bwd_dq(
+            q, k, v, o, lse, do, True, delta=delta, variant="fma"), 1, 3),
+        "flash_attention_dkv": _time_ms(torch, lambda i: FA.flash_bwd_dkv(
+            q, k, v, o, lse, do, True, delta=delta, variant="fma"), 1, 3)}
     B, S, H, D = q.shape
     mm = 2.0 * B * H * D * _pairs(S)      # flops of one causal product
     io = _nbytes(q, k, v)
@@ -929,12 +976,13 @@ def phase_train_kernels(torch):
               # S, dP, dV = P^T dO, dK = dS^T Q
               "flash_attention_dkv": _bound_ms(kind, 4 * mm,
                                                io + _nbytes(do, k, v) + rows)}
-    b16 = cmp["bfloat16"]
+    b16 = cmp[f"bfloat16 {train_variant}"]
     res["flash_attention_fwd"] = {
         "max_abs_err": b16["o"][0], "lse_max_abs_err": b16["lse"][0],
         "ms": fwd_ms, "plain_ms": fwd_plain, "turns_ms": fwd_turns,
         "library_ms": lib_fwd_ms,
-        "library": "scaled_dot_product_attention(is_causal, enable_gqa)"}
+        "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
+        "cuda_core_ms": core_ms["flash_attention_fwd"]}
     for name, ms, turns, n in (("flash_attention_dq", dq_ms, dq_turns,
                                 ("dq",)),
                                ("flash_attention_dkv", dkv_ms, dkv_turns,
@@ -945,7 +993,8 @@ def phase_train_kernels(torch):
                      "turns_ms": turns, "plain_turns_ms": bwd_plain_turns,
                      "library_ms": lib_bwd_ms,
                      "library": "backward of scaled_dot_product_attention "
-                                "(dQ, dK, dV together)"}
+                                "(dQ, dK, dV together)",
+                     "cuda_core_ms": core_ms[name]}
     del q, k, v, do, o, lse, delta, qT, kT, vT, doT, qg, kg, vg, lib_out
     torch.cuda.empty_cache()
 
@@ -1010,6 +1059,12 @@ def phase_train_kernels(torch):
         text, tol = ((FLASH_TOL_TEXT, FLASH_TOL) if name.startswith("flash")
                      else (XENT_TOL_TEXT, XENT_GRAD_TOL))
         r["tolerance"] = text.format(tol=f"{tol['bfloat16']} (bf16)")
+        if name.startswith("flash"):
+            r["variant"] = (f"{train_variant} (bf16, head_dim 128); fp32 "
+                            f"and head_dim 32 / 64 run fma")
+            r["cuda_core"] = ("cuda_core_ms: the fma variant on bf16, the "
+                              "kernel bf16 ran on before wgmma, timed in "
+                              "this run")
         emit({"phase": "train_kernels", "kernel": name,
               "shape": "q (2, 2048, 32, 128), k/v (2, 2048, 8, 128) bf16, "
                        "causal" if name.startswith("flash") else
@@ -1056,8 +1111,9 @@ def _train_profile(torch, step, ids, step_ms):
     dev = _device_times(prof)
     if dev is None:
         return {"device_time": "not measured (no device events)"}
-    families = {"k1_flash_fwd": ("flash_fwd_kernel",),
-                "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel"),
+    families = {"k1_flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma"),
+                "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel",
+                                 "flash_dq_wgmma", "flash_dkv_wgmma"),
                 "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
                 "k5_gmm": ("gmm_fwd", "gmm_drhs"),
                 "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
@@ -1981,7 +2037,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("variant", "cuda_core_ms")
+               if key in r}})
     for name, r in moe_kernels.items():
         entries.append({
             "name": name, "route": "cuda",

@@ -73,10 +73,9 @@
 // cudaGetLastError() after its launch, or an error code for arguments it
 // does not take.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -329,10 +328,6 @@ gmm_drhs_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
 constexpr int kTile = 128;          // output columns (and K5b rows) per block
 constexpr int kDepth = 64;          // contraction depth of one stage: 128 B
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // first tile t in [0, n) with tile_expert[t] >= e (tile_expert sorted)
 __device__ __forceinline__ int first_tile(const int* te, int n, int e) {
   int lo = 0, hi = n;
@@ -347,118 +342,6 @@ __device__ __forceinline__ int first_tile(const int* te, int n, int e) {
 }
 
 // ---------------------------------------------------- wgmma + TMA
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of `bar` with the given parity to complete.  A
-// wait that has not completed after 10 s traps (the launch fails with
-// an error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0)
-      t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull)
-      __trap();
-  }
-}
-
-// TMA: the box of `map` at the given coordinates (innermost first) into
-// shared memory, completing on `bar`
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1,
-                                       int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte
-// aligned atoms of 8 rows x 128 bytes).  lbo: bytes between atoms along
-// M / N (used by M- / N-major operands); sbo: bytes between 8-row groups.
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// d (64 x 128 fp32, the warpgroup's accumulator) += A (64 x 16) B (16 x
-// 128) from shared memory; TA / TB: A M-major / B N-major
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
 
 // Stores the warp's 16 x 128 part of a warpgroup's accumulator (rows
 // row0 + g and row0 + g + 8, g = lane / 4, the rows below row_end) as
@@ -499,13 +382,6 @@ __device__ __forceinline__ void store_acc(bf16* out, long long row0,
             make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 constexpr int kHalf = kDepth * 64 * 2;     // one 64 x 64 bf16 box: 8 KB
@@ -568,18 +444,18 @@ __device__ __forceinline__ void wg_consume(const Ring& ring, int steps,
   for (int s = 0; s < steps; ++s) {
     const int slot = s % S;
     mbar_wait(ring.full + slot, (s / S) & 1);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kDepth / 16; ++k) {
       uint64_t da, db;
       desc(slot, k, da, db);
       wgmma_m64n128<TA, TB>(acc, da, db);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_commit();
+    wgmma_wait<1>();
     if (s > 0 && lead) mbar_arrive(ring.empty + (s - 1) % S);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_acc(acc);
 }
 
@@ -590,7 +466,7 @@ __device__ __forceinline__ void wg_init(const Ring& ring, int consumer_warps) {
       mbar_init(ring.full + s, 1);
       mbar_init(ring.empty + s, consumer_warps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 }
@@ -724,49 +600,6 @@ gmm_drhs_wgmma_kernel(const __grid_constant__ CUtensorMap map_l,
 }
 
 // ---------------------------------------------------------- host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver API, fetched through the
-// runtime so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map: dims innermost first, strides in bytes of dims 1..,
-// box in elements (innermost 64: one 128-byte swizzle row); elements out
-// of bounds read as zero
-bool make_map(CUtensorMap* map, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
-              const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 int err_code(cudaError_t e) { return static_cast<int>(e); }
 const int kBadArg = static_cast<int>(cudaErrorInvalidValue);

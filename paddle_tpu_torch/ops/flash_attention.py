@@ -19,10 +19,24 @@ at first use, see `_build.py`) or raises, and adds one to its entry of
 `LAUNCHES`; on a CPU tensor it runs the plain version
 (`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in fp32
 einsums — q scaled before the product, masked entries -1e30, P kept in
-fp32) and counts nothing.  The kernel takes every S (it masks the
+fp32) and counts nothing.  The kernels take every S (they mask the
 ragged last tile) and head_dim 32, 64 or 128; anything else raises.
 Causal calls need Sq == Sk (both packages' kernels mask key c for query
 r when r >= c, which is only the usual causal mask then).
+
+Which kernel runs is `_variant(dtype, D)`, from the dtype and head_dim
+alone:
+
+* bf16 at head_dim 128 (every ported model: llama3-8b, Qwen-MoE) ->
+  "wgmma": Hopper's warpgroup MMA fed by TMA, the scores in fp32, P and
+  dS entering their products as two bf16 parts each (~16 mantissa bits);
+* fp32, and bf16 at head_dim 32 or 64 -> "fma": the CUDA cores, all
+  arithmetic in fp32.  TF32 would fail fp32's 1e-5 limit, so fp32 never
+  runs on the tensor cores.
+
+A caller may name the variant (`variant="fma"` on bf16 times the
+CUDA-core kernel against the tensor-core one); a variant that does not
+take the call raises `ValueError`.
 
 Tolerances (kernel vs plain, on the card): O and dQ per (b, query row,
 head), dK and dV per (b, key row, kv head), max|err| over head_dim
@@ -52,9 +66,11 @@ HEAD_DIMS = (32, 64, 128)
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the C interface's code of each kernel: (dtype, variant) -> code
+KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
+                (torch.bfloat16, "wgmma"): 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SHAPE = (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P)  # B H Hkv Sq Sk D causal scale dtype stream
+_SHAPE = (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P)  # B H Hkv Sq Sk D causal scale kernel stream
 _SIGNATURES = {
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _P) + _SHAPE,
     "flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P) + _SHAPE,
@@ -157,7 +173,7 @@ def _check(q, k, v, causal, extra=()):
     if causal and Sq != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Sk, got {Sq} "
                          f"and {k.shape[1]}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {q.dtype}")
     vec = 16 // q.element_size()
     for t in (q, k, v) + tuple(extra):
@@ -171,31 +187,44 @@ def _check(q, k, v, causal, extra=()):
                              "the data 16-byte aligned")
 
 
+def _variant(dtype, D, variant=None):
+    """The kernel variant a CUDA call runs, from its dtype and head_dim
+    D (see the module docstring), or `variant` where the caller names
+    one; raises ValueError on a variant that does not take the call."""
+    if variant is None:
+        variant = "wgmma" if dtype == torch.bfloat16 and D == 128 else "fma"
+    if (dtype, variant) not in KERNEL_CODES or D not in HEAD_DIMS or (
+            variant == "wgmma" and D != 128):
+        raise ValueError(f"flash attention: no {variant} kernel takes "
+                         f"{dtype} at head_dim {D}")
+    return variant
+
+
 def _strides(*ts):
     vals = [s for t in ts for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _call(fn, tensors, strided, q, k, causal, scale):
+def _call(fn, tensors, strided, q, k, causal, scale, variant):
     B, Sq, H, D = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
+    code = KERNEL_CODES[(q.dtype, _variant(q.dtype, D, variant))]
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             *[t.data_ptr() for t in tensors], _strides(*strided),
             B, H, k.shape[2], Sq, k.shape[1], D, int(causal), float(scale),
-            _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            code, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed (cudaError {err})")
 
 
-def flash_fwd(q, k, v, causal=True, scale=None):
+def flash_fwd(q, k, v, causal=True, scale=None, variant=None):
     """K1: (O, lse) as `flash_fwd_plain`.  A CUDA `q` launches the
-    Hopper kernel (counted in `LAUNCHES`); a CPU `q` runs the
-    plain version."""
+    Hopper kernel `_variant` picks, or the named `variant` (counted in
+    `LAUNCHES`); a CPU `q` runs the plain version."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale)
     scale = _scale(q, scale)
@@ -204,7 +233,7 @@ def flash_fwd(q, k, v, causal=True, scale=None):
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     _call("flash_attention_fwd", (q, k, v, o, lse), (q, k, v), q, k,
-          causal, scale)
+          causal, scale, variant)
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
 
@@ -216,10 +245,11 @@ def _delta(o, do):
         .transpose(1, 2).contiguous()
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, causal=True, scale=None, delta=None):
-    """K2, dQ.  A CUDA `q` launches the dQ kernel (counted in `LAUNCHES`;
-    `delta` is computed when not given); a CPU `q` runs the plain
-    version."""
+def flash_bwd_dq(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
+                 variant=None):
+    """K2, dQ.  A CUDA `q` launches the dQ kernel `_variant` picks, or
+    the named `variant` (counted in `LAUNCHES`; `delta` is computed when
+    not given); a CPU `q` runs the plain version."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)[0]
     scale = _scale(q, scale)
@@ -227,14 +257,16 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=True, scale=None, delta=None):
     delta = _delta(o, do) if delta is None else delta
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _call("flash_attention_dq", (q, k, v, do, lse.contiguous(), delta, dq),
-          (q, k, v, do), q, k, causal, scale)
+          (q, k, v, do), q, k, causal, scale, variant)
     LAUNCHES["flash_attention_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None):
-    """K2, (dK, dV).  A CUDA `q` launches the dK/dV kernel (counted in
-    `LAUNCHES`); a CPU `q` runs the plain version."""
+def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
+                  variant=None):
+    """K2, (dK, dV).  A CUDA `q` launches the dK/dV kernel `_variant`
+    picks, or the named `variant` (counted in `LAUNCHES`); a CPU `q` runs
+    the plain version."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)[1:]
     scale = _scale(q, scale)
@@ -244,7 +276,7 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None):
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _call("flash_attention_dkv",
           (q, k, v, do, lse.contiguous(), delta, dk, dv), (q, k, v, do),
-          q, k, causal, scale)
+          q, k, causal, scale, variant)
     LAUNCHES["flash_attention_dkv"] += 1
     return dk, dv
 

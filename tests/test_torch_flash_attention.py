@@ -162,6 +162,103 @@ def test_cpu_calls_run_plain_and_count_no_launch():
     assert FA.LAUNCHES == before
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+def test_variant_maps_bf16_d128_to_tensor_cores(dtype, D, want):
+    """bf16 at head_dim 128 runs the wgmma kernels; fp32 (TF32 would
+    fail its 1e-5 limit) and head_dim 32 / 64 the CUDA-core kernels."""
+    assert FA._variant(dtype, D) == want
+    assert FA._variant(dtype, D, want) == want
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.float32, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 128, "mma"),
+    (torch.float16, 128, "fma"), (torch.bfloat16, 48, "fma")])
+def test_named_variant_that_does_not_take_the_call_raises(dtype, D, variant):
+    with pytest.raises(ValueError, match="no .* kernel takes"):
+        FA._variant(dtype, D, variant)
+
+
+def test_named_fma_variant_on_bf16_d128_is_taken():
+    assert FA._variant(torch.bfloat16, 128, "fma") == "fma"
+
+
+def _emulate_tensor_cores(q, k, v, do, causal, tile=128):
+    """The wgmma kernels' arithmetic in plain PyTorch: scores q . k in
+    fp32 scaled in fp32, an online softmax over `tile`-key tiles whose P
+    (against the running max) enters P.V as two bf16 parts, hi = bf16(P)
+    and lo = bf16(P - hi), while l sums the fp32 P; in the backward
+    P = exp(s - lse) and dS = P (dP - delta) enter dV = P^T dO,
+    dQ = dS K scale and dK = dS^T Q scale as two bf16 parts each.
+    Returns (O, lse, dQ, dK, dV), the gradients from the emulated O and
+    lse, each rounded once to the inputs' dtype."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    bf = torch.bfloat16
+
+    def two_parts(x):                # hi + lo as the kernels multiply it
+        hi = x.to(bf).float()
+        return hi + (x - hi).to(bf).float()
+    qf, dof = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kf, vf = (x.float().repeat_interleave(rep, 2).transpose(1, 2)
+              for x in (k, v))
+    s = (qf @ kf.transpose(-1, -2)) * scale          # (B, H, S, Sk)
+    keep = FA._keep(S, k.shape[1], causal, q.device)
+    s = torch.where(keep, s, FA.NEG_INF)
+    m = torch.full((B, H, S, 1), FA.NEG_INF)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    for k0 in range(0, k.shape[1], tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(keep[:, k0:k0 + tile], torch.exp(st - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + two_parts(p) @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    l = l.clamp_min(1e-30)
+    o = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l))[..., 0]
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    delta = (o.float() * dof).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    pb, dsb = two_parts(p), two_parts(ds)
+    dq = (dsb @ kf) * scale
+    dk = (dsb.transpose(-1, -2) @ qf) * scale
+    dv = pb.transpose(-1, -2) @ dof
+
+    def kv_grad(x):                  # (B, H, Sk, D) -> (B, Sk, Hkv, D)
+        x = x.reshape(B, H // rep, rep, -1, D).sum(2)
+        return x.transpose(1, 2).to(k.dtype)
+    return (o.transpose(1, 2), lse, dq.transpose(1, 2).to(q.dtype),
+            kv_grad(dk), kv_grad(dv))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tensor_core_rounding_stays_within_the_card_limits(seed):
+    """The numeric design of the wgmma kernels, emulated on the CPU
+    (`_emulate_tensor_cores`: fp32 scores scaled in fp32, P per 128-key
+    tile and dS in two bf16 parts) at S 512, 4 query heads over 1 kv
+    head, head_dim 128, causal, bf16 inputs: O, dQ, dK and dV within
+    chip_smoke.py's per-row limit of the plain versions (one bf16 ulp,
+    2^-7 of the row's max |plain|) and lse within 1e-5 relative."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkvd(1, 512, 4, 1, 128, seed=seed))
+    o, lse, dq, dk, dv = _emulate_tensor_cores(q, k, v, do, True)
+    po, plse = FA.flash_fwd_plain(q, k, v, True)
+    assert _per_row_share(o, po, 2 ** -7) <= 1.0
+    assert ((lse - plse).abs() <= 1e-5 * plse.abs().clamp_min(1.0)).all()
+    # the backward from the emulated O and lse, as the kernels get them
+    for got, want in zip((dq, dk, dv),
+                         FA.flash_bwd_plain(q, k, v, o, lse, do, True)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _per_row_share(got, want, 2 ** -7) <= 1.0
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "causal_len",
                                  "dtype", "stride", "align", "shape"])
 def test_wrapper_checks_raise(bad):
@@ -224,6 +321,9 @@ def _card_cases():
         (1, 300, 8, 2, 64, True, torch.float32, None),
         (2, 130, 4, 4, 32, False, torch.float32, 77),
         (1, 257, 8, 1, 128, True, torch.bfloat16, None),
+        (1, 300, 8, 2, 128, False, torch.bfloat16, 77),
+        (1, 100, 4, 2, 128, False, torch.bfloat16, 300),
+        (1, 300, 8, 2, 64, True, torch.bfloat16, None),
     ]
 
 
@@ -231,7 +331,8 @@ def _card_cases():
 def test_cuda_fwd_kernel_matches_plain_on_card():
     """K1 on the card against flash_fwd_plain: bf16 at the training
     shape, fp32 / bf16 at ragged S, GQA rep 1/4/8, head_dim 32/64/128,
-    causal and not (Sk != Sq)."""
+    causal and not (Sk != Sq); bf16 at head_dim 128 runs the wgmma
+    kernel, the rest the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -272,3 +373,23 @@ def test_cuda_bwd_kernels_match_plain_on_card():
             assert got.dtype == want.dtype and got.shape == want.shape
             assert _per_row_share(got, want, _card_tol(dt)) <= 1.0, \
                 (S, D, dt)
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_kernels_are_bitwise_repeatable_on_card():
+    """K2 sums in a fixed order (no atomics): two calls on the same
+    inputs give the same bits, for both variants on bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K2 has no CPU or interpret mode")
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   for a in _qkvd(1, 640, 8, 2, 128, seed=7))
+    o, lse = FA.flash_fwd_plain(q, k, v, True)
+    for variant in ("wgmma", "fma"):
+        first = (FA.flash_bwd_dq(q, k, v, o, lse, do, True, variant=variant),
+                 *FA.flash_bwd_dkv(q, k, v, o, lse, do, True,
+                                   variant=variant))
+        again = (FA.flash_bwd_dq(q, k, v, o, lse, do, True, variant=variant),
+                 *FA.flash_bwd_dkv(q, k, v, o, lse, do, True,
+                                   variant=variant))
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), variant
