@@ -16,8 +16,13 @@
 //             delta = rowsum(O * dO) (computed by the caller, as the
 //             JAX package computes it outside Pallas),
 //             dQ = dS . K * scale, dK = dS^T . (q * scale), dV = P^T . dO.
-// Causal masks keep key c for query r when r >= c (the Pallas kernels'
-// `_causal_mask`); causal calls need Sq == Sk.
+// Causal masks keep key c for query r when r + Sk - Sq >= c: aligned
+// bottom-right, as the JAX package's scaled_dot_product_attention_raw
+// (`tril(k = Sk - Sq)`), and the Pallas kernels' `_causal_mask` when
+// Sq == Sk.  A query row that sees no key (Sq > Sk, r < Sq - Sk) gets
+// O = NaN and lse = -inf (the reference's softmax over nothing), and
+// adds nothing to the gradients: the backward kernels read its lse and
+// delta as 0, as they read a padding row's, so its P and dS are 0.
 //
 // Translation from the TPU design.
 //   * GQA: the Pallas path repeats the kv heads (`_expand_kv`) and
@@ -64,10 +69,13 @@
 //          heads and the q tiles from the diagonal on, in halves of 32
 //          rows (n32 products) so that the dK and dV accumulators (128
 //          registers a lane) leave room for the score tiles.
-//   fma    fp32, and bf16 at head_dim 32 or 64, on the CUDA cores: q, k
-//          and v widened to fp32 into (64, D + 1) shared-memory tiles, each
-//          of 256 threads owning a 4 x 4 block of the score tile and a
-//          4 x D/16 block of the output; P stays fp32.  fp32 stays off the
+//   fma    fp32, and bf16 at head_dim 16, 32 or 64, on the CUDA cores:
+//          q, k and v widened to fp32 into (64, D + 1) shared-memory
+//          tiles, each of 256 threads owning a 4 x 4 block of the score
+//          tile and a 4 x D/16 block of the output; P stays fp32.  The
+//          16 threads that share a score row reduce over its 64 columns,
+//          whatever D is, so D 16 (one output column a thread) takes the
+//          same layout.  fp32 stays off the
 //          tensor cores: TF32 keeps ~10 mantissa bits and fails fp32's
 //          1e-5 limit.
 //
@@ -227,8 +235,31 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ bool keep(int r, int c, const Args& a) {
-  return r < a.Sq && c < a.Sk && (!a.causal || r >= c);
+// `off` is the causal mask's offset Sk - Sq.  The tensor-core kernels
+// take it as a compile-time 0 when Sq == Sk (the model's own calls).
+// Bitwise, not short-circuit: written with && and ||, ptxas turned the
+// per-element test of the masked tiles into branches (5-18 % slower K1
+// and dQ at the train shape).
+__device__ __forceinline__ bool keep(int r, int c, const Args& a, int off) {
+  return (r < a.Sq) & (c < a.Sk) & (!a.causal | (r + off >= c));
+}
+
+// a query row that sees no key (causal, Sq > Sk)
+__device__ __forceinline__ bool blind(int r, const Args& a, int off) {
+  return a.causal && r + off < 0;
+}
+
+// the tiles of `tile` keys that query rows [q0, q0 + rows) see
+__device__ __forceinline__ int kv_tiles(int q0, int rows, int tile,
+                                        const Args& a, int off) {
+  const int end = a.causal ? min(max(q0 + rows + off, 0), a.Sk) : a.Sk;
+  return (end + tile - 1) / tile;
+}
+
+// the first tile of `tile` query rows with a row that sees key k0
+__device__ __forceinline__ int first_q_tile(int k0, int tile, const Args& a,
+                                            int off) {
+  return a.causal ? max(k0 - off, 0) / tile : 0;
 }
 
 template <typename T, int D>
@@ -250,6 +281,7 @@ flash_fwd_kernel(const Args a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int q0 = qt * kTile;
+  const int off = a.Sk - a.Sq;
 
   const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + g * a.ks.h;
@@ -265,7 +297,7 @@ flash_fwd_kernel(const Args a) {
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt = a.causal ? qt + 1 : (a.Sk + kTile - 1) / kTile;
+  const int n_kt = kv_tiles(q0, kTile, kTile, a, off);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                 // the last tile's Ks / Vs / Ps are read
@@ -286,7 +318,7 @@ flash_fwd_kernel(const Args a) {
       float tmax = kNegInf;
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        if (!keep(r, k0 + tx + 16 * j, a)) s[i][j] = kNegInf;
+        if (!keep(r, k0 + tx + 16 * j, a, off)) s[i][j] = kNegInf;
         tmax = fmaxf(tmax, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(tmax));
@@ -295,7 +327,7 @@ flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const float p =
-            keep(r, k0 + tx + 16 * j, a) ? expf(s[i][j] - m_new) : 0.f;
+            keep(r, k0 + tx + 16 * j, a, off) ? expf(s[i][j] - m_new) : 0.f;
         Ps[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
         psum += p;
       }
@@ -314,12 +346,14 @@ flash_fwd_kernel(const Args a) {
     const int r = q0 + ty + 16 * i;
     if (r < a.Sq) {
       const float lf = fmaxf(l[i], 1e-30f);
+      const bool none = blind(r, a, off);
       T* orow = o + ((static_cast<long long>(b) * a.Sq + r) * a.H + h) * D;
 #pragma unroll
-      for (int c = 0; c < OC; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / lf);
+      for (int c = 0; c < OC; ++c)
+        orow[tx + 16 * c] = from_f<T>(none ? NAN : acc[i][c] / lf);
       if (tx == 0)
         a.lse_out[(static_cast<long long>(b) * a.H + h) * a.Sq + r] =
-            m[i] + logf(lf);
+            none ? -INFINITY : m[i] + logf(lf);
     }
   }
 }
@@ -344,6 +378,7 @@ flash_dq_kernel(const Args a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int q0 = qt * kTile;
+  const int off = a.Sk - a.Sq;
 
   const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* db = static_cast<const T*>(a.dout) + b * a.dos.b + h * a.dos.h;
@@ -357,13 +392,14 @@ flash_dq_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int r = q0 + ty + 16 * i;
-    lse[i] = r < a.Sq ? a.lse[row_base + r] : 0.f;
-    delta[i] = r < a.Sq ? a.delta[row_base + r] : 0.f;
+    const bool seen = r < a.Sq && !blind(r, a, off);
+    lse[i] = seen ? a.lse[row_base + r] : 0.f;
+    delta[i] = seen ? a.delta[row_base + r] : 0.f;
 #pragma unroll
     for (int c = 0; c < OC; ++c) dq[i][c] = 0.f;
   }
 
-  const int n_kt = a.causal ? qt + 1 : (a.Sk + kTile - 1) / kTile;
+  const int n_kt = kv_tiles(q0, kTile, kTile, a, off);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
@@ -384,7 +420,7 @@ flash_dq_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const float p =
-            keep(r, k0 + tx + 16 * j, a) ? expf(s[i][j] - lse[i]) : 0.f;
+            keep(r, k0 + tx + 16 * j, a, off) ? expf(s[i][j] - lse[i]) : 0.f;
         Ss[(ty + 16 * i) * kLdP + tx + 16 * j] = p * (dp[i][j] - delta[i]);
       }
     }
@@ -424,6 +460,7 @@ flash_dkv_kernel(const Args a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int k0 = kt * kTile;
+  const int off = a.Sk - a.Sq;
 
   const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + g * a.ks.h;
   const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + g * a.vs.h;
@@ -437,7 +474,7 @@ flash_dkv_kernel(const Args a) {
     for (int c = 0; c < OC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   const int n_qt = (a.Sq + kTile - 1) / kTile;
-  const int qt0 = a.causal ? kt : 0;   // earlier q tiles are fully masked
+  const int qt0 = first_q_tile(k0, kTile, a, off);  // earlier: masked
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
@@ -454,8 +491,9 @@ flash_dkv_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const int qr = q0 + tx + 16 * j;
-        lse[j] = qr < a.Sq ? a.lse[row_base + qr] : 0.f;
-        delta[j] = qr < a.Sq ? a.delta[row_base + qr] : 0.f;
+        const bool seen = qr < a.Sq && !blind(qr, a, off);
+        lse[j] = seen ? a.lse[row_base + qr] : 0.f;
+        delta[j] = seen ? a.delta[row_base + qr] : 0.f;
       }
       // transposed tiles: row i = kv index, col j = q index
       float st[kPer][kPer], dpt[kPer][kPer];
@@ -471,7 +509,7 @@ flash_dkv_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           const int qr = q0 + tx + 16 * j;
-          st[i][j] = keep(qr, kc, a) ? expf(st[i][j] - lse[j]) : 0.f;
+          st[i][j] = keep(qr, kc, a, off) ? expf(st[i][j] - lse[j]) : 0.f;
           Ps[(ty + 16 * i) * kLdP + tx + 16 * j] = st[i][j];
         }
       }
@@ -495,12 +533,12 @@ flash_dkv_kernel(const Args a) {
   for (int i = 0; i < kPer; ++i) {
     const int kc = k0 + ty + 16 * i;
     if (kc < a.Sk) {
-      const long long off =
+      const long long at =
           ((static_cast<long long>(b) * a.Sk + kc) * a.Hkv + g) * D;
 #pragma unroll
       for (int c = 0; c < OC; ++c) {
-        dko[off + tx + 16 * c] = from_f<T>(dk[i][c]);
-        dvo[off + tx + 16 * c] = from_f<T>(dv[i][c]);
+        dko[at + tx + 16 * c] = from_f<T>(dk[i][c]);
+        dvo[at + tx + 16 * c] = from_f<T>(dv[i][c]);
       }
     }
   }
@@ -620,16 +658,16 @@ __device__ __forceinline__ uint64_t desc_n(const unsigned char* tile,
   return wg_desc(tile + (row0 + 16 * kk) * 128, rows * 128, 1024);
 }
 
-// A query row that attends to one key (causal row 0; every row when
-// Sk == 1) has P = 1 on key 0 and a dQ row that is 0 but for rounding:
+// A query row that attends to one key (causal row Sq - Sk; every row
+// when Sk == 1) has P = 1 on key 0 and a dQ row that is 0 but for rounding:
 // dS = dP - delta, where O is key 0's V row, so delta = dP exactly.  Both
 // versions return rounding noise there, and the per-row limit compares
 // noise with noise.  So the dQ kernel computes that one dS as the plain
 // version's fp32 product does, dO . V_0 summed in order over head_dim by
 // fmaf, instead of from the tensor cores' accumulator, whose fp32 sums
 // round otherwise.
-__device__ __forceinline__ bool one_key(int r, const Args& a) {
-  return r < a.Sq && (a.causal ? r == 0 : a.Sk == 1);
+__device__ __forceinline__ bool one_key(int r, const Args& a, int off) {
+  return r < a.Sq && (a.causal ? r + off == 0 : a.Sk == 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -702,6 +740,7 @@ constexpr int kFwdStages = 2;
 constexpr int kFwdSmem =
     1024 + tile_bytes(128) * (1 + 2 * kFwdStages) + 8 * (1 + 2 * kFwdStages);
 
+template <bool kShift>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -722,7 +761,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = (blockIdx.x % per_tile) / a.H;
   const int g = h / (a.H / a.Hkv);
   const int q0 = qt * 128;
-  const int n_kt = ((a.causal ? min(q0 + 128, a.Sk) : a.Sk) + 127) / 128;
+  const int off = kShift ? a.Sk - a.Sq : 0;
+  const int n_kt = kv_tiles(q0, 128, 128, a, off);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -785,7 +825,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_acc(s);
 
     // scores in the exp2 domain: x = s * scale * log2(e), masked -> -1e30
-    const bool mask = (a.causal && k0 + 127 > r_lo) || k0 + 128 > a.Sk;
+    const bool mask =
+        (a.causal && k0 + 127 > r_lo + off) || k0 + 128 > a.Sk;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -794,7 +835,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = s[4 * j + 2 * h2 + e] * sl2;
-          if (mask && !keep(r_lo + ln.row + 8 * h2, k0 + 8 * j + ln.col + e, a))
+          if (mask &&
+              !keep(r_lo + ln.row + 8 * h2, k0 + 8 * j + ln.col + e, a, off))
             x = kNegInf;
           s[4 * j + 2 * h2 + e] = x;
           mx[h2] = fmaxf(mx[h2], x);
@@ -853,7 +895,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int h2 = 0; h2 < 2; ++h2) {
     const int r = r_lo + ln.row + 8 * h2;
     if (r >= a.Sq) continue;
-    const float inv = 1.f / l[h2];
+    const bool none = kShift && blind(r, a, off);
+    const float inv = none ? NAN : 1.f / l[h2];
     __nv_bfloat16* row = ob + r * ld + ln.col;
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -861,7 +904,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           o[4 * j + 2 * h2] * inv, o[4 * j + 2 * h2 + 1] * inv);
     if (ln.col == 0)
       a.lse_out[(static_cast<long long>(b) * a.H + h) * a.Sq + r] =
-          m[h2] * kLn2 + logf(l[h2]);
+          none ? -INFINITY : m[h2] * kLn2 + logf(l[h2]);
   }
 }
 
@@ -875,6 +918,7 @@ constexpr int kDqStages = 3;
 constexpr int kDqSmem = 1024 + 2 * tile_bytes(128) +
                         2 * kDqStages * tile_bytes(64) + 8 * (1 + 2 * kDqStages);
 
+template <bool kShift>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
@@ -897,7 +941,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = (blockIdx.x % per_tile) / a.H;
   const int g = h / (a.H / a.Hkv);
   const int q0 = qt * 128;
-  const int n_kt = ((a.causal ? min(q0 + 128, a.Sk) : a.Sk) + 63) / 64;
+  const int off = kShift ? a.Sk - a.Sq : 0;
+  const int n_kt = kv_tiles(q0, 128, 64, a, off);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -944,9 +989,10 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int r = r_lo + ln.row + 8 * h2;
-    lse2[h2] = r < a.Sq ? a.lse[row_base + r] * kLog2e : 0.f;
-    delta[h2] = r < a.Sq ? a.delta[row_base + r] : 0.f;
-    solo[h2] = one_key(r, a);
+    const bool seen = r < a.Sq && !(kShift && blind(r, a, off));
+    lse2[h2] = seen ? a.lse[row_base + r] * kLog2e : 0.f;
+    delta[h2] = seen ? a.delta[row_base + r] : 0.f;
+    solo[h2] = one_key(r, a, off);
     if (solo[h2] && ln.col == 0) {
       const __nv_bfloat16* dor = static_cast<const __nv_bfloat16*>(a.dout) +
                                  b * a.dos.b + r * a.dos.s + h * a.dos.h;
@@ -988,7 +1034,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_acc(s);
     fence_acc(dp);
 
-    const bool mask = (a.causal && k0 + 63 > r_lo) || k0 + 64 > a.Sk;
+    const bool mask =
+        (a.causal && k0 + 63 > r_lo + off) || k0 + 64 > a.Sk;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -997,7 +1044,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * h2 + e;
           float pe = exp2f(s[i] * sl2 - lse2[h2]);
-          if (mask && !keep(r_lo + ln.row + 8 * h2, k0 + 8 * j + ln.col + e, a))
+          if (mask &&
+              !keep(r_lo + ln.row + 8 * h2, k0 + 8 * j + ln.col + e, a, off))
             pe = 0.f;
           s[i] = pe * (dp[i] - delta[h2]);
           if (mask && solo[h2])            // key 0 only: lane col 0, j = e = 0
@@ -1041,6 +1089,7 @@ constexpr int kDkvStages = 3;
 constexpr int kDkvSmem = 1024 + 2 * tile_bytes(128) +
                          2 * kDkvStages * tile_bytes(64) + 8 * (1 + 2 * kDkvStages);
 
+template <bool kShift>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -1062,8 +1111,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = (blockIdx.x % per_tile) / a.Hkv;
   const int rep = a.H / a.Hkv;
   const int k0 = kt * 128;
+  const int off = kShift ? a.Sk - a.Sq : 0;
   const int n_qt = (a.Sq + 63) / 64;
-  const int qt0 = a.causal ? k0 / 64 : 0;  // earlier q tiles are fully masked
+  const int qt0 = first_q_tile(k0, 64, a, off);  // earlier: masked
   const int per_head = n_qt - qt0;
   const int steps = rep * per_head;
 
@@ -1133,8 +1183,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = r0 + 8 * j + ln.col + e;
-          lse2[2 * j + e] = r < a.Sq ? __ldg(a.lse + row_base + r) * kLog2e : 0.f;
-          delta[2 * j + e] = r < a.Sq ? __ldg(a.delta + row_base + r) : 0.f;
+          const bool seen = r < a.Sq && !blind(r, a, off);
+          lse2[2 * j + e] = seen ? __ldg(a.lse + row_base + r) * kLog2e : 0.f;
+          delta[2 * j + e] = seen ? __ldg(a.delta + row_base + r) : 0.f;
         }
       fence_acc(st);
       fence_acc(dpt);
@@ -1154,7 +1205,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // padding query rows (r >= Sq) must give P = 0: their lse and
       // delta read as 0 and their Q rows as zeros
-      const bool mask = (a.causal && r0 < c_lo + 63) || r0 + 32 > a.Sq;
+      const bool mask =
+          (a.causal && r0 + off < c_lo + 63) || r0 + 32 > a.Sq;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1163,7 +1215,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * h2 + e;
             float pe = exp2f(st[i] * sl2 - lse2[2 * j + e]);
-            if (mask && !keep(r0 + 8 * j + ln.col + e, c_lo + ln.row + 8 * h2, a))
+            if (mask &&
+                !keep(r0 + 8 * j + ln.col + e, c_lo + ln.row + 8 * h2, a, off))
               pe = 0.f;
             st[i] = pe;
             dpt[i] = pe * (dpt[i] - delta[2 * j + e]);
@@ -1195,11 +1248,11 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x % 32 == 0) mbar_arrive(empty + slot);
   }
 
-  const long long off = static_cast<long long>(b) * a.Sk * a.Hkv + g;
+  const long long at = static_cast<long long>(b) * a.Sk * a.Hkv + g;
   const long long ld = static_cast<long long>(a.Hkv) * kD;
-  store_rows(static_cast<__nv_bfloat16*>(a.out) + off * kD, ld, c_lo, a.Sk,
+  store_rows(static_cast<__nv_bfloat16*>(a.out) + at * kD, ld, c_lo, a.Sk,
              dk, a.scale);
-  store_rows(static_cast<__nv_bfloat16*>(a.out2) + off * kD, ld, c_lo, a.Sk,
+  store_rows(static_cast<__nv_bfloat16*>(a.out2) + at * kD, ld, c_lo, a.Sk,
              dv, 1.f);
 }
 
@@ -1231,6 +1284,7 @@ int launch(int kind, const Args& a, cudaStream_t stream) {
 template <typename T>
 int launch_d(int kind, int D, const Args& a, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<T, 16>(kind, a, stream);
     case 32: return launch<T, 32>(kind, a, stream);
     case 64: return launch<T, 64>(kind, a, stream);
     case 128: return launch<T, 128>(kind, a, stream);
@@ -1250,6 +1304,39 @@ bool map_bshd(CUtensorMap* map, const void* p, const Strides& st, int S,
   return make_map(map, p, 4, dims, strides, box);
 }
 
+template <bool kShift>
+int launch_wgmma_kernel(int kind, const Args& a, const CUtensorMap& mq,
+                        const CUtensorMap& mk, const CUtensorMap& mv,
+                        const CUtensorMap& mdo, cudaStream_t stream) {
+  cudaError_t err;
+  if (kind == kFwd) {
+    auto kernel = flash_fwd_wgmma_kernel<kShift>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kFwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned blocks = ((a.Sq + 127) / 128) * a.H * a.B;
+    kernel<<<blocks, kWgThreads, kFwdSmem, stream>>>(mq, mk, mv, a);
+  } else if (kind == kDq) {
+    auto kernel = flash_dq_wgmma_kernel<kShift>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDqSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned blocks = ((a.Sq + 127) / 128) * a.H * a.B;
+    kernel<<<blocks, kWgThreads, kDqSmem, stream>>>(mq, mk, mv, mdo, a);
+  } else {
+    auto kernel = flash_dkv_wgmma_kernel<kShift>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDkvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned blocks = ((a.Sk + 127) / 128) * a.Hkv * a.B;
+    kernel<<<blocks, kWgThreads, kDkvSmem, stream>>>(mq, mk, mv, mdo, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_wgmma(int kind, const Args& a, cudaStream_t stream) {
   // q / dO in boxes of the kernel's query rows, k / v of its kv rows
   const int q_rows = kind == kDkv ? 64 : 128;
@@ -1261,39 +1348,15 @@ int launch_wgmma(int kind, const Args& a, cudaStream_t stream) {
       (kind != kFwd &&
        !map_bshd(&mdo, a.dout, a.dos, a.Sq, a.H, a.B, q_rows)))
     return kBadArg;
-  cudaError_t err;
-  if (kind == kFwd) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kFwdSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned blocks = ((a.Sq + 127) / 128) * a.H * a.B;
-    flash_fwd_wgmma_kernel<<<blocks, kWgThreads, kFwdSmem, stream>>>(mq, mk,
-                                                                    mv, a);
-  } else if (kind == kDq) {
-    err = cudaFuncSetAttribute(flash_dq_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDqSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned blocks = ((a.Sq + 127) / 128) * a.H * a.B;
-    flash_dq_wgmma_kernel<<<blocks, kWgThreads, kDqSmem, stream>>>(mq, mk, mv,
-                                                                  mdo, a);
-  } else {
-    err = cudaFuncSetAttribute(flash_dkv_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDkvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned blocks = ((a.Sk + 127) / 128) * a.Hkv * a.B;
-    flash_dkv_wgmma_kernel<<<blocks, kWgThreads, kDkvSmem, stream>>>(
-        mq, mk, mv, mdo, a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (a.causal && a.Sq != a.Sk)
+    return launch_wgmma_kernel<true>(kind, a, mq, mk, mv, mdo, stream);
+  return launch_wgmma_kernel<false>(kind, a, mq, mk, mv, mdo, stream);
 }
 
 int run(int kind, Args a, const long long* strides, int D, int kernel,
         void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.Sq <= 0 ||
-      a.Sk <= 0 || (a.causal && a.Sq != a.Sk))
+      a.Sk <= 0)
     return kBadArg;
   Strides* s[4] = {&a.qs, &a.ks, &a.vs, &a.dos};
   for (int i = 0; i < (kind == kFwd ? 3 : 4); ++i)

@@ -20,9 +20,16 @@ at first use, see `_build.py`) or raises, and adds one to its entry of
 (`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in fp32
 einsums — q scaled before the product, masked entries -1e30, P kept in
 fp32) and counts nothing.  The kernels take every S (they mask the
-ragged last tile) and head_dim 32, 64 or 128; anything else raises.
-Causal calls need Sq == Sk (both packages' kernels mask key c for query
-r when r >= c, which is only the usual causal mask then).
+ragged last tile) and head_dim 16, 32, 64 or 128; anything else raises.
+
+The causal mask is aligned bottom-right, as the JAX package's
+`scaled_dot_product_attention_raw` aligns it (`tril(k = Sk - Sq)`):
+query r sees key c when r + Sk - Sq >= c, which is the usual mask when
+Sq == Sk.  When Sq > Sk, the rows r < Sq - Sk see no key: there the
+reference's softmax over nothing gives NaN, and the forward returns
+O = NaN and lse = -inf.  The backward treats such rows as contributing
+nothing (dQ = 0 there, dK / dV untouched), where the reference's
+gradient is NaN throughout.
 
 Which kernel runs is `_variant(dtype, D)`, from the dtype and head_dim
 alone:
@@ -30,8 +37,8 @@ alone:
 * bf16 at head_dim 128 (every ported model: llama3-8b, Qwen-MoE) ->
   "wgmma": Hopper's warpgroup MMA fed by TMA, the scores in fp32, P and
   dS entering their products as two bf16 parts each (~16 mantissa bits);
-* fp32, and bf16 at head_dim 32 or 64 -> "fma": the CUDA cores, all
-  arithmetic in fp32.  TF32 would fail fp32's 1e-5 limit, so fp32 never
+* fp32, and bf16 at head_dim 16, 32 or 64 -> "fma": the CUDA cores,
+  all arithmetic in fp32.  TF32 would fail fp32's 1e-5 limit, so fp32 never
   runs on the tensor cores.
 
 A caller may name the variant (`variant="fma"` on bf16 times the
@@ -61,7 +68,7 @@ __all__ = ["flash_mha", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "HEAD_DIMS", "NEG_INF", "LAUNCHES"]
 
 NEG_INF = -1e30          # the Pallas kernels' mask fill
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 # launches of each kernel on CUDA tensors; CPU calls count nothing
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
@@ -88,10 +95,11 @@ def _scale(q, scale):
 
 
 def _keep(Sq, Sk, causal, device):
-    """(Sq, Sk) bool: which (query, key) pairs attend."""
+    """(Sq, Sk) bool: which (query, key) pairs attend; causal aligned
+    bottom-right (query r sees key c when r + Sk - Sq >= c)."""
     if not causal:
         return torch.ones(Sq, Sk, dtype=torch.bool, device=device)
-    r = torch.arange(Sq, device=device)[:, None]
+    r = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
     return r >= torch.arange(Sk, device=device)[None, :]
 
 
@@ -128,6 +136,10 @@ def flash_fwd_plain(q, k, v, causal=True, scale=None):
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(torch.float32))
     o = o / l.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(l)).reshape(B, H, Sq)
+    # rows that see no key (causal, Sq > Sk): the reference's NaN
+    blind = ~keep.any(-1)
+    o = torch.where(blind[:, None, None, None], math.nan, o)
+    lse = torch.where(blind, -math.inf, lse)
     return o.reshape(B, Sq, H, D).to(q.dtype), lse
 
 
@@ -138,12 +150,12 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal=True, scale=None):
     scale = _scale(q, scale)
     B, Sq, H, D = q.shape
     n_kv = k.shape[2]
-    p, _, qs = _probs(q, k, causal, scale, lse)
+    p, keep, qs = _probs(q, k, causal, scale, lse)
     dog = _grouped(do, n_kv)
     delta = (o.to(torch.float32) * do.to(torch.float32)).sum(-1)  # (B, Sq, H)
     delta = delta.reshape(B, Sq, n_kv, H // n_kv).permute(0, 2, 3, 1)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.to(torch.float32))
-    ds = p * (dp - delta[..., None])
+    ds = torch.where(keep, p * (dp - delta[..., None]), 0.0)
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.to(torch.float32)) * scale
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qs)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
@@ -170,9 +182,6 @@ def _check(q, k, v, causal, extra=()):
     if H % k.shape[2]:
         raise ValueError(f"{H} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    if causal and Sq != k.shape[1]:
-        raise ValueError(f"causal attention needs Sq == Sk, got {Sq} "
-                         f"and {k.shape[1]}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {q.dtype}")
     vec = 16 // q.element_size()

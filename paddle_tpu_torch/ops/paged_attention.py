@@ -12,8 +12,15 @@ the slot's view through the table, then `_attend`'s masked fp32 softmax
 and P.V.  The CPU tests compare the plain version with the JAX package;
 `chip_smoke.py` compares the kernel with the plain version on the card.
 
+The kernel splits each slot's rows into splits of `split_rows(...)`
+rows (flash-decoding): one CUDA block per (split, kv head, slot) writes
+the split's unnormalised softmax (m, l, acc) in fp32 to a workspace,
+and a second kernel merges the live splits in split order.  The grid
+and the workspace follow from the table's shape, never from `pos`, so
+the wrapper does not synchronise with the card.
+
 Tolerances (kernel vs plain, on the card): fp32 max abs error <= 1e-5
-(the kernel's online softmax sums in another order); bf16 max abs error
+(the kernel's split softmax sums in another order); bf16 max abs error
 per slot <= 2e-2 of that slot's max |out| (the plain version rounds the
 probabilities to bf16 before P.V, the kernel keeps them in fp32, and
 orders differ).
@@ -30,18 +37,27 @@ from ..quantization.int8 import dequantize_kv
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_view",
-           "NEG_INF", "LAUNCHES"]
+           "split_rows", "SPLIT_ROWS", "NEG_INF", "LAUNCHES"]
 
 NEG_INF = -1e30          # the gather path's mask fill (`_attend`)
 # launches of the kernel on CUDA tensors; CPU calls count nothing
 LAUNCHES = {"paged_attention": 0}
 
+# rows of one split: 128 (8 of the engine's 16-row blocks) puts ~360
+# live blocks on the 132 SMs at the kernel phase's shape and ~150 at the
+# serve depths, each with its whole split in flight; tools/k4_split_sweep.py
+# times the other sizes
+SPLIT_ROWS = 128
+# shared memory for a split's K and V tiles: 64 KB lets 3 blocks share
+# an SM; rows wider than 256 bytes get shorter splits
+_KV_TILE_BYTES = 64 * 1024
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_attention_decode": (
-    _P, _P, _P, _P, _P, _P, _P, _P,          # q pk pv ks vs table pos out
-    _I, _I, _I, _I, _I, _I,                  # B n_kv rep hd bt bmax
-    _I, _I,                                  # q dtype, pool dtype
+    _P, _P, _P, _P, _P, _P, _P, _P, _P,      # q pk pv ks vs table pos out work
+    _I, _I, _I, _I, _I, _I, _I,              # B n_kv rep hd bt bmax split
+    _I, _I, _I,                              # q dtype, pool dtype, device
     _P)}                                     # stream
 
 
@@ -134,11 +150,20 @@ def _check(q, kd, vd, ks, vs, table, pos):
                              "(the kernel loads rows as vectors)")
 
 
-def paged_attention(q, pk, pv, table, pos):
+def split_rows(hd, itemsize, rows=SPLIT_ROWS):
+    """Rows of one split for a pool of `itemsize`-byte elements at
+    head_dim `hd`: `rows`, cut until a split's K and V rows fit
+    `_KV_TILE_BYTES`, rounded down to a power of two in [8, 256]."""
+    fit = max(8, min(rows, 256, _KV_TILE_BYTES // (2 * hd * itemsize)))
+    return 1 << (fit.bit_length() - 1)
+
+
+def paged_attention(q, pk, pv, table, pos, split=None):
     """Decode attention for one token per slot over the paged pool
     (shapes as `paged_attention_plain`).  A CUDA `q` launches the
-    Hopper kernel (counted in `LAUNCHES`); a CPU `q` runs the plain
-    version."""
+    Hopper kernels (counted once in `LAUNCHES`), with splits of `split`
+    rows (a power of two in [8, 256]; default `split_rows(...)`); a CPU
+    `q` runs the plain version."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pk, pv, table, pos)
     if q.device.type != "cuda":
@@ -151,17 +176,28 @@ def paged_attention(q, pk, pv, table, pos):
     _, bt, n_kv, _ = kd.shape
     out_dtype = q.dtype if ks is not None \
         else torch.promote_types(q.dtype, kd.dtype)
+    R = split_rows(hd, kd.element_size()) if split is None else split
+    if R < 8 or R > 256 or R & (R - 1):
+        raise ValueError(f"split of {R} rows: must be a power of two "
+                         f"in [8, 256]")
+    n_splits = -(-table.shape[1] * bt // R)
     out = torch.empty((B, nh, hd), dtype=out_dtype, device=q.device)
+    work = torch.empty(B * nh * n_splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load("paged_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.paged_attention_decode(
-            q.data_ptr(), kd.data_ptr(), vd.data_ptr(),
-            None if ks is None else ks.data_ptr(),
-            None if vs is None else vs.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, n_kv, nh // n_kv, hd, bt, table.shape[1],
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[kd.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    # K4 runs 32 times a decode step on a host-bound serve path: the raw
+    # stream getter and a device switch in C cost ~0.2 us where
+    # `torch.cuda.device(...)` and `current_stream(...).cuda_stream`
+    # cost ~13 us on the card's host
+    dev = q.device.index
+    err = lib.paged_attention_decode(
+        q.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, n_kv, nh // n_kv, hd, bt, table.shape[1], R,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[kd.dtype], dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(cudaError {err})")

@@ -11,15 +11,13 @@ __all__ = ["Adam", "AdamW"]
 
 
 class Adam(Optimizer):
+    """`lazy_mode` and `use_multi_tensor` are accepted and, as in the JAX
+    package, change nothing: every update is dense and per parameter."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None, use_multi_tensor=False):
-        if lazy_mode or use_multi_tensor:
-            raise NotImplementedError(
-                "Adam lazy_mode / use_multi_tensor are not ported: every "
-                "update is dense and per parameter (ROADMAP: queue 1 "
-                "item 1, training follow-ups)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon

@@ -127,6 +127,84 @@ def test_ragged_seq_matches_jax_attention(causal):
         _close(got.numpy(), want)
 
 
+def _jax_sdpa_causal(q, k, v, do=None):
+    """The JAX package's `scaled_dot_product_attention_raw`, causal,
+    fp32: the output, and with `do` also (dQ, dK, dV) by `jax.vjp`."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.ops.flash_attention import \
+        scaled_dot_product_attention_raw as jsdpa
+    out, vjp = jax.vjp(lambda a, b, c: jsdpa(a, b, c, is_causal=True),
+                       *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), (None if do is None
+                             else vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize("entry", ["flash_mha", "flash_attention_xla"])
+@pytest.mark.parametrize("Sq,Sk", [(3, 7), (7, 3)])
+def test_causal_unequal_lengths_fwd_matches_jax(Sq, Sk, entry):
+    """Causal Sq != Sk is masked bottom-right (query r sees key c when
+    r + Sk - Sq >= c), as the JAX formula's `tril(k = Sk - Sq)`.  At
+    Sq > Sk the rows r < Sq - Sk see no key: NaN in both, matched by
+    position; every other element within 1e-5."""
+    q, k, v, _ = _qkvd(2, Sq, 4, 2, 16, seed=0, Sk=Sk)
+    want, _ = _jax_sdpa_causal(q, k, v)
+    fn = FA.flash_mha if entry == "flash_mha" else \
+        (lambda a, b, c: FA.flash_attention_xla(a, b, c, is_causal=True))
+    got = fn(*_t(q, k, v)).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert np.isnan(want).any() == (Sq > Sk)
+    live = ~np.isnan(want)
+    assert np.abs(got[live] - want[live]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("Sq,Sk,H,Hkv", [(3, 7, 2, 2), (64, 128, 4, 2)])
+def test_causal_unequal_lengths_grads_match_jax(Sq, Sk, H, Hkv):
+    """dQ, dK, dV of causal attention at Sq < Sk (GQA in the second
+    case) through `flash_mha` against `jax.vjp` of the JAX formula,
+    each within 1e-5 of max(1, max |reference|).  At Sq > Sk the
+    reference's gradient is NaN throughout, so only Sq <= Sk is
+    compared."""
+    q, k, v, do = _qkvd(1, Sq, H, Hkv, 16, seed=1, Sk=Sk)
+    want, jg = _jax_sdpa_causal(q, k, v, do)
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = FA.flash_mha(tq, tk, tv, True)
+    out.backward(torch.from_numpy(do))
+    _close(out.detach().numpy(), want)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(got.numpy(), ref)
+
+
+def test_blind_rows_add_nothing_to_the_gradients():
+    """At Sq > Sk the rows that see no key get dQ = 0 and leave dK / dV
+    as the rows that see keys make them: the same gradients as
+    attention over those rows alone."""
+    q, k, v, do = _t(*_qkvd(1, 9, 2, 1, 16, seed=2, Sk=5))
+    o, lse = FA.flash_fwd(q, k, v, True)
+    dq, dk, dv = FA.flash_bwd(q, k, v, o, lse, do, True)
+    assert torch.isnan(o[:, :4]).all() and torch.isinf(lse[..., :4]).all()
+    assert (dq[:, :4] == 0).all()
+    o2, lse2 = FA.flash_fwd(q[:, 4:], k, v, True)
+    want = FA.flash_bwd(q[:, 4:], k, v, o2, lse2, do[:, 4:], True)
+    for got, ref in zip((dq[:, 4:], dk, dv), want):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_head_dim_16_tiny_attention_matches_jax():
+    """The `tiny` preset's attention (4 / 2 heads, head_dim 16, causal)
+    through `flash_mha`, forward and backward, against the JAX formula
+    within 1e-5 of max(1, max |reference|)."""
+    q, k, v, do = _qkvd(2, 32, 4, 2, 16, seed=3)
+    want, jg = _jax_sdpa_causal(q, k, v, do)
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = FA.flash_mha(tq, tk, tv, True)
+    out.backward(torch.from_numpy(do))
+    _close(out.detach().numpy(), want)
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(got.numpy(), ref)
+
+
 def test_masked_attention_runs_raw_on_cpu():
     """A mask takes `scaled_dot_product_attention_raw` on the CPU, as in
     the JAX package (bool masks select, float masks add)."""
@@ -165,10 +243,12 @@ def test_cpu_calls_run_plain_and_count_no_launch():
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "fma"),
     (torch.bfloat16, 32, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
+    (torch.bfloat16, 16, "fma"), (torch.float32, 16, "fma")])
 def test_variant_maps_bf16_d128_to_tensor_cores(dtype, D, want):
     """bf16 at head_dim 128 runs the wgmma kernels; fp32 (TF32 would
-    fail its 1e-5 limit) and head_dim 32 / 64 the CUDA-core kernels."""
+    fail its 1e-5 limit) and head_dim 16 / 32 / 64 the CUDA-core
+    kernels."""
     assert FA._variant(dtype, D) == want
     assert FA._variant(dtype, D, want) == want
 
@@ -259,7 +339,7 @@ def test_tensor_core_rounding_stays_within_the_card_limits(seed):
         assert _per_row_share(got, want, 2 ** -7) <= 1.0
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "groups", "causal_len",
+@pytest.mark.parametrize("bad", ["head_dim", "groups", "batch",
                                  "dtype", "stride", "align", "shape"])
 def test_wrapper_checks_raise(bad):
     """The CUDA wrapper's checks (run here on CPU tensors): anything the
@@ -272,8 +352,8 @@ def test_wrapper_checks_raise(bad):
         v = k
     elif bad == "groups":
         q = torch.zeros(1, 64, 3, 32)
-    elif bad == "causal_len":
-        k = v = torch.zeros(1, 65, 2, 32)
+    elif bad == "batch":
+        k = v = torch.zeros(2, 64, 2, 32)
     elif bad == "dtype":
         q, k, v = (x.half() for x in (q, k, v))
     elif bad == "stride":
@@ -284,6 +364,15 @@ def test_wrapper_checks_raise(bad):
         v = torch.zeros(1, 64, 1, 32)
     with pytest.raises(ValueError):
         FA._check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("Sk,D", [(65, 32), (40, 32), (64, 16)])
+def test_wrapper_takes_causal_unequal_lengths_and_head_dim_16(Sk, D):
+    """Causal Sq != Sk (masked bottom-right) and head_dim 16 pass the
+    CUDA wrapper's checks."""
+    q = torch.zeros(1, 64, 4, D)
+    k = torch.zeros(1, Sk, 2, D)
+    FA._check(q, k, k, True)
 
 
 def test_mask_and_dropout_raise_off_the_cpu():
@@ -304,11 +393,25 @@ def test_mask_and_dropout_raise_off_the_cpu():
 
 def _per_row_share(got, want, tol):
     """max over the rows (b, s, head) of (B, S, H, D) tensors of
-    max|got - want| / (tol * max|want|) over head_dim."""
+    max|got - want| / (tol * max|want|) over head_dim.  Rows that see
+    no key (causal, Sq > Sk) must be NaN in both and count 0."""
     got, want = got.float().cpu(), want.float().cpu()
+    blind = want.isnan()
+    assert torch.equal(got.isnan(), blind)
+    got, want = got.masked_fill(blind, 0.0), want.masked_fill(blind, 0.0)
     err = (got - want).abs().amax(-1)
     ref = want.abs().amax(-1).clamp_min(1e-30)
     return (err / (tol * ref)).max().item()
+
+
+def _lse_ok(lse, plse):
+    """lse per element within 1e-5 x max(1, |plain|); -inf (a row that
+    sees no key) in both at the same places."""
+    blind = plse.isinf()
+    assert torch.equal(lse.isinf(), blind)
+    lse, plse = lse.masked_fill(blind, 0.0), plse.masked_fill(blind, 0.0)
+    return bool(((lse - plse).abs() <= 1e-5 * plse.abs().clamp_min(1.0))
+                .all())
 
 
 def _card_tol(dt):
@@ -324,15 +427,22 @@ def _card_cases():
         (1, 300, 8, 2, 128, False, torch.bfloat16, 77),
         (1, 100, 4, 2, 128, False, torch.bfloat16, 300),
         (1, 300, 8, 2, 64, True, torch.bfloat16, None),
+        # causal Sq != Sk, masked bottom-right (Sq > Sk: blind rows)
+        (1, 300, 8, 2, 128, True, torch.bfloat16, 512),
+        (1, 512, 8, 2, 128, True, torch.bfloat16, 300),
+        (1, 200, 4, 2, 64, True, torch.float32, 77),
+        # head_dim 16 (the tiny presets)
+        (2, 130, 4, 2, 16, True, torch.float32, None),
+        (2, 130, 4, 2, 16, True, torch.bfloat16, 200),
     ]
 
 
 @pytest.mark.gpu
 def test_cuda_fwd_kernel_matches_plain_on_card():
     """K1 on the card against flash_fwd_plain: bf16 at the training
-    shape, fp32 / bf16 at ragged S, GQA rep 1/4/8, head_dim 32/64/128,
-    causal and not (Sk != Sq); bf16 at head_dim 128 runs the wgmma
-    kernel, the rest the CUDA-core one."""
+    shape, fp32 / bf16 at ragged S, GQA rep 1/4/8, head_dim
+    16/32/64/128, causal and not, Sk != Sq; bf16 at head_dim 128 runs
+    the wgmma kernel, the rest the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -345,8 +455,7 @@ def test_cuda_fwd_kernel_matches_plain_on_card():
         assert FA.LAUNCHES["flash_attention_fwd"] == before + 1
         po, plse = FA.flash_fwd_plain(q, k, v, causal)
         assert _per_row_share(o, po, _card_tol(dt)) <= 1.0, (S, D, dt)
-        assert ((lse - plse).abs() <= 1e-5 * plse.abs().clamp_min(1.0)) \
-            .all()
+        assert _lse_ok(lse, plse), (S, D, dt)
 
 
 @pytest.mark.gpu

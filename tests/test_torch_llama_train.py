@@ -35,7 +35,7 @@ from paddle_tpu_torch.models import LlamaForCausalLM as TModel
 from paddle_tpu_torch.models import LlamaPretrainingCriterion
 from paddle_tpu_torch.models import load_reference_arrays
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
 
 
@@ -111,9 +111,10 @@ def test_forward_loss_and_every_grad_match_jax(preset, tied):
         assert err <= 1e-4 * np.abs(jg[n]).max(), (n, err)
 
 
-def _train(pkg, model, cfg, ids, steps):
+def _train(pkg, model, cfg, ids, steps, **opt_kw):
     """`steps` TrainSteps of AdamW(LinearWarmup) + global-norm clip in
-    package `pkg` ("jax" or "torch"); returns (losses, {name: param})."""
+    package `pkg` ("jax" or "torch"), AdamW taking `opt_kw` besides;
+    returns (losses, {name: param})."""
     if pkg == "jax":
         import paddle_tpu.optimizer as jopt
         from paddle_tpu.jit.trainer import TrainStep as JStep
@@ -122,14 +123,15 @@ def _train(pkg, model, cfg, ids, steps):
         sched = jopt.lr.LinearWarmup(1e-3, warmup_steps=2, start_lr=2e-4,
                                      end_lr=1e-3)
         opt = jopt.AdamW(learning_rate=sched, weight_decay=0.01,
-                         parameters=model.parameters(), grad_clip=JClip(0.5))
+                         parameters=model.parameters(), grad_clip=JClip(0.5),
+                         **opt_kw)
         crit, step_cls = JCrit(), JStep
     else:
         sched = tlr.LinearWarmup(1e-3, warmup_steps=2, start_lr=2e-4,
                                  end_lr=1e-3)
         opt = AdamW(learning_rate=sched, weight_decay=0.01,
                     parameters=model.parameters(),
-                    grad_clip=ClipGradByGlobalNorm(0.5))
+                    grad_clip=ClipGradByGlobalNorm(0.5), **opt_kw)
         crit, step_cls = LlamaPretrainingCriterion(), TrainStep
     step = step_cls(model, lambda m, x: crit(m(x), x), opt)
     losses = []
@@ -171,6 +173,21 @@ def test_two_step_trajectory_matches_jax_train_step(preset, dtype):
             assert (err <= 2.5 * sum(LRS) + step).all(), n
 
 
+def test_lazy_mode_trajectory_matches_jax_train_step():
+    """AdamW(lazy_mode=True), accepted in both packages and running
+    their dense update: the two-step debug-4l fp32 trajectory against
+    the JAX TrainStep, within the fp32 limits above."""
+    jm, tm = _models("debug-4l")
+    ids = _ids(tm.config, 2, 32, seed=2)
+    jl, jp = _train("jax", jm, tm.config, ids, 2, lazy_mode=True)
+    tl, tp = _train("torch", tm, tm.config, ids, 2, lazy_mode=True)
+    for a, b in zip(tl, jl):
+        assert abs(a - b) <= 1e-6 * abs(b), (tl, jl)
+    assert sorted(tp) == sorted(jp)
+    for n in jp:
+        assert np.abs(tp[n] - jp[n]).max() <= 5e-2 * sum(LRS), n
+
+
 def test_recompute_full_gives_the_same_grads():
     torch.manual_seed(0)
     grads = []
@@ -209,8 +226,9 @@ def test_state_dict_roundtrip_replays_a_step():
 
 @pytest.mark.parametrize("knob", ["dots", "sequence_parallel", "mesh",
                                   "shard_rules", "loss_scale", "dropout",
-                                  "sdpa_dropout", "lr_ratio", "lazy_mode",
-                                  "use_multi_tensor", "weight_decay_object"])
+                                  "sdpa_dropout", "lr_ratio",
+                                  "apply_decay_param_fun",
+                                  "weight_decay_object"])
 def test_unported_knobs_raise_naming_roadmap(knob):
     import paddle_tpu_torch.ops.flash_attention as FA
     cfg = TConfig.from_preset("tiny")
@@ -236,10 +254,8 @@ def test_unported_knobs_raise_naming_roadmap(knob):
             FA.scaled_dot_product_attention_raw(q, q, q, dropout_p=0.1)
         elif knob == "lr_ratio":
             AdamW(lr_ratio=lambda p: 1.0)
-        elif knob == "lazy_mode":
-            AdamW(lazy_mode=True)
-        elif knob == "use_multi_tensor":
-            Adam(use_multi_tensor=True)
+        elif knob == "apply_decay_param_fun":
+            AdamW(apply_decay_param_fun=lambda name: True)
         elif knob == "weight_decay_object":
             AdamW(weight_decay=type("L2Decay", (), {"_coeff": 0.01})())
     with pytest.raises(ValueError):

@@ -90,6 +90,31 @@ def test_update_matches_jax_functional_update(name, multi_precision, dtype):
                 assert ok, (step, k, m)
 
 
+@pytest.mark.parametrize("name,flag", [("adam", "use_multi_tensor"),
+                                       ("adamw", "lazy_mode")])
+def test_lazy_and_multi_tensor_flags_run_the_dense_update(name, flag):
+    """`Adam(use_multi_tensor=True)` and `AdamW(lazy_mode=True)` are
+    accepted, as the JAX package accepts them, and run its one dense
+    per-parameter update: bitwise the parameters and moments of the
+    defaults after two steps."""
+    cls = AdamW if name == "adamw" else Adam
+    runs = []
+    for kw in ({}, {flag: True}):
+        opt = cls(learning_rate=1e-3, weight_decay=0.05,
+                  grad_clip=ClipGradByGlobalNorm(0.5), **kw)
+        params = {k: torch.from_numpy(v) for k, v in _tree(0, 0.02).items()}
+        state = opt.functional_init(params)
+        for step, lr in enumerate([1e-3, 7e-4], start=1):
+            grads = {k: torch.from_numpy(v) for k, v in _tree(step).items()}
+            opt.functional_update(params, grads, state, lr, step)
+        runs.append((params, state))
+    (p0, s0), (p1, s1) = runs
+    for k in SHAPES:
+        assert torch.equal(p0[k], p1[k]), k
+        for m in ("moment1", "moment2"):
+            assert torch.equal(s0[k][m], s1[k][m]), (k, m)
+
+
 def test_decay_uses_the_old_param():
     """AdamW with zero gradients and zero moments: the update is exactly
     p - lr * wd * p (the Adam part adds 0 / (0 + eps) = 0)."""

@@ -1,8 +1,9 @@
 """Kernel K4 of the PyTorch port (paddle_tpu_torch/ops/paged_attention.py):
 its plain version against the JAX package's Pallas kernel (interpret
-mode) and the gather path's `_attend`, the int8 row quantization against
-the JAX expressions, the wrapper's input checks, and — on the card only —
-the CUDA kernel against the plain version.
+mode) and the gather path's `_attend`, the CUDA kernel's split-K
+arithmetic (emulated here in plain PyTorch) against both, the int8 row
+quantization against the JAX expressions, the wrapper's input checks,
+and — on the card only — the CUDA kernel against the plain version.
 
 Inputs are made once with numpy at explicit dtypes and handed to both
 packages.  Tolerances: fp32 max abs error <= 1e-5 (the two frameworks
@@ -163,6 +164,88 @@ def test_block_edges_and_trash_tails(pos):
     np.testing.assert_array_equal(out, out2)
 
 
+def _split_k(q, pk, pv, table, pos, R):
+    """The CUDA kernel's arithmetic in plain PyTorch: each slot's rows
+    t <= pos cut into splits of R rows; per split and query head the
+    unnormalised softmax (m, l, acc) in fp32 (scores q . k / sqrt(hd),
+    probabilities kept in fp32; an int8 row dequantized as the kernel
+    does it: int8 * scale in fp32, rounded to q's dtype), then the live
+    splits merged in split order."""
+    kd = PA._split(pk)[0]
+    B, nh, hd = q.shape
+    n_kv = kd.shape[2]
+    rep = nh // n_kv
+    T = table.shape[1] * kd.shape[1]
+    k = PA.paged_view(pk, table, q.dtype).float()      # (B, T, n_kv, hd)
+    v = PA.paged_view(pv, table, q.dtype).float()
+    qg = q.float().reshape(B, n_kv, rep, hd)
+    out = torch.zeros(B, n_kv, rep, hd)
+    for b in range(B):
+        n = min(int(pos[b]) + 1, T)
+        parts = []
+        for t0 in range(0, n, R):
+            ks, vs = k[b, t0:min(t0 + R, n)], v[b, t0:min(t0 + R, n)]
+            s = torch.einsum("grd,tgd->grt", qg[b], ks) / np.float32(
+                np.sqrt(hd))
+            m = s.amax(-1)
+            e = torch.exp(s - m[..., None])
+            parts.append((m, e.sum(-1), torch.einsum("grt,tgd->grd", e, vs)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        den = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        num = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[b] = num / den[..., None]
+    dt = q.dtype if isinstance(pk, tuple) else \
+        torch.promote_types(q.dtype, kd.dtype)
+    return out.reshape(B, nh, hd).to(dt)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("R", [16, 128])
+def test_split_k_arithmetic_matches_plain_and_jax_kernel(R, pool):
+    """The kernel's design — splits of R rows, fp32 partials, merged in
+    order — at depths 0, on both sides of split edges and at the
+    table's last row, against `paged_attention_plain` and the JAX
+    Pallas kernel (interpret mode), within the module's tolerances.
+    The trash block holds 1e4: a row past pos read by a split would
+    show."""
+    bt, bmax = 16, 20
+    T = bt * bmax
+    pos = [0, R - 1, R, R + 1, 2 * R - 1, T - 1]
+    q, pk, pv, table, pos = _case(B=len(pos), bmax=bmax, N=1 + len(pos) * bmax,
+                                  bt=bt, n_kv=2, rep=4, hd=16, seed=R,
+                                  pos=pos)
+    table[3, -1] = 0                     # slot 3's last entry is trash
+    pk[0] = pv[0] = 1e4
+    dtype = "bfloat16" if pool == "int8" else pool
+    quant = pool == "int8"
+    kern, _, pools = _jax_refs(q, pk, pv, table, pos, dtype, 4, quant)
+    tq = _to_torch(q, dtype)
+    if quant:
+        (kq, ksc), (vq, vsc) = pools
+        tk = (torch.tensor(kq), torch.tensor(ksc))
+        tv = (torch.tensor(vq), torch.tensor(vsc))
+    else:
+        tk, tv = _to_torch(pk, dtype), _to_torch(pv, dtype)
+    tt, tp = torch.from_numpy(table), torch.from_numpy(pos)
+    got = _split_k(tq, tk, tv, tt, tp, R)
+    plain = PA.paged_attention_plain(tq, tk, tv, tt, tp)
+    assert got.dtype == plain.dtype
+    for name, ref in (("plain", plain.float().numpy()), ("pallas", kern)):
+        ok, err = _tol_ok(got.float().numpy(), ref, dtype)
+        assert ok, f"{pool} R={R} vs {name}: err / limit {err}"
+
+
+def test_split_rows_fit_shared_memory():
+    """Splits default to 128 rows, are cut so a split's K and V rows fit
+    64 KB (fp32 at head_dim 128: 64 rows), and are powers of two."""
+    assert PA.split_rows(128, 2) == 128
+    assert PA.split_rows(128, 1) == 128
+    assert PA.split_rows(128, 4) == 64
+    assert PA.split_rows(256, 4) == 32
+    assert PA.split_rows(96, 2, rows=100) == 64
+    assert PA.split_rows(16, 1, rows=1000) == 256
+
+
 def test_quantize_rows_match_jax():
     """quantize_kv_rows / dequantize_kv: the same fp32 expression and
     round-half-to-even on both sides, so equal inputs give equal int8
@@ -227,7 +310,9 @@ def test_wrapper_checks_raise(bad):
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_card():
     """K4 on the card against its plain version: fp32 (TF32 off),
-    bf16 and int8 pools, GQA rep 1/4/8, head_dim 64/128/256."""
+    bf16 and int8 pools, GQA rep 1/4/8, head_dim 64/128/256, the
+    default split and splits of 16 and 32 rows with depths on both
+    sides of their edges; each call twice, bitwise the same."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K4 has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,9 +321,9 @@ def test_cuda_kernel_matches_plain_on_card():
             ("float32", False, 2, 4, 128), ("bfloat16", False, 8, 4, 128),
             ("bfloat16", True, 8, 4, 128), ("float32", True, 4, 1, 64),
             ("bfloat16", False, 2, 8, 256)]:
-        q, pk, pv, table, pos = _case(B=4, bmax=6, N=30, bt=16,
+        q, pk, pv, table, pos = _case(B=8, bmax=6, N=60, bt=16,
                                       n_kv=n_kv, rep=rep, hd=hd,
-                                      pos=[0, 16, 47, 95])
+                                      pos=[0, 15, 16, 17, 31, 32, 47, 95])
         tq = _to_torch(q, dtype).to(dev)
         if quant:
             tk = quantize_kv_rows(torch.from_numpy(pk).to(dev))
@@ -247,12 +332,15 @@ def test_cuda_kernel_matches_plain_on_card():
             tk = _to_torch(pk, dtype).to(dev)
             tv = _to_torch(pv, dtype).to(dev)
         tt, tp = torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev)
-        before = PA.LAUNCHES["paged_attention"]
-        out = PA.paged_attention(tq, tk, tv, tt, tp)
-        torch.cuda.synchronize()
-        assert PA.LAUNCHES["paged_attention"] == before + 1
         ref = PA.paged_attention_plain(tq, tk, tv, tt, tp)
-        assert out.dtype == ref.dtype
-        ok, err = _tol_ok(out.float().cpu(), ref.float().cpu(), dtype)
-        assert ok, (f"{dtype} quant={quant} rep={rep} hd={hd}: "
-                    f"err / limit {err}")
+        for split in (None, 16, 32):
+            before = PA.LAUNCHES["paged_attention"]
+            out = PA.paged_attention(tq, tk, tv, tt, tp, split=split)
+            again = PA.paged_attention(tq, tk, tv, tt, tp, split=split)
+            torch.cuda.synchronize()
+            assert PA.LAUNCHES["paged_attention"] == before + 2
+            assert torch.equal(out, again), (dtype, quant, split)
+            assert out.dtype == ref.dtype
+            ok, err = _tol_ok(out.float().cpu(), ref.float().cpu(), dtype)
+            assert ok, (f"{dtype} quant={quant} rep={rep} hd={hd} "
+                        f"split={split}: err / limit {err}")
