@@ -55,19 +55,38 @@ the result line:
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path are token-exact;
   6. server   LLMServer answers three requests with the engine's tokens;
+  6b. optimizer_kernels
+              the optimizer update's two multi-tensor kernels (U1: the
+              global-norm clip's and the loss scaler's reduction; U2: the
+              Adam / AdamW update in place) against their plain versions
+              on the dense train path's own parameters (llama3-8b, 4
+              layers, 1.92 B bf16 parameters with bf16 moments, AdamW,
+              clip 1.0, one parameter without a gradient) and at
+              debug-4l in fp32 (AdamW; Adam with L2 decay under a loss
+              scale) and bf16 with fp32 moments: the global norm, every
+              element of p, m and v, bitwise over two calls, and a NaN
+              gradient under a loss scale that writes nothing; then
+              timed beside their bounds, the eager per-parameter update
+              the port ran before, and torch._fused_adamw_ /
+              torch.nn.utils.get_total_norm (yardsticks the port never
+              calls);
   7. train    Llama-3-8B at full width, 4 layers, bf16, random weights:
               6 TrainSteps (AdamW, global-norm clip) on one 2 x 2048
               batch with finite, falling loss and exactly 4 K1, 4 dQ,
-              4 dK/dV, 1 K3f and 1 K3b launches per step; step time,
-              tokens/s, MFU, peak memory; one profiled step (device
-              time by kernel family, idle share); one step with
-              recompute "full" against the same step without it; and
-              per layer, K1 / K2 against their plain versions on the
-              layer's own inputs;
+              4 dK/dV, 1 K3f, 1 K3b, 1 U1 and 1 U2 launches per step;
+              step time, tokens/s, MFU, peak memory; one profiled step
+              (device time by kernel family, the update's range, idle
+              share); one step with recompute "full" against the same
+              step without it; and per layer, K1 / K2 against their
+              plain versions on the layer's own inputs;
   8. train_parity
-              debug-4l in fp32, kernels against plain versions on the
-              card: loss, every gradient, and the parameters after two
-              TrainSteps;
+              debug-4l in fp32, kernels (the update's too) against plain
+              versions on the card: loss, every gradient, and the
+              parameters after two TrainSteps;
+  8b. loss_scale
+              debug-4l in fp32: two TrainSteps with a static loss scale
+              of 1024 against two without, and a dynamic scale whose
+              poisoned step writes nothing and halves it;
   9. moe_kernels
               the grouped matmul (K5f: forward, and transposed for the
               input gradient) and its weight gradient (K5b) against
@@ -91,7 +110,8 @@ the result line:
               ff 1408, top-4, shared expert 5632, dropless), 4 layers,
               bf16, random weights: 6 TrainSteps of llama_loss_fn (aux
               included) with finite, falling loss and exactly 4 K1, 4 dQ,
-              4 dK/dV, 1 K3f, 1 K3b, 24 K5f and 12 K5b launches per step;
+              4 dK/dV, 1 K3f, 1 K3b, 24 K5f, 12 K5b, 1 U1 and 1 U2
+              launches per step;
               step time, tokens/s, MFU (active parameters), peak memory;
               one profiled step; the loss and every gradient with
               recompute "full" against those without it; and per layer,
@@ -164,6 +184,42 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def _clock_samples():
+    """Samples the card's SM clock (MHz) and power draw (W) every 100 ms
+    while the block runs; yields a dict filled on exit with their
+    min / median / max."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=log, stderr=subprocess.DEVNULL)
+        try:
+            yield out
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.seek(0)
+            rows = []
+            for line in log.read().splitlines():
+                try:
+                    rows.append([float(x) for x in line.split(",")])
+                except ValueError:          # "[N/A]" and the like
+                    continue
+    rows = [r for r in rows if len(r) == 2]
+    for k, col in (("sm_mhz", 0), ("power_w", 1)):
+        xs = sorted(r[col] for r in rows)
+        if xs:
+            out[k] = [xs[0], xs[len(xs) // 2], xs[-1]]
+    out["samples"] = len(rows)
 
 
 def phase_env(torch):
@@ -477,6 +533,9 @@ def _serve_once(torch, model, kv_dtype):
     return report, tokens, launches
 
 
+UPDATE_RANGE = "optimizer_update"     # record_function around the update
+
+
 def _device_times(prof):
     """{kernel name: device µs} from a profiler's key averages (None
     when the profiler recorded no device activity)."""
@@ -485,7 +544,8 @@ def _device_times(prof):
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
         if us > 0 and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
+                and "CUDA" in str(evt.device_type) \
+                and evt.key != UPDATE_RANGE:     # a span, not a kernel
             out[evt.key] = out.get(evt.key, 0.0) + us
     return out or None
 
@@ -828,6 +888,17 @@ TRAIN_KERNELS = {         # name (its key in the module's LAUNCHES) ->
                             "paddle_tpu/ops/pallas_attention.py:185"),
     "softmax_xent_fwd": ("softmax_xent", "paddle_tpu/ops/pallas_ce.py:47"),
     "softmax_xent_bwd": ("softmax_xent", "paddle_tpu/ops/pallas_ce.py:89"),
+    # no Pallas kernel: the update inside the JAX step's jitted, donated
+    # program (paddle_tpu/jit/trainer.py:327-328)
+    "optimizer_reduce": ("fused_update",
+                         "paddle_tpu/nn/clip.py:82 (global norm) and "
+                         "paddle_tpu/jit/trainer.py:283-289 (unscale, "
+                         "found_inf), inside the jitted step; no Pallas "
+                         "kernel"),
+    "optimizer_update": ("fused_update",
+                         "paddle_tpu/optimizer/optimizer.py:148 "
+                         "(functional_update: Adam / AdamW) inside the "
+                         "jitted, donated step; no Pallas kernel"),
 }
 ALSO_REPLACES = {         # the tiled K2 variant (S > 4096 on the TPU)
     "flash_attention_dq": "paddle_tpu/ops/pallas_attention.py:283",
@@ -1180,7 +1251,7 @@ def phase_train_kernels(torch):
     return res
 
 
-def _train_setup(torch, cfg, lr, clip, seed, loss_fn=None):
+def _train_setup(torch, cfg, lr, clip, seed, loss_fn=None, loss_scale=None):
     """(model, TrainStep) with AdamW and a global-norm clip; the loss is
     the causal-LM criterion unless `loss_fn` is given."""
     from paddle_tpu_torch.jit import TrainStep
@@ -1194,7 +1265,8 @@ def _train_setup(torch, cfg, lr, clip, seed, loss_fn=None):
                 parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(clip))
     return model, TrainStep(model, loss_fn or (lambda m, ids: crit(m(ids),
-                                                                   ids)), opt)
+                                                                   ids)),
+                            opt, loss_scale=loss_scale)
 
 
 def _train_ids(torch, cfg, B, S, seed):
@@ -1206,22 +1278,41 @@ def _train_ids(torch, cfg, B, S, seed):
 def _train_profile(torch, step, ids, step_ms):
     """Device time of one training step by kernel family, from
     torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    update = step.optimizer.functional_update
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def ranged(*args, **kw):
+        with record_function(UPDATE_RANGE):
+            marks[0].record()
+            out = update(*args, **kw)
+            marks[1].record()
+            return out
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(ids)
-        torch.cuda.synchronize()
-        prof_ms = 1e3 * (time.perf_counter() - t0)
+    step.optimizer.functional_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(ids)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del step.optimizer.functional_update      # the class's method again
     dev = _device_times(prof)
     if dev is None:
         return {"device_time": "not measured (no device events)"}
+    # the update on the card, table copy to U2's end: CUDA events on the
+    # stream around functional_update (the profiler does not tie the
+    # ctypes launches to the record_function range)
+    range_ms = marks[0].elapsed_time(marks[1])
     families = {"k1_flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma"),
                 "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel",
                                  "flash_dq_wgmma", "flash_dkv_wgmma"),
                 "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
                 "k5_gmm": ("gmm_fwd", "gmm_drhs"),
+                "optimizer_update": ("optim_u1", "optim_u2"),
                 "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
     split = {f: 0.0 for f in families}
     split["other"] = 0.0
@@ -1238,6 +1329,7 @@ def _train_profile(torch, step, ids, step_ms):
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_step_ms": prof_ms, "device_busy_ms": busy,
             **{f"{f}_ms": v for f, v in split.items()},
+            "update_events_ms": range_ms,
             "device_idle_share": 1 - busy / step_ms,
             "device_idle_share_of_profiled_step": 1 - busy / prof_ms,
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
@@ -1308,17 +1400,19 @@ def phase_train(torch):
     torch.cuda.reset_peak_memory_stats()
     _zero_train_counts()
     losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        losses.append(step(ids).item())          # .item() synchronises
-        secs.append(time.perf_counter() - t)
+    with _clock_samples() as clocks:
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(step(ids).item())          # .item() synchronises
+            secs.append(time.perf_counter() - t)
     launches = _train_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     L = TRAIN_LAYERS
     want = {"flash_attention_fwd": L * TRAIN_STEPS,
             "flash_attention_dq": L * TRAIN_STEPS,
             "flash_attention_dkv": L * TRAIN_STEPS,
-            "softmax_xent_fwd": TRAIN_STEPS, "softmax_xent_bwd": TRAIN_STEPS}
+            "softmax_xent_fwd": TRAIN_STEPS, "softmax_xent_bwd": TRAIN_STEPS,
+            "optimizer_reduce": TRAIN_STEPS, "optimizer_update": TRAIN_STEPS}
     require(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     require(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     require(launches == want, f"train launches {launches} != {want}")
@@ -1334,7 +1428,8 @@ def phase_train(torch):
               "seq": TRAIN_S, "steps": TRAIN_STEPS, "init_s": init_s,
               "losses": losses, "step_ms_each": [1e3 * s for s in secs],
               "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
-              "peak_mem_gib": peak_gib, "launches": launches}
+              "peak_mem_gib": peak_gib, "launches": launches,
+              "clocks_during_steps": clocks}
     report.update(_train_profile(torch, step, ids, step_ms))
     emit(report)
 
@@ -1400,22 +1495,25 @@ def phase_train(torch):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """The flash, cross-entropy and grouped-matmul wrappers run their
-    plain PyTorch versions on the card inside the block."""
+    """The flash, cross-entropy, grouped-matmul and optimizer-update
+    wrappers run their plain PyTorch versions on the card inside the
+    block."""
     from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import fused_update as FU
     from paddle_tpu_torch.ops import gmm as G
     from paddle_tpu_torch.ops import softmax_xent as SX
     saved = (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
-             SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs)
+             SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs, FU.fused_update)
     FA.flash_fwd, FA.flash_bwd = FA.flash_fwd_plain, FA.flash_bwd_plain
     SX.softmax_xent_fwd = SX.softmax_xent_plain
     SX.softmax_xent_bwd = SX.softmax_xent_bwd_plain
     G.gmm_fwd, G.gmm_drhs = G.gmm_plain, G.gmm_drhs_plain
+    FU.fused_update = FU.fused_update_plain
     try:
         yield
     finally:
         (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
-         SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs) = saved
+         SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs, FU.fused_update) = saved
 
 
 PARITY_LRS = (2e-4, 6e-4)       # LinearWarmup(2e-4 -> 1e-3 over 2 steps)
@@ -1476,6 +1574,329 @@ def phase_train_parity(torch):
                 f"debug-4l loss {a} vs plain {b}")
     require(g_share <= 1.0, f"debug-4l grads: {g_share} x the limit")
     require(p_err <= p_limit, f"debug-4l params after 2 steps: {p_err}")
+
+
+def phase_loss_scale(torch):
+    """debug-4l in fp32 on the card, the kernels on: two TrainSteps with
+    a static loss scale of 1024 against two without (each loss within
+    1e-6 relative, every parameter within rtol 2e-5 / atol 1e-6, the
+    limits of tests/test_amp_scaler.py); then a dynamic scale (256, x2
+    after 2 good steps, /2 after 1 bad one): two good steps double it, a
+    poisoned step (loss x inf) leaves every parameter and moment bitwise
+    as it was and halves it."""
+    from types import SimpleNamespace
+    from paddle_tpu_torch.models import (LlamaConfig,
+                                         LlamaPretrainingCriterion)
+    cfg = LlamaConfig.from_preset("debug-4l")
+    ids = _train_ids(torch, cfg, 2, 128, seed=7)
+    _zero_train_counts()
+    runs = {}
+    for ls in (None, 1024.0):
+        model, step = _train_setup(torch, cfg, 1e-3, 0.5, seed=1,
+                                   loss_scale=ls)
+        losses = [step(ids).item() for _ in range(2)]
+        runs[ls] = (losses, {n: p.detach().clone()
+                             for n, p in step.params.items()})
+        del model, step
+    (l0, p0), (l1, p1) = runs[None], runs[1024.0]
+    loss_ok = all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(l1, l0))
+    param_ok = all(torch.allclose(p1[n], p0[n], rtol=2e-5, atol=1e-6)
+                   for n in p0)
+    p_err = max((p1[n] - p0[n]).abs().max().item() for n in p0)
+
+    poison = {"on": False}
+    crit = LlamaPretrainingCriterion()
+
+    def loss_fn(m, x):
+        loss = crit(m(x), x)
+        return loss * float("inf") if poison["on"] else loss
+    scaler = SimpleNamespace(_scale=256.0, _dynamic=True, _incr_ratio=2.0,
+                             _decr_ratio=0.5, _incr_every=2, _decr_every=1)
+    model, step = _train_setup(torch, cfg, 1e-3, 0.5, seed=1,
+                               loss_fn=loss_fn, loss_scale=scaler)
+    scales = []
+    for _ in range(2):
+        step(ids)
+        scales.append(step.scaler_state["scale"].item())
+    before = step.state_dict()
+    poison["on"] = True
+    bad_loss = step(ids).item()
+    scales.append(step.scaler_state["scale"].item())
+    kept = all(torch.equal(p, before["params"][n])
+               for n, p in step.params.items()) and all(
+        torch.equal(t, before["opt_state"][n][k])
+        for n, st in step.opt_state.items() for k, t in st.items())
+    counts = _train_counts()
+    del model, step, before
+    torch.cuda.empty_cache()
+    emit({"phase": "loss_scale", "model": "debug-4l", "dtype": "float32",
+          "losses_unscaled": l0, "losses_static_1024": l1,
+          "param_max_abs_diff_static_vs_unscaled": p_err,
+          "dynamic_scales": scales, "poisoned_loss": bad_loss,
+          "poisoned_step_writes_nothing": kept,
+          "launches": {k: counts[k] for k in OPT_KERNELS},
+          "tolerance": "static vs none: loss 1e-6 rel, params rtol 2e-5 / "
+                       "atol 1e-6; poisoned step: params and moments "
+                       "bitwise; scales 256 -> 512 -> 256"})
+    require(loss_ok and param_ok,
+            f"static loss scale: losses {l1} vs {l0}, params {p_err}")
+    require(scales == [256.0, 512.0, 256.0], f"dynamic scales {scales}")
+    require(kept and not math.isfinite(bad_loss),
+            "a poisoned step changed the parameters or moments")
+    require(counts["optimizer_reduce"] == counts["optimizer_update"] == 7,
+            f"loss_scale launches {counts}")
+
+
+# --------------------------------------------------------------------------
+# the optimizer update: U1 (the clip's and the loss scaler's reduction)
+# and U2 (the Adam / AdamW update), two multi-tensor kernels
+# --------------------------------------------------------------------------
+
+OPT_KERNELS = ("optimizer_reduce", "optimizer_update")
+OPT_HP = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3)
+OPT_TOL_TEXT = ("U1: global norm |err| <= 1e-06 x the plain norm, found_inf "
+                "equal; U2 given U1's clip scale, inv scale and found_inf: "
+                "every element of p, m and v within 1 ulp of the plain "
+                "value's dtype (bitwise expected: the same rounded "
+                "operations in the same order)")
+# U2's operations per element (unscale, clip, the moments, bias
+# corrections, sqrt, the update, the decay); U1's (unscale, square-add)
+OPT_FLOPS = {"optimizer_reduce": 2, "optimizer_update": 20}
+
+
+def _ulp_share(torch, got, want):
+    """max over elements of |got - want| in ulps of `want`'s dtype at
+    |want| (its smallest normal step at 0)."""
+    fi = torch.finfo(want.dtype)
+    w = want.float().abs().clamp_min(fi.tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(w))) * fi.eps
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def _opt_inputs(torch, model, moment_dtype, gen, none=()):
+    """The model's own parameters (updated in place) with gradients and
+    moments from `gen`; parameters named in `none` get no gradient."""
+    names = [n for n, _ in model.named_parameters()]
+    ps = [p.detach() for p in model.parameters()]
+
+    def rnd(p, scale, dtype):
+        return torch.randn(p.shape, generator=gen, device="cuda",
+                           dtype=dtype).mul_(scale)
+    gs = [None if n in none else rnd(p, 1e-2, p.dtype)
+          for n, p in zip(names, ps)]
+    ms = [rnd(p, 1e-3, moment_dtype or p.dtype) for p in ps]
+    vs = [rnd(p, 1e-3, moment_dtype or p.dtype).square_() for p in ps]
+    return names, ps, gs, ms, vs
+
+
+def _opt_check(torch, ps, gs, ms, vs, decoupled, clip, scale):
+    """U1 and U2 against their plain versions on the same inputs, twice
+    for bitwise repeatability, then a call with a NaN gradient under a
+    loss scale that must write nothing.  Leaves ps, ms, vs updated."""
+    from paddle_tpu_torch.ops import fused_update as FU
+    hp = dict(OPT_HP, decoupled=decoupled)
+    orig = [t.clone() for t in ps + ms + vs]
+    n = len(ps)
+    out = FU.fused_update(ps, gs, ms, vs, clip_norm=clip, scale=scale, **hp)
+    ref = FU.reduce_plain(gs, scale, clip)
+    norm, pnorm = out["global_norm"].item(), ref["global_norm"].item()
+    inv = 1.0 if scale is None else 1.0 / scale.item()
+    norm64 = math.sqrt(sum((g.double() * inv).square().sum().item()
+                           for g in gs if g is not None))
+    found = None if scale is None else bool(out["found_inf"].item())
+    plain = [t.clone() for t in orig]
+    FU.update_plain(plain[:n], gs, plain[n:2 * n], plain[2 * n:],
+                    clip_scale=out["clip_scale"], inv_scale=out["inv_scale"],
+                    found_inf=out["found_inf"], **hp)
+    torch.cuda.synchronize()
+    ulps = max(_ulp_share(torch, a, b) for a, b in zip(ps + ms + vs, plain))
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(ps + ms + vs, plain))
+    del plain
+    again = [t.clone() for t in orig]
+    del orig
+    FU.fused_update(again[:n], gs, again[n:2 * n], again[2 * n:],
+                    clip_norm=clip, scale=scale, **hp)
+    bitwise = all(torch.equal(a, b) for a, b in zip(ps + ms + vs, again))
+    # a NaN gradient under a loss scale (1.0 where the case has none)
+    i = next(k for k, g in enumerate(gs) if g is not None)
+    bad = list(gs)
+    bad[i] = gs[i].clone()
+    bad[i].view(-1)[bad[i].numel() // 2] = float("nan")
+    one = scale if scale is not None else torch.ones((), device="cuda")
+    skip = FU.fused_update(ps, bad, ms, vs, clip_norm=clip, scale=one, **hp)
+    skipped = bool(skip["found_inf"].item())
+    kept = all(torch.equal(a, b) for a, b in zip(ps + ms + vs, again))
+    del again, bad
+    torch.cuda.empty_cache()
+    return {"global_norm": norm, "global_norm_plain": pnorm,
+            "global_norm_rel_err": abs(norm - pnorm) / pnorm,
+            "global_norm_fp64": norm64,
+            "global_norm_rel_err_fp64": abs(norm - norm64) / norm64,
+            "global_norm_plain_rel_err_fp64": abs(pnorm - norm64) / norm64,
+            "found_inf": found, "u2_max_abs_err": err,
+            "u2_max_err_ulps": ulps, "bitwise_twice": bitwise,
+            "nan_gradient_found_inf": skipped,
+            "nan_gradient_writes_nothing": kept}
+
+
+def _opt_require(case, r):
+    require(r["global_norm_rel_err"] <= 1e-6,
+            f"U1 {case}: global norm {r['global_norm']} vs plain "
+            f"{r['global_norm_plain']}")
+    require(r["found_inf"] in (None, False), f"U1 {case}: found_inf set")
+    require(r["u2_max_err_ulps"] <= 1.0,
+            f"U2 {case}: {r['u2_max_err_ulps']} ulps from plain")
+    require(r["bitwise_twice"], f"U1 / U2 {case}: two calls differ")
+    require(r["nan_gradient_found_inf"] and r["nan_gradient_writes_nothing"],
+            f"U2 {case}: a NaN gradient under a loss scale wrote")
+
+
+def phase_optimizer_kernels(torch):
+    """U1 and U2 against their plain versions: the dense train path's
+    own parameters (llama3-8b, TRAIN_LAYERS layers, bf16, bf16 moments,
+    AdamW, clip 1.0; one parameter without a gradient), and at debug-4l
+    fp32 (AdamW; Adam with L2 decay, a loss scale and a parameter
+    without a gradient) and bf16 with fp32 moments (multi_precision);
+    then, at the dense shapes, U1 + U2 timed in turns with the plain
+    version, each kernel alone, the eager per-parameter update
+    the port ran before (the clip, then update_rule op by op),
+    torch._fused_adamw_ (a yardstick the port never calls; no clip) and
+    torch.nn.utils.get_total_norm (U1's), beside the bounds."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import fused_update as FU
+    from paddle_tpu_torch.optimizer import AdamW
+    kind = torch.cuda.get_device_name(0)
+    saved = _train_counts()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = {}
+    for label, preset, dtype, mdt, decoupled, scale in (
+            ("debug-4l fp32 AdamW", "debug-4l", "float32", None, True,
+             None),
+            ("debug-4l fp32 Adam (L2), loss scale 1024", "debug-4l",
+             "float32", None, False, 1024.0),
+            ("debug-4l bf16, fp32 moments (multi_precision), loss scale "
+             "1024", "debug-4l", "bfloat16", torch.float32, True, 1024.0)):
+        model = LlamaForCausalLM(LlamaConfig.from_preset(preset,
+                                                         dtype=dtype),
+                                 device="cuda", seed=2)
+        _, ps, gs, ms, vs = _opt_inputs(torch, model, mdt, gen,
+                                        none=("llama.norm.weight",))
+        st = None
+        if scale is not None:
+            st = torch.tensor(scale, device="cuda")
+            gs = [None if g is None else g * scale for g in gs]
+        cases[label] = _opt_check(torch, ps, gs, ms, vs, decoupled, 1.0, st)
+        del model, ps, gs, ms, vs
+
+    cfg = LlamaConfig.from_preset("llama3-8b",
+                                  num_hidden_layers=TRAIN_LAYERS)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    names, ps, gs, ms, vs = _opt_inputs(torch, model, None, gen,
+                                        none=("llama.norm.weight",))
+    label = (f"llama3-8b {TRAIN_LAYERS} layers bf16, bf16 moments, AdamW, "
+             f"clip 1.0")
+    cases[label] = _opt_check(torch, ps, gs, ms, vs, True, 1.0, None)
+    for key, r in cases.items():
+        emit({"phase": "optimizer_kernels", "case": key,
+              "tolerance": OPT_TOL_TEXT, **r})
+        _opt_require(key, r)
+
+    # ---- times at the dense train path's shapes
+    hp = dict(OPT_HP, decoupled=True)
+    fused_ms, plain_ms, turns = _in_turns(
+        torch, lambda: FU.fused_update_plain(ps, gs, ms, vs, clip_norm=1.0,
+                                             **hp),
+        lambda: FU.fused_update(ps, gs, ms, vs, clip_norm=1.0, **hp), 3)
+    table, chunks = FU._table(ps, gs, ms, vs)
+    dev = ps[0].device
+    red = FU._reduce(dev, table, chunks, None, 1.0)
+    with _clock_samples() as clocks:
+        kern_ms = {
+            "optimizer_reduce": _time_ms(torch, lambda i: FU._reduce(
+                dev, table, chunks, None, 1.0), 1, 10),
+            "optimizer_update": _time_ms(torch, lambda i: FU._update(
+                dev, table, chunks, red, use_clip=True, use_scale=False,
+                **hp), 1, 10)}
+    u1 = FU.reduce_plain(gs, None, 1.0)
+    plain_part = {
+        "optimizer_reduce": _time_ms(torch, lambda i: FU.reduce_plain(
+            gs, None, 1.0), 1, 3),
+        "optimizer_update": _time_ms(torch, lambda i: FU.update_plain(
+            ps, gs, ms, vs, clip_scale=u1["clip_scale"], **hp), 1, 3)}
+    opt = AdamW(learning_rate=OPT_HP["lr"],
+                weight_decay=OPT_HP["weight_decay"],
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    params = dict(zip(names, ps))
+    grads = dict(zip(names, gs))
+    state = {n: {"moment1": m, "moment2": v}
+             for n, m, v in zip(names, ms, vs)}
+    eager_ms = _time_ms(torch, lambda i: opt.per_param_update(
+        params, grads, state, OPT_HP["lr"], OPT_HP["step"]), 1, 3)
+    del opt, params, grads, state
+    torch.cuda.empty_cache()
+    live = [k for k, g in enumerate(gs) if g is not None]
+    lib = {}
+    try:
+        steps = [torch.tensor(float(OPT_HP["step"]), device="cuda")
+                 for _ in live]
+        lib["optimizer_update"] = _time_ms(torch, lambda i: (
+            torch._fused_adamw_(
+                [ps[k] for k in live], [gs[k] for k in live],
+                [ms[k] for k in live], [vs[k] for k in live], [], steps,
+                lr=OPT_HP["lr"], beta1=OPT_HP["beta1"],
+                beta2=OPT_HP["beta2"],
+                weight_decay=OPT_HP["weight_decay"], eps=OPT_HP["eps"],
+                amsgrad=False, maximize=False)), 1, 5)
+    except Exception as e:          # a yardstick: report, do not fail
+        lib["optimizer_update"] = None
+        lib["optimizer_update_error"] = repr(e)[:200]
+    total_norm = getattr(torch.nn.utils, "get_total_norm", None)
+    lib["optimizer_reduce"] = None if total_norm is None else _time_ms(
+        torch, lambda i: total_norm([gs[k] for k in live]), 1, 5)
+
+    n_params = sum(p.numel() for p in ps)
+    g_bytes = _nbytes(*(gs[k] for k in live))
+    u2_bytes = 2 * _nbytes(*ps, *ms, *vs) + g_bytes
+    bounds = {"optimizer_reduce": _bound_ms(
+                  kind, OPT_FLOPS["optimizer_reduce"] * n_params, g_bytes,
+                  "float32"),
+              "optimizer_update": _bound_ms(
+                  kind, OPT_FLOPS["optimizer_update"] * n_params, u2_bytes,
+                  "float32")}
+    dense = cases[label]
+    res = {}
+    for name in OPT_KERNELS:
+        res[name] = {
+            "max_abs_err": (abs(dense["global_norm"]
+                                - dense["global_norm_plain"])
+                            if name == "optimizer_reduce"
+                            else dense["u2_max_abs_err"]),
+            "tolerance": OPT_TOL_TEXT, "ms": kern_ms[name],
+            "timing": "CUDA events over 10 launches of the kernel alone",
+            "plain_ms": plain_part[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": lib[name],
+            "library": ("torch._fused_adamw_ (bf16 states, no clip)"
+                        if name == "optimizer_update" else
+                        "torch.nn.utils.get_total_norm")}
+    emit({"phase": "optimizer_kernels",
+          "shape": f"llama3-8b {TRAIN_LAYERS} layers: {len(ps)} tensors, "
+                   f"{n_params} parameters, bf16 p / g / m / v",
+          "fused_ms": fused_ms, "fused_plain_ms": plain_ms,
+          "fused_turns_ms": turns, "eager_per_param_ms": eager_ms,
+          "clocks_during_kernel_timing": clocks,
+          "bound_ms": bounds["optimizer_reduce"][0]
+          + bounds["optimizer_update"][0],
+          **{f"{k}_library_error": v for k, v in lib.items()
+             if k.endswith("_error")},
+          "kernels": res})
+    del model, ps, gs, ms, vs, u1, table, red
+    torch.cuda.empty_cache()
+    _set_train_counts(saved)          # checks and timings do not count
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1907,18 +2328,21 @@ def phase_moe_train(torch):
     torch.cuda.reset_peak_memory_stats()
     _zero_all_counts()
     losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        losses.append(step(ids).item())          # .item() synchronises
-        secs.append(time.perf_counter() - t)
+    with _clock_samples() as clocks:
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(step(ids).item())          # .item() synchronises
+            secs.append(time.perf_counter() - t)
     launches = _all_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     L, n = MOE_LAYERS, TRAIN_STEPS
     # per layer and step: K1, dQ, dK/dV once; K5f 3x forward (gate, up,
-    # down) + 3x dlhs; K5b 3x (w_gate, w_up, w_down); K3 once per step
+    # down) + 3x dlhs; K5b 3x (w_gate, w_up, w_down); K3, U1 and U2 once
+    # per step
     want = {"flash_attention_fwd": L * n, "flash_attention_dq": L * n,
             "flash_attention_dkv": L * n, "softmax_xent_fwd": n,
-            "softmax_xent_bwd": n, "gmm_fwd": 6 * L * n,
+            "softmax_xent_bwd": n, "optimizer_reduce": n,
+            "optimizer_update": n, "gmm_fwd": 6 * L * n,
             "gmm_drhs": 3 * L * n}
     require(all(math.isfinite(x) for x in losses), f"moe losses {losses}")
     require(losses[-1] < losses[0], f"moe loss did not fall: {losses}")
@@ -1936,7 +2360,7 @@ def phase_moe_train(torch):
               "steps": n, "init_s": init_s, "losses": losses,
               "step_ms_each": [1e3 * s for s in secs], "step_ms": step_ms,
               "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gib": peak_gib,
-              "launches": launches}
+              "launches": launches, "clocks_during_steps": clocks}
     report.update(_train_profile(torch, step, ids, step_ms))
     emit(report)
 
@@ -2104,8 +2528,10 @@ def main() -> int:
     tokens, parity_launches = phase_parity(torch, debug)
     phase_server(torch, debug, tokens)
     del debug
+    opt_kernels = phase_optimizer_kernels(torch)
     train_launches = phase_train(torch)
     phase_train_parity(torch)
+    phase_loss_scale(torch)
     moe_kernels = phase_moe_kernels(torch)
     moe_launches = phase_moe_train(torch)
     phase_moe_parity(torch)
@@ -2150,6 +2576,15 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("variant", "cuda_core_ms")
                if key in r}})
+    for name, r in opt_kernels.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/optimizer_update.cu",
+            "replaces": TRAIN_KERNELS[name][1],
+            "launches": train_launches[name],
+            "launches_path": f"train llama3-8b, {TRAIN_LAYERS} layers, "
+                             f"{TRAIN_STEPS} steps (one a step)",
+            "launches_moe_train": moe_launches[name], **r})
     for name, r in moe_kernels.items():
         entries.append({
             "name": name, "route": "cuda",

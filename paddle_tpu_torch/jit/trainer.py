@@ -3,12 +3,22 @@ on one device.
 
 Where the JAX package traces (model, loss_fn, optimizer) into one jitted
 step that donates the parameter and optimizer buffers, the port runs the
-same step eagerly: the forward and the loss, `loss.backward()`, the
-global-norm clip and the optimizer rule, whose new values are written
-into the model's own parameters in place (the counterpart of donation:
-no second copy of the model is held).  The step counter is incremented
-before the update (bias correction starts at 1) and lr is read from
-`optimizer.get_lr()` on the host before each step, as in the JAX step.
+same step eagerly: the forward and the loss, `loss.backward()`, then the
+global-norm clip and the optimizer rule as one fused update
+(`optimizer.functional_update`: on the card two multi-tensor kernels),
+which writes the new values into the model's own parameters and the
+moments in place (the counterpart of donation: no second copy of the
+model is held).  The step counter is incremented before the update (bias
+correction starts at 1) and lr is read from `optimizer.get_lr()` on the
+host before each step, as in the JAX step.
+
+fp16-style loss scaling (`loss_scale=`) follows the JAX step
+(`paddle_tpu/jit/trainer.py:163-182`, `:278-309`): the fp32 loss is
+scaled before `backward()`; the fused update unscales the gradients,
+reduces `found_inf` over all of them and, when it is set, leaves params
+and moments as they were; then `scaler_state` ({"scale": fp32, "good",
+"bad": int32}, 0-dim tensors on the device) is updated by the JAX
+formulas.  Nothing in the step reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -35,10 +45,6 @@ class TrainStep:
                 "sharded training (mesh, shard_rules, batch_spec, "
                 "opt_shard_rules) is not ported yet (ROADMAP: queue 1 "
                 "item 5, multi-GPU)")
-        if loss_scale is not None:
-            raise NotImplementedError(
-                "fp16 loss scaling is not ported yet (ROADMAP: queue 1 "
-                "item 7, amp)")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -47,6 +53,35 @@ class TrainStep:
         self.buffers = dict(model.named_buffers())
         self.opt_state = optimizer.functional_init(self.params)
         self.step_i = 0
+        self._scaler_cfg = self._parse_loss_scale(loss_scale)
+        self.scaler_state = {}
+        if self._scaler_cfg is not None:
+            dev = self._device()
+            self.scaler_state = {
+                "scale": torch.tensor(self._scaler_cfg["init"],
+                                      dtype=torch.float32, device=dev),
+                "good": torch.zeros((), dtype=torch.int32, device=dev),
+                "bad": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    @staticmethod
+    def _parse_loss_scale(loss_scale):
+        """None | float (static) | 'dynamic' | GradScaler -> cfg dict."""
+        if loss_scale is None:
+            return None
+        if isinstance(loss_scale, (int, float)):
+            return {"init": float(loss_scale), "dynamic": False,
+                    "incr_ratio": 2.0, "decr_ratio": 0.5,
+                    "incr_every": 1000, "decr_every": 2}
+        if loss_scale == "dynamic":
+            return {"init": 2.0 ** 15, "dynamic": True, "incr_ratio": 2.0,
+                    "decr_ratio": 0.5, "incr_every": 1000, "decr_every": 2}
+        # an object carrying a GradScaler's knobs
+        return {"init": float(loss_scale._scale),
+                "dynamic": bool(loss_scale._dynamic),
+                "incr_ratio": float(loss_scale._incr_ratio),
+                "decr_ratio": float(loss_scale._decr_ratio),
+                "incr_every": int(loss_scale._incr_every),
+                "decr_every": int(loss_scale._decr_every)}
 
     def _device(self):
         return next(iter(self.params.values())).device
@@ -61,14 +96,35 @@ class TrainStep:
         self.step_i += 1
         for p in self.params.values():
             p.grad = None
-        loss = self.loss_fn(self.model, *batch)
-        loss.backward()
+        loss = self.loss_fn(self.model, *batch).to(torch.float32)
+        scale = self.scaler_state.get("scale")
+        (loss if scale is None else loss * scale).backward()
         grads = {n: p.grad for n, p in self.params.items()}
         for p in self.params.values():
             p.grad = None
-        self.optimizer.functional_update(self.params, grads, self.opt_state,
-                                         lr, self.step_i)
-        return loss.detach().to(torch.float32)
+        out = self.optimizer.functional_update(
+            self.params, grads, self.opt_state, lr, self.step_i, scale=scale)
+        if scale is not None:
+            self._update_scaler(out["found_inf"])
+        return loss.detach()
+
+    @torch.no_grad()
+    def _update_scaler(self, found_inf):
+        """The JAX step's scaler update, on the device."""
+        cfg, st = self._scaler_cfg, self.scaler_state
+        zero = torch.zeros_like(st["good"])
+        good = torch.where(found_inf, zero, st["good"] + 1)
+        bad = torch.where(found_inf, st["bad"] + 1, zero)
+        s = st["scale"]
+        if cfg["dynamic"]:
+            grow = good >= cfg["incr_every"]
+            shrink = bad >= cfg["decr_every"]
+            s = torch.where(grow, s * cfg["incr_ratio"], s)
+            s = torch.where(shrink, torch.clamp_min(s * cfg["decr_ratio"],
+                                                    1.0), s)
+            good = torch.where(grow, zero, good)
+            bad = torch.where(shrink, zero, bad)
+        self.scaler_state = {"scale": s, "good": good, "bad": bad}
 
     def sync_to_model(self):
         """A no-op: the step updates the model's parameters in place, so
@@ -77,12 +133,16 @@ class TrainStep:
 
     @torch.no_grad()
     def state_dict(self):
-        """A snapshot (copies: later steps update the model in place)."""
-        return {"params": {k: t.clone() for k, t in self.params.items()},
-                "buffers": {k: t.clone() for k, t in self.buffers.items()},
-                "opt_state": {k: {n: v.clone() for n, v in st.items()}
-                              for k, st in self.opt_state.items()},
-                "step": self.step_i}
+        """A snapshot (copies: later steps update the model in place);
+        with a loss scale also "scaler", as the JAX step lays it out."""
+        sd = {"params": {k: t.clone() for k, t in self.params.items()},
+              "buffers": {k: t.clone() for k, t in self.buffers.items()},
+              "opt_state": {k: {n: v.clone() for n, v in st.items()}
+                            for k, st in self.opt_state.items()},
+              "step": self.step_i}
+        if self.scaler_state:
+            sd["scaler"] = {k: t.clone() for k, t in self.scaler_state.items()}
+        return sd
 
     @torch.no_grad()
     def set_state_dict(self, sd):
@@ -98,3 +158,8 @@ class TrainStep:
                 for n, v in st.items()}
             for k, st in sd["opt_state"].items()}
         self.step_i = int(sd["step"])
+        if "scaler" in sd and self._scaler_cfg is not None:
+            self.scaler_state = {
+                k: torch.as_tensor(v).to(device=self._device(),
+                                         dtype=self.scaler_state[k].dtype)
+                for k, v in sd["scaler"].items()}

@@ -1,11 +1,17 @@
 """Optimizer base — the port of `paddle_tpu/optimizer/optimizer.py`.
 
 Each optimizer is a rule (`init_state` / `update_rule`) on tensors, as
-in the JAX package; `functional_update` applies it to {name: param}
-and {name: grad} for `jit.trainer.TrainStep`.  Where the JAX step returns
+in the JAX package.  `functional_update` updates {name: param} from
+{name: grad} for `jit.trainer.TrainStep`: for Adam and AdamW through
+`ops.fused_update`, two multi-tensor kernels on the card (U1: the
+global-norm clip's and the loss scaler's reduction; U2: the update) that
+apply the same rule in one pass over memory.  `per_param_update` applies
+`update_rule` parameter by parameter, op by op: the documented rule, and
+the reference the fused update is held to.  Where the JAX step returns
 new arrays into donated buffers, the port writes the new values into the
-parameters in place (under `no_grad`), so a step never holds two copies
-of the model.
+parameters and moments in place (under `no_grad`), so a step never holds
+two copies of the model.  A gradient of None (a parameter the loss does
+not reach) is a zero gradient, as the JAX step's AD gives it.
 
 Rounding follows the JAX `TrainStep` (which runs with 64-bit types
 enabled and passes lr as an fp32 array and the step as an int32 one):
@@ -22,15 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import fused_update as FU
+from ..ops.fused_update import _weak
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
-
-
-def _weak(value: float, dtype) -> float:
-    """A Python constant as JAX applies it to a `dtype` tensor: rounded
-    to that dtype first."""
-    return torch.tensor(value, dtype=dtype).item()
 
 
 class Optimizer:
@@ -75,11 +77,37 @@ class Optimizer:
         """{name: param} -> {name: state dict}."""
         return {name: self.init_state(p) for name, p in params.items()}
 
+    def _fused_hparams(self) -> dict:
+        """The keywords of `ops.fused_update` for this rule."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no fused update: only Adam and "
+            f"AdamW are ported")
+
     @torch.no_grad()
     def functional_update(self, params: dict, grads: dict, opt_state: dict,
-                          lr: float, step: int) -> None:
-        """One update of every parameter, in place; `opt_state` entries
-        are replaced by the new state."""
+                          lr: float, step: int, scale=None) -> dict:
+        """One update of every parameter and its moments, in place, with
+        the global-norm clip and, given `scale` (a 0-dim fp32 loss scale
+        on the params' device), the loss scaler's unscale and skip:
+        `ops.fused_update`.  Returns its {"global_norm", "clip_scale",
+        "inv_scale", "found_inf"}."""
+        names = list(params)
+        clip = self._grad_clip.clip_norm if self._grad_clip is not None \
+            else None
+        return FU.fused_update(
+            [params[n] for n in names], [grads.get(n) for n in names],
+            [opt_state[n]["moment1"] for n in names],
+            [opt_state[n]["moment2"] for n in names], lr=lr, step=step,
+            clip_norm=clip, scale=scale, **self._fused_hparams())
+
+    @torch.no_grad()
+    def per_param_update(self, params: dict, grads: dict, opt_state: dict,
+                         lr: float, step: int) -> None:
+        """The same update as `functional_update` (without a loss scale),
+        op by op: the clip over all gradients, then `update_rule` per
+        parameter; `opt_state` entries are replaced by the new state."""
+        grads = {n: g if g is not None else torch.zeros_like(params[n])
+                 for n, g in grads.items()}
         if self._grad_clip is not None:
             grads = self._grad_clip._clip_arrays(grads)
         lr32 = np.float32(lr)

@@ -12,7 +12,8 @@ __all__ = ["Adam", "AdamW"]
 
 class Adam(Optimizer):
     """`lazy_mode` and `use_multi_tensor` are accepted and, as in the JAX
-    package, change nothing: every update is dense and per parameter."""
+    package, change nothing: every update is dense (and, on the card,
+    always the multi-tensor kernels of `ops.fused_update`)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -29,6 +30,11 @@ class Adam(Optimizer):
                                        device=param.device),
                 "moment2": torch.zeros(param.shape, dtype=dtype,
                                        device=param.device)}
+
+    def _fused_hparams(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "eps": self._eps, "weight_decay": self._wd,
+                "decoupled": self.decoupled_weight_decay}
 
     def update_rule(self, param, grad, state, lr, step):
         dt = state["moment1"].dtype

@@ -111,10 +111,11 @@ def test_forward_loss_and_every_grad_match_jax(preset, tied):
         assert err <= 1e-4 * np.abs(jg[n]).max(), (n, err)
 
 
-def _train(pkg, model, cfg, ids, steps, **opt_kw):
+def _train(pkg, model, cfg, ids, steps, loss_fn=None, **opt_kw):
     """`steps` TrainSteps of AdamW(LinearWarmup) + global-norm clip in
-    package `pkg` ("jax" or "torch"), AdamW taking `opt_kw` besides;
-    returns (losses, {name: param})."""
+    package `pkg` ("jax" or "torch") on `loss_fn` (default: the causal-LM
+    criterion), AdamW taking `opt_kw` besides; returns (losses, {name:
+    param})."""
     if pkg == "jax":
         import paddle_tpu.optimizer as jopt
         from paddle_tpu.jit.trainer import TrainStep as JStep
@@ -133,7 +134,7 @@ def _train(pkg, model, cfg, ids, steps, **opt_kw):
                     parameters=model.parameters(),
                     grad_clip=ClipGradByGlobalNorm(0.5), **opt_kw)
         crit, step_cls = LlamaPretrainingCriterion(), TrainStep
-    step = step_cls(model, lambda m, x: crit(m(x), x), opt)
+    step = step_cls(model, loss_fn or (lambda m, x: crit(m(x), x)), opt)
     losses = []
     for _ in range(steps):
         losses.append(float(np.asarray(step(ids)._data if pkg == "jax"
@@ -188,6 +189,33 @@ def test_lazy_mode_trajectory_matches_jax_train_step():
         assert np.abs(tp[n] - jp[n]).max() <= 5e-2 * sum(LRS), n
 
 
+def test_unreached_parameter_matches_jax_train_step():
+    """A loss on the decoder's hidden states (their mean squared distance
+    to fixed random targets) that never reaches lm_head: the JAX step's AD
+    gives lm_head a zero gradient (its moments stay 0, it adds 0 to the
+    global norm, AdamW's decoupled decay still moves it); the port's
+    `.grad` is None.  Two steps against the JAX TrainStep, within the
+    fp32 limits above."""
+    import paddle_tpu as paddle
+    jm, tm = _models("debug-4l")
+    ids = _ids(tm.config, 2, 32, seed=2)
+    r = np.random.default_rng(3).normal(
+        size=(2, 32, tm.config.hidden_size)).astype(np.float32)
+    head0 = tm.lm_head.weight.detach().clone().numpy()
+    jl, jp = _train("jax", jm, tm.config, ids, 2,
+                    loss_fn=lambda m, x: ((m.llama(x) - paddle.to_tensor(r))
+                                          ** 2).mean())
+    tl, tp = _train("torch", tm, tm.config, ids, 2,
+                    loss_fn=lambda m, x: ((m.llama(x) - torch.from_numpy(r))
+                                          ** 2).mean())
+    for a, b in zip(tl, jl):
+        assert abs(a - b) <= 1e-6 * abs(b), (tl, jl)
+    assert sorted(tp) == sorted(jp)
+    for n in jp:
+        assert np.abs(tp[n] - jp[n]).max() <= 5e-2 * sum(LRS), n
+    assert not np.array_equal(tp["lm_head.weight"], head0)
+
+
 def test_recompute_full_gives_the_same_grads():
     torch.manual_seed(0)
     grads = []
@@ -225,7 +253,7 @@ def test_state_dict_roundtrip_replays_a_step():
 
 
 @pytest.mark.parametrize("knob", ["dots", "sequence_parallel", "mesh",
-                                  "shard_rules", "loss_scale", "dropout",
+                                  "shard_rules", "dropout",
                                   "sdpa_dropout", "lr_ratio",
                                   "apply_decay_param_fun",
                                   "weight_decay_object"])
@@ -241,11 +269,10 @@ def test_unported_knobs_raise_naming_roadmap(knob):
             tm = TModel(TConfig.from_preset("tiny", sequence_parallel=True),
                         device="cpu")
             tm(torch.zeros(1, 8, dtype=torch.long))
-        elif knob in ("mesh", "shard_rules", "loss_scale"):
+        elif knob in ("mesh", "shard_rules"):
             tm = TModel(cfg, device="cpu")
             TrainStep(tm, lambda m, x: m(x).sum(), AdamW(),
-                      **{knob: "dynamic" if knob == "loss_scale"
-                         else object()})
+                      **{knob: object()})
         elif knob == "dropout":
             q = torch.zeros(1, 8, 4, 16)
             FA.flash_attention_xla(q, q, q, dropout_p=0.1, training=True)
