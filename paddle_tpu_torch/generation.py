@@ -7,14 +7,16 @@ their own `torch.Generator` (one per request, seeded from
 `Request.seed`), so a request's tokens depend only on its own seed and
 step count, never on which neighbours share the batch.  The draws do
 not reproduce JAX's threefry streams; only the port's own contract is
-pinned by its tests.
+pinned by its tests.  `sample_rows` is the second half alone: the
+engine's decode graphs compute the greedy argmax on the card and the
+sampled rows are drawn after the replay.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["top_p_mask", "sample_logits_per_slot"]
+__all__ = ["top_p_mask", "sample_logits_per_slot", "sample_rows"]
 
 _NEG = -1e30
 
@@ -44,7 +46,18 @@ def sample_logits_per_slot(logits, generators, temperature, top_p, greedy):
     (B,) int64.  The all-greedy batch — the common serving case — pays
     a single argmax, no vocab sort."""
     lg = logits.to(torch.float32)
-    out = torch.argmax(lg, dim=-1)
+    return sample_rows(lg, torch.argmax(lg, dim=-1), generators,
+                       temperature, top_p, greedy)
+
+
+def sample_rows(logits, out, generators, temperature, top_p, greedy):
+    """Draw the sampled rows of `out` in place and return it: `out`
+    (B,) int64 holds the greedy argmax of `logits` (B, V) — computed
+    here by `sample_logits_per_slot`, inside the decode graph by the
+    engine — and each row that is not greedy and has a generator takes
+    one draw from its own generator.  The host branches on `greedy`
+    and `generators`, never on a device value."""
+    lg = logits.to(torch.float32)
     greedy = torch.as_tensor(greedy, dtype=torch.bool)
     rows = [i for i in range(lg.shape[0])
             if not bool(greedy[i]) and generators[i] is not None]

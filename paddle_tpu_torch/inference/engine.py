@@ -1,5 +1,5 @@
-"""Continuous-batching paged-KV decode engine — the synchronous core of
-`paddle_tpu/inference/engine.py`, in PyTorch.
+"""Continuous-batching paged-KV decode engine — the port of
+`paddle_tpu/inference/engine.py`'s single-replica core, in PyTorch.
 
     engine = LLMEngine(model, max_slots=8, max_len=1024, prefill_chunk=128)
     req = engine.submit([1, 2, 3], max_new_tokens=32)
@@ -16,31 +16,47 @@ What this slice keeps of the JAX engine:
   * a TOKEN-BUDGET iteration scheduler: each `step()` spends
     `step_token_budget` tokens, one decode token per active slot first,
     the remainder on prefill in pow-2 chunks (`prefill_chunk`); the
-    oldest mid-prefill slot always gets one chunk per step;
+    oldest mid-prefill slot always gets one chunk per step.
+    `prefill_chunk=None` is the legacy whole-bucket prefill instead:
+    each admitted prompt runs whole, padded to a pow-2 bucket, at
+    admission (float pools only);
   * ONE vectorised decode step over every slot at per-slot depths, its
     attention through the Hopper paged-attention kernel
-    (`decode_kernel="cuda"`) or the gather path (`"gather"`);
-  * per-slot sampling (`generation.sample_logits_per_slot`) with one
-    `torch.Generator` per request, so a request's tokens depend only on
-    its own seed;
+    (`decode_kernel="cuda"`, K4, with `decode_block_tile` table blocks
+    per split) or the gather path (`"gather"`).  On a CUDA model the
+    step is a CUDA graph per decode width (`programs.DecodeGraphs`, the
+    JAX engine's jitted `_step_fn`): every decode step is a replay,
+    none runs eagerly on the card, and a failed capture or replay
+    raises.  `decode_buckets=True` compacts the live slots into the
+    smallest pow-2 width that holds them (pad rows clone a live slot;
+    their duplicate K/V writes rewrite the same values);
+  * per-slot sampling with one `torch.Generator` per request, so a
+    request's tokens depend only on its own seed: greedy rows take the
+    graph's argmax, sampled rows are drawn after the replay from the
+    graph's logits (`generation.sample_rows`); a pad row never draws;
+  * the overlap driver (`overlap`): the host work of step N+1
+    (reaping, admission, prefill chunks) runs while the card computes
+    step N, whose tokens commit one `step()` later — streams are
+    bitwise those of the synchronous driver;
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
-    and the `llm_engine_*` TTFT / ITL / token metrics.
+    and the `llm_engine_*` TTFT / ITL / token / host-gap metrics.
 
 The JAX engine's other knobs (speculation, prefix cache, preemption and
-the host swap tier, tiered KV, weight-only int8, meshes, the overlap
-driver, the AOT cache, the KV fabric, SLO targets and per-request SLO
-tiers, the overload ladder, the legacy whole-bucket prefill) raise
-`NotImplementedError` naming their ROADMAP item — never silently
-ignored; the admission queue is plain FIFO.  Its bounded compile count
-has no counterpart in an eager engine.
+the host swap tier, tiered KV, weight-only int8, meshes, the AOT cache,
+the KV fabric, SLO targets and per-request SLO tiers, the overload
+ladder) raise `NotImplementedError` naming their ROADMAP item — never
+silently ignored; the admission queue is plain FIFO.  Its bounded
+compile count becomes a bound on captured graphs: `num_graphs` <=
+`len(decode_widths)`.
 
 Padding correctness: a prompt's padded tail chunk writes garbage K/V at
 rows >= its true length, and the decode step writes each slot's token
 at `pos` before attending with mask t <= pos, so a garbage row is
 always overwritten before it becomes visible — as are rows a slot's
 previous occupant left, and the garbage row the decode step writes at a
-mid-prefill slot's frontier.
+mid-prefill slot's frontier.  Under overlap the same holds in stream
+order: every chunk is queued behind the step in flight.
 """
 
 from __future__ import annotations
@@ -52,11 +68,12 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..generation import sample_logits_per_slot
+from ..generation import sample_logits_per_slot, sample_rows
 from ..models import llama_decode as D
 from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
 from .kv_pager import KVPager
+from .programs import DecodeGraphs
 
 __all__ = ["Request", "LLMEngine", "DeadlineExceeded", "QueueFull",
            "EngineUnhealthy", "ResultTimeout"]
@@ -67,7 +84,6 @@ _REQ_IDS = itertools.count()
 # that mean "off", the ROADMAP item that ports it)
 _PREEMPT = "engine sub-slice (b): preemption and the host swap tier"
 _PREFIX = "engine sub-slice (c): radix prefix cache"
-_OVERLAP = "engine sub-slice (f): overlap driver and CUDA graphs"
 _SLO = "engine sub-slice (e): SLO tiers and the overload ladder"
 _TIERED = "engine sub-slice (g): tiered KV and long context"
 _MULTI = "multi-GPU serving"
@@ -81,10 +97,8 @@ _UNPORTED = {
     "hot_window": ((None,), _TIERED),
     "prefetch_depth": ((2,), _TIERED),
     "weight_dtype": ((None, "auto"), "weight-only int8 decode path"),
-    "decode_block_tile": ((None,), _OVERLAP),
-    "decode_buckets": ((False,), _OVERLAP),
-    "overlap": (("auto", "off", False), _OVERLAP),
-    "aot_cache": ((None,), _OVERLAP),
+    "aot_cache": ((None,),
+                  "engine sub-slice (j): the AOT serving-program cache"),
     "slo_targets": ((None,), _SLO),
     "overload": ((None,), _SLO),
     "fabric": ((None,),
@@ -231,31 +245,76 @@ class _PrefillState:
         self.off = off
 
 
+class _InflightStep:
+    """A dispatched decode step whose tokens are not committed yet: its
+    token readback (a pinned host buffer and the CUDA event after its
+    copy, or the eager step's token tensor and None), the per-slot
+    request snapshot taken at dispatch (phase-A work never touches
+    decoding slots, so the snapshot stays the truth until commit), the
+    active count, and `rows`: the slot behind each compacted batch row
+    (None: the full width, row i is slot i)."""
+
+    __slots__ = ("tokens", "event", "reqs", "active", "rows")
+
+    def __init__(self, tokens, event, reqs, active, rows):
+        self.tokens = tokens
+        self.event = event
+        self.reqs = reqs
+        self.active = active
+        self.rows = rows
+
+
+def _decode_fn(state, cfg, pool, kernel, kw):
+    """The decode step over device inputs (token, pos, table) -> logits,
+    the pool written in place: what each CUDA graph records.  A closure
+    over the engine's state, not the engine, so the graphs that hold it
+    form no reference cycle with the engine."""
+    def decode_logits(token, pos, table):
+        logits, _ = D.paged_decode_step_batch(state, cfg, token, pos, pool,
+                                              table, kernel=kernel, **kw)
+        return logits
+    return decode_logits
+
+
+def _bucket_sizes(max_prompt_len, min_bucket=16):
+    """Power-of-two prefill buckets covering [1, max_prompt_len]."""
+    sizes, b = [], min_bucket
+    while b < max_prompt_len:
+        sizes.append(b)
+        b *= 2
+    sizes.append(b)
+    return tuple(sizes)
+
+
 class LLMEngine:
     """Request-in / tokens-out continuous-batching engine over a
     `LlamaForCausalLM`, on the model's device.
 
     Knobs: `max_slots`, `max_len`, `max_prompt_len` (default max_len //
-    2), `min_bucket`, `prefill_chunk` (pow-2 chunk width; required),
-    `step_token_budget` (default prefill_chunk + max_slots),
+    2), `min_bucket`, `prefill_chunk` (pow-2 chunk width, or None for
+    the whole-bucket prefill at admission), `step_token_budget`
+    (default prefill_chunk + max_slots; chunked prefill only),
     `kv_block_tokens` (default 16), `kv_blocks` (default and minimum:
     full provisioning, 1 + max_slots * ceil(max_len / kv_block_tokens)),
     `kv_dtype` (None/"auto", "bfloat16", "float32", "int8"),
     `decode_kernel` ("auto" = "cuda" on a CUDA model, "gather" on the
     CPU; "cuda" on a CPU model runs the kernel's plain version),
-    `max_queue` (None = unbounded).  Single-threaded by design; see
-    `serving.LLMServer` for the thread-safe front."""
+    `decode_block_tile` (table blocks per K4 split: split =
+    decode_block_tile * kv_block_tokens rows, a power of two in
+    [8, 256]; None = `ops.paged_attention.split_rows`),
+    `decode_buckets` (False: one decode width, max_slots; True: the
+    pow-2 widths below max_slots, plus max_slots), `overlap` ("auto" =
+    "on" on a CUDA model and "off" on the CPU, "on", "off", True,
+    False), `max_queue` (None = unbounded).  Single-threaded by design;
+    see `serving.LLMServer` for the thread-safe front."""
 
     def __init__(self, model, max_slots=4, max_len=256,
                  max_prompt_len=None, min_bucket=16, prefill_chunk=64,
                  step_token_budget=None, kv_block_tokens=16,
                  kv_blocks=None, kv_dtype=None, decode_kernel="auto",
-                 max_queue=None, **unported):
+                 decode_block_tile=None, decode_buckets=False,
+                 overlap="auto", max_queue=None, **unported):
         _reject_unported(unported)
-        if prefill_chunk is None:
-            raise NotImplementedError(
-                "prefill_chunk=None (the legacy whole-bucket prefill) is "
-                f"not ported to paddle_tpu_torch yet (ROADMAP: {_OVERLAP})")
         self.cfg = model.config
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -267,38 +326,79 @@ class LLMEngine:
         if self.max_prompt_len >= self.max_len:
             raise ValueError("max_prompt_len must leave decode headroom "
                              "below max_len")
-
-        c = int(prefill_chunk)
-        if c <= 0 or (c & (c - 1)):
-            raise ValueError("prefill_chunk must be a power of two")
-        self.prefill_chunk = c
-        lo = min(int(min_bucket), c)
-        self.chunk_sizes = tuple(lo << i for i in
-                                 range((c // lo).bit_length())
-                                 if lo << i <= c)
-        self.step_token_budget = int(step_token_budget
-                                     if step_token_budget is not None
-                                     else c + self.max_slots)
-        if self.step_token_budget <= 0:
-            raise ValueError("step_token_budget must be positive")
+        self.buckets = _bucket_sizes(self.max_prompt_len, min_bucket)
 
         if kv_dtype not in (None, "auto", "int8", "bfloat16", "float32"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} (None/'auto', "
                              f"'bfloat16', 'float32', or 'int8')")
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        if self.prefill_chunk is not None:
+            c = self.prefill_chunk
+            if c <= 0 or (c & (c - 1)):
+                raise ValueError("prefill_chunk must be a power of two")
+            lo = min(int(min_bucket), c)
+            self.chunk_sizes = tuple(lo << i for i in
+                                     range((c // lo).bit_length())
+                                     if lo << i <= c)
+            self.step_token_budget = int(step_token_budget
+                                         if step_token_budget is not None
+                                         else c + self.max_slots)
+            if self.step_token_budget <= 0:
+                raise ValueError("step_token_budget must be positive")
+        else:
+            self.chunk_sizes = ()
+            if step_token_budget is not None:
+                raise ValueError("step_token_budget requires chunked "
+                                 "prefill (prefill_chunk)")
+            if kv_dtype == "int8":
+                raise ValueError(
+                    "kv_dtype='int8' requires chunked prefill "
+                    "(prefill_chunk): the whole-bucket prefill attends a "
+                    "local float cache whose rows were never quantized")
+            self.step_token_budget = None
+
         if decode_kernel not in ("auto", "cuda", "gather"):
             raise ValueError(f"unknown decode_kernel {decode_kernel!r} "
                              "('auto', 'cuda', or 'gather')")
         self.kv_dtype = "auto" if kv_dtype is None else str(kv_dtype)
+        on_cuda = self.device.type == "cuda"
         self.decode_kernel = decode_kernel if decode_kernel != "auto" \
-            else ("cuda" if self.device.type == "cuda" else "gather")
-
-        self.state = D.collect_decode_state(model)
-        dtype = self.state["embed"].dtype
+            else ("cuda" if on_cuda else "gather")
 
         bt = int(kv_block_tokens)
         if bt <= 0:
             raise ValueError("kv_block_tokens must be positive")
         self.kv_block_tokens = bt
+        # K4's split keyword, passed only when set: None keeps the
+        # kernel's own `split_rows(...)` (the JAX engine's autotune tile)
+        self._decode_kw = {}
+        if decode_block_tile is not None:
+            split = int(decode_block_tile) * bt
+            if split < 8 or split > 256 or split & (split - 1):
+                raise ValueError(
+                    f"decode_block_tile={decode_block_tile!r} x "
+                    f"kv_block_tokens={bt} = {split} rows a split: must "
+                    f"be a power of two in [8, 256]")
+            self._decode_kw = {"split": split}
+
+        self.decode_buckets = bool(decode_buckets)
+        widths, w = [], 1
+        while self.decode_buckets and w < self.max_slots:
+            widths.append(w)
+            w *= 2
+        self.decode_widths = tuple(widths) + (self.max_slots,)
+
+        if overlap not in ("auto", "on", "off", True, False):
+            raise ValueError(f"unknown overlap {overlap!r} "
+                             "('auto', 'on', 'off', True or False)")
+        if overlap == "auto":
+            overlap = "on" if on_cuda else "off"
+        self.overlap_mode = {True: "on", False: "off"}.get(overlap, overlap)
+        self.overlap = self.overlap_mode == "on"
+
+        self.state = D.collect_decode_state(model)
+        dtype = self.state["embed"].dtype
         bmax = -(-self.max_len // bt)            # blocks per full slot
         full = 1 + self.max_slots * bmax
         self.kv_blocks = full if kv_blocks is None else int(kv_blocks)
@@ -313,7 +413,7 @@ class LLMEngine:
                                           dtype, kv_dtype=kv_dtype,
                                           device=self.device)
 
-        # host-side mirrors pushed to the device each step (tiny arrays)
+        # host-side mirrors of the per-slot decode inputs (tiny arrays)
         B = self.max_slots
         self._token = np.zeros(B, np.int32)
         self._pos = np.zeros(B, np.int32)
@@ -324,6 +424,27 @@ class LLMEngine:
         self._slots: list = [None] * B              # decoding requests
         self._prefill: dict = {}                    # slot -> _PrefillState
         self._queue: deque = deque()
+        self._inflight = None          # dispatched, uncommitted step
+        self._t_retire = None          # host-gap anchor (see metrics)
+
+        # the decode step as CUDA graphs (one per width) on a CUDA
+        # model; the CPU runs the same step eagerly
+        self._decode_logits = _decode_fn(self.state, self.cfg, self._kvpool,
+                                         self.decode_kernel, self._decode_kw)
+        self._graphs = None
+        if on_cuda:
+            self._graphs = DecodeGraphs(self._decode_logits,
+                                        self.decode_widths, bmax,
+                                        self.device)
+            # pinned staging, one set per step in flight (overlap keeps
+            # one in flight while the next is dispatched): the inputs in
+            # the graphs' flat layout, and the tokens read back
+            n = self._graphs.flat_len(B)
+            self._staging = [
+                (torch.empty(n, dtype=torch.int32, pin_memory=True),
+                 torch.empty(B, dtype=torch.int64, pin_memory=True))
+                for _ in range(2)]
+            self._n_dispatched = 0
         self._init_metrics()
 
     # -- telemetry ---------------------------------------------------------
@@ -371,12 +492,87 @@ class LLMEngine:
                                   help="tokens sampled (all requests)")
         self._m_prompt = reg.counter("prompt_tokens_total",
                                      help="true prompt tokens admitted")
+        # the host-side headline: time between a decode step's tokens
+        # reaching the host and the next decode dispatch, the window
+        # the card waits on the scheduler (idle queue waits excluded)
+        self._m_host_gap = reg.histogram(
+            "host_gap_seconds",
+            help="host time between a decode step retiring (tokens on "
+                 "the host) and the next decode dispatch (idle queue "
+                 "waits excluded)",
+            buckets=log_buckets(1e-6, 10.0, per_decade=3))
+        self._m_host_gap_last = reg.gauge(
+            "host_gap_last_seconds",
+            help="most recent host gap (instant view of the histogram)")
+        self._m_first_wait = reg.counter(
+            "first_token_waits_total",
+            help="first tokens read back while a decode step was in "
+                 "flight (overlap): on the card the read waits for that "
+                 "step")
         self._t_prev_step = None
         self._tput_ema = None
 
     def metrics(self) -> dict:
         """Snapshot of this engine's metrics registry."""
         return self._metrics.snapshot()
+
+    # -- programs ----------------------------------------------------------
+
+    @property
+    def num_graphs(self):
+        """CUDA graphs captured (one per decode width used; 0 on the
+        CPU): never more than `len(decode_widths)`."""
+        return 0 if self._graphs is None else len(self._graphs)
+
+    @property
+    def num_graph_replays(self):
+        """Decode steps run as graph replays (0 on the CPU)."""
+        return 0 if self._graphs is None else self._graphs.replays
+
+    @torch.no_grad()
+    def prepare_programs(self):
+        """The boot-time sweep: capture every decode width (on the CPU,
+        run each once eagerly), and run every prefill chunk width (or
+        whole-prefill bucket) once, all against all-trash tables and
+        pos 0, so every write lands in the trash block.  Refuses to run
+        with work in flight.  Returns {program: widths resolved}."""
+        if self.has_work:
+            raise RuntimeError("prepare_programs is a boot-time sweep; "
+                               "the engine already has work in flight")
+        trash = np.zeros(self._pager.max_blocks, np.int32)
+        for w in self.decode_widths:
+            if self._graphs is not None:
+                self._graphs.capture(w)
+            else:
+                z = torch.zeros(w, dtype=torch.int32, device=self.device)
+                self._decode_logits(z, z, torch.zeros(
+                    (w, trash.size), dtype=torch.int32, device=self.device))
+        resolved = {"decode": len(self.decode_widths)}
+        if self.prefill_chunk is not None:
+            for C in self.chunk_sizes:
+                D.paged_prefill_chunk(
+                    self.state, self.cfg,
+                    self._upload(np.zeros((1, C), np.int32)), 0,
+                    self._upload(trash), self._kvpool)
+            resolved["chunk"] = len(self.chunk_sizes)
+        else:
+            for Sb in self.buckets:
+                D.paged_prefill(
+                    self.state, self.cfg,
+                    self._upload(np.zeros((1, Sb), np.int32)),
+                    self._upload(trash), self._kvpool)
+            resolved["prefill"] = len(self.buckets)
+        return resolved
+
+    def _upload(self, a):
+        """A host array as a device tensor.  On the card: a pinned copy
+        sent without blocking, so an upload queues behind the step in
+        flight instead of waiting for it (the pinned block is not
+        reused before its copy ran)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # -- admission ---------------------------------------------------------
 
@@ -412,6 +608,12 @@ class LLMEngine:
                 f"prompt {req.prompt.size} + max_new {req.max_new_tokens} "
                 f"exceeds max_len {self.max_len}")
 
+    def _bucket_for(self, n):
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket")
+
     def _chunk_for(self, remaining):
         """Largest chunk width <= remaining (so only a prompt's tail
         chunk ever pads), else the smallest width, padded."""
@@ -439,10 +641,24 @@ class LLMEngine:
             return req
         return None
 
-    def _reap_cancelled(self):
+    def _reap_cancelled(self, decoding=True):
         """Step-boundary cancellation and deadline expiry: evict dead
-        in-flight requests, decoding or mid-prefill.  Co-batched
-        survivors never observe the eviction."""
+        in-flight requests, mid-prefill and (with `decoding`) decoding.
+        Co-batched survivors never observe the eviction.  Under overlap
+        the decoding half waits while a step is in flight: its slots
+        commit first and are reaped at that boundary
+        (`_reap_decoding`)."""
+        if decoding:
+            self._reap_decoding()
+        now = time.monotonic()
+        for slot in [s for s, ps in self._prefill.items()
+                     if ps.req.cancelled or ps.req.expired(now)]:
+            ps = self._prefill.pop(slot)
+            self._pager.release_slot(slot)
+            self._finish_dead(ps.req, "mid-prefill")
+
+    def _reap_decoding(self):
+        """The decoding-slot half of `_reap_cancelled`."""
         now = time.monotonic()
         for slot, req in enumerate(self._slots):
             if req is None or not (req.cancelled or req.expired(now)):
@@ -450,11 +666,6 @@ class LLMEngine:
             self._free_slot(slot)
             self._m_evicted.inc()
             self._finish_dead(req, f"after {len(req.tokens)} tokens")
-        for slot in [s for s, ps in self._prefill.items()
-                     if ps.req.cancelled or ps.req.expired(now)]:
-            ps = self._prefill.pop(slot)
-            self._pager.release_slot(slot)
-            self._finish_dead(ps.req, "mid-prefill")
 
     def _finish_dead(self, req, where):
         if req.cancelled:
@@ -484,8 +695,9 @@ class LLMEngine:
     def _admit(self):
         """Move queued requests into free slots: allocate the blocks
         covering prompt + first decode row (the pool is fully
-        provisioned, so allocation cannot fail) and start chunked
-        prefill at row 0."""
+        provisioned, so allocation cannot fail), then start chunked
+        prefill at row 0 — or, with `prefill_chunk=None`, run the whole
+        prompt now (`_prefill_whole`)."""
         for slot in self._free_slots():
             req = self._next_queued()
             if req is None:
@@ -496,7 +708,6 @@ class LLMEngine:
                 raise RuntimeError("KV pool exhausted despite full "
                                    "provisioning")
             self._pager.adopt(slot, got)
-            self._prefill[slot] = _PrefillState(req)
             _tr.point("req/admit", trace_id=req.trace_id, rid=req.rid,
                       slot=slot)
             # frontier row: the decode step's garbage write for this
@@ -505,9 +716,29 @@ class LLMEngine:
             self._token[slot] = 0
             self._m_admitted.inc()
             self._m_prompt.inc(L)
+            if self.prefill_chunk is None:
+                self._prefill_whole(slot, req)
+            else:
+                self._prefill[slot] = _PrefillState(req)
         self._m_queue.set(len(self._queue))
 
     # -- prefill -----------------------------------------------------------
+
+    def _prefill_whole(self, slot, req):
+        """The whole-bucket prefill (`prefill_chunk=None`): the prompt
+        padded to its pow-2 bucket in one pass, then the first token."""
+        L = req.prompt.size
+        Sb = self._bucket_for(L)
+        ids = np.zeros((1, Sb), np.int32)
+        ids[0, :L] = req.prompt
+        tc = _tr.t0()
+        x, _ = D.paged_prefill(self.state, self.cfg, self._upload(ids),
+                               self._upload(self._pager.table[slot]),
+                               self._kvpool)
+        tok = self._first_token(slot, req, x[:, L - 1])
+        _tr.end("req/prefill", tc, trace_id=req.trace_id,
+                args={"bucket": Sb})
+        self._finish_prefill(slot, req, tok)
 
     def _run_chunks(self, budget):
         """Spend the step's prefill token budget on chunks, oldest
@@ -529,10 +760,8 @@ class LLMEngine:
                 final = ps.off + C >= L
                 tc = _tr.t0()
                 x, _ = D.paged_prefill_chunk(
-                    self.state, self.cfg,
-                    torch.from_numpy(ids).to(self.device), ps.off,
-                    torch.from_numpy(self._pager.table[slot]).to(
-                        self.device), self._kvpool)
+                    self.state, self.cfg, self._upload(ids), ps.off,
+                    self._upload(self._pager.table[slot]), self._kvpool)
                 tok = self._first_token(slot, req, x[:, L - 1 - ps.off]) \
                     if final else None
                 _tr.end("req/prefill_chunk", tc, trace_id=req.trace_id,
@@ -542,14 +771,18 @@ class LLMEngine:
                 ps.off += C
                 self._pos[slot] = min(ps.off, L)
                 if final:
-                    self._finish_prefill(slot, ps, tok)
+                    del self._prefill[slot]
+                    self._finish_prefill(slot, req, tok)
                     break
             if budget <= 0:
                 break
 
     def _first_token(self, slot, req, h_last):
         """Sample the first generated token from the prompt's last row
-        hidden state (1, D), seeding the request's own generator."""
+        hidden state (1, D), seeding the request's own generator.  The
+        read of the token waits for everything queued before it — under
+        overlap, the decode step in flight (`first_token_waits_total`
+        counts those)."""
         h = D._rms(h_last[:, None], self.state["final_norm"],
                    self.cfg.rms_norm_eps)
         logits = (h @ self.state["head"])[:, 0, :]
@@ -560,14 +793,14 @@ class LLMEngine:
         self._gens[slot] = gen
         tok = sample_logits_per_slot(logits, [gen], [req.temperature],
                                      [req.top_p], [req.greedy])
+        if self._inflight is not None:
+            self._m_first_wait.inc()
         return int(tok[0])
 
-    def _finish_prefill(self, slot, ps, tok):
-        """The final chunk sampled the first token: emit it and either
-        move the slot to decoding or release it."""
-        req = ps.req
+    def _finish_prefill(self, slot, req, tok):
+        """The prompt's last row sampled the first token: emit it and
+        either move the slot to decoding or release it."""
         L = req.prompt.size
-        del self._prefill[slot]
         now = time.perf_counter()
         req._ttft = now - req._t_submit
         self._m_ttft.observe(req._ttft)
@@ -601,7 +834,8 @@ class LLMEngine:
 
     @property
     def has_work(self):
-        return bool(self._queue or self._prefill or self.num_active)
+        return bool(self._queue or self._prefill or self.num_active
+                    or self._inflight is not None)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -609,7 +843,16 @@ class LLMEngine:
         admit queued requests into free slots, spend the token budget
         left after one decode token per active slot on prefill chunks,
         then one vectorised decode step over every slot.  Returns True
-        while there is (or was) work."""
+        while there is (or was) work.
+
+        With overlap on, the same phases run as a pipeline
+        (`_step_overlap`): the decode step is dispatched without
+        waiting for its tokens, which commit at the next call, after
+        that call's reap / admit / chunk host work already ran against
+        the step in flight.  Streams are bitwise identical either
+        way."""
+        if self.overlap:
+            return self._step_overlap()
         t = _tr.t0()
         self._reap_cancelled()
         _tr.end("step/schedule", t)
@@ -621,11 +864,59 @@ class LLMEngine:
         self._m_active.set(self.num_active)
         if self.num_active == 0:
             self._t_prev_step = None        # idle gap: disarm the EMA clock
+            self._t_retire = None           # ... and the host-gap anchor
             return self.has_work
         self._ensure_decode_capacity()
-        self._commit_decode(*self._dispatch_decode())
+        self._commit_decode(self._dispatch_decode())
         self._m_active.set(self.num_active)
         return True
+
+    def _step_overlap(self) -> bool:
+        """The overlap driver, the port of the JAX engine's
+        `_step_overlap`.  Phase A: host work that touches no decoding
+        slot (mid-prefill reaps, admission, prefill chunks queued behind
+        step N on the stream) while step N runs.  Phase B: the DEFERRED
+        COMMIT of step N (wait for its tokens, emit, EOS / max_new, slot
+        frees), the decoding-slot reap, and a second admission so freed
+        slots turn around at once.  Phase C: dispatch step N+1.  A
+        slot's token depends only on its own token, depth, generator and
+        KV, all fixed at dispatch, so deferring the read changes no
+        stream; only WHEN host work runs differs."""
+        t = _tr.t0()
+        self._reap_cancelled(decoding=self._inflight is None)
+        _tr.end("step/schedule", t)
+        t = _tr.t0()
+        self._admit()
+        _tr.end("step/admit", t)
+        if self._prefill:
+            self._run_chunks(self.step_token_budget - self.num_active)
+        if self._inflight is not None:
+            self._commit_inflight()
+            self._reap_decoding()
+            self._admit()
+        self._m_active.set(self.num_active)
+        if self.num_active == 0:
+            self._t_prev_step = None
+            self._t_retire = None
+            return self.has_work
+        self._ensure_decode_capacity()
+        self._inflight = self._dispatch_decode()
+        self._m_active.set(self.num_active)
+        return True
+
+    def _commit_inflight(self):
+        inf, self._inflight = self._inflight, None
+        self._commit_decode(inf)
+
+    def flush(self):
+        """Commit the decode step in flight, if any, and reap decoding
+        slots at that boundary.  Idempotent; a no-op on the synchronous
+        driver.  Callers that read request state between `step()` calls
+        (drains, tests) use it to force the one-step-deferred commit."""
+        if self._inflight is not None:
+            self._commit_inflight()
+            self._reap_decoding()
+            self._m_active.set(self.num_active)
 
     def _ensure_decode_capacity(self):
         """Every decoding slot must own the block its write row lands in
@@ -640,36 +931,102 @@ class LLMEngine:
                 raise RuntimeError("KV pool exhausted despite full "
                                    "provisioning")
 
-    def _dispatch_decode(self):
-        """Run one vectorised single-token decode step over every slot
-        and sample each row; returns (host tokens, active count)."""
-        active = self.num_active
-        t = _tr.t0()
-        dev = self.device
-        logits, _ = D.paged_decode_step_batch(
-            self.state, self.cfg, torch.from_numpy(self._token).to(dev),
-            torch.from_numpy(self._pos).to(dev), self._kvpool,
-            torch.from_numpy(self._pager.table).to(dev),
-            kernel=self.decode_kernel)
-        nxt = sample_logits_per_slot(logits, self._gens, self._temp,
-                                     self._topp, self._greedy)
-        _tr.end("step/dispatch", t, args={"slots": active})
-        t = _tr.t0()
-        nxt = nxt.cpu().numpy()             # host sync: EOS + streaming
-        _tr.end("step/sample_readback", t)
-        return nxt, active
+    def _observe_host_gap(self):
+        """Close the host-gap window the previous step's commit opened:
+        the host seconds the card waited between that step's tokens
+        reaching the host and this dispatch."""
+        if self._t_retire is None:
+            return
+        gap = time.perf_counter() - self._t_retire
+        self._t_retire = None
+        self._m_host_gap.observe(gap)
+        self._m_host_gap_last.set(gap)
 
-    def _commit_decode(self, nxt, active):
+    def _dispatch_decode(self):
+        """Dispatch one vectorised single-token decode step over every
+        decoding slot, without waiting for its tokens.  Its inputs are
+        copied at dispatch (phase-A work mutates the host mirrors while
+        it runs).  On a CUDA model: the inputs cross in one
+        non-blocking copy from pinned staging into the width's graph,
+        the graph replays, sampled rows draw from its logits, and the
+        tokens return by a non-blocking copy into pinned memory followed
+        by an event.  On the CPU: the eager step."""
+        active = self.num_active
+        self._observe_host_gap()
+        t = _tr.t0()
+        B = self.max_slots
+        rows = None
+        live = [s for s in range(B) if self._slots[s] is not None]
+        w = next(x for x in self.decode_widths if x >= len(live))
+        if w < B:
+            # compact the live slots into the width-w step; pad rows
+            # clone a live slot (same per-row compute, dropped at commit)
+            rows = live + [live[0]] * (w - len(live))
+        sel = np.arange(B) if rows is None else np.asarray(rows)
+        # per batch row: a draw only for the first row of a live,
+        # sampled slot (a pad row must not advance its generator)
+        drawn = set()
+        gens, greedy = [], []
+        for s in sel.tolist():
+            draws = (self._slots[s] is not None and s not in drawn
+                     and not self._greedy[s])
+            drawn.add(s)
+            gens.append(self._gens[s] if draws else None)
+            greedy.append(not draws)
+        temp, topp = self._temp[sel], self._topp[sel]
+        if self._graphs is None:
+            logits = self._decode_logits(
+                self._upload(self._token[sel]), self._upload(self._pos[sel]),
+                self._upload(self._pager.table[sel]))
+            tokens, event = sample_logits_per_slot(
+                logits, gens, temp, topp, greedy), None
+        else:
+            g = self._graphs
+            stage, back = self._staging[self._n_dispatched % 2]
+            self._n_dispatched += 1
+            n = g.flat_len(w)
+            tok_v, pos_v, tab_v = g.views(stage.numpy()[:n], w)
+            tok_v[:] = self._token[sel]
+            pos_v[:] = self._pos[sel]
+            tab_v[:] = self._pager.table[sel]
+            g.inputs(w).copy_(stage[:n], non_blocking=True)
+            logits, argmax = g.replay(w)
+            nxt = argmax
+            if not all(greedy):
+                # drawn here, before the next replay overwrites logits
+                nxt = sample_rows(logits, argmax.clone(), gens, temp,
+                                  topp, greedy)
+            tokens = back[:w]
+            tokens.copy_(nxt, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        _tr.end("step/dispatch", t, args={"slots": active, "width": w})
+        return _InflightStep(tokens, event, list(self._slots), active, rows)
+
+    def _commit_decode(self, inf):
         """Per-slot token emission, EOS / max_new resolution and slot
-        frees for the decode step just run."""
+        frees for a dispatched decode step: at once on the synchronous
+        driver, one `step()` later under overlap (against the
+        dispatch-time slot snapshot)."""
+        t = _tr.t0()
+        if inf.event is not None:
+            inf.event.synchronize()
+        nxt = inf.tokens.cpu().numpy()      # host sync: EOS + streaming
+        _tr.end("step/sample_readback", t)
         now = time.perf_counter()
+        self._t_retire = now                # host-gap anchor
         self._m_steps.inc()
-        self._m_gen.inc(active)
-        self._tput_tick(now, active)
-        for slot, req in enumerate(list(self._slots)):
+        self._m_gen.inc(inf.active)
+        self._tput_tick(now, inf.active)
+        row_of = None
+        if inf.rows is not None:
+            row_of = {}
+            for i, s in enumerate(inf.rows):
+                row_of.setdefault(s, i)     # pad rows duplicate a row
+        for slot, req in enumerate(inf.reqs):
             if req is None:
                 continue
-            tok = int(nxt[slot])
+            tok = int(nxt[slot if row_of is None else row_of[slot]])
             self._pos[slot] += 1
             self._token[slot] = tok
             if req._t_last is not None:
@@ -691,8 +1048,9 @@ class LLMEngine:
         self._t_prev_step = now
 
     def run(self, max_steps=None):
-        """Drive until the queue and every slot drain; returns the
-        number of scheduler steps taken."""
+        """Drive until the queue and every slot drain (the step in
+        flight included); returns the number of scheduler steps
+        taken."""
         steps = 0
         while self.has_work:
             self.step()

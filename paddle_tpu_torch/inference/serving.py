@@ -6,7 +6,9 @@ iteration-level scheduler, so requests batch onto the same vectorised
 decode step.  `submit()` returns the live `Request` — poll `.done` /
 `.tokens`, or block on `result()`.  An exception escaping the driver
 thread fails every pending request with `EngineUnhealthy` and flips
-`submit()` into raising, so no waiter hangs.
+`submit()` into raising, so no waiter hangs.  Under the engine's
+overlap driver the driver thread commits the step in flight
+(`LLMEngine.flush`) before it stops.
 
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP
 item): the `/metrics` HTTP thread, the canary self-probe, the step
@@ -148,6 +150,9 @@ class LLMServer:
                     req = self._pending.get()
                     if req is not None:
                         self.engine._queue.append(req)
+            # overlap: commit the tail step, so its tokens reach their
+            # requests before the driver stops
+            self.engine.flush()
         except BaseException as e:  # noqa: BLE001 — containment point
             self._error = e
             self._fail_all(e)
@@ -169,6 +174,9 @@ class LLMServer:
         eng._slots = [None] * eng.max_slots
         dead.extend(ps.req for ps in eng._prefill.values())
         eng._prefill.clear()
+        # overlap: the step in flight holds the requests failed above;
+        # drop it so no late commit revives a dead stream
+        eng._inflight = None
         for req in dead:
             if not req.done:
                 req._finish_error(EngineUnhealthy(

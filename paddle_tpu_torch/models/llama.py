@@ -22,12 +22,14 @@ through `models/llama_decode.py` (dense models only).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..nn.moe import MoELayer
@@ -149,6 +151,38 @@ def rms_norm(x, weight, eps):
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     return y.to(x.dtype) * weight
+
+
+# --------------------------------------------------------------------------
+# Recompute policies
+# --------------------------------------------------------------------------
+
+_RECOMPUTE_POLICIES = ("full", "dots")
+# the dense products with no batch dimension: every `x @ W` of a Linear
+# (q/k/v/o, gate/up/down, the router, the shared expert, the head) folds
+# to one of these; batched products (`bmm`, einsum) are not among them
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The counterpart of JAX's `dots_with_no_batch_dims_saveable`:
+    save what `_SAVED_DOTS` computes, recompute everything else —
+    batched products, norms, RoPE, SwiGLU, and the kernels K1 and K5,
+    whose autograd Functions re-run (and re-launch) in the backward."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_kwargs(policy):
+    """`torch.utils.checkpoint.checkpoint` keywords for a policy."""
+    if policy == "full":
+        return {"use_reentrant": False}
+    if policy == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+    raise ValueError(f"recompute_policy must be one of "
+                     f"{_RECOMPUTE_POLICIES}, got {policy!r}")
 
 
 # --------------------------------------------------------------------------
@@ -292,13 +326,17 @@ class LlamaModel(nn.Module):
         """Final-normed hidden states; the layers' summed MoE aux loss is
         kept for `aux_loss()`.  In training with `recompute`, each
         decoder layer is rematerialised in the backward
-        (`torch.utils.checkpoint`, policy "full")."""
+        (`torch.utils.checkpoint`): all of it under policy "full", all
+        but its dense products' outputs under "dots"."""
         h = self.embed_tokens(input_ids)
-        remat = self.config.recompute and self.training
+        cfg = self.config
+        remat = cfg.recompute and self.training
+        if remat:
+            ckpt_kw = _checkpoint_kwargs(cfg.recompute_policy)
         aux_total = None
         for layer in self.layers:
             if remat:
-                h, aux = checkpoint(layer, h, attn_mask, use_reentrant=False)
+                h, aux = checkpoint(layer, h, attn_mask, **ckpt_kw)
             else:
                 h, aux = layer(h, attn_mask)
             if aux is not None:
@@ -322,11 +360,8 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed=0):
         super().__init__()
-        if config.recompute and config.recompute_policy != "full":
-            if config.recompute_policy == "dots":
-                raise NotImplementedError(
-                    "recompute policy 'dots' is not ported yet (ROADMAP: "
-                    "queue 1 item 1, recompute policy 'dots')")
+        if config.recompute and \
+                config.recompute_policy not in _RECOMPUTE_POLICIES:
             raise ValueError(f"recompute_policy must be 'full' or 'dots', "
                              f"got {config.recompute_policy!r}")
         device = resolve_device(device)

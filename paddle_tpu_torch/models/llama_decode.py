@@ -7,10 +7,14 @@ scales), and a per-slot block table (B, Bmax) int32 into it.  Block 0
 is the trash block: inactive slots' tables point there, and rows past
 a table resolve there, so every unavoidable garbage write is harmless.
 
-Two programs run over the pool:
+Three programs run over the pool:
   * `paged_prefill_chunk` — one slot's chunk of prompt rows
     [off, off + C) written through its table row, attention against
     the slot's gathered view masked to t <= off + j;
+  * `paged_prefill` — the whole-bucket prefill: one slot's padded
+    prompt through the contiguous-cache layer `_block` against a LOCAL
+    (1, Sb) cache, each layer's rows then written through the slot's
+    table row (the engine's `prefill_chunk=None`);
   * `paged_decode_step_batch` — one token per slot at per-slot depths
     `pos`, K/V written at (table[b, pos // bt], pos % bt), attention
     through `kernel="gather"` (gather the view, `_attend`) or
@@ -39,7 +43,7 @@ from ..quantization.int8 import quantize_kv_rows
 
 __all__ = ["collect_decode_state", "init_paged_cache", "paged_write_rows",
            "paged_decode_step_batch", "paged_prefill_chunk",
-           "pool_is_quant"]
+           "paged_prefill", "pool_is_quant"]
 
 
 def collect_decode_state(model):
@@ -196,14 +200,39 @@ def paged_write_rows(pk, pv, table_row, rows, k, v):
     return _entry_set(pk, blk, col, k), _entry_set(pv, blk, col, v)
 
 
+def _block(st, cfg, x, positions, k_cache, v_cache, write_at):
+    """One decoder layer over S tokens at absolute `positions` (S,)
+    against a contiguous cache (B, T, n_kv, hd): this chunk's K/V are
+    written at rows [write_at, write_at + S) IN PLACE (JAX's
+    `dynamic_update_slice`), then row j attends rows t <= positions[j].
+    Returns (x, k_cache, v_cache) as the JAX `_block` does."""
+    B, S, _ = x.shape
+    nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.head_dim)
+    h = _rms(x, st["ln1"], cfg.rms_norm_eps)
+    q = (h @ st["wq"]).reshape(B, S, nh, hd)
+    k = (h @ st["wk"]).reshape(B, S, nkv, hd)
+    v = (h @ st["wv"]).reshape(B, S, nkv, hd)
+    q, k = _rope_at(q, k, positions, cfg.rope_theta)
+    at = int(write_at)
+    k_cache[:, at:at + S] = k.to(k_cache.dtype)
+    v_cache[:, at:at + S] = v.to(v_cache.dtype)
+    attn = _attend(q, k_cache, v_cache, positions, nh, nkv)
+    x = x + attn.reshape(B, S, nh * hd) @ st["wo"]
+    h = _rms(x, st["ln2"], cfg.rms_norm_eps)
+    x = x + (F.silu(h @ st["wg"]) * (h @ st["wu"])) @ st["wd"]
+    return x, k_cache, v_cache
+
+
 def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
-                 kernel="gather"):
+                 kernel="gather", split=None):
     """One decoder layer over the paged pool: K/V written through the
     block table first, then attention reads the pool through it.
     kernel="gather" gathers each slot's contiguous view and runs
     `_attend`; kernel="cuda" (decode only, S == 1) hands q, the pool
-    entries and the table to `ops.paged_attention` (K4).  table
-    (B, Bmax) int32; rows (B, S) absolute write rows."""
+    entries and the table to `ops.paged_attention` (K4), with splits of
+    `split` rows (None: the kernel's default).  table (B, Bmax) int32;
+    rows (B, S) absolute write rows."""
     B, S, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
@@ -217,7 +246,8 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     _entry_set(pv, blk, col, v)
     if kernel == "cuda" and S == 1:
         attn = paged_attention(q[:, 0].contiguous(), pk, pv, table,
-                               positions[:, 0].to(torch.int32))[:, None]
+                               positions[:, 0].to(torch.int32),
+                               split=split)[:, None]
     elif kernel in ("cuda", "gather"):
         attn = _attend(q, _paged_view(pk, table, q.dtype),
                        _paged_view(pv, table, q.dtype), positions, nh, nkv)
@@ -230,16 +260,18 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
 
 
 def paged_decode_step_batch(state, cfg, token, pos, pool, table,
-                            kernel="gather"):
+                            kernel="gather", split=None):
     """One token per slot at per-slot depths: token (B,) ids, pos (B,)
     int32 rows, table (B, Bmax) int32.  An inactive slot's all-trash
-    table row makes its garbage write harmless.  Returns (logits (B, V),
-    pool) — the pool updated in place."""
+    table row makes its garbage write harmless.  `split` is K4's split
+    size (kernel="cuda" only).  Returns (logits (B, V), pool) — the
+    pool updated in place.  Nothing here reads a device value on the
+    host, so the step can be captured in a CUDA graph."""
     x = state["embed"][token.long()[:, None]]
     positions = pos.long()[:, None]
     for st, (pk, pv) in zip(state["layers"], pool):
         x = _paged_block(st, cfg, x, positions, pk, pv, table, positions,
-                         kernel=kernel)
+                         kernel=kernel, split=split)
     return _logits_last(state, cfg, x), pool
 
 
@@ -257,4 +289,28 @@ def paged_prefill_chunk(state, cfg, ids, off, table_row, pool):
     rows = positions[None, :]
     for st, (pk, pv) in zip(state["layers"], pool):
         x = _paged_block(st, cfg, x, positions, pk, pv, table, rows)
+    return x, pool
+
+
+def paged_prefill(state, cfg, ids, table_row, pool):
+    """The whole-bucket prefill (the JAX engine's `prefill_fn`): one
+    slot's bucket-padded prompt ids (1, Sb) attend a LOCAL contiguous
+    (1, Sb) cache in the pool's dtype (the prompt is self-contained),
+    then each layer's rows [0, Sb) are written through the slot's
+    (Bmax,) table row; padded rows past the table land in the trash
+    block.  A float pool only: int8 rows would be attended unquantized
+    here and quantized in the pool.  Returns (hidden states (1, Sb, D),
+    pool) — the pool updated in place."""
+    if pool_is_quant(pool):
+        raise ValueError("the whole-bucket prefill needs a float pool: "
+                         "an int8 pool requires chunked prefill")
+    _, Sb = ids.shape
+    x = state["embed"][ids.long()]
+    positions = torch.arange(Sb, device=x.device)
+    shape = (1, Sb, cfg.num_key_value_heads, cfg.head_dim)
+    for st, (pk, pv) in zip(state["layers"], pool):
+        kc = torch.zeros(shape, dtype=pk.dtype, device=x.device)
+        vc = torch.zeros(shape, dtype=pv.dtype, device=x.device)
+        x, kc, vc = _block(st, cfg, x, positions, kc, vc, 0)
+        paged_write_rows(pk, pv, table_row, positions, kc[0], vc[0])
     return x, pool

@@ -183,10 +183,9 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
 @pytest.mark.parametrize("knob,value", [
     ("speculation", 4), ("prefix_cache_blocks", 8), ("kv_blocks", 5),
     ("hot_window", 2), ("host_pool_blocks", 16), ("weight_dtype", "int8"),
-    ("mesh", "dp"), ("tp", 2), ("sp", 2), ("overlap", "on"),
+    ("mesh", "dp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "cache"), ("fabric", "kvdir"), ("overload", True),
-    ("slo_targets", {"interactive": {"ttft_s": 1.0}}),
-    ("prefill_chunk", None)])
+    ("slo_targets", {"interactive": {"ttft_s": 1.0}})])
 def test_unported_knobs_raise(port_model, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))

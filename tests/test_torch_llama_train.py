@@ -23,7 +23,11 @@ Tolerances:
   update rule's own rounding is pinned element by element in
   tests/test_torch_optimizer.py;
 * recompute ("full") against none: bitwise (the same ops in the same
-  order on the CPU)."""
+  order on the CPU);
+* recompute "dots" (the dense products' outputs saved, the rest
+  recomputed) in both packages, dense (`tiny`) and MoE
+  (`qwen2-moe-tiny`), the two-step TrainStep trajectory within the fp32
+  limits above; against the port's step without recompute, bitwise."""
 
 import numpy as np
 import pytest
@@ -229,6 +233,75 @@ def test_recompute_full_gives_the_same_grads():
         np.testing.assert_array_equal(grads[0][n], grads[1][n])
 
 
+def _dots_kw(preset):
+    kw = {"recompute": True, "recompute_policy": "dots"}
+    return dict(kw, moe_dropless=True) if "moe" in preset else kw
+
+
+@pytest.mark.parametrize("preset", ["tiny", "qwen2-moe-tiny"])
+def test_dots_recompute_trajectory_matches_jax_train_step(preset):
+    """recompute_policy "dots" in both packages (JAX's
+    dots_with_no_batch_dims_saveable; the port's selective checkpoint
+    saving aten.mm / addmm): two TrainSteps, the fp32 limits above; the
+    MoE model on llama_loss_fn, aux loss included."""
+    from paddle_tpu.models.llama import llama_loss_fn as jloss_fn
+    from paddle_tpu_torch.models.llama import llama_loss_fn
+    jm, tm = _models(preset, **_dots_kw(preset))
+    moe = "moe" in preset
+    ids = _ids(tm.config, 2, 16, seed=2)
+    jl, jp = _train("jax", jm, tm.config, ids, 2,
+                    loss_fn=jloss_fn if moe else None)
+    tl, tp = _train("torch", tm, tm.config, ids, 2,
+                    loss_fn=llama_loss_fn if moe else None)
+    for a, b in zip(tl, jl):
+        assert abs(a - b) <= 1e-6 * abs(b), (tl, jl)
+    assert tl[1] < tl[0]
+    assert sorted(tp) == sorted(jp)
+    for n in jp:
+        assert np.abs(tp[n] - jp[n]).max() <= 5e-2 * sum(LRS), n
+
+
+@pytest.mark.parametrize("preset", ["tiny", "qwen2-moe-tiny"])
+def test_dots_recompute_gives_bitwise_the_same_loss_and_grads(preset):
+    """"dots" against no recompute on the CPU: the loss (the MoE aux loss
+    crossing the checkpoint as an output) and every gradient bitwise.
+    Its backward recomputes no dense product (as many aten.mm as without
+    recompute, fewer than "full") and recomputes the batched ones (more
+    aten.bmm)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from paddle_tpu_torch.models.llama import llama_loss_fn
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[func] = self.n.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for policy in (None, "full", "dots"):
+        kw = _dots_kw(preset)
+        kw.update(recompute=policy is not None,
+                  recompute_policy=policy or "full")
+        tm = TModel(TConfig.from_preset(preset, **kw), device="cpu", seed=3)
+        ids = torch.from_numpy(_ids(tm.config, 2, 20, seed=4))
+        loss = llama_loss_fn(tm, ids)
+        with Count() as c:
+            loss.backward()
+        out[policy] = (loss.item(), {n: p.grad.clone()
+                                     for n, p in tm.named_parameters()},
+                       c.n.get(torch.ops.aten.mm.default, 0),
+                       c.n.get(torch.ops.aten.bmm.default, 0))
+    (l0, g0, mm0, bmm0), (l1, g1, mm1, bmm1) = out[None], out["dots"]
+    assert l1 == l0
+    for n, g in g0.items():
+        assert torch.equal(g, g1[n]), n
+    assert mm1 == mm0 < out["full"][2]
+    assert bmm1 > bmm0
+
+
 def test_state_dict_roundtrip_replays_a_step():
     """Snapshot after step 1, run step 2, restore, run step 2 again:
     the same parameters and the same step counter (bitwise on the CPU)."""
@@ -252,7 +325,7 @@ def test_state_dict_roundtrip_replays_a_step():
     assert step.params["lm_head.weight"] is tm.lm_head.weight
 
 
-@pytest.mark.parametrize("knob", ["dots", "sequence_parallel", "mesh",
+@pytest.mark.parametrize("knob", ["sequence_parallel", "mesh",
                                   "shard_rules", "dropout",
                                   "sdpa_dropout", "lr_ratio",
                                   "apply_decay_param_fun",
@@ -261,11 +334,7 @@ def test_unported_knobs_raise_naming_roadmap(knob):
     import paddle_tpu_torch.ops.flash_attention as FA
     cfg = TConfig.from_preset("tiny")
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-        if knob == "dots":
-            TModel(TConfig.from_preset("tiny", recompute=True,
-                                       recompute_policy="dots"),
-                   device="cpu")
-        elif knob == "sequence_parallel":
+        if knob == "sequence_parallel":
             tm = TModel(TConfig.from_preset("tiny", sequence_parallel=True),
                         device="cpu")
             tm(torch.zeros(1, 8, dtype=torch.long))
