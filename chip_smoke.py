@@ -70,6 +70,24 @@ the result line:
               logits against the eager step's and each width's
               (serve_graphs: bitwise, or within the stated bound with
               the reason printed);
+              serve_pressure: 16 requests (the mix twice) x 256 new
+              tokens fully provisioned, then through 158 KV blocks (half
+              the peak demand, `bench.py`'s overload rung) under the
+              preempt policies "swap", "recompute" and "auto", and with
+              the int8 pool fully provisioned and under "swap": every
+              request done, >= 3 preemptions each resumed, the pager
+              consistent and empty; swap streams equal the full run's
+              and one parked slot's blocks (32 layers, K and V, int8
+              scales) come back bitwise; recompute streams equal it, or
+              only parked requests differ and, rerun with their logits
+              recorded, stay within the serve_parity bound up to each
+              first flip (its step and top-2 margin printed);
+              serve_prefix: a 384-token system prompt + 16 suffixes x 32
+              tokens, request 0 alone then 15 at once, with 64 radix
+              prefix-cache blocks and without: 15 hits, 15 x 384 tokens
+              saved, a block shared (refcount >= 2) while the decode
+              graphs replay, streams equal; K4's launches counted
+              through the replays of every run;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact;
@@ -154,6 +172,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import shutil
@@ -774,7 +793,8 @@ def phase_serve_parity(torch, model, kv_dtype):
     step's own as trash rows).  Then the engine's replay, whose K/V rows
     are the ones kept.  Emits serve_parity (kernel vs gather, see
     SERVE_LOGITS_FACTOR) and serve_graphs (replay vs the eager step,
-    and each width against the step's width)."""
+    and each width against the step's width).  Returns the logits
+    limit."""
     from paddle_tpu_torch.models import llama_decode as D
     from paddle_tpu_torch.ops import paged_attention as PA
     import numpy as np
@@ -947,13 +967,385 @@ def phase_serve_parity(torch, model, kv_dtype):
                 f"width: err {d['max_abs_err']} > {limit}")
     del eng
     torch.cuda.empty_cache()
+    return limit
+
+
+# --------------------------------------------------------------------------
+# serving under KV memory pressure (engine sub-slice (b)) and with a shared
+# system prompt (engine sub-slice (c)), at the serve shape
+# --------------------------------------------------------------------------
+
+PRESSURE_LENGTHS = SERVE_LENGTHS * 2      # 16 requests
+PRESSURE_NEW = 256
+PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_N, PREFIX_NEW = 384, 16, 16, 32
+PREFIX_KW = dict(max_prompt_len=400, prefix_cache_blocks=64,
+                 prefix_block_tokens=16)
+
+
+def pressure_blocks(lengths=PRESSURE_LENGTHS, new=PRESSURE_NEW):
+    """`bench.py`'s overload pool (:916-919): about half the peak
+    concurrent demand of the `max_slots` largest requests, never below
+    one full sequence plus the trash block."""
+    bt, slots = SERVE_KW["kv_block_tokens"], SERVE_KW["max_slots"]
+    need = sorted((-(-(L + new) // bt) for L in lengths),
+                  reverse=True)[:slots]
+    return max(1 + -(-SERVE_KW["max_len"] // bt), 1 + sum(need) // 2)
+
+
+def _unhook(torch, eng):
+    """Drop an engine the phases below hooked.  A hook closes over its
+    engine (a reference cycle): left to the cyclic GC, the engine's
+    CUDA graphs could be freed inside a later capture, which
+    invalidates that capture.  Remove the hooks, free it now."""
+    for name in ("_park_slot", "_resume_swap", "_resume_recompute"):
+        vars(eng).pop(name, None)
+    vars(eng._graphs).pop("replay", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hook_ladder(torch, eng, times, roundtrip):
+    """Time each park and each resume on the host clock, and each
+    request's wait while parked.  With `roundtrip` (a dict): the first
+    slot parked to the host tier has its blocks (every layer, K and V,
+    int8 scales) gathered before the park and held, bitwise, against
+    the blocks after its resume."""
+    from paddle_tpu_torch.models import llama_decode as D
+    park = eng._park_slot
+
+    def blocks_of(slot, n=None):
+        ids = eng._pager.slot_blocks[slot][:n]
+        return D.gather_blocks(eng._kvpool,
+                               torch.tensor(ids, device=eng.device))
+
+    def parked(slot):
+        times["rids"].append(eng._slots[slot].rid)
+        if roundtrip is not None and "rid" not in roundtrip \
+                and eng.preempt_policy == "swap":
+            roundtrip.update(rid=eng._slots[slot].rid,
+                             n=len(eng._pager.slot_blocks[slot]),
+                             before=blocks_of(slot))
+        t0 = time.perf_counter()
+        park(slot)
+        times["park"].append(time.perf_counter() - t0)
+
+    def resumed(fn):
+        def call(slot, pr):
+            t0 = time.perf_counter()
+            ok = fn(slot, pr)
+            if ok:
+                now = time.perf_counter()
+                times["resume"].append(now - t0)
+                times["parked"].append(now - pr.t_parked)
+                if roundtrip is not None and "before" in roundtrip \
+                        and roundtrip["rid"] == pr.req.rid:
+                    roundtrip["equal"] = torch.equal(
+                        roundtrip.pop("before"),
+                        blocks_of(slot, roundtrip["n"]))
+            return ok
+        return call
+
+    eng._park_slot = parked
+    eng._resume_swap = resumed(eng._resume_swap)
+    eng._resume_recompute = resumed(eng._resume_recompute)
+
+
+def _logit_rows(eng, want):
+    """Hook `eng`'s decode replays (full width: row s is slot s): the
+    logits row of request `rid` for each token index t <= want[rid]
+    that a decode step produces, cloned on the card, into the dict
+    returned, keyed (rid, t)."""
+    rows, g = {}, eng._graphs
+    replay = g.replay
+
+    def hooked(w):
+        logits, argmax = replay(w)
+        for s, req in enumerate(eng._slots[:w]):
+            if req is not None and len(req.tokens) <= want.get(req.rid, -1):
+                rows[req.rid, len(req.tokens)] = logits[s].clone()
+        return logits, argmax
+
+    g.replay = hooked
+    return rows
+
+
+def _pressure_run(torch, model, kv_dtype, policy, prompts, roundtrip=None,
+                  rows_of=None):
+    """One run of the pressure traffic (PRESSURE_NEW tokens a prompt)
+    with graphs and the overlap driver: full provisioning when `policy`
+    is None, else `pressure_blocks()` under that policy.  `roundtrip`:
+    see `_hook_ladder`.  `rows_of` ({request index: last token index})
+    records those requests' decode logits (`_logit_rows`, keyed by
+    request index).  Returns (report, streams, rows)."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    kw = {} if policy is None else dict(kv_blocks=pressure_blocks(),
+                                        preempt_policy=policy)
+    eng = _serve_engine(model, kv_dtype=kv_dtype, **kw)
+    times = {"park": [], "resume": [], "parked": [], "rids": []}
+    if policy is not None:
+        _hook_ladder(torch, eng, times, roundtrip)
+    stamps = {}
+
+    def on_token(req, tok):
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.LAUNCHES["paged_attention"] = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, PRESSURE_NEW, on_token=on_token) for p in prompts]
+    rows = None
+    if rows_of is not None:
+        rows = _logit_rows(eng, {reqs[i].rid: t for i, t in rows_of.items()})
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.LAUNCHES["paged_attention"]
+    steps = int(_metric(eng, "decode_steps_total"))
+    layers = model.config.num_hidden_layers
+    name = f"serve_pressure ({kv_dtype or 'bfloat16'}, {policy})"
+    for r in reqs:
+        require(r.done and r.error is None
+                and len(r.tokens) == PRESSURE_NEW,
+                f"{name}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    require(launches == layers * steps == layers * eng.num_graph_replays,
+            f"{name}: {launches} K4 launches, {steps} steps, "
+            f"{eng.num_graph_replays} replays")
+    eng._pager.check()
+    require(eng._pager.used_blocks == 0 and eng._pager.host_blocks_used == 0
+            and eng.num_parked == 0,
+            f"{name}: {eng._pager.used_blocks} device and "
+            f"{eng._pager.host_blocks_used} host blocks still held")
+    ladder = {k: int(_metric(eng, k + "_total")) for k in (
+        "preemptions", "resumes", "prefill_requeues", "swap_bytes")}
+    if policy is not None:
+        require(ladder["preemptions"] >= 3
+                and ladder["resumes"] == ladder["preemptions"],
+                f"{name}: ladder {ladder}")
+        if policy != "auto":
+            require((ladder["swap_bytes"] > 0) == (policy == "swap"),
+                    f"{name}: {ladder['swap_bytes']} bytes swapped")
+    itl = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    ttft = [stamps[r.rid][0] - t0 for r in reqs]
+    gen = sum(len(r.tokens) for r in reqs)
+    index = {r.rid: i for i, r in enumerate(reqs)}
+
+    def ms(xs, p=None):
+        if not xs:
+            return None
+        return 1e3 * (max(xs) if p is None else _percentile(xs, p))
+
+    report = {"kv_dtype": kv_dtype or "bfloat16",
+              "policy": policy or "full provisioning",
+              "kv_blocks": eng.kv_blocks,
+              "kv_pool_gib": eng.kv_pool_bytes() / 2**30,
+              "host_pool_blocks": eng.host_pool_blocks, **ladder,
+              "parked_requests": sorted({index[r] for r in times["rids"]}),
+              "swaps_landed_at_resume": (eng._swap_ready / eng._swap_total
+                                         if eng._swap_total else None),
+              "park_time_p50_ms": ms(times["parked"], 50),
+              "park_time_max_ms": ms(times["parked"]),
+              "park_host_ms_p50": ms(times["park"], 50),
+              "park_host_ms_max": ms(times["park"]),
+              "resume_host_ms_p50": ms(times["resume"], 50),
+              "resume_host_ms_max": ms(times["resume"]),
+              "requests": len(reqs), "generated_tokens": gen,
+              "wall_s": wall, "tokens_per_s": gen / wall,
+              "decode_steps": steps, "k4_launches": launches,
+              "itl_p50_ms": ms(itl, 50), "itl_p99_ms": ms(itl, 99),
+              "ttft_p50_ms": ms(ttft, 50), "ttft_max_ms": ms(ttft),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    streams = [list(r.tokens) for r in reqs]
+    if rows is not None:
+        rows = {(index[rid], t): x for (rid, t), x in rows.items()}
+    _unhook(torch, eng)
+    return report, streams, rows
+
+
+def _flips(torch, model, kv_dtype, policy, prompts, ref, got, parked,
+           limit):
+    """`policy`'s streams against the full run's.  Only a request that
+    was parked may differ (its KV was rebuilt by prefill).  Where a
+    token differs, both runs again with the differing requests' decode
+    logits recorded up to each one's first flip: every compared step
+    within `limit` (max |logits - full run's|), or the phase fails.
+    Returns the token agreement and, with flips, the first flip's step,
+    its top-2 margin in the full run and the worst logits error."""
+    agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+    out = {"token_agreement": agree / sum(map(len, ref))}
+    flips = {i: next(t for t, (a, b) in enumerate(zip(x, y)) if a != b)
+             for i, (x, y) in enumerate(zip(ref, got)) if x != y}
+    require(set(flips) <= set(parked),
+            f"serve_pressure ({policy}): requests {sorted(flips)} differ, "
+            f"only {parked} were parked")
+    if not flips:
+        return out
+    _, ref2, want = _pressure_run(torch, model, kv_dtype, None, prompts,
+                                  rows_of=flips)
+    _, got2, have = _pressure_run(torch, model, kv_dtype, policy, prompts,
+                                  rows_of=flips)
+    require(ref2 == ref and got2 == got,
+            f"serve_pressure ({policy}): a rerun gave other streams")
+    worst, first = 0.0, min(flips.items(), key=lambda kv: kv[1])
+    for key, x in want.items():
+        require(key in have, f"serve_pressure ({policy}): no logits for "
+                f"request {key[0]} token {key[1]}")
+        worst = max(worst, (have[key].float() - x.float()).abs().max()
+                    .item())
+    top2 = want[first].float().topk(2).values
+    out.update({"requests_flipped": len(flips),
+                "first_flip": {"request": first[0], "token": first[1],
+                               "top2_margin": (top2[0] - top2[1]).item()},
+                "steps_compared": len(want), "logits_max_abs_err": worst,
+                "logits_limit": limit})
+    require(worst <= limit,
+            f"serve_pressure ({policy}): logits err {worst} > {limit}")
+    return out
+
+
+def phase_serve_pressure(torch, model, limits):
+    """The pressure traffic (16 requests, SERVE_LENGTHS twice, 256 new
+    tokens each) fully provisioned and at `pressure_blocks()` (2x
+    oversubscribed) under "swap", "recompute" and "auto"; with the int8
+    pool fully provisioned and under "swap".  Swap streams equal the
+    full run's token for token and one parked slot's blocks return
+    bitwise; recompute streams equal them, or stay within the
+    serve_parity logits bound up to each flip (`limits` by pool).
+    Returns the K4 launches of each run."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in PRESSURE_LENGTHS]
+    launches = {}
+    for kv, policies in ((None, ("swap", "recompute", "auto")),
+                         ("int8", ("swap",))):
+        pool = kv or "bfloat16"
+        full, ref, _ = _pressure_run(torch, model, kv, None, prompts)
+        emit({"phase": "serve_pressure", "model": "llama3-8b", **full})
+        launches[pool, "full"] = full["k4_launches"]
+        for policy in policies:
+            roundtrip = {} if policy == "swap" else None
+            report, got, _ = _pressure_run(torch, model, kv, policy,
+                                           prompts, roundtrip)
+            launches[pool, policy] = report["k4_launches"]
+            if policy == "swap":
+                require(got == ref, f"serve_pressure ({pool}, swap): "
+                        f"streams differ from full provisioning")
+                require(roundtrip.get("equal") is True,
+                        f"serve_pressure ({pool}, swap): parked blocks "
+                        f"after resume: {roundtrip}")
+                check = {"streams_equal_full": True,
+                         "park_roundtrip_bitwise_blocks": roundtrip["n"]}
+            else:
+                check = _flips(torch, model, kv, policy, prompts, ref, got,
+                               report["parked_requests"], limits[pool])
+            emit({"phase": "serve_pressure", "model": "llama3-8b",
+                  **report, **check})
+    return launches
+
+
+def phase_serve_prefix(torch, model):
+    """`bench.py`'s shared-system-prompt stream at the serve shape: a
+    384-token system prompt + 16 distinct 16-token suffixes, 32 new
+    tokens each, request 0 alone (the miss), then the other 15 at once,
+    with the radix prefix cache (64 blocks) and without it.  Every
+    later request must hit (384 tokens saved each), a trie block must
+    be shared (refcount >= 2) while the decode graphs replay, and the
+    streams must equal the uncached run's token for token.  Returns
+    the K4 launches of each run."""
+    import numpy as np
+    from paddle_tpu_torch.ops import paged_attention as PA
+    rng = np.random.default_rng(4)
+    vocab = model.config.vocab_size
+    system = rng.integers(0, vocab, PREFIX_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, vocab,
+                                                     PREFIX_SUFFIX)])
+               for _ in range(PREFIX_N)]
+    streams, launches = {}, {}
+    for blocks in (0, PREFIX_KW["prefix_cache_blocks"]):
+        eng = _serve_engine(model, **dict(PREFIX_KW,
+                                          prefix_cache_blocks=blocks))
+        shared = {"refcount": 0}
+        if blocks:
+            g = eng._graphs
+            replay = g.replay
+
+            def hooked(w, eng=eng, replay=replay):
+                if shared["refcount"] < 2:
+                    tab = eng._pager.table[[s for s in range(w)
+                                            if eng._slots[s] is not None]]
+                    shared["refcount"] = max([shared["refcount"]] + [
+                        eng._pager.refcount(int(b)) for b in set(
+                            tab[tab != 0].tolist())])
+                return replay(w)
+            g.replay = hooked
+        stamps = {}
+
+        def on_token(req, tok):
+            stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        PA.LAUNCHES["paged_attention"] = 0
+        first = eng.submit(prompts[0], PREFIX_NEW, on_token=on_token)
+        eng.run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest = [eng.submit(p, PREFIX_NEW, on_token=on_token)
+                for p in prompts[1:]]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reqs = [first] + rest
+        for r in reqs:
+            require(r.done and r.error is None
+                    and len(r.tokens) == PREFIX_NEW,
+                    f"serve_prefix: request {r.rid}: {r.error!r}")
+        steps = int(_metric(eng, "decode_steps_total"))
+        launches[blocks] = PA.LAUNCHES["paged_attention"]
+        require(launches[blocks] == model.config.num_hidden_layers * steps,
+                f"serve_prefix: {launches[blocks]} launches, {steps} steps")
+        ttft = [stamps[r.rid][0] - t0 for r in rest]
+        hits = int(_metric(eng, "prefix_cache_hits_total"))
+        saved = int(_metric(eng, "prefill_tokens_saved_total"))
+        streams[blocks] = [list(r.tokens) for r in reqs]
+        emit({"phase": "serve_prefix", "model": "llama3-8b",
+              "prefix_cache_blocks": blocks, "requests": len(reqs),
+              "prefix_cache_hits": hits, "prefill_tokens_saved": saved,
+              "prefill_tokens_computed": int(_metric(
+                  eng, "prompt_tokens_total")) - saved,
+              "max_refcount_seen_in_replays": shared["refcount"]
+              if blocks else None,
+              "ttft_p50_ms_of_15": 1e3 * _percentile(ttft, 50),
+              "ttft_max_ms_of_15": 1e3 * max(ttft),
+              "tokens_per_s_of_15": sum(len(r.tokens) for r in rest) / wall,
+              "wall_s_of_15": wall, "decode_steps": steps,
+              "k4_launches": launches[blocks],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if blocks:
+            require(hits == PREFIX_N - 1, f"serve_prefix: {hits} hits")
+            require(saved == (PREFIX_N - 1) * PREFIX_SYSTEM,
+                    f"serve_prefix: {saved} tokens saved")
+            require(shared["refcount"] >= 2,
+                    "serve_prefix: no block shared during decode")
+            eng._pager.check()
+            require(eng._pager.used_blocks == eng._pcache.blocks_used,
+                    "serve_prefix: blocks held past the trie's")
+        _unhook(torch, eng)
+    require(streams[0] == streams[PREFIX_KW["prefix_cache_blocks"]],
+            "serve_prefix: streams with the prefix cache differ from "
+            "those without it")
+    emit({"phase": "serve_prefix", "streams_equal_uncached": True})
+    return launches
 
 
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
-    graph checks for both pools; and the same streams from the
-    synchronous driver, the eager step and the bucketed widths."""
+    graph checks for both pools; the same streams from the
+    synchronous driver, the eager step and the bucketed widths; then
+    serving under KV pressure and with a shared system prompt."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.from_preset("llama3-8b"),
@@ -989,11 +1381,14 @@ def phase_serve(torch):
             "overlap on and off (int8 pool) give different streams")
     require(bucketed == streams[None],
             "decode_buckets streams differ from the full width's")
-    for kv in (None, "int8"):
-        phase_serve_parity(torch, model, kv)
+    limits = {kv or "bfloat16": phase_serve_parity(torch, model, kv)
+              for kv in (None, "int8")}
+    pressure = phase_serve_pressure(torch, model, limits)
+    prefix = phase_serve_prefix(torch, model)
     del model
     torch.cuda.empty_cache()
-    return {"bfloat16": launches[None], "int8": launches["int8"]}
+    return {"bfloat16": launches[None], "int8": launches["int8"],
+            "pressure": pressure, "prefix": prefix}
 
 
 def _debug_model():
@@ -2858,6 +3253,22 @@ def main() -> int:
             "launches_path": f"moe_train, Qwen1.5-MoE-A2.7B widths, "
                              f"{MOE_LAYERS} layers, {TRAIN_STEPS} steps",
             **r})
+    for e in entries[:len(kernels)]:
+        pool = e["name"][len("paged_attention["):-1]
+        pressure = {policy: n for (p, policy), n in
+                    serve_launches["pressure"].items() if p == pool}
+        if pressure:
+            e["launches_serve_pressure"] = pressure
+            e["launches_path_serve_pressure"] = (
+                f"serve_pressure llama3-8b, {pool} pool: each run from 0 "
+                f"(full provisioning, then {pressure_blocks()} blocks)")
+        if pool == "bfloat16":
+            e["launches_serve_prefix"] = {
+                "without cache": serve_launches["prefix"][0],
+                "with cache": serve_launches["prefix"][
+                    PREFIX_KW["prefix_cache_blocks"]]}
+        require(all(n > 0 for n in pressure.values()),
+                f"{e['name']}: no launch in a serve_pressure run")
     for e in entries:
         require(e["launches"] > 0, f"{e['name']} never launched on its path")
     emit({"kernels": entries})

@@ -10,9 +10,23 @@ What this slice keeps of the JAX engine:
 
   * ONE paged KV pool (`kv_blocks` blocks of `kv_block_tokens` rows per
     layer, block 0 the trash block) shared by every slot through a
-    per-slot block table (`kv_pager.KVPager`, copied as is).  The pool
-    is provisioned in full — every slot can reach `max_len` — so
-    admission never waits on blocks and preemption never fires;
+    per-slot block table (`kv_pager.KVPager`, copied as is), refcounted
+    so several tables may name one block.  By default the pool is
+    provisioned in full; below that (`kv_blocks >= 1 + blocks a slot`)
+    a shortage climbs the PREEMPT LADDER: reclaim unpinned prefix-cache
+    blocks, requeue the newest mid-prefill slot, then park a decoding
+    slot (lowest `priority`, newest admission first) — its blocks
+    swapped to a pinned host tier (`host_pool_blocks`, one non-blocking
+    copy behind a CUDA event) or dropped for recompute
+    (`preempt_policy` "auto" / "swap" / "recompute").  A parked request
+    resumes before any new admission with the stream it would have had
+    unpreempted (its token, depth and generator restored, never
+    resampled); a failed swap is a counted fallback to recompute;
+  * the RADIX PREFIX CACHE (`prefix_cache_blocks`, chunked prefill
+    only): a finished prompt's full blocks are aliased into a trie
+    (`prefix_cache.RadixPrefixCache`), and an admission whose prompt
+    starts with cached blocks aliases them into its table and prefills
+    only the rest;
   * a TOKEN-BUDGET iteration scheduler: each `step()` spends
     `step_token_budget` tokens, one decode token per active slot first,
     the remainder on prefill in pow-2 chunks (`prefill_chunk`); the
@@ -42,13 +56,19 @@ What this slice keeps of the JAX engine:
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
     and the `llm_engine_*` TTFT / ITL / token / host-gap metrics.
 
-The JAX engine's other knobs (speculation, prefix cache, preemption and
-the host swap tier, tiered KV, weight-only int8, meshes, the AOT cache,
-the KV fabric, SLO targets and per-request SLO tiers, the overload
-ladder) raise `NotImplementedError` naming their ROADMAP item — never
-silently ignored; the admission queue is plain FIFO.  Its bounded
-compile count becomes a bound on captured graphs: `num_graphs` <=
-`len(decode_widths)`.
+The JAX engine's other knobs (speculation, tiered KV, weight-only
+int8, meshes, the AOT cache, the KV fabric, SLO targets and per-request
+SLO tiers, the overload ladder) raise `NotImplementedError` naming
+their ROADMAP item — never silently ignored; the admission queue is
+plain FIFO.  Of the ladder, the port leaves out the CRC32C stamp on
+parked host copies (with the fabric, (h)), the tiered spill rung ((g))
+and the disk tier (a parked request is always claimable here).  Its
+bounded compile count becomes a bound on captured graphs: `num_graphs`
+<= `len(decode_widths)`.
+
+The decode graphs hold the pool by address: everything that writes it
+(prefill, the step, a swap-in's `scatter_blocks`) writes in place, and
+every write is queued on the one stream, behind the step in flight.
 
 Padding correctness: a prompt's padded tail chunk writes garbage K/V at
 rows >= its true length, and the decode step writes each slot's token
@@ -72,7 +92,9 @@ from ..generation import sample_logits_per_slot, sample_rows
 from ..models import llama_decode as D
 from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
+from ..testing import faults as _faults
 from .kv_pager import KVPager
+from .prefix_cache import RadixPrefixCache
 from .programs import DecodeGraphs
 
 __all__ = ["Request", "LLMEngine", "DeadlineExceeded", "QueueFull",
@@ -82,18 +104,12 @@ _REQ_IDS = itertools.count()
 
 # knobs of the JAX engine this slice does not port: name -> (the values
 # that mean "off", the ROADMAP item that ports it)
-_PREEMPT = "engine sub-slice (b): preemption and the host swap tier"
-_PREFIX = "engine sub-slice (c): radix prefix cache"
 _SLO = "engine sub-slice (e): SLO tiers and the overload ladder"
 _TIERED = "engine sub-slice (g): tiered KV and long context"
 _MULTI = "multi-GPU serving"
 _UNPORTED = {
     "speculation": ((None, False),
                     "engine sub-slice (d): speculative decoding"),
-    "prefix_cache_blocks": ((0,), _PREFIX),
-    "prefix_block_tokens": ((16,), _PREFIX),
-    "host_pool_blocks": ((None,), _PREEMPT),
-    "preempt_policy": (("auto",), _PREEMPT),
     "hot_window": ((None,), _TIERED),
     "prefetch_depth": ((2,), _TIERED),
     "weight_dtype": ((None, "auto"), "weight-only int8 decode path"),
@@ -155,12 +171,14 @@ class Request:
     in-flight one evicted at the next step boundary.  `deadline`
     (seconds from submit) bounds the request's whole life; expiry
     finishes it with `error` set to a `DeadlineExceeded`.  `seed` seeds
-    the request's own sampling generator."""
+    the request's own sampling generator.  `priority` ranks preemption
+    only: under pool pressure the lowest priority, then the most
+    recently admitted, decoding slot parks first."""
 
     def __init__(self, prompt_ids, max_new_tokens, temperature=1.0,
                  top_p=1.0, greedy=True, eos_token_id=None, seed=0,
-                 on_token=None, on_done=None, deadline=None, tier=None,
-                 trace_id=None):
+                 on_token=None, on_done=None, deadline=None, priority=0,
+                 tier=None, trace_id=None):
         self.rid = next(_REQ_IDS)
         self.trace_id = None if trace_id is None else str(trace_id)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -174,6 +192,7 @@ class Request:
         self.greedy = bool(greedy)
         self.eos_token_id = eos_token_id
         self.seed = int(seed)
+        self.priority = int(priority)
         if tier is not None:
             raise NotImplementedError(
                 f"tier={tier!r} is not ported to paddle_tpu_torch yet "
@@ -235,14 +254,47 @@ class Request:
 
 
 class _PrefillState:
-    """A slot mid-chunked-prefill: the request and its write frontier
-    `off` (rows [0, off) of the slot's cache are valid)."""
+    """A slot mid-chunked-prefill: the request, the token ids being
+    prefilled (`ids`: the prompt, or prompt + generated tokens for a
+    drop-and-recompute resume), its write frontier `off` (rows [0, off)
+    of the slot's cache are valid, cache-hit rows included), the
+    prefix-cache nodes pinned on its behalf, and the parked record
+    being restored (None for a fresh admission)."""
 
-    __slots__ = ("req", "off")
+    __slots__ = ("req", "ids", "off", "nodes", "restore")
 
-    def __init__(self, req, off=0):
+    def __init__(self, req, off, nodes, ids=None, restore=None):
         self.req = req
+        self.ids = req.prompt if ids is None else ids
         self.off = off
+        self.nodes = nodes
+        self.restore = restore
+
+
+class _ParkedRequest:
+    """A preempted decode slot's host-side state, enough to resume it
+    with the stream it would have had unpreempted: its last token,
+    depth, sampling generator (the JAX engine's RNG key) and admission
+    order.  `mode` "swap": `host` holds its blocks (`n_blocks`, packed
+    by `llama_decode.gather_blocks`) in pinned host memory, `event` the
+    CUDA event after their copy (None on the CPU); "recompute": the KV
+    was dropped and resume re-prefills prompt + tokens[:-1]."""
+
+    __slots__ = ("req", "mode", "token", "pos", "gen", "host", "event",
+                 "n_blocks", "admit_seq", "t_parked")
+
+    def __init__(self, req, mode, token, pos, gen, host, event, n_blocks,
+                 admit_seq):
+        self.req = req
+        self.mode = mode
+        self.token = int(token)
+        self.pos = int(pos)
+        self.gen = gen
+        self.host = host
+        self.event = event
+        self.n_blocks = int(n_blocks)
+        self.admit_seq = admit_seq
+        self.t_parked = time.perf_counter()
 
 
 class _InflightStep:
@@ -294,9 +346,17 @@ class LLMEngine:
     2), `min_bucket`, `prefill_chunk` (pow-2 chunk width, or None for
     the whole-bucket prefill at admission), `step_token_budget`
     (default prefill_chunk + max_slots; chunked prefill only),
-    `kv_block_tokens` (default 16), `kv_blocks` (default and minimum:
-    full provisioning, 1 + max_slots * ceil(max_len / kv_block_tokens)),
-    `kv_dtype` (None/"auto", "bfloat16", "float32", "int8"),
+    `kv_block_tokens` (default `prefix_block_tokens`, 16), `kv_blocks`
+    (default: full provisioning, 1 + max_slots * ceil(max_len /
+    kv_block_tokens) + prefix_cache_blocks; minimum 1 + one slot's
+    blocks: below full provisioning the preempt ladder absorbs a
+    shortage), `host_pool_blocks` (the pinned host swap tier, default
+    max_slots * blocks a slot; 0 disables it), `preempt_policy`
+    ("auto": swap a parked slot deeper than 2 blocks, recompute a
+    shallower one; "swap"; "recompute"), `prefix_cache_blocks` (the
+    trie's budget of pool blocks, 0 = off; chunked prefill only) and
+    `prefix_block_tokens` (== kv_block_tokens), `kv_dtype` (None /
+    "auto", "bfloat16", "float32", "int8"),
     `decode_kernel` ("auto" = "cuda" on a CUDA model, "gather" on the
     CPU; "cuda" on a CPU model runs the kernel's plain version),
     `decode_block_tile` (table blocks per K4 split: split =
@@ -310,10 +370,13 @@ class LLMEngine:
 
     def __init__(self, model, max_slots=4, max_len=256,
                  max_prompt_len=None, min_bucket=16, prefill_chunk=64,
-                 step_token_budget=None, kv_block_tokens=16,
-                 kv_blocks=None, kv_dtype=None, decode_kernel="auto",
-                 decode_block_tile=None, decode_buckets=False,
-                 overlap="auto", max_queue=None, **unported):
+                 step_token_budget=None, prefix_cache_blocks=0,
+                 prefix_block_tokens=16, kv_block_tokens=None,
+                 kv_blocks=None, host_pool_blocks=None,
+                 preempt_policy="auto", kv_dtype=None,
+                 decode_kernel="auto", decode_block_tile=None,
+                 decode_buckets=False, overlap="auto", max_queue=None,
+                 **unported):
         _reject_unported(unported)
         self.cfg = model.config
         self.device = model.device
@@ -366,9 +429,15 @@ class LLMEngine:
         self.decode_kernel = decode_kernel if decode_kernel != "auto" \
             else ("cuda" if on_cuda else "gather")
 
-        bt = int(kv_block_tokens)
+        bt = int(kv_block_tokens) if kv_block_tokens is not None \
+            else int(prefix_block_tokens)
         if bt <= 0:
             raise ValueError("kv_block_tokens must be positive")
+        if int(prefix_cache_blocks) > 0 and bt != int(prefix_block_tokens):
+            raise ValueError(
+                "kv_block_tokens must equal prefix_block_tokens: the "
+                "prefix cache aliases pool blocks, so slot tables and "
+                "the trie must share one block geometry")
         self.kv_block_tokens = bt
         # K4's split keyword, passed only when set: None keeps the
         # kernel's own `split_rows(...)` (the JAX engine's autotune tile)
@@ -400,18 +469,39 @@ class LLMEngine:
         self.state = D.collect_decode_state(model)
         dtype = self.state["embed"].dtype
         bmax = -(-self.max_len // bt)            # blocks per full slot
-        full = 1 + self.max_slots * bmax
+        full = 1 + self.max_slots * bmax + int(prefix_cache_blocks)
         self.kv_blocks = full if kv_blocks is None else int(kv_blocks)
-        if self.kv_blocks < full:
-            raise NotImplementedError(
-                f"kv_blocks={self.kv_blocks} below full provisioning "
-                f"({full}) needs preemption, which is not ported to "
-                f"paddle_tpu_torch yet (ROADMAP: {_PREEMPT})")
+        self.host_pool_blocks = (self.max_slots * bmax
+                                 if host_pool_blocks is None
+                                 else int(host_pool_blocks))
+        if preempt_policy not in ("auto", "swap", "recompute"):
+            raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
+        self.preempt_policy = preempt_policy
+        if self.kv_blocks < 1 + bmax:
+            raise ValueError(
+                f"kv_blocks={self.kv_blocks} cannot cover one "
+                f"max_len sequence (+trash block): need >= "
+                f"{1 + bmax}")
         self._pager = KVPager(self.kv_blocks, bt, self.max_slots, bmax,
+                              host_pool_blocks=self.host_pool_blocks,
                               kv_dtype=self.kv_dtype)
         self._kvpool = D.init_paged_cache(self.cfg, self.kv_blocks, bt,
                                           dtype, kv_dtype=kv_dtype,
                                           device=self.device)
+        # bytes of one block over every layer, K and V (int8 scales
+        # included): the unit of swap accounting
+        self._kv_block_bytes = sum(t.numel() // self.kv_blocks
+                                   * t.element_size()
+                                   for t in D.pool_leaves(self._kvpool))
+        self._pcache = None
+        if int(prefix_cache_blocks) > 0:
+            if self.prefill_chunk is None:
+                raise ValueError("prefix_cache_blocks requires chunked "
+                                 "prefill (prefill_chunk)")
+            # the trie's budget of blocks inside the shared pool: a hit
+            # aliases its blocks into the slot's table (refcount + 1)
+            self._pcache = RadixPrefixCache(int(prefix_cache_blocks), bt,
+                                            pager=self._pager)
 
         # host-side mirrors of the per-slot decode inputs (tiny arrays)
         B = self.max_slots
@@ -422,8 +512,16 @@ class LLMEngine:
         self._greedy = np.ones(B, bool)
         self._gens: list = [None] * B               # per-slot sampler
         self._slots: list = [None] * B              # decoding requests
+        self._slot_nodes: list = [[] for _ in range(B)]  # trie pins
         self._prefill: dict = {}                    # slot -> _PrefillState
         self._queue: deque = deque()
+        # preempt / resume: per-slot admission order (the victim key)
+        # and the parked requests in park order
+        self._admit_counter = itertools.count()
+        self._slot_seq = [0] * B
+        self._parked: list = []
+        self._swap_total = 0        # swap-ins begun
+        self._swap_ready = 0        # ... whose copy to the host had landed
         self._inflight = None          # dispatched, uncommitted step
         self._t_retire = None          # host-gap anchor (see metrics)
 
@@ -509,8 +607,80 @@ class LLMEngine:
             help="first tokens read back while a decode step was in "
                  "flight (overlap): on the card the read waits for that "
                  "step")
+        # the radix prefix cache
+        self._m_cache_hit = reg.counter(
+            "prefix_cache_hits_total",
+            help="admissions that matched a cached prefix")
+        self._m_cache_miss = reg.counter(
+            "prefix_cache_misses_total",
+            help="admissions with no cached prefix")
+        self._m_cache_evict = reg.counter(
+            "prefix_cache_evictions_total",
+            help="LRU block evictions under pool pressure")
+        self._m_tokens_saved = reg.counter(
+            "prefill_tokens_saved_total",
+            help="prompt tokens served from the prefix cache instead "
+                 "of prefill compute")
+        self._m_cache_blocks = reg.gauge(
+            "prefix_cache_blocks_used",
+            help="pool blocks currently holding cached prefixes")
+        # the preempt ladder
+        self._m_kv_used = reg.gauge(
+            "kv_blocks_used",
+            help="device pool blocks with at least one owner (slot "
+                 "tables + prefix-cache trie; trash block excluded)")
+        self._m_kv_host = reg.gauge(
+            "kv_blocks_host",
+            help="pinned host-RAM tier blocks holding swapped-out "
+                 "(parked) KV")
+        reg.gauge("kv_blocks_total",
+                  help="configured device pool size in blocks") \
+            .set(self.kv_blocks - 1)
+        self._m_parked = reg.gauge(
+            "requests_parked",
+            help="preempted requests waiting to resume (swap or "
+                 "recompute tier)")
+        self._m_preempt = reg.counter(
+            "preemptions_total",
+            help="decode slots parked under pool pressure (swap-out or "
+                 "drop-and-recompute; mid-prefill requeues excluded)")
+        self._m_resume = reg.counter(
+            "resumes_total",
+            help="parked requests resumed into a slot")
+        self._m_prefill_requeued = reg.counter(
+            "prefill_requeues_total",
+            help="mid-prefill slots requeued under pool pressure (the "
+                 "cheap rung of the preempt ladder: nothing emitted "
+                 "yet)")
+        self._m_swap_bytes = reg.counter(
+            "swap_bytes_total",
+            help="KV payload bytes moved device->host by swap-outs "
+                 "(the resume path moves the same bytes back)")
+        self._m_kv_reclaimed = reg.counter(
+            "kv_blocks_reclaimed_total",
+            help="prefix-cache blocks reclaimed by the preempt "
+                 "ladder's first rung")
+        self._m_park_time = reg.histogram(
+            "park_time_seconds",
+            help="park -> resume wall time per preemption",
+            buckets=log_buckets(1e-4, 600.0, per_decade=3))
+        self._seen_evictions = 0
         self._t_prev_step = None
         self._tput_ema = None
+
+    def _note_cache(self):
+        pc = self._pcache
+        if pc is None:
+            return
+        if pc.evictions > self._seen_evictions:
+            self._m_cache_evict.inc(pc.evictions - self._seen_evictions)
+            self._seen_evictions = pc.evictions
+        self._m_cache_blocks.set(pc.blocks_used)
+
+    def _note_kv(self):
+        self._m_kv_used.set(self._pager.used_blocks)
+        self._m_kv_host.set(self._pager.host_blocks_used)
+        self._m_parked.set(len(self._parked))
 
     def metrics(self) -> dict:
         """Snapshot of this engine's metrics registry."""
@@ -643,19 +813,29 @@ class LLMEngine:
 
     def _reap_cancelled(self, decoding=True):
         """Step-boundary cancellation and deadline expiry: evict dead
-        in-flight requests, mid-prefill and (with `decoding`) decoding.
-        Co-batched survivors never observe the eviction.  Under overlap
-        the decoding half waits while a step is in flight: its slots
-        commit first and are reaped at that boundary
-        (`_reap_decoding`)."""
+        in-flight requests, mid-prefill, parked and (with `decoding`)
+        decoding.  Co-batched survivors never observe the eviction.
+        Under overlap the decoding half waits while a step is in
+        flight: its slots commit first and are reaped at that boundary
+        (`_reap_decoding`).  A parked request holds no device block, so
+        its reap only drops the host record: the one place memory
+        pressure can surface as a failure, because the caller's own
+        deadline ran out while the request waited its turn."""
         if decoding:
             self._reap_decoding()
         now = time.monotonic()
         for slot in [s for s, ps in self._prefill.items()
                      if ps.req.cancelled or ps.req.expired(now)]:
             ps = self._prefill.pop(slot)
+            if self._pcache is not None and ps.nodes:
+                self._pcache.release(ps.nodes)
             self._pager.release_slot(slot)
             self._finish_dead(ps.req, "mid-prefill")
+        for pr in [p for p in self._parked
+                   if p.req.cancelled or p.req.expired(now)]:
+            self._unpark(pr)
+            self._finish_dead(pr.req, f"while parked after "
+                                      f"{len(pr.req.tokens)} tokens")
 
     def _reap_decoding(self):
         """The decoding-slot half of `_reap_cancelled`."""
@@ -678,9 +858,13 @@ class LLMEngine:
                 f"evicted at step boundary"))
 
     def _free_slot(self, slot):
-        """Evict a DECODING slot: return its blocks, reset its table row
-        to trash so the vectorised step's garbage writes stay
+        """Evict a DECODING slot: release its trie pins and every block
+        it holds (shared blocks survive in the trie), reset its table
+        row to trash so the vectorised step's garbage writes stay
         harmless."""
+        if self._pcache is not None and self._slot_nodes[slot]:
+            self._pcache.release(self._slot_nodes[slot])
+        self._slot_nodes[slot] = []
         self._pager.release_slot(slot)
         self._slots[slot] = None
         self._pos[slot] = 0
@@ -692,34 +876,87 @@ class LLMEngine:
         return [s for s in range(self.max_slots)
                 if self._slots[s] is None and s not in self._prefill]
 
+    def _alloc_blocks(self, k):
+        """Pool allocation with the preempt ladder's first rung built
+        in: on shortage, reclaim unpinned prefix-cache blocks before
+        giving up.  The `kv.alloc` fault site makes a shortage testable:
+        an injected fault is a FAILED allocation (a schedulable event),
+        never an error."""
+        try:
+            _faults.fire("kv.alloc", need=k, free=self._pager.free_blocks)
+        except _faults.InjectedFault:
+            self._pager.alloc_failures += 1
+            return None
+        got = self._pager.alloc(k, count_failure=False)
+        if got is None and self._reclaim_cache(k - self._pager.free_blocks):
+            got = self._pager.alloc(k, count_failure=False)
+        if got is None:
+            # one shortage counts once, however many attempts it took
+            self._pager.alloc_failures += 1
+        return got
+
+    def _reclaim_cache(self, k):
+        """Rung 1 of the preempt ladder: drop up to `k` unpinned LRU
+        prefix-cache blocks back to the pool.  Returns the number
+        freed."""
+        if self._pcache is None or k <= 0:
+            return 0
+        freed = self._pcache.reclaim(k)
+        if freed:
+            self._m_kv_reclaimed.inc(freed)
+            self._note_cache()
+        return freed
+
     def _admit(self):
-        """Move queued requests into free slots: allocate the blocks
-        covering prompt + first decode row (the pool is fully
-        provisioned, so allocation cannot fail), then start chunked
-        prefill at row 0 — or, with `prefill_chunk=None`, run the whole
-        prompt now (`_prefill_whole`)."""
+        """Move queued requests into free slots, after every parked
+        request has resumed (they are older, and new admissions must not
+        starve their resume).  A prefix-cache match is pinned BEFORE the
+        allocation (the reclaim rung must not evict a just-matched leaf
+        whose block the same allocation could hand out again), then
+        aliased into the slot's table; the rest of prompt + first decode
+        row is allocated.  On a shortage the request goes back to the
+        queue's front and admission pauses.  Chunked prefill then starts
+        at the first uncached row; with `prefill_chunk=None` the whole
+        prompt runs now (`_prefill_whole`)."""
         for slot in self._free_slots():
+            if self._parked:
+                break
             req = self._next_queued()
             if req is None:
                 break
             L = req.prompt.size
-            got = self._pager.alloc(self._pager.blocks_for(L + 1))
+            matched, nodes, bids = 0, [], []
+            if self._pcache is not None:
+                matched, bids, nodes = self._pcache.match(req.prompt)
+                self._pcache.acquire(nodes)
+            need = self._pager.blocks_for(L + 1) - len(bids)
+            got = self._alloc_blocks(need) if need > 0 else []
             if got is None:
-                raise RuntimeError("KV pool exhausted despite full "
-                                   "provisioning")
+                if self._pcache is not None:
+                    self._pcache.release(nodes)
+                    self._pcache.match_undo(matched)
+                self._queue.appendleft(req)
+                break
+            if matched:
+                self._pager.alias_prefix(slot, bids)
+                self._m_cache_hit.inc()
+                self._m_tokens_saved.inc(matched)
+            elif self._pcache is not None:
+                self._m_cache_miss.inc()
             self._pager.adopt(slot, got)
             _tr.point("req/admit", trace_id=req.trace_id, rid=req.rid,
-                      slot=slot)
+                      slot=slot, cached_tokens=matched)
+            self._slot_seq[slot] = next(self._admit_counter)
             # frontier row: the decode step's garbage write for this
             # mid-prefill slot lands where the next chunk overwrites
-            self._pos[slot] = 0
+            self._pos[slot] = matched
             self._token[slot] = 0
             self._m_admitted.inc()
             self._m_prompt.inc(L)
             if self.prefill_chunk is None:
                 self._prefill_whole(slot, req)
             else:
-                self._prefill[slot] = _PrefillState(req)
+                self._prefill[slot] = _PrefillState(req, matched, nodes)
         self._m_queue.set(len(self._queue))
 
     # -- prefill -----------------------------------------------------------
@@ -738,32 +975,35 @@ class LLMEngine:
         tok = self._first_token(slot, req, x[:, L - 1])
         _tr.end("req/prefill", tc, trace_id=req.trace_id,
                 args={"bucket": Sb})
-        self._finish_prefill(slot, req, tok)
+        self._finish_prefill(slot, _PrefillState(req, L, []), tok)
 
     def _run_chunks(self, budget):
         """Spend the step's prefill token budget on chunks, oldest
         admission first.  The first chunk always runs regardless of the
         remaining budget (bounded overspend of one chunk), so prefill
-        progresses under full decode load."""
+        progresses under full decode load.  A slot prefills `ps.ids`
+        from its frontier `ps.off` (past any cache hit); a
+        drop-and-recompute restore samples nothing at its final chunk."""
         chunks = 0
         for slot in list(self._prefill.keys()):
             ps = self._prefill[slot]
             req = ps.req
-            L = req.prompt.size
+            L = ps.ids.size
             while ps.off < L:
                 C = self._chunk_for(L - ps.off)
                 if chunks > 0 and C > budget:
                     return
                 ids = np.zeros((1, C), np.int32)
-                seg = req.prompt[ps.off:ps.off + C]
+                seg = ps.ids[ps.off:ps.off + C]
                 ids[0, :seg.size] = seg
                 final = ps.off + C >= L
                 tc = _tr.t0()
                 x, _ = D.paged_prefill_chunk(
                     self.state, self.cfg, self._upload(ids), ps.off,
                     self._upload(self._pager.table[slot]), self._kvpool)
-                tok = self._first_token(slot, req, x[:, L - 1 - ps.off]) \
-                    if final else None
+                tok = None
+                if final and ps.restore is None:
+                    tok = self._first_token(slot, req, x[:, L - 1 - ps.off])
                 _tr.end("req/prefill_chunk", tc, trace_id=req.trace_id,
                         args={"off": ps.off, "width": C})
                 budget -= C
@@ -771,8 +1011,7 @@ class LLMEngine:
                 ps.off += C
                 self._pos[slot] = min(ps.off, L)
                 if final:
-                    del self._prefill[slot]
-                    self._finish_prefill(slot, req, tok)
+                    self._finish_prefill(slot, ps, tok)
                     break
             if budget <= 0:
                 break
@@ -797,10 +1036,24 @@ class LLMEngine:
             self._m_first_wait.inc()
         return int(tok[0])
 
-    def _finish_prefill(self, slot, req, tok):
-        """The prompt's last row sampled the first token: emit it and
-        either move the slot to decoding or release it."""
+    def _finish_prefill(self, slot, ps, tok):
+        """The prompt's last row sampled the first token: publish the
+        prompt's full blocks to the prefix cache (zero-copy: the trie
+        aliases the slot's blocks), emit the token, and either move the
+        slot to decoding or release it.  A drop-and-recompute RESTORE
+        samples nothing: it reinstates the parked token, depth and
+        generator, so the stream continues as if never preempted."""
+        req = ps.req
+        self._prefill.pop(slot, None)
+        if ps.restore is not None:
+            self._install_parked(slot, ps.restore)
+            self._slot_nodes[slot] = ps.nodes
+            return
         L = req.prompt.size
+        if self._pcache is not None:
+            self._pcache.insert(req.prompt, L,
+                                blocks=self._pager.slot_blocks[slot])
+            self._note_cache()
         now = time.perf_counter()
         req._ttft = now - req._t_submit
         self._m_ttft.observe(req._ttft)
@@ -810,6 +1063,7 @@ class LLMEngine:
                   ttft_s=req._ttft)
         if not req._emit(tok):
             self._slots[slot] = req
+            self._slot_nodes[slot] = ps.nodes
             self._token[slot] = tok
             self._pos[slot] = L
             self._temp[slot] = req.temperature
@@ -818,8 +1072,273 @@ class LLMEngine:
         else:
             # finished at prefill (max_new_tokens=1 or instant EOS)
             self._gens[slot] = None
+            if self._pcache is not None and ps.nodes:
+                self._pcache.release(ps.nodes)
             self._pager.release_slot(slot)
             self._m_completed.inc()
+
+    # -- preempt / park / resume -------------------------------------------
+
+    @property
+    def num_parked(self):
+        """Preempted requests waiting to resume (swap or recompute)."""
+        return len(self._parked)
+
+    def _ensure_rows(self, slot, rows):
+        """Grow the slot's table to cover rows [0, rows); False on a
+        pool shortage (the caller climbs the ladder)."""
+        need = (self._pager.blocks_for(rows)
+                - len(self._pager.slot_blocks[slot]))
+        if need <= 0:
+            return True
+        got = self._alloc_blocks(need)
+        if got is None:
+            return False
+        self._pager.adopt(slot, got)
+        return True
+
+    def _ensure_decode_capacity(self):
+        """Before the decode dispatch every decoding slot must own the
+        block its write row lands in.  Slots are served highest priority
+        / oldest admission first; a shortage climbs the preempt ladder
+        (reclaim cache -> requeue the newest mid-prefill slot -> park
+        the lowest-priority newest decoder), and when nothing else is
+        left the needing slot parks ITSELF: pressure is absorbed, never
+        turned into a failure.  Returns True when a slot is left to
+        step."""
+        order = sorted((s for s, r in enumerate(self._slots)
+                        if r is not None),
+                       key=lambda s: (-self._slots[s].priority,
+                                      self._slot_seq[s]))
+        for slot in order:
+            if self._slots[slot] is None:    # parked by an earlier turn
+                continue
+            rows = min(int(self._pos[slot]) + 1, self.max_len)
+            while not self._ensure_rows(slot, rows):
+                if not self._preempt_one(protect=slot):
+                    self._park_slot(slot)
+                    break
+        return self.num_active > 0
+
+    def _preempt_victims(self, protect=None):
+        """Decode-slot park order under pool pressure: lowest priority,
+        then newest admission (the JAX engine's order within one SLO
+        tier; the port has no tiers)."""
+        victims = [s for s, r in enumerate(self._slots)
+                   if r is not None and s != protect]
+        victims.sort(key=lambda s: (self._slots[s].priority,
+                                    -self._slot_seq[s]))
+        return victims
+
+    def _preempt_one(self, protect=None):
+        """Free blocks by preempting ONE victim (beyond the cache
+        reclaim `_alloc_blocks` already tried): requeue the
+        lowest-priority newest mid-prefill slot if any (nothing emitted
+        yet: the cheap rung), else park the first `_preempt_victims`
+        slot.  Returns False when no victim is left."""
+        if self._prefill:
+            slot = min(self._prefill,
+                       key=lambda s: (self._prefill[s].req.priority,
+                                      -self._slot_seq[s]))
+            self._requeue_prefill(slot)
+            return True
+        victims = self._preempt_victims(protect)
+        if not victims:
+            return False
+        self._park_slot(victims[0])
+        return True
+
+    def _requeue_prefill(self, slot):
+        """A mid-prefill slot goes back to the front of the queue (a
+        drop-and-recompute restore back to the parked list) and
+        prefills again later, reusing what the prefix cache still
+        holds."""
+        ps = self._prefill.pop(slot)
+        if self._pcache is not None and ps.nodes:
+            self._pcache.release(ps.nodes)
+        self._pager.release_slot(slot)
+        self._pos[slot] = 0
+        self._token[slot] = 0
+        if ps.restore is not None:
+            self._parked.append(ps.restore)
+        else:
+            self._queue.appendleft(ps.req)
+            self._m_queue.set(len(self._queue))
+        self._m_prefill_requeued.inc()
+
+    def _park_slot(self, slot):
+        """Park a decoding slot: swap its blocks to the pinned host tier
+        or — for a shallow slot under "auto", a full host tier or an
+        injected swap fault — drop them and recompute at resume.  The
+        record keeps the last token, depth and generator, so the resumed
+        stream is the unpreempted one.  No step is in flight here (the
+        ladder runs after the commit), and the blocks are freed only
+        after their gather was queued: every later write to them is
+        queued behind it on the same stream."""
+        req = self._slots[slot]
+        pos = int(self._pos[slot])
+        nb = len(self._pager.slot_blocks[slot])
+        mode = self.preempt_policy
+        if mode == "auto":
+            mode = ("swap" if pos > 2 * self.kv_block_tokens
+                    else "recompute")
+        swapped = self._swap_out(slot, nb) if mode == "swap" else None
+        host, event = swapped or (None, None)
+        if swapped is None:
+            mode = "recompute"
+        pr = _ParkedRequest(req, mode, self._token[slot], pos,
+                            self._gens[slot], host, event,
+                            nb if mode == "swap" else 0,
+                            self._slot_seq[slot])
+        self._parked.append(pr)
+        _tr.point("req/park", trace_id=req.trace_id, rid=req.rid,
+                  mode=mode, pos=pos)
+        self._free_slot(slot)
+        self._m_preempt.inc()
+        self._note_kv()
+
+    def _swap_out(self, slot, nb):
+        """Gather the slot's `nb` blocks into one device buffer and
+        start its copy into pinned host memory (non-blocking, a CUDA
+        event after it; on the CPU the gather is the host copy).
+        Returns (host, event), or None to fall back to recompute."""
+        req = self._slots[slot]
+        try:
+            _faults.fire("kv.swap_out", slot=slot, rid=req.rid)
+        except _faults.InjectedFault:
+            return None
+        if not self._pager.host_reserve(nb):
+            return None
+        ids = np.asarray(self._pager.slot_blocks[slot][:nb], np.int64)
+        flat = D.gather_blocks(self._kvpool, self._upload(ids))
+        event = None
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            flat = host
+        self._m_swap_bytes.inc(nb * self._kv_block_bytes)
+        return flat, event
+
+    def _unpark(self, pr):
+        """Drop a parked record (resume, cancel or expiry): return its
+        host-tier reservation."""
+        self._parked.remove(pr)
+        if pr.mode == "swap":
+            self._pager.host_release(pr.n_blocks)
+        pr.host = pr.event = None
+
+    def _try_resume(self):
+        """Parked requests resume oldest admission first, before any
+        new admission, as soon as a slot and blocks are free.  A failed
+        swap-in (an injected fault) leaves the request parked with its
+        host copy intact."""
+        if not self._parked:
+            return
+        free = self._free_slots()
+        for pr in sorted(self._parked, key=lambda p: p.admit_seq):
+            if not free:
+                break
+            slot = free[0]
+            ok = (self._resume_swap(slot, pr) if pr.mode == "swap"
+                  else self._resume_recompute(slot, pr))
+            if not ok:
+                break    # pool still short: keep order, retry next step
+            free.pop(0)
+            self._m_resume.inc()
+            self._m_park_time.observe(time.perf_counter() - pr.t_parked)
+        self._note_kv()
+
+    def _resume_swap(self, slot, pr):
+        """Allocate the slot's blocks and scatter the host copy back in
+        place.  Queued on the stream behind the copy to the host (and,
+        under overlap, behind the step in flight), so nothing waits
+        here; the resumed slot first decodes in the next dispatch."""
+        need = max(pr.n_blocks, self._pager.blocks_for(pr.pos + 1))
+        got = self._alloc_blocks(need)
+        if got is None:
+            return False
+        try:
+            _faults.fire("kv.swap_in", slot=slot, rid=pr.req.rid)
+        except _faults.InjectedFault:
+            for bid in got:
+                self._pager.decref(bid)
+            return False
+        self._swap_total += 1
+        if pr.event is None or pr.event.query():
+            self._swap_ready += 1
+        flat = pr.host if pr.event is None else \
+            pr.host.to(self.device, non_blocking=True)
+        ids = np.asarray(got[:pr.n_blocks], np.int64)
+        D.scatter_blocks(self._kvpool, self._upload(ids), flat)
+        self._pager.adopt(slot, got)
+        self._unpark(pr)
+        self._install_parked(slot, pr)
+        if self._pcache is not None:
+            # the swapped-in prompt rows are the prefill's own output:
+            # cache them as a local prefill would
+            self._pcache.insert(pr.req.prompt, pr.req.prompt.size,
+                                blocks=self._pager.slot_blocks[slot])
+            self._note_cache()
+        return True
+
+    def _install_parked(self, slot, pr):
+        """Reinstate a parked request into `slot`: last token, depth,
+        generator, sampling parameters and admission order."""
+        req = pr.req
+        _tr.point("req/resume", trace_id=req.trace_id, rid=req.rid,
+                  mode=pr.mode, slot=slot)
+        self._slots[slot] = req
+        self._slot_seq[slot] = pr.admit_seq
+        self._token[slot] = pr.token
+        self._pos[slot] = pr.pos
+        self._temp[slot] = req.temperature
+        self._topp[slot] = req.top_p
+        self._greedy[slot] = req.greedy
+        self._gens[slot] = pr.gen
+
+    def _resume_recompute(self, slot, pr):
+        """Drop-and-recompute resume: re-prefill prompt + generated
+        tokens[:-1] as a synthetic prompt (reusing what the prefix cache
+        holds), then reinstate the parked token and generator instead of
+        sampling.  Chunked engines re-enter the chunk scheduler; the
+        whole-bucket path re-prefills inline, in a pow-2 bucket sized to
+        the synthetic prompt (float pools only, as that path is)."""
+        req = pr.req
+        synth = np.concatenate(
+            [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        matched, nodes, bids = 0, [], []
+        if self._pcache is not None:
+            matched, bids, nodes = self._pcache.match(synth)
+            self._pcache.acquire(nodes)      # pin before allocating
+        need = self._pager.blocks_for(pr.pos + 1) - len(bids)
+        got = self._alloc_blocks(need) if need > 0 else []
+        if got is None:
+            if self._pcache is not None:
+                self._pcache.release(nodes)
+                self._pcache.match_undo(matched)
+            return False
+        if matched:
+            self._pager.alias_prefix(slot, bids)
+        self._pager.adopt(slot, got)
+        self._unpark(pr)
+        if self.prefill_chunk is None:
+            Sb = 1 << max(int(synth.size) - 1, 0).bit_length()
+            ids = np.zeros((1, Sb), np.int32)
+            ids[0, :synth.size] = synth
+            D.paged_prefill(self.state, self.cfg, self._upload(ids),
+                            self._upload(self._pager.table[slot]),
+                            self._kvpool)
+            self._install_parked(slot, pr)
+            return True
+        self._prefill[slot] = _PrefillState(req, matched, nodes, ids=synth,
+                                            restore=pr)
+        self._slot_seq[slot] = pr.admit_seq
+        self._pos[slot] = matched
+        self._token[slot] = 0
+        return True
 
     # -- the scheduler -----------------------------------------------------
 
@@ -834,56 +1353,69 @@ class LLMEngine:
 
     @property
     def has_work(self):
-        return bool(self._queue or self._prefill or self.num_active
-                    or self._inflight is not None)
+        return bool(self._queue or self._prefill or self._parked
+                    or self.num_active or self._inflight is not None)
 
     @torch.no_grad()
     def step(self) -> bool:
         """One scheduler iteration: reap cancellations and expiries,
-        admit queued requests into free slots, spend the token budget
-        left after one decode token per active slot on prefill chunks,
-        then one vectorised decode step over every slot.  Returns True
-        while there is (or was) work.
+        resume parked requests, admit queued requests into free slots,
+        spend the token budget left after one decode token per active
+        slot on prefill chunks, make sure every decoding slot owns the
+        block its row lands in (climbing the preempt ladder on a
+        shortage), then one vectorised decode step over every slot.
+        Returns True while there is (or was) work.
 
         With overlap on, the same phases run as a pipeline
         (`_step_overlap`): the decode step is dispatched without
         waiting for its tokens, which commit at the next call, after
-        that call's reap / admit / chunk host work already ran against
-        the step in flight.  Streams are bitwise identical either
-        way."""
+        that call's reap / resume / admit / chunk host work already ran
+        against the step in flight.  Streams are bitwise identical
+        either way."""
         if self.overlap:
             return self._step_overlap()
         t = _tr.t0()
         self._reap_cancelled()
+        self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
         self._admit()
         _tr.end("step/admit", t)
         if self._prefill:
             self._run_chunks(self.step_token_budget - self.num_active)
+        return self._decode(lambda: self._commit_decode(
+            self._dispatch_decode()))
+
+    def _decode(self, run):
+        """The shared tail of both drivers: with a slot decoding and
+        every decoding slot's block in hand (the ladder may park some),
+        `run` the dispatch; else disarm the idle clocks."""
         self._m_active.set(self.num_active)
-        if self.num_active == 0:
+        self._note_kv()
+        if self.num_active == 0 or not self._ensure_decode_capacity():
             self._t_prev_step = None        # idle gap: disarm the EMA clock
             self._t_retire = None           # ... and the host-gap anchor
             return self.has_work
-        self._ensure_decode_capacity()
-        self._commit_decode(self._dispatch_decode())
+        run()
         self._m_active.set(self.num_active)
         return True
 
     def _step_overlap(self) -> bool:
         """The overlap driver, the port of the JAX engine's
         `_step_overlap`.  Phase A: host work that touches no decoding
-        slot (mid-prefill reaps, admission, prefill chunks queued behind
-        step N on the stream) while step N runs.  Phase B: the DEFERRED
-        COMMIT of step N (wait for its tokens, emit, EOS / max_new, slot
-        frees), the decoding-slot reap, and a second admission so freed
-        slots turn around at once.  Phase C: dispatch step N+1.  A
-        slot's token depends only on its own token, depth, generator and
-        KV, all fixed at dispatch, so deferring the read changes no
-        stream; only WHEN host work runs differs."""
+        slot (mid-prefill and parked reaps, resumes, admission, prefill
+        chunks: all queued behind step N on the stream) while step N
+        runs.  Phase B: the DEFERRED COMMIT of step N (wait for its
+        tokens, emit, EOS / max_new, slot frees), the decoding-slot
+        reap, and a second resume / admission pass so freed slots turn
+        around at once.  Phase C: the preempt ladder (parks run here,
+        with no step in flight) and the dispatch of step N+1.  A slot's
+        token depends only on its own token, depth, generator and KV,
+        all fixed at dispatch, so deferring the read changes no stream;
+        only WHEN host work runs differs."""
         t = _tr.t0()
         self._reap_cancelled(decoding=self._inflight is None)
+        self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
         self._admit()
@@ -893,16 +1425,12 @@ class LLMEngine:
         if self._inflight is not None:
             self._commit_inflight()
             self._reap_decoding()
+            self._try_resume()
             self._admit()
-        self._m_active.set(self.num_active)
-        if self.num_active == 0:
-            self._t_prev_step = None
-            self._t_retire = None
-            return self.has_work
-        self._ensure_decode_capacity()
-        self._inflight = self._dispatch_decode()
-        self._m_active.set(self.num_active)
-        return True
+
+        def dispatch():
+            self._inflight = self._dispatch_decode()
+        return self._decode(dispatch)
 
     def _commit_inflight(self):
         inf, self._inflight = self._inflight, None
@@ -917,19 +1445,6 @@ class LLMEngine:
             self._commit_inflight()
             self._reap_decoding()
             self._m_active.set(self.num_active)
-
-    def _ensure_decode_capacity(self):
-        """Every decoding slot must own the block its write row lands in
-        before the step: grow tables one block at a time as decode
-        crosses block edges.  The pool is fully provisioned, so growth
-        cannot fail."""
-        for slot, req in enumerate(self._slots):
-            if req is None:
-                continue
-            rows = min(int(self._pos[slot]) + 1, self.max_len)
-            if not self._pager.ensure_rows(slot, rows):
-                raise RuntimeError("KV pool exhausted despite full "
-                                   "provisioning")
 
     def _observe_host_gap(self):
         """Close the host-gap window the previous step's commit opened:

@@ -47,8 +47,10 @@ _UNPORTED = {
 
 
 class LLMServer:
-    """Thread-safe front over `LLMEngine(model, **engine_kw)`.
-    `default_result_timeout` bounds every `result()` wait."""
+    """Thread-safe front over `LLMEngine(model, **engine_kw)` (every
+    knob the engine takes: the pool, the preempt ladder, the prefix
+    cache, ...).  `default_result_timeout` bounds every `result()`
+    wait."""
 
     def __init__(self, model, default_result_timeout=600.0, name=None,
                  **engine_kw):
@@ -74,6 +76,8 @@ class LLMServer:
         self._thread.start()
 
     def submit(self, prompt_ids, max_new_tokens=16, **kw):
+        """Hand a request to the driver thread; `kw` are `Request`'s
+        (sampling, `seed`, `deadline`, `priority`, callbacks)."""
         if self._error is not None:
             raise EngineUnhealthy(
                 f"LLMServer driver thread crashed: {self._error!r}")
@@ -174,6 +178,8 @@ class LLMServer:
         eng._slots = [None] * eng.max_slots
         dead.extend(ps.req for ps in eng._prefill.values())
         eng._prefill.clear()
+        dead.extend(pr.req for pr in eng._parked)
+        eng._parked.clear()
         # overlap: the step in flight holds the requests failed above;
         # drop it so no late commit revives a dead stream
         eng._inflight = None

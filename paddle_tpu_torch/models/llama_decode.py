@@ -21,6 +21,11 @@ Three programs run over the pool:
     `kernel="cuda"` (the Hopper paged-attention kernel, K4, which
     walks the table itself; on a CPU tensor it runs its plain version).
 
+Parking a slot moves its blocks as one flat buffer: `gather_blocks`
+packs them (every layer, K and V, int8 scales) and `scatter_blocks`
+writes them back in place — indexing copies, as the JAX engine leaves
+its `swap_out_fn` / `swap_in_fn` to XLA.
+
 Math mirrors the JAX package: RMSNorm in fp32 cast back to the input
 dtype before the weight, rope applied in the input dtype, GQA by head
 grouping, fp32 attention logits and softmax with the probabilities cast
@@ -43,7 +48,8 @@ from ..quantization.int8 import quantize_kv_rows
 
 __all__ = ["collect_decode_state", "init_paged_cache", "paged_write_rows",
            "paged_decode_step_batch", "paged_prefill_chunk",
-           "paged_prefill", "pool_is_quant"]
+           "paged_prefill", "pool_is_quant", "pool_leaves",
+           "gather_blocks", "scatter_blocks"]
 
 
 def collect_decode_state(model):
@@ -156,6 +162,58 @@ def pool_is_quant(pool):
 
 def _entry_data(entry):
     return entry[0] if isinstance(entry, tuple) else entry
+
+
+def pool_leaves(pool):
+    """Every tensor of the pool in a fixed order: per layer K then V,
+    each its data (and, int8, its scale after it)."""
+    return [t for layer in pool for entry in layer
+            for t in (entry if isinstance(entry, tuple) else (entry,))]
+
+
+def _block_layout(pool, n):
+    """(leaf, byte offset, byte length) of each leaf's `n` blocks in a
+    flat buffer; every offset 16-byte aligned."""
+    out, off = [], 0
+    for t in pool_leaves(pool):
+        nbytes = n * (t.numel() // t.shape[0]) * t.element_size()
+        out.append((t, off, nbytes))
+        off += -(-nbytes // 16) * 16
+    return out, off
+
+
+def _leaf_view(flat, t, off, nbytes, n):
+    return flat[off:off + nbytes].view(t.dtype).view(n, *t.shape[1:])
+
+
+def gather_blocks(pool, table_row):
+    """One slot's blocks, in table order, of every layer's K and V (and
+    the int8 scales), packed into ONE flat uint8 tensor on the pool's
+    device — what parking copies to the host tier in a single transfer
+    (the JAX engine's `swap_out_fn`).  `table_row`: int64 block ids on
+    the pool's device."""
+    n = int(table_row.numel())
+    layout, total = _block_layout(pool, n)
+    flat = torch.empty(total, dtype=torch.uint8, device=table_row.device)
+    for t, off, nbytes in layout:
+        torch.index_select(t, 0, table_row,
+                           out=_leaf_view(flat, t, off, nbytes, n))
+    return flat
+
+
+def scatter_blocks(pool, table_row, flat):
+    """The inverse of `gather_blocks`: write `flat` (on the pool's
+    device) into the blocks `table_row` names, IN PLACE
+    (`index_copy_`), so CUDA graphs captured over the pool read the
+    restored rows (the JAX engine's `swap_in_fn`)."""
+    n = int(table_row.numel())
+    layout, total = _block_layout(pool, n)
+    if flat.numel() != total:
+        raise ValueError(f"{flat.numel()} bytes for {n} blocks of this "
+                         f"pool, which take {total}")
+    for t, off, nbytes in layout:
+        t.index_copy_(0, table_row, _leaf_view(flat, t, off, nbytes, n))
+    return pool
 
 
 def _entry_set(entry, blk, col, x):
