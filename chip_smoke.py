@@ -24,7 +24,10 @@ the result line:
               the ~20 us kernels; reported beside as eager_ms), beside
               its bound and one PyTorch call that computes the same
               function (scaled_dot_product_attention on the pre-gathered
-              view — a yardstick the port never calls);
+              view — a yardstick the port never calls); and at a verify
+              step's shape (8 slots x 8 columns = 64 rows, each slot's
+              table row and depth + j; the bound counts each slot's rows
+              once);
   3b. train_kernels
               flash attention forward (K1) and backward (K2: dQ, dK/dV)
               and the fused softmax cross-entropy forward and backward
@@ -88,10 +91,29 @@ the result line:
               saved, a block shared (refcount >= 2) while the decode
               graphs replay, streams equal; K4's launches counted
               through the replays of every run;
+              serve_spec_verify: for each pool, one verify step of width
+              8 on the 8 serve slots (speculation k 7): K4 over the 64
+              columns held to the gather attention per layer and row,
+              the logits to the gather path's by the serve_parity rule,
+              the verify graph replayed twice (bitwise) and against the
+              eager verify step; K4 on rows deeper than the table;
+              serve_spec: `bench.py:517-613`'s extraction stream (40
+              cyclic seeds harvested, the 8 most draftable re-fed as
+              144-token prompts, 96 new tokens, k 7, verify widths 2 / 4
+              / 8, prefill_chunk 64) with speculation off and on: per-
+              request ITL, tokens a step, acceptance, verify replays,
+              graphs, peak memory, K4 launches = 32 x (decode + verify
+              replays); spec-on streams equal the spec-off ones, or the
+              logits up to each first flip stay within the serve_parity
+              limit (top-2 margin at the flip printed); then the int8
+              pool with speculation on against off through per-step
+              logits;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact;
   6. server   LLMServer answers three requests with the engine's tokens;
+              then serve_spec on debug-4l (fp32), whose random weights
+              loop: drafts accepted (required), streams equal;
   6b. optimizer_kernels
               the optimizer update's two multi-tensor kernels (U1: the
               global-norm clip's and the loss scaler's reduction; U2: the
@@ -206,6 +228,16 @@ TOL = {"bfloat16": _PER_SLOT,
 #    wrong slot, head, block or layer changes the attention output by
 #    O(1), and the logits by their own scale.
 SERVE_LOGITS_FACTOR = 2.0
+# serve_spec (`bench.py:517-613` at its card sizes): seed prompts of
+# SPEC_SEED tokens, SPEC_KEEP harvested tokens re-fed as prompt,
+# SPEC_NEW tokens generated, SPEC_N streams, draft length SPEC_K (verify
+# widths 2, 4, 8)
+SPEC_SEED, SPEC_KEEP, SPEC_NEW, SPEC_N, SPEC_K = 48, 96, 96, 8, 7
+SPEC_CHUNK = 64
+SPEC_W = 8                    # the widest verify: next_pow2(SPEC_K + 1)
+# K4 at a verify step's shape: depths from a 144-token prompt through
+# the stream's first 84 tokens
+SPEC_DEPTHS = [SPEC_SEED + SPEC_KEEP + 12 * i for i in range(SPEC_N)]
 SERVE_PARITY_STEPS = 16       # >= kv_block_tokens: every slot's table grows
 
 
@@ -319,17 +351,19 @@ def _ptxas_report(log, word):
     return out
 
 
-def _kernel_inputs(torch, mode, copies, gen, depths=KERNEL_POS):
+def _kernel_inputs(torch, mode, copies, gen, depths=KERNEL_POS, cols=1):
     """`copies` independent pools (so timed launches find the 50 MB L2
     cold, as a decode step's per-layer pools do) + one q, table and
-    pos = `depths`."""
+    pos = `depths`.  With `cols` > 1, a verify step's K4 call: each
+    slot's `cols` columns are rows of their own (slot-major), with the
+    slot's table row and depths depth + j."""
     from paddle_tpu_torch.quantization.int8 import quantize_kv_rows
     s = KERNEL_SHAPE
     dev = torch.device("cuda")
     n_blocks = 1 + s["B"] * s["bmax"]
     qdt = torch.float32 if mode == "float32" else torch.bfloat16
-    q = torch.randn(s["B"], s["nh"], s["hd"], device=dev, generator=gen,
-                    dtype=torch.float32).to(qdt)
+    q = torch.randn(s["B"] * cols, s["nh"], s["hd"], device=dev,
+                    generator=gen, dtype=torch.float32).to(qdt)
     pools = []
     for _ in range(copies):
         kv = []
@@ -345,10 +379,12 @@ def _kernel_inputs(torch, mode, copies, gen, depths=KERNEL_POS):
                           .manual_seed(1)) + 1
     k = 0
     for b, p in enumerate(depths):
-        n = min(p // s["bt"] + 1 + b % 3, s["bmax"])
+        n = min((p + cols - 1) // s["bt"] + 1 + b % 3, s["bmax"])
         table[b, :n] = perm[k:k + n].to(torch.int32)
         k += n
-    pos = torch.tensor(depths, dtype=torch.int32)
+    pos = torch.tensor([p + j for p in depths for j in range(cols)],
+                       dtype=torch.int32)
+    table = table.repeat_interleave(cols, 0)
     return q, pools, table.to(dev), pos.to(dev)
 
 
@@ -365,20 +401,23 @@ def _time_ms(torch, fn, copies, iters):
     return start.elapsed_time(end) / iters
 
 
-def _bound(mode, q, out, table, pos, kind, depths=KERNEL_POS):
+def _bound(mode, q, out, table, pos, kind, depths=KERNEL_POS, cols=1):
     """Least time for the function on this card: bytes it must move
-    (K/V rows t <= pos once, int8 scales, q, out, table, pos) over the
-    memory rate vs. its QK and PV flops over the peak for their type."""
+    (each slot's K/V rows t <= its deepest query once — with `cols`
+    verify columns, depth + cols - 1 — int8 scales, q, out, table, pos)
+    over the memory rate vs. its QK and PV flops (every query row
+    against its own rows) over the peak for their type."""
     from paddle_tpu_torch.observability import roofline
     s = KERNEL_SHAPE
-    rows = sum(p + 1 for p in depths)
+    rows = sum(p + cols for p in depths)
     elt = {"bfloat16": 2, "float32": 4, "int8": 1}[mode]
     kv = rows * s["n_kv"] * s["hd"] * 2 * elt
     if mode == "int8":
         kv += rows * s["n_kv"] * 4 * 2
     nbytes = kv + sum(t.numel() * t.element_size()
                       for t in (q, out, table, pos))
-    flops = 4.0 * rows * s["nh"] * s["hd"]
+    flops = 4.0 * sum(p + j + 1 for p in depths for j in range(cols)) \
+        * s["nh"] * s["hd"]
     t_bytes = nbytes / roofline.peak_hbm_bw(kind)
     t_ops = flops / roofline.peak_flops(
         kind, "float32" if mode == "float32" else "bfloat16")
@@ -415,18 +454,21 @@ def _graph_ms(torch, fn, copies, calls=20, reps=20):
     return ms
 
 
-def _k4_case(torch, mode, gen, depths, kind):
+def _k4_case(torch, mode, gen, depths, kind, cols=1):
     """K4 at `depths` for one pool: the kernel against its plain version
-    per slot, twice for bitwise repeatability; then in turns (plain,
-    kernel, kernel, plain) by graph replay, beside the bound and one
-    PyTorch call (scaled_dot_product_attention on the pre-gathered view,
-    a yardstick the port never calls).  Kernel launches made here are
-    not counted."""
+    per slot (per query row), twice for bitwise repeatability; then in
+    turns (plain, kernel, kernel, plain) by graph replay, beside the
+    bound and one PyTorch call (scaled_dot_product_attention on the
+    pre-gathered view, a yardstick the port never calls; with `cols`
+    verify columns, the slots' `cols` queries against one view each,
+    masked t <= depth + j).  Kernel launches made here are not
+    counted."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import paged_attention as PA
     copies = 4
     launches = PA.LAUNCHES["paged_attention"]
-    q, pools, table, pos = _kernel_inputs(torch, mode, copies, gen, depths)
+    q, pools, table, pos = _kernel_inputs(torch, mode, copies, gen, depths,
+                                          cols)
     out = PA.paged_attention(q, *pools[0], table, pos)
     again = PA.paged_attention(q, *pools[0], table, pos)
     torch.cuda.synchronize()
@@ -437,7 +479,7 @@ def _k4_case(torch, mode, gen, depths, kind):
     # per slot: a depth-0 slot returns one V row (|out| ~ 3), a
     # 2048-row slot averages to |out| ~ 0.05; one limit over the
     # batch would let the deep slots' errors through
-    B = len(depths)
+    B = len(depths) * cols
     err_b = (out.float() - ref.float()).abs().reshape(B, -1).amax(1)
     ref_b = ref.float().abs().reshape(B, -1).amax(1)
     limit_b = torch.full_like(ref_b, 1e-5) if mode == "float32" \
@@ -450,11 +492,13 @@ def _k4_case(torch, mode, gen, depths, kind):
     require(bitwise, f"K4 {mode}: two calls on the same inputs differ")
     s = KERNEL_SHAPE
     T = s["bmax"] * s["bt"]
-    views = [tuple(PA.paged_view(e, table, q.dtype).transpose(1, 2)
+    slot_table = table[::cols]
+    views = [tuple(PA.paged_view(e, slot_table, q.dtype).transpose(1, 2)
                    .contiguous() for e in pool) for pool in pools]
+    # (slot, 1, col, T): column j of slot b sees t <= depth_b + j
     mask = (torch.arange(T, device="cuda")[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
+            <= pos.long()[:, None]).reshape(len(depths), 1, cols, T)
+    q4 = q.reshape(len(depths), cols, s["nh"], s["hd"]).transpose(1, 2)
 
     def kern(i):
         PA.paged_attention(q, *pools[i], table, pos)
@@ -473,8 +517,10 @@ def _k4_case(torch, mode, gen, depths, kind):
     lib_ms = _graph_ms(torch, lib, copies)
     eager_ms = _time_ms(torch, kern, copies, 50)
     PA.LAUNCHES["paged_attention"] = launches   # checks and timing
-    bound_ms, bound_by = _bound(mode, q, out, table, pos, kind, depths)
-    res = {"depths": list(depths), "max_abs_err": err_b.max().item(),
+    bound_ms, bound_by = _bound(mode, q, out, table, pos, kind, depths,
+                                cols)
+    res = {"depths": list(depths), "cols": cols,
+           "max_abs_err": err_b.max().item(),
            "err_per_slot": err_b.tolist(),
            "max_abs_plain_per_slot": ref_b.tolist(),
            "worst_err_over_limit": share, "bitwise_twice": bitwise,
@@ -498,6 +544,9 @@ def phase_kernels(torch):
         results[mode] = _k4_case(torch, mode, gen, KERNEL_POS, kind)
         results[mode]["serve_depths"] = _k4_case(torch, mode, gen,
                                                  serve_depths, kind)
+        # a verify step's call: 8 slots x 8 columns at the spec depths
+        results[mode]["verify_shape"] = _k4_case(
+            torch, mode, gen, SPEC_DEPTHS, kind, cols=SPEC_W)
         emit({"phase": "kernels", "kernel": "paged_attention",
               "mode": mode, "timing": "CUDA-graph replay, per call",
               **results[mode]})
@@ -999,7 +1048,9 @@ def _unhook(torch, eng):
     invalidates that capture.  Remove the hooks, free it now."""
     for name in ("_park_slot", "_resume_swap", "_resume_recompute"):
         vars(eng).pop(name, None)
-    vars(eng._graphs).pop("replay", None)
+    for graphs in (eng._graphs, eng._vgraphs):
+        if graphs is not None:
+            vars(graphs).pop("replay", None)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1051,21 +1102,41 @@ def _hook_ladder(torch, eng, times, roundtrip):
 
 
 def _logit_rows(eng, want):
-    """Hook `eng`'s decode replays (full width: row s is slot s): the
-    logits row of request `rid` for each token index t <= want[rid]
-    that a decode step produces, cloned on the card, into the dict
-    returned, keyed (rid, t)."""
-    rows, g = {}, eng._graphs
-    replay = g.replay
+    """Hook `eng`'s decode replays (full width: row s is slot s) and
+    verify replays: the logits row of request `rid` for each token index
+    t <= want[rid] that a step produces, cloned on the card, into the
+    dict returned, keyed (rid, t).  A verify's column j predicts
+    token len(tokens) + j (the engine dispatches after it committed);
+    a later step's row for the same index replaces it, so each index
+    keeps the row of the step that committed it."""
+    rows = {}
+    g, v = eng._graphs, eng._vgraphs
+    d_replay = g.replay
 
-    def hooked(w):
-        logits, argmax = replay(w)
+    def decode(w):
+        logits, argmax = d_replay(w)
         for s, req in enumerate(eng._slots[:w]):
             if req is not None and len(req.tokens) <= want.get(req.rid, -1):
                 rows[req.rid, len(req.tokens)] = logits[s].clone()
         return logits, argmax
 
-    g.replay = hooked
+    g.replay = decode
+    if v is not None:
+        v_replay = v.replay
+
+        def verify(W):
+            logits, packed = v_replay(W)
+            valid = v.views(v.inputs(W), W)[2].tolist()
+            for s, req in enumerate(eng._slots):
+                if req is None:
+                    continue
+                for j in range(valid[s]):
+                    t = len(req.tokens) + j
+                    if t <= want.get(req.rid, -1):
+                        rows[req.rid, t] = logits[s, j].clone()
+            return logits, packed
+
+        v.replay = verify
     return rows
 
 
@@ -1340,6 +1411,441 @@ def phase_serve_prefix(torch, model):
     return launches
 
 
+# --------------------------------------------------------------------------
+# speculative decoding (engine sub-slice (d)): K4 inside the verify step at
+# the serve shape, and `bench.py`'s extraction stream with speculation off
+# and on
+# --------------------------------------------------------------------------
+
+def _verify_parity(torch, model, kv_dtype, limit):
+    """K4 inside one verify step at the serve shape, for one pool: the 8
+    serve prompts prefilled into an engine with speculation (k 7,
+    graphs, synchronous driver), every slot decoding, then one verify
+    step of width 8 (each slot's token and 7 random drafts) on the same
+    pool, inputs and tables through the gather path, the gather path
+    with fp32 probabilities, the eager kernel path (each K4 call over
+    the 64 columns held to the gather attention per row, K4's own
+    tolerance) and the engine's verify graph, replayed twice.  The
+    kernel path's logits are held to the gather path's by the
+    serve_parity rule (SERVE_LOGITS_FACTOR x the fp32-probabilities
+    gap of this step), the replays to each other bitwise and to the
+    eager step bitwise or within that limit.  Then K4 alone on rows
+    whose depth runs past the table (a padded column near max_len):
+    the kernel attends the table's own rows, as its plain version.
+    Last, each verify width's replay and the decode step's on these
+    slots, timed by CUDA events."""
+    import numpy as np
+    from paddle_tpu_torch.inference import LLMEngine, SpecConfig
+    from paddle_tpu_torch.models import llama_decode as D
+    from paddle_tpu_torch.ops import paged_attention as PA
+    cfg = model.config
+    nh, nkv, layers = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.num_hidden_layers)
+    eng = LLMEngine(model, overlap="off", kv_dtype=kv_dtype,
+                    speculation=SpecConfig(k=SPEC_K), **SERVE_KW)
+    eng.prepare_programs()
+    require(eng.verify_widths == (2, 4, SPEC_W), eng.verify_widths)
+    rng = np.random.default_rng(0)
+    for L in SERVE_LENGTHS:
+        eng.submit(rng.integers(0, cfg.vocab_size, L), SERVE_NEW)
+    while eng.num_prefilling or eng._queue:
+        eng.step()
+    B, W = eng.max_slots, SPEC_W
+    require(eng.num_active == B, f"{eng.num_active} slots decoding")
+    require(eng._ensure_decode_capacity([W] * B), "no slot left")
+    tokens = rng.integers(0, cfg.vocab_size, (B, W)).astype(np.int32)
+    tokens[:, 0] = eng._token
+    host = np.concatenate([tokens.reshape(-1), eng._pos,
+                           np.full(B, W, np.int32),
+                           eng._pager.table.reshape(-1)])
+    g = eng._vgraphs
+    flat = g.inputs(W)
+    flat.copy_(torch.from_numpy(host).to(flat.device))
+    args = [v.clone() for v in g.views(flat, W)]
+    step, attend, kernel_fn = D.paged_verify_step, D._attend, \
+        D.paged_attention
+    worst = {"layer_share": 0.0}
+
+    def per_row(x):
+        return x.float().abs().reshape(x.shape[0], -1).amax(1)
+
+    def attend_fp32_probs(q, k_view, v_view, valid_len, n_heads, n_kv):
+        out = attend(q.float(), k_view, v_view, valid_len, n_heads, n_kv)
+        return out.to(torch.promote_types(q.dtype, v_view.dtype))
+
+    def kernel_checked(q, pk, pv, table, pos, split=None):
+        out = kernel_fn(q, pk, pv, table, pos, split=split)
+        ref = attend(q[:, None], D._paged_view(pk, table, q.dtype),
+                     D._paged_view(pv, table, q.dtype), pos.long()[:, None],
+                     nh, nkv)[:, 0]
+        share = (per_row(out.float() - ref.float())
+                 / (2e-2 * per_row(ref))).max().item()
+        worst["layer_share"] = max(worst["layer_share"], share)
+        return out
+
+    state, pool = eng.state, eng._kvpool
+    tok, pos, _, table = args
+    ref, _ = step(state, cfg, tok, pos, pool, table, kernel="gather")
+    D._attend = attend_fp32_probs
+    try:
+        alt, _ = step(state, cfg, tok, pos, pool, table, kernel="gather")
+    finally:
+        D._attend = attend
+    launches = PA.LAUNCHES["paged_attention"]
+    D.paged_attention = kernel_checked
+    try:
+        kern, _ = step(state, cfg, tok, pos, pool, table, kernel="cuda",
+                       **eng._decode_kw)
+    finally:
+        D.paged_attention = kernel_fn
+    require(PA.LAUNCHES["paged_attention"] - launches == layers,
+            "verify parity: K4 not run once a layer")
+    eager = [x.clone() for x in eng._verify_logits(*args)]
+    replays = g.replays
+    first = [x.clone() for x in g.replay(W)]
+    second = g.replay(W)
+    torch.cuda.synchronize()
+    PA.LAUNCHES["paged_attention"] = launches      # checks, not the path
+    g.replays = replays
+
+    def rows_err(x, y):
+        return per_row(x.reshape(B * W, -1).float()
+                       - y.reshape(B * W, -1).float()).max().item()
+
+    step_limit = SERVE_LOGITS_FACTOR * rows_err(alt, ref)
+    errs = {"cuda_vs_gather": rows_err(kern, ref),
+            "fp32probs_vs_gather": rows_err(alt, ref),
+            "graph_vs_eager": rows_err(first[0], eager[0])}
+    bitwise_twice = all(torch.equal(a, b) for a, b in zip(first, second))
+    graph_bitwise = all(torch.equal(a, b) for a, b in zip(first, eager))
+    argmax_same = (kern.float().argmax(-1) == ref.float().argmax(-1)) \
+        .float().mean().item()
+    # K4 on rows deeper than the table: 8 queries at depths past its
+    # last row, against the last layer's pool and the slots' tables
+    T = eng._pager.max_blocks * eng.kv_block_tokens
+    pk, pv = pool[-1]
+    q = torch.randn(B, nh, cfg.head_dim, device="cuda",
+                    dtype=state["embed"].dtype)
+    past = torch.arange(T, T + B, dtype=torch.int32, device="cuda")
+    tab = torch.from_numpy(eng._pager.table).to("cuda")
+    over = kernel_fn(q, pk, pv, tab, past, **eng._decode_kw)
+    plain = PA.paged_attention_plain(q, pk, pv, tab, past)
+    # the whole step on the card, by CUDA events: each verify width and
+    # the decode step on these slots' inputs (live depths and tables)
+    times = {}
+    for v in eng.verify_widths:
+        flat = g.inputs(v)
+        flat.copy_(torch.from_numpy(np.concatenate([
+            tokens[:, :v].reshape(-1), eng._pos, np.full(B, v, np.int32),
+            eng._pager.table.reshape(-1)])).to(flat.device))
+        times[f"verify_w{v}"] = _replay_times(torch, g, v)
+    flat = eng._graphs.inputs(B)
+    flat.copy_(torch.from_numpy(np.concatenate([
+        eng._token, eng._pos, eng._pager.table.reshape(-1)]))
+        .to(flat.device))
+    times["decode"] = _replay_times(torch, eng._graphs, B)
+    PA.LAUNCHES["paged_attention"] = launches
+    over_share = (per_row(over.float() - plain.float())
+                  / (2e-2 * per_row(plain))).max().item()
+    pool_name = kv_dtype or "bfloat16"
+    report = {"phase": "serve_spec_verify", "model": "llama3-8b",
+              "kv_dtype": pool_name, "slots": B, "width": W,
+              "depths": eng._pos.tolist(),
+              "k4_rows_a_launch": B * W,
+              "layer_tolerance": "per layer and column row r: max|cuda_r "
+                                 "- gather_r| <= 2e-2 * max|gather_r|",
+              "layer_worst_err_over_limit": worst["layer_share"],
+              "logits_tolerance": f"max|cuda - gather| per column <= "
+                                  f"{SERVE_LOGITS_FACTOR} x max|gather "
+                                  f"with fp32 probs - gather|",
+              "logits_max_abs_err": errs, "logits_limit": step_limit,
+              "decode_serve_parity_limit": limit,
+              "argmax_agreement": argmax_same,
+              "graph_replays_bitwise_twice": bitwise_twice,
+              "graph_vs_eager_bitwise": graph_bitwise,
+              "k4_past_table_rows_err_over_limit": over_share,
+              "step_replay_times": times}
+    emit(report)
+    require(worst["layer_share"] <= 1.0,
+            f"verify parity ({pool_name}): a layer's kernel output is "
+            f"{worst['layer_share']} x its limit")
+    require(errs["cuda_vs_gather"] <= step_limit,
+            f"verify parity ({pool_name}): kernel vs gather logits "
+            f"{errs['cuda_vs_gather']} > {step_limit}")
+    require(bitwise_twice, f"verify graph ({pool_name}): two replays "
+            f"differ")
+    require(graph_bitwise or errs["graph_vs_eager"] <= step_limit,
+            f"verify graph ({pool_name}): replay vs eager "
+            f"{errs['graph_vs_eager']} > {step_limit}")
+    require(over_share <= 1.0, f"K4 past the table ({pool_name}): "
+            f"{over_share} x its limit")
+    _unhook(torch, eng)
+    return report
+
+
+def _spec_prompts(torch, model):
+    """`bench.py:524-579`'s extraction workload on the card: greedy
+    continuations of 40 cyclic seed prompts (period 1-4, SPEC_SEED
+    tokens), harvested through the engine; each stream's seed + first
+    SPEC_KEEP tokens re-fed as a prompt, whose continuation is then
+    predictable from it; the SPEC_N streams a host-side dry run of the
+    n-gram drafter scores most draftable.  Returns (prompts, report)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.inference.ngram_draft import NGramIndex
+    rng = np.random.RandomState(0)
+    vocab = model.config.vocab_size
+    seeds = [np.tile(rng.randint(2, vocab, (1 + i % 4,)), SPEC_SEED)
+             [:SPEC_SEED] for i in range(5 * SPEC_N)]
+    t0 = time.perf_counter()
+    harvest = LLMEngine(model, max_slots=8,
+                        max_len=SPEC_SEED + SPEC_KEEP + SPEC_NEW + 8,
+                        max_prompt_len=SPEC_SEED, prefill_chunk=SPEC_CHUNK)
+    reqs = [harvest.submit(p, SPEC_KEEP + SPEC_NEW) for p in seeds]
+    harvest.run()
+    secs = time.perf_counter() - t0
+    del harvest
+    torch.cuda.empty_cache()
+
+    def sim_accept(ctx, cont, k):
+        idx = NGramIndex([int(t) for t in ctx], 3, 1)
+        i = prop = acc = 0
+        while i < len(cont):
+            d = idx.propose(k)
+            m = 0
+            for j, t in enumerate(d):
+                if i + j < len(cont) and t == cont[i + j]:
+                    m += 1
+                else:
+                    break
+            prop += len(d)
+            acc += m
+            for j in range(min(m + 1, len(cont) - i)):
+                idx.extend(cont[i + j])
+            i += m + 1
+        return acc / max(prop, 1)
+
+    scored = sorted(((sim_accept(np.concatenate(
+        [s, np.asarray(r.tokens[:SPEC_KEEP])]), r.tokens[SPEC_KEEP:],
+        SPEC_K), i) for i, (s, r) in enumerate(zip(seeds, reqs))),
+        key=lambda t: -t[0])
+    keep = [i for _, i in scored[:SPEC_N]]
+    prompts = [np.concatenate([seeds[i], np.asarray(reqs[i].tokens
+                                                    [:SPEC_KEEP])])
+               for i in keep]
+    return prompts, {"harvest_requests": len(seeds), "harvest_s": secs,
+                     "dry_run_acceptance_kept": [s for s, _ in
+                                                 scored[:SPEC_N]]}
+
+
+def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
+              warm=True):
+    """The extraction stream through one engine (graphs + overlap,
+    `bench.py:581-613`'s knobs): with `warm`, a warm-up pass, then the
+    pass measured (launch counts from 0, peak memory reset).  ITL per
+    request, the engine's convention: a step that emits e of its tokens
+    e samples of (time since its previous token) / e; beside it
+    `bench.py`'s step-loop figure (each step's host time over all the
+    tokens it emitted).  `rows_of` ({request index: last token index})
+    records decode / verify logits (`_logit_rows`).  Returns (report,
+    streams, rows)."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops import paged_attention as PA
+    eng = LLMEngine(model, max_slots=8,
+                    max_len=SPEC_SEED + SPEC_KEEP + SPEC_NEW + 8,
+                    max_prompt_len=SPEC_SEED + SPEC_KEEP,
+                    prefill_chunk=SPEC_CHUNK,
+                    step_token_budget=8 * SPEC_CHUNK, speculation=spec,
+                    kv_dtype=kv_dtype)
+    require(eng.overlap and eng._graphs is not None, "not graphs + overlap")
+    eng.prepare_programs()
+
+    def run_once(hook=None):
+        reqs = [eng.submit(p, SPEC_NEW) for p in prompts]
+        rows = None if hook is None else hook(reqs)
+        samples, itl, steps, last = [], [], 0, {}
+        while eng.has_work:
+            before = [len(r.tokens) for r in reqs]
+            t0 = time.perf_counter()
+            eng.step()
+            now = time.perf_counter()
+            dt = now - t0
+            emitted = sum(len(r.tokens) for r in reqs) - sum(before)
+            if emitted:
+                steps += 1
+                samples.extend([dt / emitted] * emitted)
+            for r, n in zip(reqs, before):
+                e = len(r.tokens) - n
+                if e and r.rid in last:
+                    itl.extend([(now - last[r.rid]) / e] * e)
+                if e:
+                    last[r.rid] = now
+        for r in reqs:
+            require(r.done and r.error is None
+                    and len(r.tokens) == SPEC_NEW,
+                    f"serve_spec: request {r.rid}: {len(r.tokens)} "
+                    f"tokens, {r.error!r}")
+        return reqs, samples, itl, steps, rows
+
+    if warm:
+        run_once()
+    snap = eng.metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.LAUNCHES["paged_attention"] = 0
+    replays = (eng._graphs.replays, eng.num_verify_replays)
+    hook = None if rows_of is None else (lambda reqs: _logit_rows(
+        eng, {reqs[i].rid: t for i, t in rows_of.items()}))
+    t0 = time.perf_counter()
+    reqs, samples, itl, steps, rows = run_once(hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.LAUNCHES["paged_attention"]
+    decode_replays = eng._graphs.replays - replays[0]
+    verify_replays = eng.num_verify_replays - replays[1]
+    after = eng.metrics()
+    layers = model.config.num_hidden_layers
+
+    def delta(name, field="value"):
+        key = "llm_engine_" + name
+        return after[key]["series"][""][field] - \
+            snap[key]["series"][""][field]
+
+    device_steps = int(delta("decode_steps_total"))
+    require(launches == layers * (decode_replays + verify_replays),
+            f"serve_spec: {launches} K4 launches for {decode_replays} "
+            f"decode and {verify_replays} verify replays")
+    require(decode_replays + verify_replays == device_steps,
+            f"serve_spec: {device_steps} device steps, "
+            f"{decode_replays + verify_replays} replays")
+    require(eng.num_graphs <= len(eng.decode_widths)
+            + len(eng.verify_widths), f"serve_spec: {eng.num_graphs} graphs")
+    proposed = delta("spec_tokens_proposed_total")
+    accepted = delta("spec_tokens_accepted_total")
+    gen = sum(len(r.tokens) for r in reqs)
+    report = {"kv_dtype": kv_dtype or str(model.config.dtype),
+              "speculation": None if spec is None else vars(spec),
+              "verify_widths": list(eng.verify_widths),
+              "requests": len(reqs), "generated_tokens": gen,
+              "wall_s": wall, "tokens_per_s": gen / wall,
+              "itl_p50_ms": 1e3 * _percentile(itl, 50),
+              "itl_p99_ms": 1e3 * _percentile(itl, 99),
+              "step_loop_ms_per_token_p50": 1e3 * _percentile(samples, 50),
+              "step_loop_ms_per_token_p99": 1e3 * _percentile(samples, 99),
+              "tokens_per_step": len(samples) / steps,
+              "scheduler_steps_emitting": steps,
+              "device_steps": device_steps,
+              "tokens_per_device_step": delta("tokens_emitted_per_step",
+                                              "sum")
+              / max(delta("tokens_emitted_per_step", "count"), 1),
+              "decode_replays": decode_replays,
+              "verify_replays": verify_replays,
+              "spec_verify_steps": int(delta("spec_verify_steps_total")),
+              "spec_proposed": int(proposed),
+              "spec_accepted": int(accepted),
+              "acceptance_rate": accepted / proposed if proposed else 0.0,
+              "k4_launches": launches, "num_graphs": eng.num_graphs,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    streams = [[int(t) for t in r.tokens] for r in reqs]
+    if rows is not None:
+        index = {r.rid: i for i, r in enumerate(reqs)}
+        rows = {(index[rid], t): x for (rid, t), x in rows.items()}
+    _unhook(torch, eng)
+    return report, streams, rows
+
+
+def _spec_flips(torch, model, prompts, ref, got, limit, kv_dtype=None,
+                rows=None):
+    """Spec-on streams `got` against spec-off `ref`: token agreement;
+    where they differ, each request's logits up to its first flip in
+    both runs (recorded now, or given as `rows` = (off, on)) within
+    `limit`, and the first flip's top-2 margin in the spec-off run."""
+    from paddle_tpu_torch.inference import SpecConfig
+    agree = sum(a == b for x, y in zip(ref, got) for a, b in zip(x, y))
+    out = {"token_agreement": agree / sum(map(len, ref)),
+           "streams_equal": ref == got}
+    flips = {i: next(t for t, (a, b) in enumerate(zip(x, y)) if a != b)
+             for i, (x, y) in enumerate(zip(ref, got)) if x != y}
+    if not flips and rows is None:
+        return out
+    if rows is None:
+        _, ref2, want = _spec_run(torch, model, None, prompts, kv_dtype,
+                                  rows_of=flips, warm=False)
+        _, got2, have = _spec_run(torch, model, SpecConfig(k=SPEC_K),
+                                  prompts, kv_dtype, rows_of=flips,
+                                  warm=False)
+        require(ref2 == ref and got2 == got,
+                "serve_spec: a rerun gave other streams")
+    else:
+        want, have = rows
+    worst, compared = 0.0, 0
+    for (i, t), x in want.items():
+        if t > flips.get(i, -1 if rows is None else len(ref[i])):
+            continue
+        require((i, t) in have, f"serve_spec: no spec-on logits for "
+                f"request {i} token {t}")
+        worst = max(worst, (have[i, t].float() - x.float()).abs().max()
+                    .item())
+        compared += 1
+    out.update({"requests_flipped": len(flips),
+                "steps_compared": compared, "logits_max_abs_err": worst,
+                "logits_limit": limit})
+    if flips:
+        first = min(flips.items(), key=lambda kv: kv[1])
+        top2 = want[first].float().topk(2).values
+        out["first_flip"] = {"request": first[0], "token": first[1],
+                             "top2_margin": (top2[0] - top2[1]).item()}
+    require(worst <= limit,
+            f"serve_spec: logits up to the first flips {worst} > {limit}")
+    return out
+
+
+def phase_serve_spec(torch, model, limits, name="llama3-8b"):
+    """`bench.py:517-613`'s extraction stream at its card sizes (8
+    streams of 144-token prompts x 96 tokens, k 7, verify widths 2, 4,
+    8, prefill_chunk 64, step_token_budget 512; graphs + overlap) with
+    speculation off and on, in the model's dtype: ITL, tokens a step,
+    acceptance, verify steps, graphs, peak memory, K4 launches =
+    layers x (decode + verify replays); the spec-on streams against the
+    spec-off ones (equal, or near-ties flipped with the logits up to
+    each first flip within `limits[pool]`).  llama3-8b's random weights
+    write no text a drafter can predict (its greedy continuations do
+    not repeat), so there speculation runs its verify steps and adapts
+    its draft length down, and only the int8 pool is added (spec on
+    against spec off through per-step logits); debug-4l's loop, so
+    there drafts are accepted (required).  Returns the K4 launches of
+    the measured spec-on runs by pool."""
+    from paddle_tpu_torch.inference import SpecConfig
+    prompts, prep = _spec_prompts(torch, model)
+    pool = str(model.config.dtype)
+    emit({"phase": "serve_spec", "model": name, **prep})
+    off, ref, _ = _spec_run(torch, model, None, prompts)
+    emit({"phase": "serve_spec", "model": name, **off})
+    on, got, _ = _spec_run(torch, model, SpecConfig(k=SPEC_K), prompts)
+    require(on["spec_verify_steps"] > 0 and on["spec_proposed"] > 0,
+            f"serve_spec ({name}): no verify step ran")
+    check = _spec_flips(torch, model, prompts, ref, got, limits[pool])
+    emit({"phase": "serve_spec", "model": name, **on, **check,
+          "itl_p50_off_over_on": off["itl_p50_ms"] / on["itl_p50_ms"],
+          "tokens_per_device_step_off": off["tokens_per_device_step"]})
+    if name != "llama3-8b":
+        require(on["spec_accepted"] > 0,
+                f"serve_spec ({name}): no draft accepted")
+        return {pool: on["k4_launches"]}
+    every = {i: SPEC_NEW - 1 for i in range(SPEC_N)}
+    _, ref8, want = _spec_run(torch, model, None, prompts, "int8",
+                              rows_of=every, warm=False)
+    on8, got8, have = _spec_run(torch, model, SpecConfig(k=SPEC_K),
+                                prompts, "int8", rows_of=every, warm=False)
+    require(on8["spec_verify_steps"] > 0, "serve_spec int8: no verify")
+    check8 = _spec_flips(torch, model, prompts, ref8, got8,
+                         limits["int8"], "int8", rows=(want, have))
+    emit({"phase": "serve_spec", "model": "llama3-8b", **on8, **check8,
+          "note": "one pass with logits recorded (no warm-up): times "
+                  "include the recording"})
+    return {pool: on["k4_launches"], "int8": on8["k4_launches"]}
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
@@ -1383,12 +1889,15 @@ def phase_serve(torch):
             "decode_buckets streams differ from the full width's")
     limits = {kv or "bfloat16": phase_serve_parity(torch, model, kv)
               for kv in (None, "int8")}
+    for kv in (None, "int8"):
+        _verify_parity(torch, model, kv, limits[kv or "bfloat16"])
     pressure = phase_serve_pressure(torch, model, limits)
     prefix = phase_serve_prefix(torch, model)
+    spec = phase_serve_spec(torch, model, limits)
     del model
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
-            "pressure": pressure, "prefix": prefix}
+            "pressure": pressure, "prefix": prefix, "spec": spec}
 
 
 def _debug_model():
@@ -1398,6 +1907,10 @@ def _debug_model():
 
 
 DEBUG_KW = dict(max_slots=4, max_len=256, prefill_chunk=32)
+# serve_spec on debug-4l (fp32): the spec-on logits up to a flipped
+# token may differ from the spec-off run's by at most this (fp32 GEMMs
+# at M = 8 x W rows against M = 8; ~1e-6 expected)
+DEBUG_SPEC_LIMIT = 1e-4
 DEBUG_LENGTHS = [5, 17, 33, 64, 100, 7]
 
 
@@ -3186,6 +3699,8 @@ def main() -> int:
     debug = _debug_model()
     tokens, parity_launches = phase_parity(torch, debug)
     phase_server(torch, debug, tokens)
+    serve_launches["spec"].update(phase_serve_spec(
+        torch, debug, {"float32": DEBUG_SPEC_LIMIT}, name="debug-4l"))
     del debug
     opt_kernels = phase_optimizer_kernels(torch)
     train_launches = phase_train(torch)
@@ -3217,7 +3732,10 @@ def main() -> int:
             "eager_ms": r["eager_ms"], "split_rows": r["split_rows"],
             "serve_depths": {k: sd[k] for k in (
                 "depths", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}})
+                "bound_by", "max_abs_err")},
+            "verify_shape": {k: r["verify_shape"][k] for k in (
+                "depths", "cols", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err")}})
     for name, r in train_kernels.items():
         mod, replaces = TRAIN_KERNELS[name]
         entries.append({
@@ -3262,6 +3780,14 @@ def main() -> int:
             e["launches_path_serve_pressure"] = (
                 f"serve_pressure llama3-8b, {pool} pool: each run from 0 "
                 f"(full provisioning, then {pressure_blocks()} blocks)")
+        if pool in serve_launches["spec"]:
+            e["launches_serve_spec"] = serve_launches["spec"][pool]
+            e["launches_path_serve_spec"] = (
+                f"serve_spec {'debug-4l' if pool == 'float32' else 'llama3-8b'}"
+                f", {pool} pool, speculation on: layers x (decode + verify "
+                f"replays), counted from 0")
+            require(e["launches_serve_spec"] > 0,
+                    f"{e['name']}: no launch in serve_spec")
         if pool == "bfloat16":
             e["launches_serve_prefix"] = {
                 "without cache": serve_launches["prefix"][0],

@@ -52,23 +52,45 @@ What this slice keeps of the JAX engine:
     (reaping, admission, prefill chunks) runs while the card computes
     step N, whose tokens commit one `step()` later — streams are
     bitwise those of the synchronous driver;
+  * SPECULATIVE DECODING (`speculation`: a `SpecConfig`, True, an int
+    k, or False / None; chunked prefill only): each decoding slot keeps
+    a rolling n-gram index over its prompt + tokens
+    (`ngram_draft.NGramIndex`) and proposes up to its adaptive k draft
+    tokens; when any slot drafted, the step is ONE batched verify over
+    every slot at the pow-2 width W >= 1 + the longest draft
+    (`verify_widths`; `llama_decode.paged_verify_step`, K4 over all
+    B * W columns on the card), a CUDA graph per verify width beside
+    the decode graphs (`programs.VerifyGraphs`).  Greedy slots accept
+    the longest argmax-matching draft prefix (in the graph), sampled
+    slots draw one token per column after the replay
+    (`generation.accept_rows`): every stream is the one it has without
+    speculation.  Drafts are charged against `step_token_budget` before
+    the prefill chunks (the overlap driver budgets chunks against
+    active slots only and proposes after its deferred commit); EOS or
+    `max_new_tokens` inside an accepted run truncates the emission; a
+    per-slot acceptance EMA halves or doubles the draft length; a
+    parked slot keeps its drafter;
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
-    and the `llm_engine_*` TTFT / ITL / token / host-gap metrics.
+    and the `llm_engine_*` TTFT / ITL / token / host-gap / `spec_*`
+    metrics.
 
-The JAX engine's other knobs (speculation, tiered KV, weight-only
-int8, meshes, the AOT cache, the KV fabric, SLO targets and per-request
-SLO tiers, the overload ladder) raise `NotImplementedError` naming
-their ROADMAP item — never silently ignored; the admission queue is
-plain FIFO.  Of the ladder, the port leaves out the CRC32C stamp on
-parked host copies (with the fabric, (h)), the tiered spill rung ((g))
-and the disk tier (a parked request is always claimable here).  Its
-bounded compile count becomes a bound on captured graphs: `num_graphs`
-<= `len(decode_widths)`.
+The JAX engine's other knobs (tiered KV, weight-only int8, meshes, the
+AOT cache, the KV fabric, SLO targets and per-request SLO tiers, the
+overload ladder) raise `NotImplementedError` naming their ROADMAP item
+— never silently ignored; the admission queue is plain FIFO.  Of the
+ladder, the port leaves out the CRC32C stamp on parked host copies
+(with the fabric, (h)), the tiered spill rung ((g)) and the disk tier
+(a parked request is always claimable here); of speculation, the
+overload ladder's "no speculation for the lowest tier" (with the
+tiers, (e)).  Its bounded compile count becomes a bound on captured
+graphs: `num_graphs` <= `len(decode_widths) + len(verify_widths)`.
 
-The decode graphs hold the pool by address: everything that writes it
-(prefill, the step, a swap-in's `scatter_blocks`) writes in place, and
+The graphs hold the pool by address: everything that writes it
+(prefill, the steps, a swap-in's `scatter_blocks`) writes in place, and
 every write is queued on the one stream, behind the step in flight.
+A verify writes W rows a slot; rows of rejected drafts stay dead in
+place, because `pos` never advances past the accepted length.
 
 Padding correctness: a prompt's padded tail chunk writes garbage K/V at
 rows >= its true length, and the decode step writes each slot's token
@@ -88,14 +110,17 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..generation import sample_logits_per_slot, sample_rows
+from ..generation import (accept_rows, greedy_accept,
+                          sample_logits_per_slot, sample_rows,
+                          settle_generators)
 from ..models import llama_decode as D
 from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
 from ..testing import faults as _faults
 from .kv_pager import KVPager
+from .ngram_draft import NGramIndex, SpecConfig
 from .prefix_cache import RadixPrefixCache
-from .programs import DecodeGraphs
+from .programs import DecodeGraphs, VerifyGraphs, unpack_verify
 
 __all__ = ["Request", "LLMEngine", "DeadlineExceeded", "QueueFull",
            "EngineUnhealthy", "ResultTimeout"]
@@ -108,8 +133,6 @@ _SLO = "engine sub-slice (e): SLO tiers and the overload ladder"
 _TIERED = "engine sub-slice (g): tiered KV and long context"
 _MULTI = "multi-GPU serving"
 _UNPORTED = {
-    "speculation": ((None, False),
-                    "engine sub-slice (d): speculative decoding"),
     "hot_window": ((None,), _TIERED),
     "prefetch_depth": ((2,), _TIERED),
     "weight_dtype": ((None, "auto"), "weight-only int8 decode path"),
@@ -274,22 +297,27 @@ class _PrefillState:
 class _ParkedRequest:
     """A preempted decode slot's host-side state, enough to resume it
     with the stream it would have had unpreempted: its last token,
-    depth, sampling generator (the JAX engine's RNG key) and admission
+    depth, sampling generator (the JAX engine's RNG key), drafter state
+    (n-gram index, draft length, acceptance EMA) and admission
     order.  `mode` "swap": `host` holds its blocks (`n_blocks`, packed
     by `llama_decode.gather_blocks`) in pinned host memory, `event` the
     CUDA event after their copy (None on the CPU); "recompute": the KV
     was dropped and resume re-prefills prompt + tokens[:-1]."""
 
-    __slots__ = ("req", "mode", "token", "pos", "gen", "host", "event",
-                 "n_blocks", "admit_seq", "t_parked")
+    __slots__ = ("req", "mode", "token", "pos", "gen", "spec_idx",
+                 "spec_k", "spec_ema", "host", "event", "n_blocks",
+                 "admit_seq", "t_parked")
 
-    def __init__(self, req, mode, token, pos, gen, host, event, n_blocks,
-                 admit_seq):
+    def __init__(self, req, mode, token, pos, gen, spec_idx, spec_k,
+                 spec_ema, host, event, n_blocks, admit_seq):
         self.req = req
         self.mode = mode
         self.token = int(token)
         self.pos = int(pos)
         self.gen = gen
+        self.spec_idx = spec_idx
+        self.spec_k = spec_k
+        self.spec_ema = spec_ema
         self.host = host
         self.event = event
         self.n_blocks = int(n_blocks)
@@ -298,22 +326,35 @@ class _ParkedRequest:
 
 
 class _InflightStep:
-    """A dispatched decode step whose tokens are not committed yet: its
-    token readback (a pinned host buffer and the CUDA event after its
-    copy, or the eager step's token tensor and None), the per-slot
-    request snapshot taken at dispatch (phase-A work never touches
-    decoding slots, so the snapshot stays the truth until commit), the
-    active count, and `rows`: the slot behind each compacted batch row
-    (None: the full width, row i is slot i)."""
+    """A dispatched device step whose tokens are not committed yet:
+    `kind` "decode" or "verify", its readback `tokens` (a pinned host
+    buffer and the CUDA event after its copy, or the eager step's
+    tensor and None: a decode step's tokens, a verify step's packed
+    [out (B * W) | accept length (B)]), the per-slot request snapshot
+    taken at dispatch (phase-A work never touches decoding slots, so
+    the snapshot stays the truth until commit), the active count, and
+    `rows`: the slot behind each compacted decode row (None: the full
+    width, row i is slot i).  A verify also carries its width, each
+    slot's `valid` (1 + draft length), and the sampled rows'
+    generators with their states after each draw (settled at
+    commit)."""
 
-    __slots__ = ("tokens", "event", "reqs", "active", "rows")
+    __slots__ = ("kind", "tokens", "event", "reqs", "active", "rows",
+                 "width", "valid", "gens", "states")
 
-    def __init__(self, tokens, event, reqs, active, rows):
+    def __init__(self, tokens, event, reqs, active, rows=None,
+                 kind="decode", width=1, valid=None, gens=None,
+                 states=None):
+        self.kind = kind
         self.tokens = tokens
         self.event = event
         self.reqs = reqs
         self.active = active
         self.rows = rows
+        self.width = width
+        self.valid = valid
+        self.gens = gens
+        self.states = states or {}
 
 
 def _decode_fn(state, cfg, pool, kernel, kw):
@@ -326,6 +367,19 @@ def _decode_fn(state, cfg, pool, kernel, kw):
                                               table, kernel=kernel, **kw)
         return logits
     return decode_logits
+
+
+def _verify_fn(state, cfg, pool, kernel, kw):
+    """The verify step over device inputs (tokens (B, W), pos, valid,
+    table) -> (logits (B, W, V), packed int64 [greedy argmax (B * W) |
+    greedy accept length (B)]), the pool written in place: what each
+    verify graph records (a closure over the state, as `_decode_fn`)."""
+    def verify(tokens, pos, valid, table):
+        logits, _ = D.paged_verify_step(state, cfg, tokens, pos, pool,
+                                        table, kernel=kernel, **kw)
+        am, acc = greedy_accept(logits, tokens, valid)
+        return logits, torch.cat([am.reshape(-1), acc])
+    return verify
 
 
 def _bucket_sizes(max_prompt_len, min_bucket=16):
@@ -359,7 +413,9 @@ class LLMEngine:
     "auto", "bfloat16", "float32", "int8"),
     `decode_kernel` ("auto" = "cuda" on a CUDA model, "gather" on the
     CPU; "cuda" on a CPU model runs the kernel's plain version),
-    `decode_block_tile` (table blocks per K4 split: split =
+    `speculation` (None / False: off; a `SpecConfig`, True for
+    `SpecConfig()`, or an int k for `SpecConfig(k=k)`; chunked prefill
+    only), `decode_block_tile` (table blocks per K4 split: split =
     decode_block_tile * kv_block_tokens rows, a power of two in
     [8, 256]; None = `ops.paged_attention.split_rows`),
     `decode_buckets` (False: one decode width, max_slots; True: the
@@ -376,7 +432,7 @@ class LLMEngine:
                  preempt_policy="auto", kv_dtype=None,
                  decode_kernel="auto", decode_block_tile=None,
                  decode_buckets=False, overlap="auto", max_queue=None,
-                 **unported):
+                 speculation=None, **unported):
         _reject_unported(unported)
         self.cfg = model.config
         self.device = model.device
@@ -420,6 +476,28 @@ class LLMEngine:
                     "(prefill_chunk): the whole-bucket prefill attends a "
                     "local float cache whose rows were never quantized")
             self.step_token_budget = None
+
+        if speculation is True:
+            speculation = SpecConfig()
+        elif isinstance(speculation, int) and not isinstance(
+                speculation, bool):
+            speculation = SpecConfig(k=speculation)
+        elif speculation is False:
+            speculation = None
+        self.spec = speculation.validate() if speculation is not None \
+            else None
+        self.verify_widths = ()
+        if self.spec is not None:
+            if self.prefill_chunk is None:
+                raise ValueError("speculation requires chunked prefill "
+                                 "(prefill_chunk)")
+            # pow-2 verify widths {2, 4, ..., next_pow2(k + 1)}: one
+            # verify graph per width bounds the graph count
+            widths, w = [], 2
+            while w < self.spec.k + 1:
+                widths.append(w)
+                w *= 2
+            self.verify_widths = tuple(widths) + (w,)
 
         if decode_kernel not in ("auto", "cuda", "gather"):
             raise ValueError(f"unknown decode_kernel {decode_kernel!r} "
@@ -511,6 +589,11 @@ class LLMEngine:
         self._topp = np.ones(B, np.float32)
         self._greedy = np.ones(B, bool)
         self._gens: list = [None] * B               # per-slot sampler
+        # per-slot speculation state: the rolling n-gram index, the
+        # adaptive draft length and its acceptance EMA
+        self._spec_idx: list = [None] * B
+        self._spec_k = [0] * B
+        self._spec_ema = [1.0] * B
         self._slots: list = [None] * B              # decoding requests
         self._slot_nodes: list = [[] for _ in range(B)]  # trie pins
         self._prefill: dict = {}                    # slot -> _PrefillState
@@ -529,18 +612,28 @@ class LLMEngine:
         # model; the CPU runs the same step eagerly
         self._decode_logits = _decode_fn(self.state, self.cfg, self._kvpool,
                                          self.decode_kernel, self._decode_kw)
-        self._graphs = None
+        self._verify_logits = _verify_fn(self.state, self.cfg, self._kvpool,
+                                         self.decode_kernel, self._decode_kw)
+        self._graphs = self._vgraphs = None
         if on_cuda:
             self._graphs = DecodeGraphs(self._decode_logits,
                                         self.decode_widths, bmax,
                                         self.device)
+            n, m = self._graphs.flat_len(B), B
+            if self.spec is not None:
+                self._vgraphs = VerifyGraphs(
+                    self._verify_logits, self.verify_widths, B, bmax,
+                    self.device, pool=self._graphs.pool)
+                wmax = self.verify_widths[-1]
+                n = max(n, self._vgraphs.flat_len(wmax))
+                m = B * wmax + B
             # pinned staging, one set per step in flight (overlap keeps
             # one in flight while the next is dispatched): the inputs in
-            # the graphs' flat layout, and the tokens read back
-            n = self._graphs.flat_len(B)
+            # the graphs' flat layout, and the tokens (a verify: the
+            # packed output) read back
             self._staging = [
                 (torch.empty(n, dtype=torch.int32, pin_memory=True),
-                 torch.empty(B, dtype=torch.int64, pin_memory=True))
+                 torch.empty(m, dtype=torch.int64, pin_memory=True))
                 for _ in range(2)]
             self._n_dispatched = 0
         self._init_metrics()
@@ -574,8 +667,9 @@ class LLMEngine:
                                   help="requests waiting for a slot")
         self._m_active = reg.gauge("slots_active",
                                    help="slots generating right now")
-        self._m_steps = reg.counter("decode_steps_total",
-                                    help="vectorized decode steps run")
+        self._m_steps = reg.counter(
+            "decode_steps_total",
+            help="vectorized device steps run (decode or verify)")
         self._m_ttft = reg.histogram(
             "ttft_seconds", help="submit -> first token (queue wait "
             "+ prefill + first sample)",
@@ -664,6 +758,33 @@ class LLMEngine:
             "park_time_seconds",
             help="park -> resume wall time per preemption",
             buckets=log_buckets(1e-4, 600.0, per_decade=3))
+        # speculative decoding
+        self._m_spec_steps = reg.counter(
+            "spec_verify_steps_total",
+            help="batched verify steps run (scheduler steps where at "
+                 "least one slot had a draft)")
+        self._m_spec_proposed = reg.counter(
+            "spec_tokens_proposed_total",
+            help="draft tokens proposed by the n-gram drafter")
+        self._m_spec_accepted = reg.counter(
+            "spec_tokens_accepted_total",
+            help="draft tokens accepted by the batched verify")
+        self._m_spec_rolled = reg.counter(
+            "spec_tokens_rolled_back_total",
+            help="draft tokens rejected by verify (their KV rows are "
+                 "left dead in place — no copy rollback)")
+        self._m_accept_rate = reg.histogram(
+            "spec_acceptance_rate",
+            help="per-slot fraction of its proposed draft accepted by "
+                 "one verify step",
+            buckets=[0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
+                     1.0])
+        self._m_step_tokens = reg.histogram(
+            "tokens_emitted_per_step",
+            help="tokens emitted by one scheduler step across all slots "
+                 "(speculation multiplies this; plain decode emits one "
+                 "per active slot)",
+            buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0])
         self._seen_evictions = 0
         self._t_prev_step = None
         self._tput_ema = None
@@ -690,22 +811,32 @@ class LLMEngine:
 
     @property
     def num_graphs(self):
-        """CUDA graphs captured (one per decode width used; 0 on the
-        CPU): never more than `len(decode_widths)`."""
-        return 0 if self._graphs is None else len(self._graphs)
+        """CUDA graphs captured (one per decode and verify width used;
+        0 on the CPU): never more than `len(decode_widths) +
+        len(verify_widths)`."""
+        return sum(len(g) for g in (self._graphs, self._vgraphs)
+                   if g is not None)
 
     @property
     def num_graph_replays(self):
-        """Decode steps run as graph replays (0 on the CPU)."""
-        return 0 if self._graphs is None else self._graphs.replays
+        """Device steps (decode and verify) run as graph replays (0 on
+        the CPU)."""
+        return sum(g.replays for g in (self._graphs, self._vgraphs)
+                   if g is not None)
+
+    @property
+    def num_verify_replays(self):
+        """Verify steps run as graph replays (0 on the CPU)."""
+        return 0 if self._vgraphs is None else self._vgraphs.replays
 
     @torch.no_grad()
     def prepare_programs(self):
-        """The boot-time sweep: capture every decode width (on the CPU,
-        run each once eagerly), and run every prefill chunk width (or
-        whole-prefill bucket) once, all against all-trash tables and
-        pos 0, so every write lands in the trash block.  Refuses to run
-        with work in flight.  Returns {program: widths resolved}."""
+        """The boot-time sweep: capture every decode and verify width
+        (on the CPU, run each once eagerly), and run every prefill chunk
+        width (or whole-prefill bucket) once, all against all-trash
+        tables and pos 0, so every write lands in the trash block.
+        Refuses to run with work in flight.  Returns {program: widths
+        resolved}."""
         if self.has_work:
             raise RuntimeError("prepare_programs is a boot-time sweep; "
                                "the engine already has work in flight")
@@ -718,6 +849,19 @@ class LLMEngine:
                 self._decode_logits(z, z, torch.zeros(
                     (w, trash.size), dtype=torch.int32, device=self.device))
         resolved = {"decode": len(self.decode_widths)}
+        for W in self.verify_widths:
+            if self._vgraphs is not None:
+                self._vgraphs.capture(W)
+            else:
+                B = self.max_slots
+                z = torch.zeros(B, dtype=torch.int32, device=self.device)
+                self._verify_logits(
+                    torch.zeros((B, W), dtype=torch.int32,
+                                device=self.device), z, z,
+                    torch.zeros((B, trash.size), dtype=torch.int32,
+                                device=self.device))
+        if self.verify_widths:
+            resolved["verify"] = len(self.verify_widths)
         if self.prefill_chunk is not None:
             for C in self.chunk_sizes:
                 D.paged_prefill_chunk(
@@ -871,6 +1015,7 @@ class LLMEngine:
         self._token[slot] = 0
         self._greedy[slot] = True
         self._gens[slot] = None
+        self._spec_idx[slot] = None         # drop the request's drafter
 
     def _free_slots(self):
         return [s for s in range(self.max_slots)
@@ -1040,7 +1185,8 @@ class LLMEngine:
         """The prompt's last row sampled the first token: publish the
         prompt's full blocks to the prefix cache (zero-copy: the trie
         aliases the slot's blocks), emit the token, and either move the
-        slot to decoding or release it.  A drop-and-recompute RESTORE
+        slot to decoding (with speculation: a drafter over prompt +
+        token at the full draft length) or release it.  A drop-and-recompute RESTORE
         samples nothing: it reinstates the parked token, depth and
         generator, so the stream continues as if never preempted."""
         req = ps.req
@@ -1069,6 +1215,13 @@ class LLMEngine:
             self._temp[slot] = req.temperature
             self._topp[slot] = req.top_p
             self._greedy[slot] = req.greedy
+            if self.spec is not None:
+                idx = NGramIndex(req.prompt, self.spec.max_ngram,
+                                 self.spec.min_ngram)
+                idx.extend(tok)
+                self._spec_idx[slot] = idx
+                self._spec_k[slot] = self.spec.k
+                self._spec_ema[slot] = 1.0
         else:
             # finished at prefill (max_new_tokens=1 or instant EOS)
             self._gens[slot] = None
@@ -1097,9 +1250,12 @@ class LLMEngine:
         self._pager.adopt(slot, got)
         return True
 
-    def _ensure_decode_capacity(self):
-        """Before the decode dispatch every decoding slot must own the
-        block its write row lands in.  Slots are served highest priority
+    def _ensure_decode_capacity(self, widths=None):
+        """Before the decode / verify dispatch every decoding slot must
+        own the blocks of the rows it may COMMIT: `widths[slot]` rows
+        from its depth (1 + its draft length; default 1 — the rows of a
+        verify's padded columns land in trash when unowned).  Slots are
+        served highest priority
         / oldest admission first; a shortage climbs the preempt ladder
         (reclaim cache -> requeue the newest mid-prefill slot -> park
         the lowest-priority newest decoder), and when nothing else is
@@ -1113,7 +1269,9 @@ class LLMEngine:
         for slot in order:
             if self._slots[slot] is None:    # parked by an earlier turn
                 continue
-            rows = min(int(self._pos[slot]) + 1, self.max_len)
+            rows = min(int(self._pos[slot])
+                       + (1 if widths is None else widths[slot]),
+                       self.max_len)
             while not self._ensure_rows(slot, rows):
                 if not self._preempt_one(protect=slot):
                     self._park_slot(slot)
@@ -1187,8 +1345,9 @@ class LLMEngine:
         if swapped is None:
             mode = "recompute"
         pr = _ParkedRequest(req, mode, self._token[slot], pos,
-                            self._gens[slot], host, event,
-                            nb if mode == "swap" else 0,
+                            self._gens[slot], self._spec_idx[slot],
+                            self._spec_k[slot], self._spec_ema[slot],
+                            host, event, nb if mode == "swap" else 0,
                             self._slot_seq[slot])
         self._parked.append(pr)
         _tr.point("req/park", trace_id=req.trace_id, rid=req.rid,
@@ -1286,7 +1445,7 @@ class LLMEngine:
 
     def _install_parked(self, slot, pr):
         """Reinstate a parked request into `slot`: last token, depth,
-        generator, sampling parameters and admission order."""
+        generator, drafter, sampling parameters and admission order."""
         req = pr.req
         _tr.point("req/resume", trace_id=req.trace_id, rid=req.rid,
                   mode=pr.mode, slot=slot)
@@ -1298,6 +1457,9 @@ class LLMEngine:
         self._topp[slot] = req.top_p
         self._greedy[slot] = req.greedy
         self._gens[slot] = pr.gen
+        self._spec_idx[slot] = pr.spec_idx
+        self._spec_k[slot] = pr.spec_k
+        self._spec_ema[slot] = pr.spec_ema
 
     def _resume_recompute(self, slot, pr):
         """Drop-and-recompute resume: re-prefill prompt + generated
@@ -1360,11 +1522,14 @@ class LLMEngine:
     def step(self) -> bool:
         """One scheduler iteration: reap cancellations and expiries,
         resume parked requests, admit queued requests into free slots,
-        spend the token budget left after one decode token per active
-        slot on prefill chunks, make sure every decoding slot owns the
-        block its row lands in (climbing the preempt ladder on a
-        shortage), then one vectorised decode step over every slot.
-        Returns True while there is (or was) work.
+        propose speculative drafts (charged against the token budget
+        BEFORE prefill spends it), spend the token budget left after
+        one decode token per active slot and the drafts on prefill
+        chunks, make sure every decoding slot owns the blocks its rows
+        land in (climbing the preempt ladder on a shortage), then one
+        vectorised decode step over every slot — or, when any slot
+        drafted, one batched verify step.  Returns True while there is
+        (or was) work.
 
         With overlap on, the same phases run as a pipeline
         (`_step_overlap`): the decode step is dispatched without
@@ -1381,18 +1546,34 @@ class LLMEngine:
         t = _tr.t0()
         self._admit()
         _tr.end("step/admit", t)
+        drafts, cost = self._draft()
         if self._prefill:
-            self._run_chunks(self.step_token_budget - self.num_active)
-        return self._decode(lambda: self._commit_decode(
-            self._dispatch_decode()))
+            self._run_chunks(self.step_token_budget - self.num_active
+                             - cost)
+        return self._decode(lambda: self._commit_step(
+            self._dispatch(drafts)), drafts)
 
-    def _decode(self, run):
+    def _draft(self):
+        """The drafts of this step when speculating with a slot decoding
+        (`_propose_drafts`), else (None, 0)."""
+        if self.spec is None or not self.num_active:
+            return None, 0
+        t = _tr.t0()
+        drafts, cost = self._propose_drafts()
+        _tr.end("step/draft", t, args={"tokens": cost})
+        return drafts, cost
+
+    def _decode(self, run, drafts=None):
         """The shared tail of both drivers: with a slot decoding and
-        every decoding slot's block in hand (the ladder may park some),
-        `run` the dispatch; else disarm the idle clocks."""
+        every decoding slot's blocks in hand (the ladder may park some;
+        a drafting slot needs rows for 1 + its draft), `run` the
+        dispatch; else disarm the idle clocks."""
         self._m_active.set(self.num_active)
         self._note_kv()
-        if self.num_active == 0 or not self._ensure_decode_capacity():
+        widths = None if drafts is None else \
+            [1 + len(d) if d else 1 for d in drafts]
+        if self.num_active == 0 or \
+                not self._ensure_decode_capacity(widths):
             self._t_prev_step = None        # idle gap: disarm the EMA clock
             self._t_retire = None           # ... and the host-gap anchor
             return self.has_work
@@ -1406,10 +1587,13 @@ class LLMEngine:
         slot (mid-prefill and parked reaps, resumes, admission, prefill
         chunks: all queued behind step N on the stream) while step N
         runs.  Phase B: the DEFERRED COMMIT of step N (wait for its
-        tokens, emit, EOS / max_new, slot frees), the decoding-slot
-        reap, and a second resume / admission pass so freed slots turn
-        around at once.  Phase C: the preempt ladder (parks run here,
-        with no step in flight) and the dispatch of step N+1.  A slot's
+        tokens, emit, EOS / max_new, accepted drafts, slot frees), the
+        decoding-slot reap, and a second resume / admission pass so
+        freed slots turn around at once.  Phase C: draft proposals from
+        the just-committed tokens (the chunks above were budgeted
+        against active slots only: the drafts are unknown before the
+        commit), the preempt ladder (parks run here, with no step in
+        flight) and the dispatch of step N+1.  A slot's
         token depends only on its own token, depth, generator and KV,
         all fixed at dispatch, so deferring the read changes no stream;
         only WHEN host work runs differs."""
@@ -1427,14 +1611,25 @@ class LLMEngine:
             self._reap_decoding()
             self._try_resume()
             self._admit()
+        drafts, _ = self._draft()
 
         def dispatch():
-            self._inflight = self._dispatch_decode()
-        return self._decode(dispatch)
+            self._inflight = self._dispatch(drafts)
+        return self._decode(dispatch, drafts)
+
+    def _dispatch(self, drafts):
+        return self._dispatch_decode() if drafts is None \
+            else self._dispatch_verify(drafts)
+
+    def _commit_step(self, inf):
+        if inf.kind == "verify":
+            self._commit_verify(inf)
+        else:
+            self._commit_decode(inf)
 
     def _commit_inflight(self):
         inf, self._inflight = self._inflight, None
-        self._commit_decode(inf)
+        self._commit_step(inf)
 
     def flush(self):
         """Commit the decode step in flight, if any, and reap decoding
@@ -1532,6 +1727,7 @@ class LLMEngine:
         self._t_retire = now                # host-gap anchor
         self._m_steps.inc()
         self._m_gen.inc(inf.active)
+        self._m_step_tokens.observe(inf.active)
         self._tput_tick(now, inf.active)
         row_of = None
         if inf.rows is not None:
@@ -1544,6 +1740,8 @@ class LLMEngine:
             tok = int(nxt[slot if row_of is None else row_of[slot]])
             self._pos[slot] += 1
             self._token[slot] = tok
+            if self._spec_idx[slot] is not None:
+                self._spec_idx[slot].extend(tok)
             if req._t_last is not None:
                 self._m_itl.observe(now - req._t_last)
             req._t_last = now
@@ -1551,6 +1749,185 @@ class LLMEngine:
                 self._free_slot(slot)       # freed for the next admit
                 self._m_completed.inc()
                 self._m_evicted.inc()
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _propose_drafts(self):
+        """Host-side n-gram proposals for every decoding slot: up to its
+        adaptive draft length, never past `max_new_tokens` (the +1
+        verify emission must fit) nor the widest verify.  Returns
+        (per-slot draft lists, total draft tokens), or (None, 0) when no
+        slot drafted."""
+        drafts = [None] * self.max_slots
+        cost = 0
+        wmax = self.verify_widths[-1]
+        for slot, req in enumerate(self._slots):
+            idx = self._spec_idx[slot]
+            if req is None or idx is None:
+                continue
+            remaining = req.max_new_tokens - len(req.tokens)
+            kb = min(self._spec_k[slot], remaining - 1, wmax - 1)
+            if kb <= 0:
+                continue
+            d = idx.propose(kb)
+            if d:
+                drafts[slot] = d
+                cost += len(d)
+        return (drafts, cost) if cost else (None, 0)
+
+    def _width_for(self, n):
+        for w in self.verify_widths:
+            if n <= w:
+                return w
+        return self.verify_widths[-1]
+
+    def _dispatch_verify(self, drafts):
+        """Dispatch one batched verify step over every slot at the
+        engine's full width: column 0 each slot's token, columns 1.. its
+        draft (a slot the ladder parked after drafting keeps its draft
+        in the width and writes trash rows; it is skipped at commit).
+        On a CUDA model the inputs cross in one non-blocking copy into
+        the width's verify graph, the graph replays (greedy acceptance
+        inside), sampled rows draw after it from its logits, and the
+        packed result returns by a non-blocking copy into pinned memory
+        followed by an event.  On the CPU: the eager step."""
+        active = self.num_active
+        self._observe_host_gap()
+        t = _tr.t0()
+        B = self.max_slots
+        W = self._width_for(max(len(d) for d in drafts if d) + 1)
+        valid = np.ones(B, np.int32)
+        for slot, d in enumerate(drafts):
+            if d:
+                valid[slot] = 1 + min(len(d), W - 1)
+        gens = [self._gens[s] if self._slots[s] is not None
+                and not self._greedy[s] else None for s in range(B)]
+        greedy = [g is None for g in gens]
+        g = self._vgraphs
+        if g is None:
+            flat = (np.zeros((B, W), np.int32), self._pos.copy(), valid,
+                    self._pager.table.copy())
+        else:
+            stage, back = self._staging[self._n_dispatched % 2]
+            self._n_dispatched += 1
+            n = g.flat_len(W)
+            flat = g.views(stage.numpy()[:n], W)
+            flat[0][:] = 0
+            flat[1][:] = self._pos
+            flat[2][:] = valid
+            flat[3][:] = self._pager.table
+        tokens = flat[0]
+        tokens[:, 0] = self._token
+        for slot, d in enumerate(drafts):
+            if d:
+                tokens[slot, 1:valid[slot]] = d[:valid[slot] - 1]
+        if g is None:
+            dev = [self._upload(a) for a in flat]
+            logits, packed = self._verify_logits(*dev)
+        else:
+            g.inputs(W).copy_(stage[:n], non_blocking=True)
+            logits, packed = g.replay(W)
+            dev = g.views(g.inputs(W), W)
+        states = {}
+        if not all(greedy):
+            # drawn here, before the next replay overwrites the logits
+            packed = packed.clone()
+            out, acc = unpack_verify(packed, B, W)
+            states = accept_rows(logits, dev[0], valid, out, acc, gens,
+                                 self._upload(self._temp.copy()),
+                                 self._upload(self._topp.copy()), greedy)
+        event = None
+        if g is not None:
+            host = back[:packed.numel()]
+            host.copy_(packed, non_blocking=True)
+            packed = host
+            event = torch.cuda.Event()
+            event.record()
+        _tr.end("step/dispatch", t, args={"slots": active, "width": W,
+                                          "verify": True})
+        return _InflightStep(packed, event, list(self._slots), active,
+                             kind="verify", width=W, valid=valid,
+                             gens=gens, states=states)
+
+    def _commit_verify(self, inf):
+        """Commit a dispatched verify step: each slot emits its accepted
+        drafts and the corrected / bonus token, in order — EOS or
+        `max_new_tokens` inside the run truncates it (the rest is
+        dropped) — and its depth advances by what it emitted, so the
+        rows of rejected drafts stay dead in place.  A sampled slot's
+        generator is settled to its state after the emitted tokens'
+        draws.  ITL is observed once a token, at the step's time over
+        the tokens emitted."""
+        t = _tr.t0()
+        if inf.event is not None:
+            inf.event.synchronize()
+        out, acc = unpack_verify(inf.tokens.cpu().numpy(), self.max_slots,
+                                 inf.width)
+        _tr.end("step/sample_readback", t)
+        now = time.perf_counter()
+        self._t_retire = now                # host-gap anchor
+        self._m_steps.inc()
+        self._m_spec_steps.inc()
+        step_tokens, emitted_of = 0, {}
+        for slot, req in enumerate(inf.reqs):
+            if req is None:
+                continue
+            kb = int(inf.valid[slot]) - 1
+            m = min(int(acc[slot]), kb)
+            if kb > 0:
+                self._m_spec_proposed.inc(kb)
+                self._m_spec_accepted.inc(m)
+                self._m_spec_rolled.inc(kb - m)
+                self._m_accept_rate.observe(m / kb)
+                self._adapt_k(slot, m / kb)
+            idx = self._spec_idx[slot]
+            emitted, done = 0, False
+            for j in range(m + 1):
+                tok = int(out[slot, j])
+                emitted += 1
+                if idx is not None:
+                    idx.extend(tok)
+                if req._emit(tok):
+                    done = True
+                    break
+            emitted_of[slot] = emitted
+            step_tokens += emitted
+            self._m_gen.inc(emitted)
+            if req._t_last is not None:
+                per = (now - req._t_last) / emitted
+                for _ in range(emitted):
+                    self._m_itl.observe(per)
+            req._t_last = now
+            if done:
+                self._free_slot(slot)       # freed for the next admit
+                self._m_completed.inc()
+                self._m_evicted.inc()
+            else:
+                # rows pos .. pos + m hold the committed tokens' KV;
+                # out[m] is the new token, written at pos + m + 1 by the
+                # next step before it becomes visible
+                self._pos[slot] += emitted
+                self._token[slot] = int(out[slot, m])
+        settle_generators(inf.gens, {s: st for s, st in inf.states.items()
+                                     if s in emitted_of}, emitted_of)
+        self._m_step_tokens.observe(step_tokens)
+        self._tput_tick(now, step_tokens)
+
+    def _adapt_k(self, slot, rate):
+        """Acceptance-EMA draft-length control: halve on sustained
+        rejection (floor 1), double back toward the configured k on
+        recovery."""
+        sp = self.spec
+        ema = sp.ema_alpha * rate + (1 - sp.ema_alpha) * \
+            self._spec_ema[slot]
+        self._spec_ema[slot] = ema
+        if not sp.adaptive:
+            return
+        k = self._spec_k[slot]
+        if ema < sp.backoff and k > 1:
+            self._spec_k[slot] = max(1, k // 2)
+        elif ema >= sp.recover and k < sp.k:
+            self._spec_k[slot] = min(sp.k, k * 2)
 
     def _tput_tick(self, now, tokens):
         if self._t_prev_step is not None:

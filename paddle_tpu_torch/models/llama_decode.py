@@ -7,7 +7,7 @@ scales), and a per-slot block table (B, Bmax) int32 into it.  Block 0
 is the trash block: inactive slots' tables point there, and rows past
 a table resolve there, so every unavoidable garbage write is harmless.
 
-Three programs run over the pool:
+Four programs run over the pool:
   * `paged_prefill_chunk` — one slot's chunk of prompt rows
     [off, off + C) written through its table row, attention against
     the slot's gathered view masked to t <= off + j;
@@ -19,7 +19,12 @@ Three programs run over the pool:
     `pos`, K/V written at (table[b, pos // bt], pos % bt), attention
     through `kernel="gather"` (gather the view, `_attend`) or
     `kernel="cuda"` (the Hopper paged-attention kernel, K4, which
-    walks the table itself; on a CPU tensor it runs its plain version).
+    walks the table itself; on a CPU tensor it runs its plain version);
+  * `paged_verify_step` — speculative decoding's verify: W consecutive
+    tokens a slot at rows pos + j, all W written before any attends,
+    logits at every column.  `kernel="cuda"` hands K4 the B * W columns
+    as single-query rows, each with its slot's table row and depth
+    pos + j: exactly what K4 computes for one decode query there.
 
 Parking a slot moves its blocks as one flat buffer: `gather_blocks`
 packs them (every layer, K and V, int8 scales) and `scatter_blocks`
@@ -47,7 +52,8 @@ from ..ops.paged_attention import paged_view as _paged_view
 from ..quantization.int8 import quantize_kv_rows
 
 __all__ = ["collect_decode_state", "init_paged_cache", "paged_write_rows",
-           "paged_decode_step_batch", "paged_prefill_chunk",
+           "paged_decode_step_batch", "paged_verify_step",
+           "paged_prefill_chunk",
            "paged_prefill", "pool_is_quant", "pool_leaves",
            "gather_blocks", "scatter_blocks"]
 
@@ -287,10 +293,13 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     """One decoder layer over the paged pool: K/V written through the
     block table first, then attention reads the pool through it.
     kernel="gather" gathers each slot's contiguous view and runs
-    `_attend`; kernel="cuda" (decode only, S == 1) hands q, the pool
-    entries and the table to `ops.paged_attention` (K4), with splits of
-    `split` rows (None: the kernel's default).  table (B, Bmax) int32;
-    rows (B, S) absolute write rows."""
+    `_attend`; kernel="cuda" hands q, the pool entries and the table to
+    `ops.paged_attention` (K4), with splits of `split` rows (None: the
+    kernel's default): the S query columns of a slot become S
+    single-query rows, row (b, j) with table row b and depth
+    positions[b, j] (positions (B, S) per-slot rows, as the decode and
+    verify steps give).  table (B, Bmax) int32; rows (B, S) absolute
+    write rows."""
     B, S, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
@@ -302,11 +311,16 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     blk, col = _paged_rows(table, rows, _entry_data(pk).shape[1])
     _entry_set(pk, blk, col, k)
     _entry_set(pv, blk, col, v)
-    if kernel == "cuda" and S == 1:
-        attn = paged_attention(q[:, 0].contiguous(), pk, pv, table,
-                               positions[:, 0].to(torch.int32),
-                               split=split)[:, None]
-    elif kernel in ("cuda", "gather"):
+    if kernel == "cuda":
+        # every column written above before any attends; expand +
+        # reshape copies the table rows without a host read (graph-safe)
+        rows_table = table if S == 1 else \
+            table[:, None, :].expand(B, S, table.shape[1]).reshape(B * S, -1)
+        attn = paged_attention(q.reshape(B * S, nh, hd), pk, pv,
+                               rows_table,
+                               positions.reshape(B * S).to(torch.int32),
+                               split=split).reshape(B, S, nh, hd)
+    elif kernel == "gather":
         attn = _attend(q, _paged_view(pk, table, q.dtype),
                        _paged_view(pv, table, q.dtype), positions, nh, nkv)
     else:
@@ -331,6 +345,32 @@ def paged_decode_step_batch(state, cfg, token, pos, pool, table,
         x = _paged_block(st, cfg, x, positions, pk, pv, table, positions,
                          kernel=kernel, split=split)
     return _logits_last(state, cfg, x), pool
+
+
+def paged_verify_step(state, cfg, tokens, pos, pool, table,
+                      kernel="gather", split=None):
+    """Speculative decoding's verify over the paged pool (the JAX
+    package's `paged_verify_step`): tokens (B, W) ids, column 0 each
+    slot's committed token and columns 1.. its draft; pos (B,) int32,
+    the row of column 0, so column j sits at row pos[b] + j.  Every
+    layer writes all W rows through the table before attending, and
+    column j attends rows t <= pos[b] + j: what W decode steps would
+    see.  Rejected columns leave dead rows, overwritten before they
+    become visible because `pos` never advances past the accepted
+    length; rows past the table land in the trash block.
+    kernel="gather" is the JAX path (`_attend` over the gathered view);
+    kernel="cuda" runs K4 over the B * W columns (see `_paged_block`).
+    Returns (logits (B, W, V), pool) — the pool updated in place, and no
+    device value read on the host, so the step can be captured in a
+    CUDA graph."""
+    B, W = tokens.shape
+    x = state["embed"][tokens.long()]
+    positions = pos.long()[:, None] + torch.arange(W, device=x.device)
+    for st, (pk, pv) in zip(state["layers"], pool):
+        x = _paged_block(st, cfg, x, positions, pk, pv, table, positions,
+                         kernel=kernel, split=split)
+    h = _rms(x, state["final_norm"], cfg.rms_norm_eps)
+    return h @ state["head"], pool
 
 
 def paged_prefill_chunk(state, cfg, ids, off, table_row, pool):

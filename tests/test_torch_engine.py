@@ -181,7 +181,7 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("speculation", 4), ("hot_window", 2), ("prefetch_depth", 4),
+    ("hot_window", 2), ("prefetch_depth", 4),
     ("weight_dtype", "int8"), ("mesh", "dp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "cache"), ("fabric", "kvdir"), ("overload", True),
     ("slo_targets", {"interactive": {"ttft_s": 1.0}})])
