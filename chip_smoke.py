@@ -108,12 +108,37 @@ the result line:
               limit (top-2 margin at the flip printed); then the int8
               pool with speculation on against off through per-step
               logits;
+              serve_slo: serve_pressure's 16 requests x 256 tokens
+              through LLMServer (158 blocks, "swap", the overload ladder,
+              default SLO targets, /metrics on an ephemeral port, the
+              watchdog, the series sampler, a canary), tiers round-robin
+              over the lengths (4 interactive, 4 standard, 8 batch), all
+              submitted at once from client threads and collected with
+              Request.result(timeout=): interactive and standard
+              requests done, batch done or shed with Overloaded only, no
+              slot parked while a lower tier decodes (besides the one
+              the ladder makes room for), the pager consistent and empty;
+              per tier TTFT / ITL p50 / p99, goodput, sheds and parks,
+              the rung history; then the same 16 requests all
+              "standard" (FIFO), the same figures; /metrics (tier series,
+              the rung) and /healthz (HEALTHZ_KEYS) over HTTP, the canary
+              probe, then an injected canary mismatch quarantines the
+              server (submit refused, /healthz 200 "quarantined"); the
+              forced ladder (engine.overload times=4: [1, 2, 3, 4], a
+              batch submit refused, 4 interactive streams from rung 4
+              equal an unloaded engine's, then back to 0); K4 launches =
+              32 x (decode + verify replays) in every run;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact;
   6. server   LLMServer answers three requests with the engine's tokens;
               then serve_spec on debug-4l (fp32), whose random weights
-              loop: drafts accepted (required), streams equal;
+              loop: drafts accepted (required), streams equal; then
+              serve_slo on debug-4l: rung 1 held with speculation on
+              (batch slots draft nothing, interactive slots draft and
+              accept, verify graphs replay) and the watchdog (an
+              engine.stall of 3 s against watchdog_deadline=1 flagged
+              once, cleared after), K4 counted through the replays;
   6b. optimizer_kernels
               the optimizer update's two multi-tensor kernels (U1: the
               global-norm clip's and the loss scaler's reduction; U2: the
@@ -239,6 +264,19 @@ SPEC_W = 8                    # the widest verify: next_pow2(SPEC_K + 1)
 # the stream's first 84 tokens
 SPEC_DEPTHS = [SPEC_SEED + SPEC_KEEP + 12 * i for i in range(SPEC_N)]
 SERVE_PARITY_STEPS = 16       # >= kv_block_tokens: every slot's table grows
+# LLMServer.health_snapshot()'s keys (/healthz): the JAX server's set
+HEALTHZ_KEYS = (
+    "status", "name", "pool_role", "quarantined", "quarantine_reason",
+    "canary_probes", "canary_failures", "step_age_s", "stalled",
+    "watchdog_stalls", "queue_depth", "slots_active", "slots_total",
+    "occupancy", "unfinished", "draining", "ttft_p50_s", "host_gap_p50_s",
+    "host_gap_p99_s", "host_gap_last_s", "preempted", "kv_blocks_free",
+    "kv_blocks_total", "kv_tiered", "kv_ext_used", "kv_blocks_spilled",
+    "kv_blocks_prefetched", "kv_prefetch_misses", "tp",
+    "kv_block_bytes_per_chip", "kv_pool_bytes_per_chip",
+    "tier_queue_depth", "overload_rung", "overload_escalations", "shed",
+    "degraded", "fabric_address", "fabric", "overlap", "step_inflight",
+    "aot", "boot_s", "boot_engine_s", "boot_first_token_s")
 
 
 def emit(obj):
@@ -1046,7 +1084,8 @@ def _unhook(torch, eng):
     engine (a reference cycle): left to the cyclic GC, the engine's
     CUDA graphs could be freed inside a later capture, which
     invalidates that capture.  Remove the hooks, free it now."""
-    for name in ("_park_slot", "_resume_swap", "_resume_recompute"):
+    for name in ("_park_slot", "_resume_swap", "_resume_recompute",
+                 "_preempt_one", "_propose_drafts"):
         vars(eng).pop(name, None)
     for graphs in (eng._graphs, eng._vgraphs):
         if graphs is not None:
@@ -1846,6 +1885,477 @@ def phase_serve_spec(torch, model, limits, name="llama3-8b"):
     return {pool: on["k4_launches"], "int8": on8["k4_launches"]}
 
 
+# --------------------------------------------------------------------------
+# SLO tiers and the overload ladder through LLMServer (engine sub-slice
+# (e)), at the serve shape under KV pressure
+# --------------------------------------------------------------------------
+
+# request i of the pressure traffic gets SLO_TIERS[i % 4]: 4 interactive,
+# 4 standard and 8 batch over the lengths
+SLO_TIERS = ("interactive", "standard", "batch", "batch")
+SLO_LADDER_NEW = 64           # tokens a request in the forced-ladder runs
+SLO_WAIT_S = 600.0            # every result(timeout=) and bounded wait
+
+
+def _bounded(pred, what, timeout=SLO_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        require(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _replays(eng):
+    """(decode, verify) graph replays so far."""
+    return (eng._graphs.replays,
+            0 if eng._vgraphs is None else eng._vgraphs.replays)
+
+
+def _k4_count(torch, eng, since, what):
+    """K4's launches since they were zeroed, held to layers x the decode
+    + verify replays since `since` (`_replays` then); returns them."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    launches = PA.LAUNCHES["paged_attention"]
+    now = _replays(eng)
+    d, v = now[0] - since[0], now[1] - since[1]
+    layers = eng.cfg.num_hidden_layers
+    require(d + v > 0 and launches == layers * (d + v),
+            f"{what}: {launches} K4 launches for {d} decode and {v} "
+            f"verify replays x {layers} layers")
+    return {"k4_launches": launches, "decode_replays": d,
+            "verify_replays": v}
+
+
+def _hook_tiers(eng, parks):
+    """Record each park's tier in `parks` and hold the tier invariant
+    there: the slot parked has the lowest tier of the decoding slots
+    other than the one the ladder is making room for (its `protect`),
+    so no higher tier parks while a lower one holds a slot."""
+    from paddle_tpu_torch.inference import SLOTier
+    park, preempt = eng._park_slot, eng._preempt_one
+    making_room = []
+
+    def preempt_one(protect=None):
+        making_room.append(protect)
+        try:
+            return preempt(protect=protect)
+        finally:
+            making_room.pop()
+
+    def parked(slot):
+        tier = eng._slots[slot].tier
+        spared = making_room[-1] if making_room else None
+        others = [SLOTier.rank(r.tier) for s, r in enumerate(eng._slots)
+                  if r is not None and s not in (slot, spared)]
+        require(not others or SLOTier.rank(tier) <= min(others),
+                f"serve_slo: a {tier} slot parked while a lower tier "
+                f"decodes: {[r.tier for r in eng._slots if r]}")
+        parks.append(tier)
+        park(slot)
+
+    eng._preempt_one = preempt_one
+    eng._park_slot = parked
+
+
+def _slo_run(torch, model, prompts, tiers, http=False):
+    """The pressure traffic through one `LLMServer` (158 blocks, swap,
+    the overload ladder, default SLO targets, /metrics on an ephemeral
+    port, the watchdog, the series sampler, a canary), every request
+    submitted at once from its own client thread and collected with
+    `Request.result(timeout=)`.  With `http`, the server surface is then
+    checked over HTTP, and the canary quarantines it.  Returns the
+    report (per tier: TTFT / ITL p50 / p99, goodput, shed, parks; by
+    the tier each request has in the mixed run: TTFT / ITL)."""
+    import threading
+    from paddle_tpu_torch.inference import (LLMServer, Overloaded,
+                                            SLOTier)
+    from paddle_tpu_torch.ops import paged_attention as PA
+    srv = LLMServer(model, metrics_port=0, canary_interval=3600.0,
+                    watchdog_deadline=120.0, series_interval=1.0,
+                    overload=True, kv_blocks=pressure_blocks(),
+                    preempt_policy="swap", **SERVE_KW)
+    eng = srv.engine
+    name = "serve_slo (" + ("mixed tiers" if http else "one tier") + ")"
+    # the driver's first tick sends a canary probe: let it land before
+    # the counts start
+    _bounded(lambda: srv._m_canary_probes.value >= 1
+             and not srv._canary_inflight and not eng.has_work,
+             "the first canary probe")
+    parks = []
+    _hook_tiers(eng, parks)
+    stamps = [[] for _ in prompts]
+    outcome = [None] * len(prompts)
+    t_sub = [None] * len(prompts)
+    barrier = threading.Barrier(len(prompts))
+
+    def client(i):
+        barrier.wait()
+        t_sub[i] = time.perf_counter()
+        try:
+            req = srv.submit(prompts[i], PRESSURE_NEW, tier=tiers[i],
+                             on_token=lambda r, t: stamps[i].append(
+                                 time.perf_counter()))
+        except Overloaded as e:
+            outcome[i] = ("rejected", e)
+            return
+        try:
+            req.result(timeout=SLO_WAIT_S)
+            outcome[i] = ("done", req)
+        except Exception as e:  # noqa: BLE001 — classified below
+            outcome[i] = ("failed", e)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.LAUNCHES["paged_attention"] = 0
+    since = _replays(eng)
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SLO_WAIT_S)
+        require(not t.is_alive(), f"{name}: a client never returned")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (kind, x) in enumerate(outcome):
+        # the lowest tier may be shed (at submit or from the queue),
+        # with `Overloaded` and nothing else
+        require(kind == "done" or (tiers[i] == SLOTier.lowest()
+                                   and isinstance(x, Overloaded)),
+                f"{name}: {tiers[i]} request {i}: {kind} {x!r}")
+        if kind == "done":
+            require(len(x.tokens) == PRESSURE_NEW,
+                    f"{name}: request {i}: {len(x.tokens)} tokens")
+    surface = _slo_http(srv) if http else None
+    srv.shutdown(drain=True, drain_timeout=SLO_WAIT_S)
+    require(not srv._thread.is_alive(), f"{name}: the driver still runs")
+    eng.run()               # a canary probe left in flight, if any
+    counts = _k4_count(torch, eng, since, name)
+    eng._pager.check()
+    require(eng._pager.used_blocks == 0 and eng._pager.host_blocks_used == 0
+            and eng.num_parked == 0,
+            f"{name}: {eng._pager.used_blocks} device, "
+            f"{eng._pager.host_blocks_used} host blocks still held")
+    m = eng.metrics()
+
+    def tier_metric(metric, tier, field="value"):
+        return m["llm_engine_" + metric]["series"][f"tier={tier}"][field]
+
+    def lat(idx):
+        ttft = [stamps[i][0] - t_sub[i] for i in idx if stamps[i]]
+        itl = [b - a for i in idx for a, b in zip(stamps[i], stamps[i][1:])]
+        return {"requests": len(idx),
+                "finished": sum(outcome[i][0] == "done" for i in idx),
+                "ttft_p50_ms": 1e3 * _percentile(ttft, 50) if ttft else None,
+                "ttft_p99_ms": 1e3 * _percentile(ttft, 99) if ttft else None,
+                "itl_p50_ms": 1e3 * _percentile(itl, 50) if itl else None,
+                "itl_p99_ms": 1e3 * _percentile(itl, 99) if itl else None}
+
+    gen = sum(len(x.tokens) for kind, x in outcome if kind == "done")
+    report = {"tiers": "mixed" if http else "all standard (FIFO)",
+              "kv_blocks": eng.kv_blocks, "policy": eng.preempt_policy,
+              # by the tier each request has in the mixed run, so the
+              # two runs line up request for request
+              "latency_by_mixed_tier": {
+                  t: lat([i for i in range(len(prompts))
+                          if SLO_TIERS[i % 4] == t]) for t in SLOTier.ALL},
+              # the engine's own tier counters (canary probes count as
+              # "standard")
+              "tier_counters": {t: {
+                  "slo_met": tier_metric("slo_met_total", t),
+                  "slo_missed": tier_metric("slo_missed_total", t),
+                  "goodput": tier_metric("slo_goodput", t),
+                  "shed": tier_metric("requests_shed_total", t),
+                  "parks": parks.count(t)} for t in SLOTier.ALL},
+              # who got a slot first (I / S / B, the mixed-run tier, in
+              # first-token order): the tier order acts on the queue
+              # only, so early arrivals keep the slots they took
+              "first_tokens_in_order": "".join(
+                  SLO_TIERS[i % 4][0].upper() for _, i in sorted(
+                      (stamps[i][0], i) for i in range(len(prompts))
+                      if stamps[i])),
+              "rung_history": list(eng._overload.history),
+              "preemptions": int(_metric(eng, "preemptions_total")),
+              "generated_tokens": gen, "wall_s": wall,
+              "tokens_per_s": gen / wall, "peak_mem_gib": peak,
+              "canary_probes": int(srv._m_canary_probes.value), **counts}
+    if surface is not None:
+        report["server_surface"] = surface
+    _unhook(torch, eng)
+    return report
+
+
+def _slo_http(srv):
+    """/metrics and /healthz over HTTP; the canary probe, then an
+    injected `engine.canary` mismatch quarantines the server: submit
+    refused, /healthz still 200 with status "quarantined"."""
+    import urllib.request
+    from paddle_tpu_torch.inference import EngineUnhealthy
+    from paddle_tpu_torch.testing import faults
+    host, port = srv.metrics_address
+
+    def get(path):
+        with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read().decode()
+
+    code, text = get("/metrics")
+    require(code == 200 and "llm_engine_overload_rung " in text
+            and 'llm_engine_tier_ttft_seconds_count{tier="interactive"}'
+            in text and 'llm_engine_slo_goodput{tier="batch"}' in text,
+            "serve_slo: /metrics lacks the tier series or the rung")
+    code, body = get("/healthz")
+    h = json.loads(body)
+    require(code == 200 and h["status"] == "ok"
+            and set(h) == set(HEALTHZ_KEYS),
+            f"serve_slo: /healthz {code}: {sorted(h)}")
+    require(srv.probe_canary(timeout=SLO_WAIT_S) is True,
+            "serve_slo: the canary probe failed on a clean server")
+    faults.ENABLED = True
+    try:
+        faults.get_injector().inject("engine.canary", times=1)
+        require(srv.probe_canary(timeout=SLO_WAIT_S) is False,
+                "serve_slo: an injected canary mismatch did not quarantine")
+    finally:
+        faults.get_injector().clear()
+        faults.ENABLED = False
+    try:
+        srv.submit([1, 2, 3], 4)
+        refused = False
+    except EngineUnhealthy:
+        refused = True
+    require(refused, "serve_slo: a quarantined server accepted a request")
+    code, body = get("/healthz")
+    q = json.loads(body)
+    require(code == 200 and q["status"] == "quarantined"
+            and q["canary_failures"] == 1,
+            f"serve_slo: /healthz when quarantined: {code} {q['status']}")
+    return {"metrics_bytes": len(text), "healthz_keys": len(h),
+            "canary_probes": q["canary_probes"],
+            "quarantined_healthz": [code, q["status"]],
+            "submit_refused": "EngineUnhealthy"}
+
+
+def _ladder_run(torch, model, prompts, overload, rows_of=None):
+    """`prompts` (interactive) through an engine at the serve shape
+    (graphs + overlap, full provisioning): with `overload`, the ladder
+    first forced to rung 4 by `engine.overload` times=4 on idle steps,
+    a batch submit refused with `Overloaded`, the requests served from
+    rung 4, and the ladder left to walk back once the fault is cleared.
+    `rows_of`: see `_logit_rows`.  Returns (report, streams, rows)."""
+    from paddle_tpu_torch.inference import Overloaded
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.testing import faults
+    eng = _serve_engine(model, overload=True if overload else None)
+    report = {}
+    if overload:
+        faults.ENABLED = True
+        try:
+            faults.get_injector().inject("engine.overload", times=4)
+            for _ in range(5):
+                eng.step()
+        finally:
+            faults.get_injector().clear()
+            faults.ENABLED = False
+        forced = list(eng._overload.history)
+        require(forced == [1, 2, 3, 4],
+                f"serve_slo ladder: forced history {forced}")
+        try:
+            eng.submit(prompts[0], SLO_LADDER_NEW, tier="batch")
+            shed = None
+        except Overloaded as e:
+            shed = type(e).__name__
+        require(shed == "Overloaded",
+                "serve_slo ladder: a batch submit at rung 4 was accepted")
+        report.update(forced_history=forced, batch_submit=shed,
+                      rung_at_submit=eng.overload_rung)
+    PA.LAUNCHES["paged_attention"] = 0
+    since = _replays(eng)
+    reqs = [eng.submit(p, SLO_LADDER_NEW, tier="interactive")
+            for p in prompts]
+    rows = None
+    if rows_of is not None:
+        rows = _logit_rows(eng, {reqs[i].rid: t for i, t in rows_of.items()})
+    eng.run()
+    report.update(_k4_count(torch, eng, since, "serve_slo ladder"))
+    for r in reqs:
+        require(r.done and r.error is None
+                and len(r.tokens) == SLO_LADDER_NEW,
+                f"serve_slo ladder: request {r.rid}: {r.error!r}")
+    if overload:
+        for _ in range(200):
+            if eng.overload_rung == 0:
+                break
+            eng.step()
+        hist = list(eng._overload.history)
+        require(eng.overload_rung == 0 and hist[:4] == [1, 2, 3, 4]
+                and hist[-4:] == [3, 2, 1, 0],
+                f"serve_slo ladder: history after the fault {hist}")
+        report["history"] = hist
+    streams = [list(r.tokens) for r in reqs]
+    if rows is not None:
+        index = {r.rid: i for i, r in enumerate(reqs)}
+        rows = {(index[rid], t): x for (rid, t), x in rows.items()}
+    _unhook(torch, eng)
+    return report, streams, rows
+
+
+def phase_serve_slo(torch, model, limits):
+    """Engine sub-slice (e) at the serve shape on llama3-8b: the
+    pressure traffic with mixed tiers through `LLMServer` (and the
+    server's HTTP surface, canary and quarantine), the same requests
+    all standard (FIFO), and the forced overload ladder against an
+    unloaded engine.  Returns K4's launches of each run."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in PRESSURE_LENGTHS]
+    tiers = [SLO_TIERS[i % 4] for i in range(len(prompts))]
+    reports = []
+    for mixed in (True, False):
+        reports.append(_slo_run(torch, model, prompts, tiers if mixed
+                                else ["standard"] * len(prompts), mixed))
+        # the server's HTTP handler class closes over it (a reference
+        # cycle): free its graphs now, not inside a later capture
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "serve_slo", "model": "llama3-8b", **reports[-1]})
+    mixed, fifo = reports
+    inter = [p for p, t in zip(prompts, tiers) if t == "interactive"]
+    ladder, got, _ = _ladder_run(torch, model, inter, overload=True)
+    calm, ref, _ = _ladder_run(torch, model, inter, overload=False)
+    check = {"streams_equal_unloaded": got == ref}
+    if got != ref:
+        flips = {i: next(t for t, (a, b) in enumerate(zip(x, y)) if a != b)
+                 for i, (x, y) in enumerate(zip(ref, got)) if x != y}
+        _, ref2, want = _ladder_run(torch, model, inter, False, flips)
+        _, got2, have = _ladder_run(torch, model, inter, True, flips)
+        require(ref2 == ref and got2 == got,
+                "serve_slo ladder: a rerun gave other streams")
+        worst = max((have[k].float() - x.float()).abs().max().item()
+                    for k, x in want.items())
+        first = min(flips.items(), key=lambda kv: kv[1])
+        top2 = want[first].float().topk(2).values
+        check.update(requests_flipped=len(flips),
+                     first_flip={"request": first[0], "token": first[1],
+                                 "top2_margin": (top2[0] - top2[1]).item()},
+                     logits_max_abs_err=worst,
+                     logits_limit=limits["bfloat16"])
+        require(worst <= limits["bfloat16"],
+                f"serve_slo ladder: logits err {worst} > "
+                f"{limits['bfloat16']}")
+    emit({"phase": "serve_slo", "model": "llama3-8b", "run": "forced ladder",
+          **ladder, **check, "unloaded_k4_launches": calm["k4_launches"]})
+    return {"mixed tiers": mixed["k4_launches"],
+            "one tier (FIFO)": fifo["k4_launches"],
+            "forced ladder": ladder["k4_launches"],
+            "unloaded": calm["k4_launches"]}
+
+
+def phase_serve_slo_debug(torch, model):
+    """Engine sub-slice (e) on debug-4l (fp32): rung 1 with speculation
+    on (the extraction stream, half the requests batch: batch slots
+    draft nothing, interactive ones draft and accept, the verify graphs
+    replay), and the hang watchdog on an `LLMServer` wedged by
+    `engine.stall` (exc=None, delay=3) past `watchdog_deadline=1`.
+    Returns K4's launches of each run."""
+    from paddle_tpu_torch.inference import (LLMEngine, LLMServer,
+                                            OverloadConfig, SpecConfig)
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.testing import faults
+    prompts, _ = _spec_prompts(torch, model)
+    tiers = ["interactive" if i % 2 == 0 else "batch"
+             for i in range(len(prompts))]
+    eng = LLMEngine(model, max_slots=8,
+                    max_len=SPEC_SEED + SPEC_KEEP + SPEC_NEW + 8,
+                    max_prompt_len=SPEC_SEED + SPEC_KEEP,
+                    prefill_chunk=SPEC_CHUNK,
+                    step_token_budget=8 * SPEC_CHUNK,
+                    speculation=SpecConfig(k=SPEC_K),
+                    overload=OverloadConfig(max_rung=1))
+    eng.prepare_programs()
+    drafted = {"interactive": 0, "batch": 0}
+    propose = eng._propose_drafts
+
+    def counted():
+        drafts, cost = propose()
+        for slot, d in enumerate(drafts or []):
+            if d:
+                drafted[eng._slots[slot].tier] += len(d)
+        return drafts, cost
+
+    eng._propose_drafts = counted
+    faults.ENABLED = True
+    try:
+        faults.get_injector().inject("engine.overload", times=None)
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _replays(eng)
+        reqs = [eng.submit(p, SPEC_NEW, tier=t)
+                for p, t in zip(prompts, tiers)]
+        eng.run()
+        rung = eng.overload_rung
+    finally:
+        faults.get_injector().clear()
+        faults.ENABLED = False
+    spec = _k4_count(torch, eng, since, "serve_slo rung 1")
+    for r in reqs:
+        require(r.done and r.error is None and len(r.tokens) == SPEC_NEW,
+                f"serve_slo rung 1: request {r.rid}: {r.error!r}")
+    accepted = int(_metric(eng, "spec_tokens_accepted_total"))
+    require(rung == 1 and drafted["batch"] == 0
+            and drafted["interactive"] > 0 and accepted > 0
+            and spec["verify_replays"] > 0,
+            f"serve_slo rung 1: rung {rung}, drafted {drafted}, accepted "
+            f"{accepted}, {spec['verify_replays']} verify replays")
+    _unhook(torch, eng)
+    del eng
+    emit({"phase": "serve_slo", "model": "debug-4l", "run": "rung 1 + spec",
+          "rung": rung, "drafted_by_tier": drafted,
+          "spec_accepted": accepted, **spec})
+
+    srv = LLMServer(model, watchdog_deadline=1.0, **DEBUG_KW)
+    srv.engine.prepare_programs()       # capture before counting
+    seen = []
+    try:
+        faults.ENABLED = True
+        faults.get_injector().inject("engine.stall", times=1, exc=None,
+                                     delay=3.0)
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _replays(srv.engine)
+        req = srv.submit(_debug_prompts()[0], 24)
+        # poll through the stall: flagged once it outlives the deadline,
+        # cleared once the step runs
+        _bounded(lambda: seen.append(srv.health_snapshot()) or
+                 seen[-1]["stalled"], "the watchdog", timeout=30)
+        _bounded(lambda: seen.append(srv.health_snapshot()) or
+                 not seen[-1]["stalled"], "the stall's end", timeout=30)
+        stalls = max(h["watchdog_stalls"] for h in seen)
+        req.result(timeout=SLO_WAIT_S)
+        after = srv.health_snapshot()
+    finally:
+        faults.get_injector().clear()
+        faults.ENABLED = False
+        srv.shutdown(drain=True)
+    flagged = sum(h["stalled"] for h in seen)
+    require(stalls == 1 and after["watchdog_stalls"] == 1
+            and not after["stalled"],
+            f"serve_slo watchdog: stalls {stalls} -> "
+            f"{after['watchdog_stalls']}, stalled {after['stalled']}")
+    watchdog = _k4_count(torch, srv.engine, since, "serve_slo watchdog")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_slo", "model": "debug-4l", "run": "watchdog",
+          "watchdog_deadline_s": 1.0, "stall_s": 3.0,
+          "polls": len(seen), "polls_stalled": flagged,
+          "watchdog_stalls": after["watchdog_stalls"],
+          "stalled_after": after["stalled"],
+          "max_step_age_s": max(h["step_age_s"] for h in seen), **watchdog})
+    return {"rung 1 + spec": spec["k4_launches"],
+            "watchdog": watchdog["k4_launches"]}
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
@@ -1894,10 +2404,12 @@ def phase_serve(torch):
     pressure = phase_serve_pressure(torch, model, limits)
     prefix = phase_serve_prefix(torch, model)
     spec = phase_serve_spec(torch, model, limits)
+    slo = phase_serve_slo(torch, model, limits)
     del model
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
-            "pressure": pressure, "prefix": prefix, "spec": spec}
+            "pressure": pressure, "prefix": prefix, "spec": spec,
+            "slo": {"bfloat16": slo}}
 
 
 def _debug_model():
@@ -3701,6 +4213,7 @@ def main() -> int:
     phase_server(torch, debug, tokens)
     serve_launches["spec"].update(phase_serve_spec(
         torch, debug, {"float32": DEBUG_SPEC_LIMIT}, name="debug-4l"))
+    serve_launches["slo"]["float32"] = phase_serve_slo_debug(torch, debug)
     del debug
     opt_kernels = phase_optimizer_kernels(torch)
     train_launches = phase_train(torch)
@@ -3788,6 +4301,14 @@ def main() -> int:
                 f"replays), counted from 0")
             require(e["launches_serve_spec"] > 0,
                     f"{e['name']}: no launch in serve_spec")
+        if pool in serve_launches["slo"]:
+            e["launches_serve_slo"] = serve_launches["slo"][pool]
+            e["launches_path_serve_slo"] = (
+                f"serve_slo {'debug-4l' if pool == 'float32' else 'llama3-8b'}"
+                f", {pool} pool: each run from 0, layers x (decode + "
+                f"verify replays)")
+            require(all(n > 0 for n in e["launches_serve_slo"].values()),
+                    f"{e['name']}: no launch in a serve_slo run")
         if pool == "bfloat16":
             e["launches_serve_prefix"] = {
                 "without cache": serve_launches["prefix"][0],

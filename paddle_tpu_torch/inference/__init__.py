@@ -1,14 +1,20 @@
 """paddle_tpu_torch.inference — the serving path: `LLMEngine` (the
 continuous-batching paged-KV engine), `LLMServer` (its thread-safe
-front), `KVPager` (the block-pool bookkeeping) and `SpecConfig` (the
-speculative-decoding knobs), under the JAX package's public names."""
+front), `KVPager` (the block-pool bookkeeping), `SpecConfig` (the
+speculative-decoding knobs), the SLO tiers (`SLOTier`, `SLOTargets`,
+`goodput`) and the overload ladder (`OverloadConfig`,
+`OverloadController`), under the JAX package's public names."""
 
+from ..observability.slo import SLOTargets, SLOTier, goodput
 from .engine import (DeadlineExceeded, EngineUnhealthy, LLMEngine,
-                     QueueFull, Request, ResultTimeout)
+                     Overloaded, QueueFull, Request, ResultTimeout)
 from .kv_pager import BlocksExhausted, KVPager
 from .ngram_draft import SpecConfig
+from .overload import OverloadConfig, OverloadController
 from .serving import LLMServer
 
 __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
-           "QueueFull", "EngineUnhealthy", "ResultTimeout", "KVPager",
-           "BlocksExhausted", "SpecConfig"]
+           "QueueFull", "EngineUnhealthy", "ResultTimeout", "Overloaded",
+           "KVPager", "BlocksExhausted", "SpecConfig", "SLOTier",
+           "SLOTargets", "goodput", "OverloadConfig",
+           "OverloadController"]

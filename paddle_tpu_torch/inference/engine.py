@@ -70,21 +70,33 @@ What this slice keeps of the JAX engine:
     `max_new_tokens` inside an accepted run truncates the emission; a
     per-slot acceptance EMA halves or doubles the draft length; a
     parked slot keeps its drafter;
+  * SLO TIERS and the OVERLOAD LADDER: every request carries a tier
+    (`Request(tier=)`: "interactive", "standard" (default) or "batch",
+    `observability.slo.SLOTier`).  The queue admits the highest tier
+    first (FIFO within a tier); the preempt ladder parks, and resumes,
+    by tier before `priority`.  With `overload` armed
+    (`overload.OverloadController`) a host-side tick at every step
+    boundary walks a reversible four-rung ladder from the protected
+    queue depth, parked count, preemptions, host-tier occupancy and
+    decode ITL: rung 1 drafts nothing for the lowest tier, rung 2
+    shrinks its prefill share, rung 3 holds it in the queue, rung 4
+    sheds it (`Overloaded`, at submit and from the queue).  Each
+    finished request is met / missed against its tier's
+    `slo_targets` (goodput);
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
-    and the `llm_engine_*` TTFT / ITL / token / host-gap / `spec_*`
-    metrics.
+    `Request.result(timeout=)`, and the `llm_engine_*` TTFT / ITL /
+    token / host-gap / `spec_*` / tier / overload metrics.
 
 The JAX engine's other knobs (tiered KV, weight-only int8, meshes, the
-AOT cache, the KV fabric, SLO targets and per-request SLO tiers, the
-overload ladder) raise `NotImplementedError` naming their ROADMAP item
-— never silently ignored; the admission queue is plain FIFO.  Of the
-ladder, the port leaves out the CRC32C stamp on parked host copies
-(with the fabric, (h)), the tiered spill rung ((g)) and the disk tier
-(a parked request is always claimable here); of speculation, the
-overload ladder's "no speculation for the lowest tier" (with the
-tiers, (e)).  Its bounded compile count becomes a bound on captured
-graphs: `num_graphs` <= `len(decode_widths) + len(verify_widths)`.
+AOT cache, the KV fabric) raise `NotImplementedError` naming their
+ROADMAP item — never silently ignored; so do the `Request` fields of
+the fabric (`prefix_hint`, `session_id`, `handoff`).  Of the ladder,
+the port leaves out the CRC32C stamp on parked host copies (with the
+fabric, (h)), the tiered spill rung ((g)) and the disk tier (a parked
+request is always claimable here).  Its bounded compile count becomes
+a bound on captured graphs: `num_graphs` <= `len(decode_widths) +
+len(verify_widths)`.
 
 The graphs hold the pool by address: everything that writes it
 (prefill, the steps, a swap-in's `scatter_blocks`) writes in place, and
@@ -104,6 +116,7 @@ order: every chunk is queued behind the step in flight.
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from collections import deque
 
@@ -116,21 +129,23 @@ from ..generation import (accept_rows, greedy_accept,
 from ..models import llama_decode as D
 from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
+from ..observability.slo import SLOTargets, SLOTier
 from ..testing import faults as _faults
 from .kv_pager import KVPager
 from .ngram_draft import NGramIndex, SpecConfig
+from .overload import OverloadConfig, OverloadController
 from .prefix_cache import RadixPrefixCache
 from .programs import DecodeGraphs, VerifyGraphs, unpack_verify
 
 __all__ = ["Request", "LLMEngine", "DeadlineExceeded", "QueueFull",
-           "EngineUnhealthy", "ResultTimeout"]
+           "EngineUnhealthy", "ResultTimeout", "Overloaded"]
 
 _REQ_IDS = itertools.count()
 
 # knobs of the JAX engine this slice does not port: name -> (the values
 # that mean "off", the ROADMAP item that ports it)
-_SLO = "engine sub-slice (e): SLO tiers and the overload ladder"
 _TIERED = "engine sub-slice (g): tiered KV and long context"
+_FABRIC = "engine sub-slice (h): KV fabric and disaggregated serving"
 _MULTI = "multi-GPU serving"
 _UNPORTED = {
     "hot_window": ((None,), _TIERED),
@@ -138,22 +153,20 @@ _UNPORTED = {
     "weight_dtype": ((None, "auto"), "weight-only int8 decode path"),
     "aot_cache": ((None,),
                   "engine sub-slice (j): the AOT serving-program cache"),
-    "slo_targets": ((None,), _SLO),
-    "overload": ((None,), _SLO),
-    "fabric": ((None,),
-               "engine sub-slice (h): KV fabric and disaggregated serving"),
+    "fabric": ((None,), _FABRIC),
     "mesh": ((None,), _MULTI),
     "tp": ((None, 1), _MULTI),
     "sp": ((None, 1), _MULTI),
+    # the Request fields of the KV fabric
+    "prefix_hint": ((None,), _FABRIC),
+    "session_id": ((None,), _FABRIC),
+    "handoff": ((None,), _FABRIC),
 }
 
 
-def _reject_unported(knobs: dict):
-    """Raise for a JAX-engine knob set to anything but "off"."""
+def _reject_unported(**knobs):
+    """Raise for an unported JAX knob set to anything but "off"."""
     for name, value in knobs.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"LLMEngine got an unexpected keyword "
-                            f"argument {name!r}")
         offs, item = _UNPORTED[name]
         if not any(value is o or (type(value) is type(o) and value == o)
                    for o in offs):
@@ -173,8 +186,14 @@ class QueueFull(RuntimeError):
 
 
 class EngineUnhealthy(RuntimeError):
-    """The serving driver thread crashed; the engine accepts no new
-    work and every pending request has been failed."""
+    """The serving driver thread crashed (or the server quarantined
+    itself); the engine accepts no new work."""
+
+
+class Overloaded(RuntimeError):
+    """The overload ladder reached its shed rung (4): the lowest SLO
+    tier is rejected / failed so the protected tiers keep their SLOs.
+    A typed, retryable rejection."""
 
 
 class ResultTimeout(TimeoutError):
@@ -188,20 +207,27 @@ class Request:
     `tokens` accumulates generated ids (the prompt is not echoed);
     `on_token(request, token)` streams each token as it is produced;
     `on_done(request)` fires exactly once when the request finishes for
-    ANY reason (EOS, max_new_tokens, cancellation, deadline, engine
-    failure); `done` flips when the request leaves the engine.
-    `cancel()` is cooperative: a queued request is dropped at admit, an
-    in-flight one evicted at the next step boundary.  `deadline`
-    (seconds from submit) bounds the request's whole life; expiry
-    finishes it with `error` set to a `DeadlineExceeded`.  `seed` seeds
-    the request's own sampling generator.  `priority` ranks preemption
-    only: under pool pressure the lowest priority, then the most
-    recently admitted, decoding slot parks first."""
+    ANY reason (EOS, max_new_tokens, cancellation, deadline, shedding,
+    engine failure); `done` flips when the request leaves the engine,
+    and `result(timeout=)` blocks for it.  `cancel()` is cooperative: a
+    queued request is dropped at admit, an in-flight one evicted at the
+    next step boundary.  `deadline` (seconds from submit) bounds the
+    request's whole life; expiry finishes it with `error` set to a
+    `DeadlineExceeded`.  `seed` seeds the request's own sampling
+    generator.  `tier` (`SLOTier`, default "standard") is the primary
+    scheduling class: admission, park and resume order and the overload
+    ladder key on it; `priority` breaks ties within a tier (under pool
+    pressure the lowest priority, then the most recently admitted,
+    decoding slot parks first).  `prefix_hint`, `session_id` and
+    `handoff` belong to the KV fabric and raise unless None."""
 
     def __init__(self, prompt_ids, max_new_tokens, temperature=1.0,
                  top_p=1.0, greedy=True, eos_token_id=None, seed=0,
                  on_token=None, on_done=None, deadline=None, priority=0,
-                 tier=None, trace_id=None):
+                 tier=None, prefix_hint=None, session_id=None,
+                 trace_id=None, handoff=None):
+        _reject_unported(prefix_hint=prefix_hint, session_id=session_id,
+                         handoff=handoff)
         self.rid = next(_REQ_IDS)
         self.trace_id = None if trace_id is None else str(trace_id)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -216,10 +242,7 @@ class Request:
         self.eos_token_id = eos_token_id
         self.seed = int(seed)
         self.priority = int(priority)
-        if tier is not None:
-            raise NotImplementedError(
-                f"tier={tier!r} is not ported to paddle_tpu_torch yet "
-                f"(ROADMAP: {_SLO})")
+        self.tier = SLOTier.check(tier)
         self.on_token = on_token
         self.on_done = on_done
         self.tokens: list[int] = []
@@ -227,15 +250,19 @@ class Request:
         self.cancelled = False
         self.error: BaseException | None = None
         self._done_fired = False
+        self._done_ev = threading.Event()
         if deadline is not None and float(deadline) <= 0:
             raise ValueError("deadline must be positive seconds")
         self._deadline_t = (None if deadline is None
                             else time.monotonic() + float(deadline))
         # TTFT counts from construction (queue wait included), ITL from
-        # the previous token's host-visible time
+        # the previous token's host-visible time; the ITL sum and count
+        # feed the met / missed decision at completion
         self._t_submit = time.perf_counter()
         self._t_last: float | None = None
         self._ttft: float | None = None
+        self._itl_sum = 0.0
+        self._itl_n = 0
 
     def expired(self, now=None) -> bool:
         if self._deadline_t is None:
@@ -266,6 +293,22 @@ class Request:
         self.done = True
         if self.on_done is not None:
             self.on_done(self)
+        # set AFTER on_done: once result() returns, the callbacks ran
+        self._done_ev.set()
+
+    def result(self, timeout=None):
+        """Block until this request finishes; returns its generated
+        tokens.  Raises `ResultTimeout` once `timeout` seconds pass with
+        the request still live (it keeps running), and re-raises the
+        request's typed error (DeadlineExceeded, Overloaded,
+        EngineUnhealthy, ...) when it failed.  `timeout=None` waits
+        without bound."""
+        if not self._done_ev.wait(timeout):
+            raise ResultTimeout(
+                f"request {self.rid} still running after {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.tokens
 
     def _finish_cancelled(self):
         self._fire_done()
@@ -421,19 +464,31 @@ class LLMEngine:
     `decode_buckets` (False: one decode width, max_slots; True: the
     pow-2 widths below max_slots, plus max_slots), `overlap` ("auto" =
     "on" on a CUDA model and "off" on the CPU, "on", "off", True,
-    False), `max_queue` (None = unbounded).  Single-threaded by design;
+    False), `max_queue` (None = unbounded), `slo_targets` (an
+    `SLOTargets`, or a {tier: (ttft_s, itl_s)} dict over the defaults),
+    `overload` (None: the ladder disarmed; True, an `OverloadConfig` or
+    an `OverloadController`).  The parameters are in the JAX engine's
+    order; `hot_window`, `prefetch_depth`, `weight_dtype`, `fabric`,
+    `mesh`, `tp`, `sp` and `aot_cache` raise `NotImplementedError`
+    naming their ROADMAP item unless "off".  Single-threaded by design;
     see `serving.LLMServer` for the thread-safe front."""
 
     def __init__(self, model, max_slots=4, max_len=256,
                  max_prompt_len=None, min_bucket=16, prefill_chunk=64,
                  step_token_budget=None, prefix_cache_blocks=0,
-                 prefix_block_tokens=16, kv_block_tokens=None,
-                 kv_blocks=None, host_pool_blocks=None,
-                 preempt_policy="auto", kv_dtype=None,
-                 decode_kernel="auto", decode_block_tile=None,
-                 decode_buckets=False, overlap="auto", max_queue=None,
-                 speculation=None, **unported):
-        _reject_unported(unported)
+                 prefix_block_tokens=16, max_queue=None, speculation=None,
+                 kv_blocks=None, kv_block_tokens=None,
+                 host_pool_blocks=None, preempt_policy="auto",
+                 hot_window=None, prefetch_depth=2,
+                 kv_dtype=None, weight_dtype=None, decode_kernel="auto",
+                 decode_block_tile=None, decode_buckets=False,
+                 slo_targets=None, overload=None,
+                 fabric=None, mesh=None, tp=None, sp=None,
+                 overlap="auto", aot_cache=None):
+        _reject_unported(hot_window=hot_window,
+                         prefetch_depth=prefetch_depth,
+                         weight_dtype=weight_dtype, fabric=fabric,
+                         mesh=mesh, tp=tp, sp=sp, aot_cache=aot_cache)
         self.cfg = model.config
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -605,8 +660,34 @@ class LLMEngine:
         self._parked: list = []
         self._swap_total = 0        # swap-ins begun
         self._swap_ready = 0        # ... whose copy to the host had landed
+        # quarantine: parked requests stay parked, never resumed here
+        # (deadline expiry still bounds them)
+        self.freeze_parked = False
         self._inflight = None          # dispatched, uncommitted step
         self._t_retire = None          # host-gap anchor (see metrics)
+        # the watchdog's heartbeat: monotonic stamp of the last step
+        # begun (the server compares it against its deadline)
+        self.last_step_t = time.monotonic()
+
+        # SLO tiers and the overload ladder
+        self.slo_targets = (slo_targets if isinstance(slo_targets,
+                                                      SLOTargets)
+                            else SLOTargets(slo_targets))
+        if overload is True:
+            overload = OverloadConfig()
+        if isinstance(overload, OverloadConfig):
+            overload = OverloadController(overload)
+        if overload is not None and not isinstance(overload,
+                                                   OverloadController):
+            raise ValueError(
+                f"overload must be None/True/OverloadConfig/"
+                f"OverloadController, got {overload!r}")
+        self._overload = overload           # None = ladder disarmed
+        self._op_last_preempt = 0           # preempt-rate window anchor
+        self._itl_ema: float | None = None  # decode ITL EMA (signal)
+        # the server's windowed ITL p50 (its series sampler sets it);
+        # the ladder reads it before the EMA
+        self._itl_window_s: float | None = None
 
         # the decode step as CUDA graphs (one per width) on a CUDA
         # model; the CPU runs the same step eagerly
@@ -785,6 +866,60 @@ class LLMEngine:
                  "(speculation multiplies this; plain decode emits one "
                  "per active slot)",
             buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0])
+        # SLO tiers, goodput and the overload ladder: tier-labelled
+        # children resolved once here
+        t_ttft = reg.histogram(
+            "tier_ttft_seconds",
+            help="submit -> first token, per SLO tier",
+            labelnames=("tier",),
+            buckets=log_buckets(1e-3, 600.0, per_decade=3))
+        t_itl = reg.histogram(
+            "tier_itl_seconds",
+            help="inter-token latency per SLO tier",
+            labelnames=("tier",),
+            buckets=log_buckets(1e-4, 60.0, per_decade=3))
+        met = reg.counter(
+            "slo_met_total",
+            help="finished requests that met their tier's TTFT + mean-"
+                 "ITL targets", labelnames=("tier",))
+        missed = reg.counter(
+            "slo_missed_total",
+            help="finished requests that missed their tier's targets",
+            labelnames=("tier",))
+        gp = reg.gauge(
+            "slo_goodput",
+            help="fraction of finished requests meeting their tier's "
+                 "SLO (the headline serving metric)",
+            labelnames=("tier",))
+        shed = reg.counter(
+            "requests_shed_total",
+            help="requests rejected/failed by the overload ladder's "
+                 "shed rung (typed Overloaded — distinct from the "
+                 "bounded-queue QueueFull rejections)",
+            labelnames=("tier",))
+        tq = reg.gauge(
+            "tier_queue_depth",
+            help="queued (unadmitted) requests per SLO tier",
+            labelnames=("tier",))
+        self._m_tier_ttft = {t: t_ttft.labels(tier=t) for t in SLOTier.ALL}
+        self._m_tier_itl = {t: t_itl.labels(tier=t) for t in SLOTier.ALL}
+        self._m_slo_met = {t: met.labels(tier=t) for t in SLOTier.ALL}
+        self._m_slo_missed = {t: missed.labels(tier=t)
+                              for t in SLOTier.ALL}
+        self._m_goodput = {t: gp.labels(tier=t) for t in SLOTier.ALL}
+        self._m_shed = {t: shed.labels(tier=t) for t in SLOTier.ALL}
+        self._m_tier_queue = {t: tq.labels(tier=t) for t in SLOTier.ALL}
+        self._m_rung = reg.gauge(
+            "overload_rung",
+            help="current degradation-ladder rung (0 = healthy; 1 no "
+                 "speculation for the lowest tier, 2 shrunken prefill "
+                 "share, 3 admission hold, 4 shed)")
+        self._m_escal = reg.counter(
+            "overload_escalations_total",
+            help="ladder steps UP (toward shedding)")
+        self._m_deesc = reg.counter(
+            "overload_deescalations_total",
+            help="ladder steps DOWN (recovery, gated by hysteresis)")
         self._seen_evictions = 0
         self._t_prev_step = None
         self._tput_ema = None
@@ -806,6 +941,15 @@ class LLMEngine:
     def metrics(self) -> dict:
         """Snapshot of this engine's metrics registry."""
         return self._metrics.snapshot()
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of this engine's metrics (what
+        `LLMServer`'s /metrics serves)."""
+        return self._metrics.prometheus_text()
+
+    @property
+    def metrics_registry(self) -> MetricsRegistry:
+        return self._metrics
 
     # -- programs ----------------------------------------------------------
 
@@ -900,9 +1044,11 @@ class LLMEngine:
             req.trace_id = _tr.mint()
         self._check(req)
         self._admission_check()
+        self._overload_check(req.tier)
         _tr.point("engine/submit", trace_id=req.trace_id, rid=req.rid)
         self._queue.append(req)
         self._m_queue.set(len(self._queue))
+        self._note_tier_queue()
         return req
 
     def _admission_check(self):
@@ -911,6 +1057,33 @@ class LLMEngine:
             raise QueueFull(
                 f"admission queue at capacity ({self.max_queue}); "
                 f"request rejected (load shedding)")
+
+    def _overload_check(self, tier):
+        """Rung 4 at submit: the lowest tier is rejected with a typed
+        `Overloaded` (shared with `LLMServer.submit`)."""
+        tier = SLOTier.check(tier)
+        if (self._overload is not None and self._overload.rung >= 4
+                and tier == SLOTier.lowest()):
+            self._m_shed[tier].inc()
+            raise Overloaded(
+                f"overload ladder at rung {self._overload.rung}: "
+                f"shedding tier {tier!r} (retryable)")
+
+    @property
+    def overload_rung(self):
+        """The ladder's current rung; 0 when disarmed or healthy."""
+        return 0 if self._overload is None else self._overload.rung
+
+    def tier_queue_depths(self) -> dict:
+        """Queued (unadmitted) requests per SLO tier."""
+        d = {t: 0 for t in SLOTier.ALL}
+        for req in list(self._queue):
+            d[req.tier] += 1
+        return d
+
+    def _note_tier_queue(self):
+        for t, n in self.tier_queue_depths().items():
+            self._m_tier_queue[t].set(n)
 
     def _check(self, req: Request):
         if req.prompt.size > self.max_prompt_len:
@@ -937,23 +1110,37 @@ class LLMEngine:
         return self.chunk_sizes[0]
 
     def _next_queued(self):
-        """Pop the oldest live queued request (FIFO).  Cancelled entries
-        are dropped and expired ones shed with a DeadlineExceeded."""
+        """Pop the next live queued request, highest SLO tier first
+        (FIFO within a tier).  Cancelled entries met on the way are
+        dropped and expired ones shed with a DeadlineExceeded.  At
+        overload rung >= 3 the lowest tier is HELD in the queue."""
         now = time.monotonic()
-        while self._queue:
-            req = self._queue.popleft()
+        hold_low = self.overload_rung >= 3
+        top = SLOTier.rank(SLOTier.ALL[0])
+        best, best_rank = None, -1
+        for req in list(self._queue):
             if req.cancelled:
+                self._queue.remove(req)
                 self._m_cancelled.inc()
                 req._finish_cancelled()
                 continue
             if req.expired(now):
+                self._queue.remove(req)
                 self._m_expired.inc()
                 req._finish_error(DeadlineExceeded(
                     f"request {req.rid} expired in queue before "
                     f"admission"))
                 continue
-            return req
-        return None
+            if hold_low and req.tier == SLOTier.lowest():
+                continue
+            rank = SLOTier.rank(req.tier)
+            if rank > best_rank:
+                best, best_rank = req, rank
+                if rank == top:
+                    break       # nothing outranks the top tier
+        if best is not None:
+            self._queue.remove(best)
+        return best
 
     def _reap_cancelled(self, decoding=True):
         """Step-boundary cancellation and deadline expiry: evict dead
@@ -1064,7 +1251,9 @@ class LLMEngine:
         at the first uncached row; with `prefill_chunk=None` the whole
         prompt runs now (`_prefill_whole`)."""
         for slot in self._free_slots():
-            if self._parked:
+            # frozen parks (quarantine) never resume here, so they do
+            # not hold the queue back either
+            if self._parked and not self.freeze_parked:
                 break
             req = self._next_queued()
             if req is None:
@@ -1103,6 +1292,7 @@ class LLMEngine:
             else:
                 self._prefill[slot] = _PrefillState(req, matched, nodes)
         self._m_queue.set(len(self._queue))
+        self._note_tier_queue()
 
     # -- prefill -----------------------------------------------------------
 
@@ -1126,17 +1316,26 @@ class LLMEngine:
         """Spend the step's prefill token budget on chunks, oldest
         admission first.  The first chunk always runs regardless of the
         remaining budget (bounded overspend of one chunk), so prefill
-        progresses under full decode load.  A slot prefills `ps.ids`
-        from its frontier `ps.off` (past any cache hit); a
+        progresses under full decode load.  Overload rung 2 revokes
+        that guarantee for the LOWEST tier and caps its chunks to a
+        shrunken share of the budget.  A slot prefills `ps.ids` from
+        its frontier `ps.off` (past any cache hit); a
         drop-and-recompute restore samples nothing at its final chunk."""
+        rung = self.overload_rung
+        low_budget = budget if rung < 2 else int(
+            budget * self._overload.cfg.degraded_prefill_frac)
         chunks = 0
         for slot in list(self._prefill.keys()):
             ps = self._prefill[slot]
             req = ps.req
+            degraded = rung >= 2 and req.tier == SLOTier.lowest()
             L = ps.ids.size
             while ps.off < L:
                 C = self._chunk_for(L - ps.off)
-                if chunks > 0 and C > budget:
+                if degraded:
+                    if C > low_budget:
+                        break       # out of the degraded share: next slot
+                elif chunks > 0 and C > budget:
                     return
                 ids = np.zeros((1, C), np.int32)
                 seg = ps.ids[ps.off:ps.off + C]
@@ -1152,6 +1351,8 @@ class LLMEngine:
                 _tr.end("req/prefill_chunk", tc, trace_id=req.trace_id,
                         args={"off": ps.off, "width": C})
                 budget -= C
+                if degraded:
+                    low_budget -= C
                 chunks += 1
                 ps.off += C
                 self._pos[slot] = min(ps.off, L)
@@ -1203,6 +1404,7 @@ class LLMEngine:
         now = time.perf_counter()
         req._ttft = now - req._t_submit
         self._m_ttft.observe(req._ttft)
+        self._m_tier_ttft[req.tier].observe(req._ttft)
         self._m_gen.inc()
         req._t_last = now
         _tr.point("req/first_token", trace_id=req.trace_id, rid=req.rid,
@@ -1229,6 +1431,21 @@ class LLMEngine:
                 self._pcache.release(ps.nodes)
             self._pager.release_slot(slot)
             self._m_completed.inc()
+            self._slo_account(req)
+
+    def _slo_account(self, req):
+        """Goodput accounting, once per finished request: did it meet
+        its tier's TTFT + mean-ITL targets?"""
+        t = req.tier
+        mean_itl = req._itl_sum / req._itl_n if req._itl_n else 0.0
+        ttft = req._ttft if req._ttft is not None else float("inf")
+        if self.slo_targets.met(t, ttft, mean_itl):
+            self._m_slo_met[t].inc()
+        else:
+            self._m_slo_missed[t].inc()
+        m = self._m_slo_met[t].value
+        x = self._m_slo_missed[t].value
+        self._m_goodput[t].set(m / (m + x))
 
     # -- preempt / park / resume -------------------------------------------
 
@@ -1255,16 +1472,17 @@ class LLMEngine:
         own the blocks of the rows it may COMMIT: `widths[slot]` rows
         from its depth (1 + its draft length; default 1 — the rows of a
         verify's padded columns land in trash when unowned).  Slots are
-        served highest priority
-        / oldest admission first; a shortage climbs the preempt ladder
-        (reclaim cache -> requeue the newest mid-prefill slot -> park
-        the lowest-priority newest decoder), and when nothing else is
-        left the needing slot parks ITSELF: pressure is absorbed, never
-        turned into a failure.  Returns True when a slot is left to
-        step."""
+        served highest SLO tier / highest priority / oldest admission
+        first; a shortage climbs the preempt ladder (reclaim cache ->
+        requeue the lowest-tier newest mid-prefill slot -> park the
+        lowest-tier lowest-priority newest decoder), and when nothing
+        else is left the needing slot parks ITSELF: pressure is
+        absorbed, never turned into a failure.  Returns True when a
+        slot is left to step."""
         order = sorted((s for s, r in enumerate(self._slots)
                         if r is not None),
-                       key=lambda s: (-self._slots[s].priority,
+                       key=lambda s: (-SLOTier.rank(self._slots[s].tier),
+                                      -self._slots[s].priority,
                                       self._slot_seq[s]))
         for slot in order:
             if self._slots[slot] is None:    # parked by an earlier turn
@@ -1279,25 +1497,29 @@ class LLMEngine:
         return self.num_active > 0
 
     def _preempt_victims(self, protect=None):
-        """Decode-slot park order under pool pressure: lowest priority,
-        then newest admission (the JAX engine's order within one SLO
-        tier; the port has no tiers)."""
+        """Decode-slot park order under pool pressure: lowest SLO tier,
+        then lowest priority, then newest admission — batch parks
+        before standard before interactive (`protect`, the slot the
+        ladder makes room for, is never a victim)."""
         victims = [s for s, r in enumerate(self._slots)
                    if r is not None and s != protect]
-        victims.sort(key=lambda s: (self._slots[s].priority,
+        victims.sort(key=lambda s: (SLOTier.rank(self._slots[s].tier),
+                                    self._slots[s].priority,
                                     -self._slot_seq[s]))
         return victims
 
     def _preempt_one(self, protect=None):
         """Free blocks by preempting ONE victim (beyond the cache
-        reclaim `_alloc_blocks` already tried): requeue the
+        reclaim `_alloc_blocks` already tried): requeue the lowest-tier
         lowest-priority newest mid-prefill slot if any (nothing emitted
         yet: the cheap rung), else park the first `_preempt_victims`
         slot.  Returns False when no victim is left."""
         if self._prefill:
-            slot = min(self._prefill,
-                       key=lambda s: (self._prefill[s].req.priority,
-                                      -self._slot_seq[s]))
+            def key(s):
+                req = self._prefill[s].req
+                return (SLOTier.rank(req.tier), req.priority,
+                        -self._slot_seq[s])
+            slot = min(self._prefill, key=key)
             self._requeue_prefill(slot)
             return True
         victims = self._preempt_victims(protect)
@@ -1390,14 +1612,17 @@ class LLMEngine:
         pr.host = pr.event = None
 
     def _try_resume(self):
-        """Parked requests resume oldest admission first, before any
-        new admission, as soon as a slot and blocks are free.  A failed
+        """Parked requests resume highest tier first, then oldest
+        admission, before any new admission, as soon as a slot and
+        blocks are free (never while `freeze_parked`).  A failed
         swap-in (an injected fault) leaves the request parked with its
         host copy intact."""
-        if not self._parked:
+        if not self._parked or self.freeze_parked:
             return
         free = self._free_slots()
-        for pr in sorted(self._parked, key=lambda p: p.admit_seq):
+        for pr in sorted(self._parked,
+                         key=lambda p: (-SLOTier.rank(p.req.tier),
+                                        p.admit_seq)):
             if not free:
                 break
             slot = free[0]
@@ -1539,8 +1764,10 @@ class LLMEngine:
         either way."""
         if self.overlap:
             return self._step_overlap()
+        self.last_step_t = time.monotonic()   # the watchdog's heartbeat
         t = _tr.t0()
         self._reap_cancelled()
+        self._overload_tick()
         self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
@@ -1596,9 +1823,14 @@ class LLMEngine:
         flight) and the dispatch of step N+1.  A slot's
         token depends only on its own token, depth, generator and KV,
         all fixed at dispatch, so deferring the read changes no stream;
-        only WHEN host work runs differs."""
+        only WHEN host work runs differs.  The overload tick runs in
+        phase A, before the deferred commit, as in the synchronous
+        driver before admission: the rung it sets shapes this call's
+        admissions (both passes), chunks and drafts."""
+        self.last_step_t = time.monotonic()   # the watchdog's heartbeat
         t = _tr.t0()
         self._reap_cancelled(decoding=self._inflight is None)
+        self._overload_tick()
         self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
@@ -1616,6 +1848,62 @@ class LLMEngine:
         def dispatch():
             self._inflight = self._dispatch(drafts)
         return self._decode(dispatch, drafts)
+
+    def _overload_tick(self):
+        """One overload-controller tick from live engine signals, at
+        every step boundary before admission (so a rung change shapes
+        THIS step's admission, chunks and drafts).  Signals: the
+        protected (non-lowest-tier) queue depth, the parked count,
+        preemptions since the last tick, host-tier occupancy, and the
+        server's windowed ITL p50 or else the decode ITL EMA.  The
+        `engine.overload` fault site forces one escalation."""
+        oc = self._overload
+        if oc is None:
+            return
+        forced = False
+        try:
+            _faults.fire("engine.overload", rung=oc.rung)
+        except _faults.InjectedFault:
+            forced = True
+        p = int(self._m_preempt.value)
+        dp = p - self._op_last_preempt
+        self._op_last_preempt = p
+        low = SLOTier.lowest()
+        protected = sum(1 for r in self._queue if r.tier != low)
+        host = (self._pager.host_blocks_used / self.host_pool_blocks
+                if self.host_pool_blocks else 0.0)
+        prev = oc.rung
+        rung = oc.update({
+            "queue_depth": protected,
+            "parked": len(self._parked),
+            "preempt_rate": dp,
+            "host_frac": host,
+            "itl_ema": (self._itl_window_s
+                        if self._itl_window_s is not None
+                        else self._itl_ema) or 0.0,
+        }, force_up=forced)
+        if rung != prev:
+            (self._m_escal if rung > prev else self._m_deesc).inc()
+            self._m_rung.set(rung)
+        if rung >= 4:
+            self._shed_queued_lowest()
+
+    def _shed_queued_lowest(self):
+        """Rung 4's queue half: fail every queued lowest-tier request
+        with a typed `Overloaded` (the submit half is
+        `_overload_check`).  Admitted and parked requests are never
+        shed."""
+        low = SLOTier.lowest()
+        doomed = [r for r in self._queue if r.tier == low]
+        if not doomed:
+            return
+        self._queue = deque(r for r in self._queue if r.tier != low)
+        for req in doomed:
+            self._m_shed[low].inc()
+            req._finish_error(Overloaded(
+                f"request {req.rid} shed from queue at overload rung 4"))
+        self._m_queue.set(len(self._queue))
+        self._note_tier_queue()
 
     def _dispatch(self, drafts):
         return self._dispatch_decode() if drafts is None \
@@ -1743,12 +2031,19 @@ class LLMEngine:
             if self._spec_idx[slot] is not None:
                 self._spec_idx[slot].extend(tok)
             if req._t_last is not None:
-                self._m_itl.observe(now - req._t_last)
+                d = now - req._t_last
+                self._m_itl.observe(d)
+                self._m_tier_itl[req.tier].observe(d)
+                req._itl_sum += d
+                req._itl_n += 1
+                self._itl_ema = d if self._itl_ema is None else \
+                    0.9 * self._itl_ema + 0.1 * d
             req._t_last = now
             if req._emit(tok):
                 self._free_slot(slot)       # freed for the next admit
                 self._m_completed.inc()
                 self._m_evicted.inc()
+                self._slo_account(req)
 
     # -- speculative decoding ----------------------------------------------
 
@@ -1761,10 +2056,13 @@ class LLMEngine:
         drafts = [None] * self.max_slots
         cost = 0
         wmax = self.verify_widths[-1]
+        skip_low = self.overload_rung >= 1
         for slot, req in enumerate(self._slots):
             idx = self._spec_idx[slot]
             if req is None or idx is None:
                 continue
+            if skip_low and req.tier == SLOTier.lowest():
+                continue    # rung 1: no speculation for the lowest tier
             remaining = req.max_new_tokens - len(req.tokens)
             kb = min(self._spec_k[slot], remaining - 1, wmax - 1)
             if kb <= 0:
@@ -1897,11 +2195,17 @@ class LLMEngine:
                 per = (now - req._t_last) / emitted
                 for _ in range(emitted):
                     self._m_itl.observe(per)
+                    self._m_tier_itl[req.tier].observe(per)
+                req._itl_sum += now - req._t_last
+                req._itl_n += emitted
+                self._itl_ema = per if self._itl_ema is None else \
+                    0.9 * self._itl_ema + 0.1 * per
             req._t_last = now
             if done:
                 self._free_slot(slot)       # freed for the next admit
                 self._m_completed.inc()
                 self._m_evicted.inc()
+                self._slo_account(req)
             else:
                 # rows pos .. pos + m hold the committed tokens' KV;
                 # out[m] is the new token, written at pos + m + 1 by the
@@ -1950,6 +2254,13 @@ class LLMEngine:
             if max_steps is not None and steps >= max_steps:
                 break
         return steps
+
+    def generate(self, prompts, max_new_tokens=16, **kw):
+        """Submit every prompt, run to completion, and return the
+        per-prompt generated token lists."""
+        reqs = [self.submit(p, max_new_tokens, **kw) for p in prompts]
+        self.run()
+        return [r.tokens for r in reqs]
 
     def kv_pool_bytes(self):
         """Total bytes of the paged KV pool (all layers, K+V, int8

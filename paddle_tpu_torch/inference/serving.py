@@ -10,58 +10,90 @@ thread fails every pending request with `EngineUnhealthy` and flips
 overlap driver the driver thread commits the step in flight
 (`LLMEngine.flush`) before it stops.
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP
-item): the `/metrics` HTTP thread, the canary self-probe, the step
-watchdog, the metrics time series, the KV fabric endpoint and the
-disaggregated pool roles.
+Beside the driver, as in the JAX server:
+
+  * `metrics_port` (0 = ephemeral) starts a daemon HTTP thread serving
+    the Prometheus text at /metrics (the engine's registry plus the
+    process-global one), the JSON `health_snapshot()` at /healthz (200
+    while the driver serves, 503 after a crash or shutdown) and one
+    request's span timeline at /debug/trace; the bound address is
+    `metrics_address`;
+  * the canary (`canary_interval`): a seeded golden prompt whose greedy
+    tokens are captured at boot and re-generated every interval as a
+    normal lowest-priority request; a mismatch quarantines the server
+    (alive and draining, `submit()` refused with `EngineUnhealthy`);
+  * the hang watchdog (`watchdog_deadline`): work pending and the
+    engine's step heartbeat older than the deadline reads `stalled` in
+    `health_snapshot()`;
+  * the metrics series (`series_interval`): a `TimeSeriesStore`
+    sampling the engine's registry on its own thread, whose windowed
+    ITL p50 feeds the overload ladder.
+
+Not ported (each raises naming its ROADMAP item, or is absent): the KV
+fabric endpoint and session adoption, the disaggregated pool roles,
+router epochs and the poison drill.  `health_snapshot()` reports each
+missing feature at its "off" value.
 """
 
 from __future__ import annotations
 
+import http.server
+import json
 import queue as _queue
 import threading
 import time
+import urllib.parse
 
+import numpy as np
+
+from ..observability import get_registry
 from ..observability import tracing as _tr
+from ..observability.slo import SLOTier
+from ..observability.timeseries import TimeSeriesStore
+from ..testing import faults as _faults
 from .engine import (EngineUnhealthy, LLMEngine, QueueFull, Request,
                      ResultTimeout)
 
 __all__ = ["LLMServer"]
 
-_SERVER_SLO = "engine sub-slice (e): SLO tiers and the overload ladder"
-# server knobs of the JAX package this slice does not port: name ->
-# (the values that mean "off", the ROADMAP item that ports it)
-_UNPORTED = {
-    "metrics_port": ((None,), _SERVER_SLO),
-    "metrics_host": (("127.0.0.1",), _SERVER_SLO),
-    "canary_interval": ((None,), _SERVER_SLO),
-    "canary_prompt_len": ((8,), _SERVER_SLO),
-    "canary_max_new": ((4,), _SERVER_SLO),
-    "watchdog_deadline": ((None,), _SERVER_SLO),
-    "series_interval": ((None,), _SERVER_SLO),
-    "series_tiers": ((None,), _SERVER_SLO),
-    "series_max_bytes": ((None,), _SERVER_SLO),
-    "pool_role": (("mixed",), "engine sub-slice (h): KV fabric and "
-                              "disaggregated serving"),
-}
+# a fabric counter's operations and integrity paths, all 0 here (the
+# JAX engine's label sets, so /healthz keeps its shape)
+_FABRIC_OPS = ("pull", "migrate", "spill")
+_INTEGRITY_PATHS = ("pull", "ticket", "disk", "manifest", "swap",
+                    "handoff", "ext")
 
 
 class LLMServer:
     """Thread-safe front over `LLMEngine(model, **engine_kw)` (every
-    knob the engine takes: the pool, the preempt ladder, the prefix
-    cache, ...).  `default_result_timeout` bounds every `result()`
-    wait."""
+    knob the engine takes).  The parameters before `engine_kw` are the
+    JAX server's, in its order: `metrics_port` / `metrics_host` (the
+    HTTP thread), `default_result_timeout` (bounds every `result()`
+    wait), `name`, `canary_interval` / `canary_prompt_len` /
+    `canary_max_new`, `watchdog_deadline` (seconds; None disables it),
+    `series_interval` (seconds; None or 0 disables the sampler) /
+    `series_tiers` / `series_max_bytes`, and `pool_role` (only
+    "mixed": the other roles are engine sub-slice (h))."""
 
-    def __init__(self, model, default_result_timeout=600.0, name=None,
-                 **engine_kw):
-        for knob in [k for k in engine_kw if k in _UNPORTED]:
-            value = engine_kw.pop(knob)
-            offs, item = _UNPORTED[knob]
-            if value not in offs:
-                raise NotImplementedError(
-                    f"{knob}={value!r} is not ported to paddle_tpu_torch "
-                    f"yet (ROADMAP: {item})")
+    def __init__(self, model, metrics_port=None, metrics_host="127.0.0.1",
+                 default_result_timeout=600.0, name=None,
+                 canary_interval=None, canary_prompt_len=8,
+                 canary_max_new=4, watchdog_deadline=120.0,
+                 series_interval=1.0, series_tiers=None,
+                 series_max_bytes=None, pool_role="mixed", **engine_kw):
+        if pool_role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"unknown pool_role {pool_role!r} "
+                             "('prefill', 'decode', or 'mixed')")
+        if pool_role != "mixed":
+            raise NotImplementedError(
+                f"pool_role={pool_role!r} is not ported to "
+                f"paddle_tpu_torch yet (ROADMAP: engine sub-slice (h): "
+                f"KV fabric and disaggregated serving)")
+        self.pool_role = pool_role
+        t_boot = time.perf_counter()
+        self._t_boot_anchor = t_boot
         self.engine = LLMEngine(model, **engine_kw)
+        self.boot_engine_s = time.perf_counter() - t_boot
+        self.boot_first_token_s = None
         self.name = name if name is not None else f"llm-server-{id(self):x}"
         self.default_result_timeout = default_result_timeout
         self._pending: _queue.Queue = _queue.Queue()
@@ -71,13 +103,388 @@ class LLMServer:
         self._draining = threading.Event()
         self._n_unfinished = 0       # accepted, on_done not yet fired
         self._error = None           # the driver thread's fatal exception
+        self._http = None
+        self.metrics_address = None
+        # canary, quarantine and watchdog state
+        self._canary_interval = (None if canary_interval is None
+                                 else float(canary_interval))
+        self._canary_prompt = None
+        self._canary_expected = None
+        self._canary_inflight = False
+        self._canary_last = float("-inf")
+        self._canary_waiters = []
+        self._quarantined = threading.Event()
+        self.quarantine_reason = None
+        self.watchdog_deadline = (None if watchdog_deadline is None
+                                  else float(watchdog_deadline))
+        self._stall_flagged = False
+        reg = self.engine.metrics_registry
+        self._m_canary_probes = reg.counter(
+            "canary_probes_total", "Golden self-probes launched")
+        self._m_canary_fail = reg.counter(
+            "canary_failures_total",
+            "Self-probes whose greedy tokens diverged from the "
+            "boot-time capture (each one quarantines the replica)")
+        self._m_quar = reg.gauge(
+            "quarantined",
+            "1 once this replica quarantined itself (canary mismatch)")
+        self._m_stalls = reg.counter(
+            "watchdog_stalls_total",
+            "Step-watchdog trips: work pending but the scheduler "
+            "heartbeat older than watchdog_deadline")
+        if metrics_port is not None:
+            self._start_metrics_http(metrics_host, metrics_port)
+        if self._canary_interval is not None:
+            self._canary_capture(int(canary_prompt_len),
+                                 int(canary_max_new))
+        # the series sampler runs on its own daemon thread, never on
+        # the driver thread
+        self.series_store = None
+        self._series_stop = threading.Event()
+        self._series_thread = None
+        if series_interval is not None and series_interval > 0:
+            self.series_store = TimeSeriesStore(
+                reg, interval_s=float(series_interval), tiers=series_tiers,
+                **({} if series_max_bytes is None
+                   else {"max_bytes": series_max_bytes}),
+                extra=self._series_extra)
+            self._series_thread = threading.Thread(
+                target=self._series_loop, name=f"series-{self.name}",
+                daemon=True)
+            self._series_thread.start()
+        self.boot_s = time.perf_counter() - t_boot
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name=f"driver-{self.name}")
         self._thread.start()
 
+    # -- liveness, quarantine and the canary -------------------------------
+
+    @property
+    def healthy(self) -> bool:
+        """True while the driver thread is alive and serving.  A
+        quarantined server is still healthy: quarantine is a verdict on
+        data trust, not liveness."""
+        return self._error is None and not self._closing.is_set()
+
+    @property
+    def quarantined(self) -> bool:
+        return self._quarantined.is_set()
+
+    def quarantine(self, reason="operator request"):
+        """Flip into the quarantined state: alive, still stepping the
+        work in flight to completion, but `submit()` refuses new work.
+        Parked requests freeze (the engine never resumes one here: its
+        future KV is what the canary stopped trusting).  Idempotent."""
+        if self._quarantined.is_set():
+            return
+        self.quarantine_reason = str(reason)
+        self._quarantined.set()
+        _tr.flight_record(f"quarantine-{self.name}")
+        self.engine.freeze_parked = True
+        self._m_quar.set(1)
+
+    def _canary_capture(self, prompt_len, max_new):
+        """Boot-time golden run on the constructor's thread (the driver
+        has not started, so stepping the engine here is safe)."""
+        eng = self.engine
+        rng = np.random.default_rng(0x13C0FFEE)
+        vocab = int(getattr(eng.cfg, "vocab_size", 256))
+        n = max(1, min(int(prompt_len), eng.max_prompt_len))
+        self._canary_prompt = rng.integers(1, max(2, vocab), size=n,
+                                           dtype=np.int32)
+
+        def first_tok(_req, _tok):
+            if self.boot_first_token_s is None:
+                self.boot_first_token_s = (time.perf_counter()
+                                           - self._t_boot_anchor)
+        req = eng.submit(self._canary_prompt,
+                         max_new_tokens=max(1, int(max_new)),
+                         greedy=True, priority=-(10 ** 6),
+                         on_token=first_tok)
+        guard = 0
+        while not req.done and guard < 10_000:
+            eng.step()
+            guard += 1
+        eng.flush()                 # overlap: commit the tail step
+        if req.error is not None or not req.done:
+            raise RuntimeError(
+                f"canary capture failed on {self.name}: {req.error!r}")
+        self._canary_expected = list(req.tokens)
+
+    def _canary_tick(self):
+        """Driver thread only: launch the periodic golden self-probe, a
+        normal lowest-priority request riding the same scheduler."""
+        if (self._canary_expected is None or self._canary_inflight
+                or self._closing.is_set()):
+            return
+        now = time.monotonic()
+        if now - self._canary_last < self._canary_interval:
+            return
+        self._canary_last = now
+        self._canary_inflight = True
+        self._m_canary_probes.inc()
+        req = Request(self._canary_prompt, len(self._canary_expected),
+                      greedy=True, priority=-(10 ** 6),
+                      on_done=self._canary_done)
+        self.engine._queue.append(req)
+
+    def _canary_done(self, req):
+        self._canary_inflight = False
+        expected = self._canary_expected
+        got = list(req.tokens)
+        # conclusive only when the probe ran to full length without a
+        # typed error: a shed or truncated probe is inconclusive
+        verdict = None
+        if req.error is None and len(got) == len(expected):
+            verdict = (got == expected)
+        try:
+            _faults.fire("engine.canary", name=self.name)
+        except _faults.InjectedFault:
+            verdict = False       # an injected fault IS a mismatch
+        if verdict is False:
+            self._m_canary_fail.inc()
+            self.quarantine(f"canary mismatch on {self.name}: "
+                            f"got {got} expected {expected}")
+        waiters, self._canary_waiters = self._canary_waiters, []
+        for ev in waiters:
+            ev.set()
+
+    def probe_canary(self, timeout=30.0):
+        """Force one canary probe now; blocks until it completes and
+        returns True while the server is still trusted (not
+        quarantined)."""
+        if self._canary_expected is None:
+            raise RuntimeError(
+                "canary is disabled (canary_interval=None)")
+        ev = threading.Event()
+        self._canary_waiters.append(ev)
+        self._canary_last = float("-inf")
+        self._pending.put(None)     # wake an idle driver
+        if not ev.wait(timeout):
+            raise TimeoutError(
+                f"canary probe still running after {timeout}s")
+        return not self._quarantined.is_set()
+
+    # -- /metrics, /healthz, /debug/trace ----------------------------------
+
+    def _start_metrics_http(self, host, port):
+        engine = self.engine
+        server = self
+
+        class _MetricsHandler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                path = self.path.split("?")[0].rstrip("/")
+                if path in ("", "/metrics"):
+                    body = (engine.metrics_text()
+                            + get_registry().prometheus_text()).encode()
+                    self._reply(200, body)
+                elif path == "/healthz":
+                    body = json.dumps(server.health_snapshot(),
+                                      sort_keys=True).encode() + b"\n"
+                    self._reply(200 if server.healthy else 503, body,
+                                ctype="application/json")
+                elif path == "/debug/trace":
+                    # one request's timeline: ?tid=<hex>, or ?rid=N
+                    # resolved by scanning span args
+                    q = urllib.parse.parse_qs(
+                        urllib.parse.urlsplit(self.path).query)
+                    tid = (q.get("tid") or [None])[0]
+                    rid = (q.get("rid") or [None])[0]
+                    spans = _tr.snapshot_spans()
+                    if tid is None and rid is not None:
+                        try:
+                            rid_n = int(rid)
+                        except ValueError:
+                            rid_n = rid
+                        for sp in spans:
+                            if (sp.get("args") or {}).get("rid") == rid_n:
+                                tid = sp.get("trace_id")
+                                break
+                    if tid is None:
+                        self.send_error(
+                            404, "unknown rid/tid (or tracing disabled)")
+                        return
+                    tl = _tr.request_timeline(spans, tid)
+                    body = json.dumps(
+                        {"trace_id": tid, "n_spans": len(tl),
+                         **_tr.chrome_trace(tl)}).encode() + b"\n"
+                    self._reply(200, body, ctype="application/json")
+                else:
+                    self.send_error(404)
+
+            def _reply(self, code, body,
+                       ctype="text/plain; version=0.0.4"):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):  # keep the serving log clean
+                pass
+
+        self._http = http.server.ThreadingHTTPServer(
+            (host, port), _MetricsHandler)
+        self._http.daemon_threads = True
+        self.metrics_address = self._http.server_address[:2]
+        self._http_thread = threading.Thread(
+            target=self._http.serve_forever, daemon=True,
+            name=f"metrics-{self.name}")
+        self._http_thread.start()
+
+    def metrics(self):
+        """The engine's metrics snapshot (`LLMEngine.metrics()`)."""
+        return self.engine.metrics()
+
+    # -- the metrics series ------------------------------------------------
+
+    def _series_extra(self):
+        """Derived gauges sampled beside the registry."""
+        eng = self.engine
+        active = eng.num_active + eng.num_prefilling
+        return {"llm_engine_occupancy":
+                (active / eng.max_slots) if eng.max_slots else 0.0}
+
+    def _series_loop(self):
+        store = self.series_store
+        # the overload ladder's ITL window: wide enough to smooth step
+        # jitter, narrow enough to track a real shift
+        itl_win = max(5.0, 5.0 * store.interval_s)
+        while not self._series_stop.wait(store.interval_s):
+            try:
+                store.sample()
+                # None while idle: the engine falls back to its EMA
+                self.engine._itl_window_s = store.window_mean(
+                    "llm_engine_itl_seconds:p50", itl_win)
+            except Exception:  # noqa: BLE001 — sampling never stops serving
+                pass
+
+    def metrics_series(self, n=15):
+        """The series store's recent tails plus this server's program
+        cost rows; None when sampling is disabled."""
+        if self.series_store is None:
+            return None
+        payload = self.series_store.export(n=n)
+        payload["name"] = self.name
+        payload["costs"] = self.program_costs()
+        return payload
+
+    def program_costs(self):
+        """Achieved-vs-roofline rows of the serving programs the engine
+        holds as AOT handles: none here, as the JAX server reports for
+        an engine without AOT programs (the rows come with engine
+        sub-slice (j))."""
+        return []
+
+    # -- health ------------------------------------------------------------
+
+    def health_snapshot(self):
+        """The small JSON-able liveness / load summary served at
+        /healthz, with the JAX server's keys.  The watchdog is judged
+        here, on the poller's thread: work pending and a step heartbeat
+        older than `watchdog_deadline` reads `stalled`."""
+        eng = self.engine
+        active = eng.num_active + eng.num_prefilling
+        now = time.monotonic()
+        step_age = now - eng.last_step_t
+        stalled = bool(self.watchdog_deadline is not None
+                       and eng.has_work
+                       and step_age > self.watchdog_deadline
+                       and self._error is None
+                       and not self._closing.is_set())
+        if stalled and not self._stall_flagged:
+            self._stall_flagged = True
+            self._m_stalls.inc()
+            _tr.flight_record(f"watchdog-{self.name}")
+        elif not stalled:
+            self._stall_flagged = False
+        status = ("unhealthy" if self._error is not None
+                  else "shutdown" if self._closing.is_set()
+                  else "draining" if self._draining.is_set()
+                  else "quarantined" if self._quarantined.is_set()
+                  else "ok")
+        reg = eng.metrics_registry
+        ttft = reg.get("ttft_seconds")
+        hg = reg.get("host_gap_seconds")
+        return {
+            "status": status,
+            "name": self.name,
+            "pool_role": self.pool_role,
+            "quarantined": self._quarantined.is_set(),
+            "quarantine_reason": self.quarantine_reason,
+            "canary_probes": int(self._m_canary_probes.value),
+            "canary_failures": int(self._m_canary_fail.value),
+            "step_age_s": step_age,
+            "stalled": stalled,
+            "watchdog_stalls": int(self._m_stalls.value),
+            "queue_depth": len(eng._queue) + self._pending.qsize(),
+            "slots_active": active,
+            "slots_total": eng.max_slots,
+            "occupancy": (active / eng.max_slots) if eng.max_slots else 0.0,
+            "unfinished": self._n_unfinished,
+            "draining": self._draining.is_set(),
+            "ttft_p50_s": ttft.quantile(0.5) if ttft is not None else 0.0,
+            "host_gap_p50_s": hg.quantile(0.5) if hg is not None else 0.0,
+            "host_gap_p99_s": hg.quantile(0.99) if hg is not None else 0.0,
+            "host_gap_last_s": float(eng._m_host_gap_last.value),
+            "preempted": eng.num_parked,
+            "kv_blocks_free": eng._pager.free_blocks,
+            "kv_blocks_total": eng.kv_blocks - 1,
+            # tiered KV (engine sub-slice (g)) is off
+            "kv_tiered": False,
+            "kv_ext_used": 0,
+            "kv_blocks_spilled": 0,
+            "kv_blocks_prefetched": 0,
+            "kv_prefetch_misses": 0,
+            # one card: every block's bytes live here
+            "tp": 1,
+            "kv_block_bytes_per_chip": int(eng._kv_block_bytes),
+            "kv_pool_bytes_per_chip": int(eng.kv_pool_bytes()),
+            "tier_queue_depth": self._tier_depths(),
+            "overload_rung": eng.overload_rung,
+            "overload_escalations": int(eng._m_escal.value),
+            "shed": {t: int(c.value) for t, c in eng._m_shed.items()},
+            "degraded": eng.overload_rung > 0,
+            # the KV fabric (engine sub-slice (h)) is off
+            "fabric_address": None,
+            "fabric": {
+                "blocks_moved": {op: 0 for op in _FABRIC_OPS},
+                "bytes_moved": {op: 0 for op in _FABRIC_OPS},
+                "prefill_tokens_saved_remote": 0,
+                "disk_blocks": 0,
+                "disk_sessions": 0,
+                "integrity_failures": {p: 0 for p in _INTEGRITY_PATHS},
+                "disk_evictions": 0,
+                "handoff_chunks": 0,
+                "handoff_bytes": 0,
+                "handoff_staged": 0,
+            },
+            "overlap": eng.overlap_mode,
+            "step_inflight": eng._inflight is not None,
+            # the AOT cache (engine sub-slice (j)) is off
+            "aot": None,
+            "boot_s": getattr(self, "boot_s", None),
+            "boot_engine_s": self.boot_engine_s,
+            "boot_first_token_s": self.boot_first_token_s,
+        }
+
+    def _tier_depths(self):
+        """Queued requests per tier, the hand-off queue's included."""
+        depths = dict(self.engine.tier_queue_depths())
+        for req in list(self._pending.queue):
+            if req is not None:
+                t = SLOTier.check(req.tier)
+                depths[t] = depths.get(t, 0) + 1
+        return depths
+
+    # -- requests ----------------------------------------------------------
+
     def submit(self, prompt_ids, max_new_tokens=16, **kw):
         """Hand a request to the driver thread; `kw` are `Request`'s
-        (sampling, `seed`, `deadline`, `priority`, callbacks)."""
+        (sampling, `seed`, `deadline`, `priority`, `tier`, callbacks).
+        Raises `EngineUnhealthy` after a crash or once quarantined,
+        `QueueFull` at the queue bound and `Overloaded` for the lowest
+        tier at rung 4 (before a `Request` is built)."""
         if self._error is not None:
             raise EngineUnhealthy(
                 f"LLMServer driver thread crashed: {self._error!r}")
@@ -85,6 +492,11 @@ class LLMServer:
             raise RuntimeError(
                 f"LLMServer {self.name} is shut down or draining; "
                 "submit() no longer accepts requests")
+        if self._quarantined.is_set():
+            # typed as a crash, so callers take their failover path
+            raise EngineUnhealthy(
+                f"LLMServer {self.name} is quarantined: "
+                f"{self.quarantine_reason}")
         # load shedding covers the whole path to a slot: requests in the
         # hand-off queue count against the engine's bound too
         eng = self.engine
@@ -94,6 +506,7 @@ class LLMServer:
             raise QueueFull(
                 f"admission queue at capacity ({eng.max_queue}); request "
                 f"rejected (load shedding)")
+        eng._overload_check(kw.get("tier"))
         done = threading.Event()
         user_done = kw.pop("on_done", None)
 
@@ -137,26 +550,43 @@ class LLMServer:
         # the single driver thread: all device work happens here.  An
         # escaping exception must not strand waiters: _fail_all marks
         # the server unhealthy and completes every pending request.
+        eng = self.engine
         try:
             while not self._closing.is_set():
+                self._canary_tick()
                 try:
                     while True:
                         req = self._pending.get_nowait()
                         if req is not None:
-                            self.engine._queue.append(req)
+                            eng._queue.append(req)
                 except _queue.Empty:
                     pass
-                if self.engine.has_work:
-                    self.engine.step()
+                if eng.has_work:
+                    # fault sites fired once per real scheduler step
+                    # (never on idle wakeups), so count rules hit a
+                    # deterministic step
+                    _faults.fire("replica.crash", name=self.name)
+                    _faults.fire("engine.stall", name=self.name)
+                    eng.step()
                 else:
                     # idle: park until submit() hands over a request or
-                    # shutdown() drops the None sentinel
-                    req = self._pending.get()
+                    # shutdown() drops the None sentinel; with a canary
+                    # armed, wake at interval / 4 to self-probe
+                    timeout = (None if self._canary_interval is None
+                               else max(0.05, self._canary_interval / 4))
+                    try:
+                        req = self._pending.get(timeout=timeout)
+                    except _queue.Empty:
+                        req = None
                     if req is not None:
-                        self.engine._queue.append(req)
+                        eng._queue.append(req)
+                    # an idle park is liveness, not a hang; and an idle
+                    # wait is not host overhead between device steps
+                    eng.last_step_t = time.monotonic()
+                    eng._t_retire = None
             # overlap: commit the tail step, so its tokens reach their
             # requests before the driver stops
-            self.engine.flush()
+            eng.flush()
         except BaseException as e:  # noqa: BLE001 — containment point
             self._error = e
             self._fail_all(e)
@@ -164,6 +594,7 @@ class LLMServer:
     def _fail_all(self, cause):
         """Driver crashed: fail every request still in flight."""
         eng = self.engine
+        _tr.flight_record(f"driver-crash-{self.name}")
         dead = []
         try:
             while True:
@@ -192,9 +623,10 @@ class LLMServer:
                 ev.set()
 
     def shutdown(self, timeout=5, drain=False, drain_timeout=60.0):
-        """Stop serving and join the driver thread; submit() raises
-        afterwards.  Idempotent.  `drain=True` first stops admitting and
-        keeps stepping until every accepted request finished (or
+        """Stop serving: join the driver thread, stop the series
+        sampler and the HTTP thread; submit() raises afterwards.
+        Idempotent.  `drain=True` first stops admitting and keeps
+        stepping until every accepted request finished (or
         `drain_timeout` passes, or the driver crashed)."""
         if drain:
             self._draining.set()
@@ -206,5 +638,16 @@ class LLMServer:
                         break
                 time.sleep(0.005)
         self._closing.set()
+        self._series_stop.set()
+        if self._series_thread is not None:
+            self._series_thread.join(timeout)
+            self._series_thread = None
         self._pending.put(None)   # wake the driver if it is parked idle
         self._thread.join(timeout)
+        if self._http is not None:
+            self._http.shutdown()
+            self._http.server_close()
+            self._http_thread.join(timeout)
+            self._http = None
+
+    close = shutdown

@@ -4,8 +4,13 @@
 Production code calls ``faults.fire(site, **ctx)`` at a named site;
 tests arm rules against the site.  A rule fires by call count:
 ``after`` skips the first k calls at its site, ``times`` bounds how
-many calls trip it (None: every call after ``after``), and a tripped
-call raises `InjectedFault`.
+many calls trip it (None: every call after ``after``); a rule with
+``prob < 1`` trips a counted call with that probability, drawn from a
+``random.Random(seed)`` made at ``inject()`` time, so a seeded run
+replays exactly.  A tripped call sleeps ``delay`` seconds, runs
+``callback(ctx)`` (an exception it returns is raised instead), then
+raises ``exc`` (default `InjectedFault`); ``exc=None`` with a delay or
+a callback wedges the site instead of failing it.
 
 ``fire`` does nothing unless the harness is switched on (``ENABLED``,
 the counterpart of the JAX package's ``FLAGS_fault_injection``: the
@@ -20,25 +25,43 @@ one list check.  Tests switch it on and off around the rules they arm::
 
 Sites wired in the port:
 
-  ===========  ========================================================
-  site         raised from
-  ===========  ========================================================
-  kv.alloc     LLMEngine._alloc_blocks, before each paged-pool
-               allocation; an injected fault is a FAILED allocation (a
-               schedulable event feeding the preempt ladder), never an
-               error (ctx: need, free)
-  kv.swap_out  LLMEngine park path, before a slot's blocks are gathered
-               for the host tier; the engine falls back to
-               drop-and-recompute (ctx: slot, rid)
-  kv.swap_in   LLMEngine resume path, before the host blocks scatter
-               back to the pool; the request RE-PARKS with its host tier
-               intact (ctx: slot, rid)
-  ===========  ========================================================
+  ===============  ====================================================
+  site             raised from
+  ===============  ====================================================
+  kv.alloc         LLMEngine._alloc_blocks, before each paged-pool
+                   allocation; an injected fault is a FAILED
+                   allocation (a schedulable event feeding the preempt
+                   ladder), never an error (ctx: need, free)
+  kv.swap_out      LLMEngine park path, before a slot's blocks are
+                   gathered for the host tier; the engine falls back to
+                   drop-and-recompute (ctx: slot, rid)
+  kv.swap_in       LLMEngine resume path, before the host blocks
+                   scatter back to the pool; the request RE-PARKS with
+                   its host tier intact (ctx: slot, rid)
+  engine.overload  LLMEngine._overload_tick, once per scheduler step
+                   while the overload ladder is armed; an injected
+                   fault FORCES one ladder escalation (bypassing
+                   hysteresis), never an error (ctx: rung)
+  engine.canary    LLMServer canary self-probe, when the golden
+                   request's tokens are compared; an injected fault IS
+                   a canary mismatch: the server quarantines itself
+                   (ctx: name)
+  engine.stall     LLMServer driver loop, before each scheduler step
+                   (after replica.crash); arm with ``exc=None,
+                   delay=N`` to wedge the step loop and trip the hang
+                   watchdog (ctx: name)
+  replica.crash    LLMServer driver loop, before each actual scheduler
+                   step (never on idle wakeups); a raise there crashes
+                   the driver: every pending request fails with
+                   EngineUnhealthy (ctx: name)
+  ===============  ====================================================
 """
 
 from __future__ import annotations
 
+import random
 import threading
+import time
 
 __all__ = ["InjectedFault", "FaultInjector", "get_injector", "fire",
            "ENABLED"]
@@ -52,12 +75,19 @@ class InjectedFault(RuntimeError):
 
 
 class _Rule:
-    __slots__ = ("site", "after", "times", "fired", "seen")
+    __slots__ = ("site", "after", "times", "exc", "delay", "prob", "rng",
+                 "callback", "fired", "seen")
 
-    def __init__(self, site, after, times):
+    def __init__(self, site, after, times, exc, delay, prob, seed,
+                 callback):
         self.site = site
         self.after = int(after)
         self.times = None if times is None else int(times)
+        self.exc = exc
+        self.delay = float(delay)
+        self.prob = float(prob)
+        self.rng = random.Random(seed)
+        self.callback = callback
         self.fired = 0       # calls that actually tripped
         self.seen = 0        # calls at this site since installation
 
@@ -66,6 +96,8 @@ class _Rule:
         self.seen += 1
         if self.seen <= self.after or (self.times is not None
                                        and self.fired >= self.times):
+            return False
+        if self.prob < 1.0 and self.rng.random() >= self.prob:
             return False
         self.fired += 1
         return True
@@ -78,11 +110,15 @@ class FaultInjector:
         self._lock = threading.Lock()
         self._rules: list[_Rule] = []
 
-    def inject(self, site, *, times=1, after=0):
+    def inject(self, site, *, times=1, after=0, exc=InjectedFault,
+               delay=0.0, prob=1.0, seed=0, callback=None):
         """Arm one rule: the ``after+1``-th .. ``after+times``-th calls
-        at `site` raise `InjectedFault`.  Returns the rule
-        (``rule.fired`` counts trips)."""
-        rule = _Rule(site, after, times)
+        at `site` trip it (each with probability `prob`).  A trip
+        sleeps `delay`, runs ``callback(ctx)`` (an exception instance
+        or class it returns is raised), then raises `exc`; ``exc=None``
+        raises nothing.  Returns the rule (``rule.fired`` counts
+        trips)."""
+        rule = _Rule(site, after, times, exc, delay, prob, seed, callback)
         with self._lock:
             self._rules.append(rule)
         return rule
@@ -101,15 +137,28 @@ class FaultInjector:
                     if site is None or r.site == site]
 
     def fire(self, site, **ctx):
-        """Consult the rule table for `site`; raise when a rule trips.
-        `ctx` describes the call (the sites pass it; no rule reads it
-        here)."""
+        """Consult the rule table for `site`; the first rule that trips
+        acts (sleep, callback, raise).  Outside the lock: a wedged site
+        must not block other sites."""
         with self._lock:
             tripped = next((r for r in self._rules
                             if r.site == site and r.trips()), None)
-        if tripped is not None:
-            raise InjectedFault(f"injected fault at {site} "
-                                f"(trip {tripped.fired})")
+        if tripped is None:
+            return
+        if tripped.delay > 0:
+            time.sleep(tripped.delay)
+        exc = tripped.exc
+        if tripped.callback is not None:
+            out = tripped.callback(ctx)
+            if isinstance(out, BaseException) or (
+                    isinstance(out, type)
+                    and issubclass(out, BaseException)):
+                exc = out
+        if exc is not None:
+            if isinstance(exc, type):
+                exc = exc(f"injected fault at {site} "
+                          f"(trip {tripped.fired})")
+            raise exc
 
 
 _INJECTOR = FaultInjector()

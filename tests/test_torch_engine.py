@@ -183,27 +183,36 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
 @pytest.mark.parametrize("knob,value", [
     ("hot_window", 2), ("prefetch_depth", 4),
     ("weight_dtype", "int8"), ("mesh", "dp"), ("tp", 2), ("sp", 2),
-    ("aot_cache", "cache"), ("fabric", "kvdir"), ("overload", True),
-    ("slo_targets", {"interactive": {"ttft_s": 1.0}})])
+    ("aot_cache", "cache"), ("fabric", "kvdir")])
 def test_unported_knobs_raise(port_model, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))
 
 
 def test_request_tier_raises(port_model):
-    """Per-request SLO tiers are not ported: a tier raises at submit and
-    nothing is queued (the queue admits in plain FIFO order)."""
-    eng = LLMEngine(port_model, **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2, 3], 2, tier="interactive")
+    """An unknown SLO tier raises at submit and nothing is queued; the
+    known tiers are admitted highest tier first, FIFO within a tier."""
+    eng = LLMEngine(port_model, **dict(ENGINE_KW, max_slots=1))
+    with pytest.raises(ValueError, match="SLO tier"):
+        eng.submit([1, 2, 3], 2, tier="gold")
     assert len(eng._queue) == 0
+    ps = _prompts([5, 6, 7, 8, 9], seed=4)
+    tiers = ["batch", "standard", "interactive", "batch", "interactive"]
+    reqs = [eng.submit(p, 2, tier=t) for p, t in zip(ps, tiers)]
+    order = []
+    while eng.has_work:
+        eng.step()
+        for r in reqs:
+            if r not in order and (r in eng._slots or r.done):
+                order.append(r)
+    assert [reqs.index(r) for r in order] == [2, 4, 1, 0, 3]
 
 
 def test_unknown_knob_and_server_knobs(port_model):
     with pytest.raises(TypeError):
         LLMEngine(port_model, decode_kernal="cuda", **ENGINE_KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMServer(port_model, metrics_port=0, **ENGINE_KW)
+        LLMServer(port_model, pool_role="prefill", **ENGINE_KW)
 
 
 def test_server_returns_engine_tokens(port_model):

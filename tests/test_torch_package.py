@@ -56,7 +56,9 @@ def test_port_files_import_neither_jax_nor_paddle_tpu():
     assert len(files) > 10 and files[-1].exists()
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"paddle_tpu_torch/ops/gmm.py", "paddle_tpu_torch/ops/moe_ops.py",
-            "paddle_tpu_torch/nn/moe.py"} <= names
+            "paddle_tpu_torch/nn/moe.py",
+            "paddle_tpu_torch/inference/overload.py",
+            "paddle_tpu_torch/observability/timeseries.py"} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
     assert not bad, bad
@@ -77,6 +79,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "import paddle_tpu_torch, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops.gmm, "
             "paddle_tpu_torch.ops.moe_ops, paddle_tpu_torch.nn.moe, "
+            "paddle_tpu_torch.inference.overload, "
+            "paddle_tpu_torch.observability.timeseries, "
             "paddle_tpu_torch.models, chip_smoke; print('ok')")
     out = _run(["-c", code], tmp_path)
     assert out.returncode == 0, out.stderr
