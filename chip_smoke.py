@@ -11,7 +11,7 @@ the result line:
               (one nvcc per source, all started together) into
               build/paddle_tpu_torch/, with ptxas's report (registers,
               spills, static shared memory) of the tensor-core kernels of
-              K5 and of K1/K2;
+              K5 and of K1/K2 and of Q1's kernels;
   3. kernels  the paged-attention kernel (K4: split-K, a split kernel
               and a merge kernel) against its plain PyTorch version at
               the engine's decode shapes (8 slots, 32 query / 8 kv
@@ -44,6 +44,19 @@ the result line:
               this run) and one PyTorch call each
               (scaled_dot_product_attention, cross_entropy: yardsticks
               the port never calls);
+  3c. q1_kernels
+              the weight-only int8 product (Q1, csrc/wo_int8_matmul.cu,
+              the port's own: XLA fuses it in the JAX package) against its
+              plain version at llama3-8b's seven layer shapes (4096 x
+              4096, 4096 x 1024 twice, 4096 x 4096, 4096 x 14336 twice,
+              14336 x 4096) at M 1, 8, 16, 32, 64, 128 and 2048 rows in
+              bf16, and at debug-4l's shapes in fp32 (M 1, 8, 33): per
+              element within its stated tolerance, bitwise over two
+              calls; then each distinct shape at M 8, 64, 128 and 2048
+              timed in turns (plain, kernel, kernel, plain) by CUDA-graph
+              replay over weight copies past the L2, beside its bound,
+              torch.matmul on the bf16 weight and dequantise-then-matmul
+              (yardsticks the port never calls);
   4. serve    Llama-3-8B (random weights from a seed, bf16, all 32
               layers) served through LLMEngine with the card's defaults
               (the decode step as a CUDA graph, the overlap driver):
@@ -128,9 +141,32 @@ the result line:
               batch submit refused, 4 interactive streams from rung 4
               equal an unloaded engine's, then back to 0); K4 launches =
               32 x (decode + verify replays) in every run;
+              serve_int8w: the serve mix with weight_dtype="int8" (every
+              layer product through Q1; graphs + overlap), bf16 and int8
+              pools: before each decode replay, the same step through
+              the gather path with Q1's plain version (the replay's
+              logits within the serve_parity limit) and the eager kernel
+              step (bitwise); every decode step a replay, K4 launches =
+              32 x replays, Q1 launches = 7 x 32 x (replays + prefill
+              forwards); the profile row (graphs + overlap: device ms a
+              step split into Q1 / cuBLAS GEMMs / K4 / other, idle
+              share, tokens/s, ITL, TTFT, peak memory) beside the
+              bf16-weight row of this run; serve_pressure at 158 blocks
+              under "swap" (streams equal full provisioning, a park's
+              blocks bitwise); serve_spec (k 7, verify width 8) against
+              speculation off through per-step logits;
+              generate: `LlamaForCausalLM.generate` (the static KV
+              cache) on the same llama3-8b, 4 prompts x 128 tokens x 32
+              new, greedy: tokens/s, ms a step, peak memory, bitwise
+              twice; prompt 0 against the bf16 engine's stream (equal, or
+              the first difference a near tie within the serve_parity
+              limit); `generation.generate` beam search (4 beams x 16)
+              bitwise twice, sampling (top_k 50, top_p 0.9, seed 7)
+              equal twice, every id in the vocabulary;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
-              token-exact;
+              token-exact, and `generate` (the contiguous cache) gives
+              the same streams;
   6. server   LLMServer answers three requests with the engine's tokens;
               then serve_spec on debug-4l (fp32), whose random weights
               loop: drafts accepted (required), streams equal; then
@@ -206,7 +242,12 @@ the result line:
  11. moe_parity
               qwen2-moe-tiny (dropless, 4 / 2 heads: head_dim 16) in fp32,
               kernels against plain versions on the card: loss, every
-              gradient, and the parameters after two TrainSteps.
+              gradient, and the parameters after two TrainSteps;
+ 12. generate (MoE)
+              the MoE Llama at moe_train's widths and depth generating
+              through the naive full-forward loop (2 prompts x 64 tokens
+              x 8 new): K1 and K5f launches = 8 forwards x one forward's,
+              the stream the same on a second run.
 
 Then one line {"kernels": [...]} (every ported kernel with its launches
 on the paths above, error, tolerance and times), the card's name and
@@ -363,7 +404,10 @@ def phase_build():
               libs["gmm"].with_suffix(".log").read_text(), "wgmma"),
           "flash_tensor_core_kernels": _ptxas_report(
               libs["flash_attention"].with_suffix(".log").read_text(),
-              "wgmma")})
+              "wgmma"),
+          "q1_kernels": _ptxas_report(
+              libs["wo_int8_matmul"].with_suffix(".log").read_text(),
+              "q1")})
 
 
 def _ptxas_report(log, word):
@@ -373,7 +417,7 @@ def _ptxas_report(log, word):
     import re
     out = []
     for block in log.split("Compiling entry function '")[1:]:
-        m = re.search(r"\d+((?:gmm|flash)_\w*?kernel)((?:IL|L)[^v]*)?",
+        m = re.search(r"\d+((?:gmm|flash|q1)_\w*?kernel)((?:IL|L)[^v]*)?",
                       block.split("'", 1)[0])
         if m is None or word not in m.group(1):
             continue
@@ -639,9 +683,11 @@ def _metric(eng, name, field="value"):
 def _serve_once(torch, model, kv_dtype, mode="graphs_overlap", **kw):
     """One engine run of the serve mix; returns its report, its tokens
     and the K4 launches it made (each graph replay counts the launches
-    its capture recorded)."""
+    its capture recorded).  With weight_dtype="int8" in `kw`, Q1 must
+    launch 7 x layers a decode step and a prefill forward."""
     import numpy as np
     from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
     eng = _serve_engine(model, mode, kv_dtype=kv_dtype, **kw)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, model.config.vocab_size, L)
@@ -654,14 +700,18 @@ def _serve_once(torch, model, kv_dtype, mode="graphs_overlap", **kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     PA.LAUNCHES["paged_attention"] = 0
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, SERVE_NEW, on_token=on_token) for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    Q1.LAUNCHES["wo_int8_matmul"] = 0
+    with _prefill_calls() as prefills:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, SERVE_NEW, on_token=on_token)
+                for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = PA.LAUNCHES["paged_attention"]
     steps = int(_metric(eng, "decode_steps_total"))
     layers = model.config.num_hidden_layers
+    q1 = _q1_expected(eng, layers, steps, prefills[0], "serve")
     for r in reqs:
         require(r.done and r.error is None and len(r.tokens) == SERVE_NEW,
                 f"request {r.rid}: {len(r.tokens)} tokens, {r.error!r}")
@@ -692,6 +742,8 @@ def _serve_once(torch, model, kv_dtype, mode="graphs_overlap", **kw):
               "wall_s": wall,
               "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
               "decode_steps": steps, "kernel_launches": launches,
+              "weight_dtype": eng.weight_dtype, "q1_launches": q1,
+              "prefill_forwards": prefills[0],
               "graph_replays": eng.num_graph_replays,
               "k4_launches_recorded_per_graph": recorded,
               "num_graphs": eng.num_graphs,
@@ -784,16 +836,17 @@ def _replay_times(torch, graphs, w, reps=10):
             "graph_launch_host_ms": 1e3 * host / reps}
 
 
-def phase_profile(torch, model, mode, steps=6):
+def phase_profile(torch, model, mode, steps=6, **kw):
     """Where a steady decode step's time goes at the serve shape, all 8
     slots decoding (bf16 pool), in `mode` (SERVE_MODES): host-clock
     step time unprofiled, then device time by kernel and the host's
     runtime calls under torch.profiler; for the graph modes also the
     device time of one replay by CUDA events.  Then the serve mix in
-    the same mode (`_serve_once`).  Returns the row and its tokens."""
+    the same mode (`_serve_once`).  `kw`: engine knobs (weight_dtype).
+    Returns the row and its tokens."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    eng = _serve_engine(model, mode)
+    eng = _serve_engine(model, mode, **kw)
     rng = np.random.default_rng(0)
     for L in SERVE_LENGTHS:
         eng.submit(rng.integers(0, model.config.vocab_size, L), 4 * steps
@@ -820,6 +873,7 @@ def phase_profile(torch, model, mode, steps=6):
     prof_step_ms = 1e3 * prof_wall / steps
     report = {"phase": "profile", "mode": mode, "model": "llama3-8b",
               "slots": 8, "overlap": eng.overlap_mode,
+              "weight_dtype": eng.weight_dtype,
               "decode_step_ms": step_ms, "profiled_steps": steps,
               "profiled_step_ms": prof_step_ms,
               **_runtime_calls(prof, steps)}
@@ -842,6 +896,8 @@ def phase_profile(torch, model, mode, steps=6):
         k4 = _union_us([(a, b) for n, a, b in spans   # split + merge
                         if "paged_split_kernel" in n
                         or "paged_merge_kernel" in n]) / 1e3 / steps
+        q1 = _union_us([(a, b) for n, a, b in spans   # Q1 + its merge
+                        if "q1_" in n]) / 1e3 / steps
         gemm = sum(v for k, v in dev.items()
                    if any(w in k.lower() for w in ("gemm", "gemv", "cutlass",
                                                    "sm90_xmma", "nvjet")))
@@ -851,18 +907,21 @@ def phase_profile(torch, model, mode, steps=6):
             "device_kernel_sum_ms_per_step": sum(dev.values()) / 1e3 / steps,
             # against the unprofiled step: the profiler slows the host
             "device_idle_share": max(0.0, 1 - busy / step_ms),
-            "k4_ms_per_step": k4, "gemm_ms_per_step": gemm / 1e3 / steps,
-            "other_ms_per_step": busy - k4 - gemm / 1e3 / steps,
+            "k4_ms_per_step": k4, "q1_ms_per_step": q1,
+            # cuBLAS: every product with bf16 weights, the LM head alone
+            # with int8 weights
+            "gemm_ms_per_step": gemm / 1e3 / steps,
+            "other_ms_per_step": busy - k4 - q1 - gemm / 1e3 / steps,
             "top_kernels_ms_per_step": [[k[:80], v / 1e3 / steps]
                                         for k, v in top]})
     del eng
     torch.cuda.empty_cache()
-    serve, tokens, _ = _serve_once(torch, model, None, mode)
+    serve, tokens, _ = _serve_once(torch, model, None, mode, **kw)
     report["serve"] = {k: serve[k] for k in (
         "tokens_per_s", "itl_p50_ms", "itl_p99_ms", "ttft_p50_ms",
         "ttft_max_ms", "peak_mem_gib", "peak_reserved_gib", "wall_s",
         "decode_steps", "graph_replays", "first_token_waits",
-        "host_gap_mean_ms")}
+        "host_gap_mean_ms", "q1_launches")}
     emit(report)
     return report, tokens
 
@@ -1180,17 +1239,18 @@ def _logit_rows(eng, want):
 
 
 def _pressure_run(torch, model, kv_dtype, policy, prompts, roundtrip=None,
-                  rows_of=None):
+                  rows_of=None, **eng_kw):
     """One run of the pressure traffic (PRESSURE_NEW tokens a prompt)
     with graphs and the overlap driver: full provisioning when `policy`
     is None, else `pressure_blocks()` under that policy.  `roundtrip`:
     see `_hook_ladder`.  `rows_of` ({request index: last token index})
     records those requests' decode logits (`_logit_rows`, keyed by
-    request index).  Returns (report, streams, rows)."""
+    request index).  `eng_kw`: more engine knobs (weight_dtype).
+    Returns (report, streams, rows)."""
     from paddle_tpu_torch.ops import paged_attention as PA
     kw = {} if policy is None else dict(kv_blocks=pressure_blocks(),
                                         preempt_policy=policy)
-    eng = _serve_engine(model, kv_dtype=kv_dtype, **kw)
+    eng = _serve_engine(model, kv_dtype=kv_dtype, **kw, **eng_kw)
     times = {"park": [], "resume": [], "parked": [], "rids": []}
     if policy is not None:
         _hook_ladder(torch, eng, times, roundtrip)
@@ -1247,6 +1307,7 @@ def _pressure_run(torch, model, kv_dtype, policy, prompts, roundtrip=None,
         return 1e3 * (max(xs) if p is None else _percentile(xs, p))
 
     report = {"kv_dtype": kv_dtype or "bfloat16",
+              "weight_dtype": eng.weight_dtype,
               "policy": policy or "full provisioning",
               "kv_blocks": eng.kv_blocks,
               "kv_pool_gib": eng.kv_pool_bytes() / 2**30,
@@ -1678,7 +1739,7 @@ def _spec_prompts(torch, model):
 
 
 def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
-              warm=True):
+              warm=True, **eng_kw):
     """The extraction stream through one engine (graphs + overlap,
     `bench.py:581-613`'s knobs): with `warm`, a warm-up pass, then the
     pass measured (launch counts from 0, peak memory reset).  ITL per
@@ -1686,16 +1747,17 @@ def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
     e samples of (time since its previous token) / e; beside it
     `bench.py`'s step-loop figure (each step's host time over all the
     tokens it emitted).  `rows_of` ({request index: last token index})
-    records decode / verify logits (`_logit_rows`).  Returns (report,
-    streams, rows)."""
+    records decode / verify logits (`_logit_rows`).  `eng_kw`: more
+    engine knobs (weight_dtype).  Returns (report, streams, rows)."""
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
     eng = LLMEngine(model, max_slots=8,
                     max_len=SPEC_SEED + SPEC_KEEP + SPEC_NEW + 8,
                     max_prompt_len=SPEC_SEED + SPEC_KEEP,
                     prefill_chunk=SPEC_CHUNK,
                     step_token_budget=8 * SPEC_CHUNK, speculation=spec,
-                    kv_dtype=kv_dtype)
+                    kv_dtype=kv_dtype, **eng_kw)
     require(eng.overlap and eng._graphs is not None, "not graphs + overlap")
     eng.prepare_programs()
 
@@ -1732,13 +1794,15 @@ def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     PA.LAUNCHES["paged_attention"] = 0
+    Q1.LAUNCHES["wo_int8_matmul"] = 0
     replays = (eng._graphs.replays, eng.num_verify_replays)
     hook = None if rows_of is None else (lambda reqs: _logit_rows(
         eng, {reqs[i].rid: t for i, t in rows_of.items()}))
-    t0 = time.perf_counter()
-    reqs, samples, itl, steps, rows = run_once(hook)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _prefill_calls() as prefills:
+        t0 = time.perf_counter()
+        reqs, samples, itl, steps, rows = run_once(hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = PA.LAUNCHES["paged_attention"]
     decode_replays = eng._graphs.replays - replays[0]
     verify_replays = eng.num_verify_replays - replays[1]
@@ -1751,6 +1815,8 @@ def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
             snap[key]["series"][""][field]
 
     device_steps = int(delta("decode_steps_total"))
+    q1 = _q1_expected(eng, layers, decode_replays + verify_replays,
+                      prefills[0], "serve_spec")
     require(launches == layers * (decode_replays + verify_replays),
             f"serve_spec: {launches} K4 launches for {decode_replays} "
             f"decode and {verify_replays} verify replays")
@@ -1784,6 +1850,7 @@ def _spec_run(torch, model, spec, prompts, kv_dtype=None, rows_of=None,
               "spec_accepted": int(accepted),
               "acceptance_rate": accepted / proposed if proposed else 0.0,
               "k4_launches": launches, "num_graphs": eng.num_graphs,
+              "weight_dtype": eng.weight_dtype, "q1_launches": q1,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     streams = [[int(t) for t in r.tokens] for r in reqs]
     if rows is not None:
@@ -2356,12 +2423,571 @@ def phase_serve_slo_debug(torch, model):
             "watchdog": watchdog["k4_launches"]}
 
 
+# --------------------------------------------------------------------------
+# weight-only int8 serving: kernel Q1 (W8A16) alone, then the serve path
+# with weight_dtype="int8"; static KV-cache generation
+# --------------------------------------------------------------------------
+
+# one llama3-8b layer's seven products, (role, K = in, N = out)
+Q1_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+             ("wo", 4096, 4096), ("wg", 4096, 14336), ("wu", 4096, 14336),
+             ("wd", 14336, 4096))
+# rows: a decode step (8 slots), a verify of width 2 / 4 / 8, a prefill
+# chunk, the whole-bucket prefill; M 1 for a lone slot
+Q1_M = (1, 8, 16, 32, 64, 128, 2048)
+Q1_TIMED_M = (8, 64, 128, 2048)
+# debug-4l's shapes (hidden 256, 4 kv heads of 32, ff 512), fp32 x
+Q1_F32_SHAPES = (("wq", 256, 256), ("wk", 256, 128), ("wg", 256, 512),
+                 ("wd", 512, 256))
+Q1_F32_M = (1, 8, 33)
+# per element: |err| <= rel x |plain| + row x the row's max |plain|
+Q1_TOL = {"bfloat16": (2 ** -7, 2 ** -16), "float32": (0.0, 1e-5)}
+Q1_COLD_BYTES = 64 << 20      # weight copies cycled past the 50 MB L2
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 4, 128, 32
+GEN_BEAM_NEW, GEN_BEAMS = 16, 4
+GEN_SAMPLE = dict(top_k=50, top_p=0.9, seed=7)
+MOE_GEN = (2, 64, 8)          # prompts, prompt length, new tokens
+
+
+@contextlib.contextmanager
+def _prefill_calls():
+    """Counts the engine's prefill forwards (chunks, whole buckets,
+    re-prefills) while the block runs: each runs every layer's seven
+    products once."""
+    from paddle_tpu_torch.models import llama_decode as D
+    calls = [0]
+    saved = D.paged_prefill_chunk, D.paged_prefill
+
+    def counted(fn):
+        def run(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return run
+
+    D.paged_prefill_chunk, D.paged_prefill = map(counted, saved)
+    try:
+        yield calls
+    finally:
+        D.paged_prefill_chunk, D.paged_prefill = saved
+
+
+def _q1_expected(eng, layers, steps, prefills, what):
+    """Q1's launches since its count was zeroed, held to what the
+    engine's weights make it launch: 7 x layers a device step (decode or
+    verify; a replay adds what its capture recorded) and a prefill
+    forward with int8 weights, none with float ones."""
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
+    n = Q1.LAUNCHES["wo_int8_matmul"]
+    per = 7 * layers if eng.weight_dtype == "int8" else 0
+    require(n == per * (steps + prefills),
+            f"{what}: {n} Q1 launches, expected {per} x ({steps} device "
+            f"steps + {prefills} prefill forwards)")
+    for graphs in (eng._graphs, eng._vgraphs):
+        if graphs is not None:
+            rec = {r["wo_int8_matmul"] for r in graphs.recorded.values()}
+            require(rec <= {per}, f"{what}: Q1 launches recorded per "
+                    f"{graphs.kind} graph {rec}, expected {per}")
+    return n
+
+
+def _q1_check(torch, x, wq, sc):
+    """Q1 against its plain version on one input: (bitwise over two
+    calls, max abs err, worst err over its limit)."""
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
+    y = Q1.wo_int8_matmul(x, wq, sc)
+    same = torch.equal(y, Q1.wo_int8_matmul(x, wq, sc))
+    want = Q1.matmul_wo_int8_plain(x, wq, sc).float()
+    err = (y.float() - want).abs()
+    rel, row = Q1_TOL[str(x.dtype).split(".")[-1]]
+    lim = rel * want.abs() + row * want.abs().amax(1, keepdim=True)
+    share = (err / lim.clamp_min(1e-30)).max().item()
+    return same, err.max().item(), share
+
+
+def phase_q1_kernels(torch):
+    """Kernel Q1 (weight-only int8 W8A16, csrc/wo_int8_matmul.cu) against
+    its plain version at llama3-8b's seven layer shapes at every serving
+    row count in bf16, and at debug-4l's shapes in fp32: per element
+    within Q1_TOL, bitwise over two calls.  Then each distinct shape at
+    Q1_TIMED_M rows, timed in turns (plain, kernel, kernel, plain) by
+    CUDA-graph replay over weight copies that together pass the L2
+    (a decode step reads each layer's weights cold), beside its bound,
+    torch.matmul on the bf16 weight (the product int8 is meant to
+    beat) and dequantise-then-matmul: yardsticks the port never calls.
+    Returns the kernels-line entry."""
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
+    from paddle_tpu_torch.quantization.int8 import weight_only_int8
+    kind = torch.cuda.get_device_name(0)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    checks, worst = [], {"bfloat16": [0.0, 0.0], "float32": [0.0, 0.0]}
+    for dtype, shapes, ms in (("bfloat16", Q1_SHAPES, Q1_M),
+                              ("float32", Q1_F32_SHAPES, Q1_F32_M)):
+        dt = getattr(torch, dtype)
+        for role, K, N in shapes:
+            wq, sc = weight_only_int8(torch.randn(K, N, device=dev,
+                                                  generator=gen) * 0.02)
+            for M in ms:
+                x = torch.randn(M, K, device=dev, generator=gen).to(dt)
+                same, err, share = _q1_check(torch, x, wq, sc)
+                checks.append({"dtype": dtype, "role": role, "K": K,
+                               "N": N, "M": M, "bitwise_twice": same,
+                               "max_abs_err": err, "err_over_limit": share,
+                               "split": Q1.split_k(M, K, N, dt)})
+                w = worst[dtype]
+                w[0], w[1] = max(w[0], err), max(w[1], share)
+                require(same, f"q1 ({dtype} {role} M {M}): two calls "
+                        f"differ")
+                require(share <= 1.0, f"q1 ({dtype} {role} M {M}): err "
+                        f"{err} is {share} x its limit")
+            del wq, sc
+    emit({"phase": "q1_kernels", "checks": len(checks),
+          "tolerance": Q1.TOL_TEXT, "worst_max_abs_err":
+          {k: v[0] for k, v in worst.items()},
+          "worst_err_over_limit": {k: v[1] for k, v in worst.items()},
+          "all_bitwise_twice": all(c["bitwise_twice"] for c in checks),
+          "cases": checks})
+    torch.cuda.empty_cache()
+
+    timed = {}
+    bf = torch.bfloat16
+    for K, N in sorted({(K, N) for _, K, N in Q1_SHAPES}):
+        n_q = 1 + -(-Q1_COLD_BYTES // (K * N))
+        n_b = 1 + -(-Q1_COLD_BYTES // (2 * K * N))
+        ws = [torch.randn(K, N, device=dev, generator=gen) * 0.02
+              for _ in range(max(n_q, n_b))]
+        wqs = [weight_only_int8(w) for w in ws[:n_q]]
+        wbs = [w.to(bf) for w in ws[:n_b]]
+        del ws
+        for M in Q1_TIMED_M:
+            xs = [torch.randn(M, K, device=dev, generator=gen).to(bf)
+                  for _ in range(n_q)]
+            calls, reps = (20, 20) if M <= 128 else (4, 4)
+
+            def t(fn, n):
+                return _graph_ms(torch, fn, n, calls, reps)
+
+            def kern(i):
+                return Q1.wo_int8_matmul(xs[i], *wqs[i])
+
+            def plain(i):
+                return Q1.matmul_wo_int8_plain(xs[i], *wqs[i])
+
+            turns = [t(plain, n_q), t(kern, n_q), t(kern, n_q),
+                     t(plain, n_q)]
+            lib = t(lambda i: torch.matmul(xs[i], wbs[i]), n_b)
+            deq = t(lambda i: torch.matmul(
+                xs[i], (wqs[i][0].float() * wqs[i][1]).to(bf)), n_q)
+            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            bound, by = _bound_ms(kind, 2.0 * M * K * N, nbytes)
+            timed[K, N, M] = {
+                "K": K, "N": N, "M": M, "split": Q1.split_k(M, K, N, bf),
+                "ms": (turns[1] + turns[2]) / 2,
+                "plain_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
+                "bound_ms": bound, "bound_by": by,
+                "bf16_matmul_ms": lib, "dequantize_matmul_ms": deq,
+                "bf16_matmul_bound_ms": _bound_ms(
+                    kind, 2.0 * M * K * N,
+                    2 * K * N + 2 * M * K + 2 * M * N)[0],
+                "weight_copies": n_q}
+            emit({"phase": "q1_kernels", "timing": "CUDA-graph replay, "
+                  "per call", **timed[K, N, M]})
+            del xs
+        del wqs, wbs
+        torch.cuda.empty_cache()
+
+    def layer(M, key):
+        return sum(timed[K, N, M][key] for _, K, N in Q1_SHAPES)
+
+    head = {key: layer(8, key) for key in (
+        "ms", "plain_ms", "bound_ms", "bf16_matmul_ms",
+        "dequantize_matmul_ms", "bf16_matmul_bound_ms")}
+    per_m = {str(M): {key: layer(M, key) for key in (
+        "ms", "bound_ms", "bf16_matmul_ms")} for M in Q1_TIMED_M}
+    emit({"phase": "q1_kernels", "layer_at_m8": head,
+          "layer_by_m": per_m})
+    return {"max_abs_err": worst["bfloat16"][0],
+            "max_abs_err_float32": worst["float32"][0],
+            "tolerance": Q1.TOL_TEXT, **head,
+            "bound_by": timed[4096, 14336, 8]["bound_by"],
+            "library_ms": head["bf16_matmul_ms"],
+            "timing": "CUDA-graph replay; ms, plain_ms, bound_ms, "
+                      "library_ms: one llama3-8b layer's seven products "
+                      "at M 8 (a decode step), summed; library: "
+                      "torch.matmul on the bf16 weights",
+            "by_m": per_m,
+            "shapes": [timed[k] for k in sorted(timed)]}
+
+
+def _int8w_parity_run(torch, model, kv_dtype, limit):
+    """The serve mix with weight_dtype="int8" (graphs + overlap) for one
+    pool.  Before each replay of the decode graph, on the same pool,
+    inputs and tables: the step through the gather path with Q1's plain
+    version (the reference), and the eager kernel step (K4 and Q1).  The
+    replay's logits must be within `limit` of the reference's (the
+    serve_parity rule) and bitwise the eager kernel step's.  K4 and Q1
+    launches counted through the replays (the extra steps' launches
+    taken back).  Returns (report, streams)."""
+    import numpy as np
+    from paddle_tpu_torch.models import llama_decode as D
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
+    from paddle_tpu_torch.quantization import int8 as TQ
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    eng = _serve_engine(model, kv_dtype=kv_dtype, weight_dtype="int8")
+    require(eng.weight_dtype == "int8" and isinstance(
+        eng.state["layers"][0]["wq"], tuple), "int8 weights not in use")
+    g = eng._graphs
+    replay = g.replay
+    B = eng.max_slots
+    worst = {"replay_vs_gather_plain": 0.0, "replay_vs_eager": 0.0}
+    counts = {"steps": 0, "bitwise": 0, "argmax_same": 0, "rows": 0}
+
+    def hooked(w):
+        live = torch.tensor([eng._slots[s] is not None for s in range(w)]
+                            if w == B else [True] * w, device="cuda")
+        token, pos, table = (v.clone() for v in g.views(g.inputs(w), w))
+        saved = PA.LAUNCHES["paged_attention"], Q1.LAUNCHES["wo_int8_matmul"]
+        args = (eng.state, cfg, token, pos, eng._kvpool, table)
+        TQ.wo_int8_matmul = Q1.matmul_wo_int8_plain
+        try:
+            ref, _ = D.paged_decode_step_batch(*args, kernel="gather")
+        finally:
+            TQ.wo_int8_matmul = Q1.wo_int8_matmul
+        eager, _ = D.paged_decode_step_batch(*args, kernel="cuda",
+                                             **eng._decode_kw)
+        PA.LAUNCHES["paged_attention"], Q1.LAUNCHES["wo_int8_matmul"] = saved
+        logits, argmax = replay(w)
+        d = (logits.float() - ref.float()).abs().amax(1)[live].max().item()
+        worst["replay_vs_gather_plain"] = max(
+            worst["replay_vs_gather_plain"], d)
+        worst["replay_vs_eager"] = max(
+            worst["replay_vs_eager"], (logits.float() - eager.float()).abs()
+            .amax(1)[live].max().item())
+        counts["steps"] += 1
+        counts["bitwise"] += int(torch.equal(logits[live], eager[live]))
+        counts["argmax_same"] += int((logits[live].argmax(1)
+                                      == ref[live].argmax(1)).sum())
+        counts["rows"] += int(live.sum())
+        return logits, argmax
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, L) for L in SERVE_LENGTHS]
+    PA.LAUNCHES["paged_attention"] = 0
+    Q1.LAUNCHES["wo_int8_matmul"] = 0
+    g.replay = hooked
+    try:
+        with _prefill_calls() as prefills:
+            reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
+            eng.run()
+        torch.cuda.synchronize()
+    finally:
+        del g.replay
+    steps = int(_metric(eng, "decode_steps_total"))
+    k4 = PA.LAUNCHES["paged_attention"]
+    q1 = _q1_expected(eng, layers, steps, prefills[0], "serve_int8w")
+    pool = kv_dtype or "bfloat16"
+    for r in reqs:
+        require(r.done and r.error is None and len(r.tokens) == SERVE_NEW,
+                f"serve_int8w ({pool}): request {r.rid}: "
+                f"{len(r.tokens)} tokens, {r.error!r}")
+    require(eng.num_graph_replays == steps == counts["steps"],
+            f"serve_int8w ({pool}): {eng.num_graph_replays} replays, "
+            f"{steps} decode steps, {counts['steps']} compared")
+    require(k4 == layers * steps,
+            f"serve_int8w ({pool}): {k4} K4 launches for {steps} replays")
+    require(worst["replay_vs_gather_plain"] <= limit,
+            f"serve_int8w ({pool}): replay vs gather + plain Q1 logits "
+            f"err {worst['replay_vs_gather_plain']} > {limit}")
+    require(counts["bitwise"] == counts["steps"],
+            f"serve_int8w ({pool}): {counts['steps'] - counts['bitwise']} "
+            f"replays not bitwise the eager kernel step "
+            f"(max err {worst['replay_vs_eager']})")
+    report = {"phase": "serve_int8w", "model": "llama3-8b",
+              "weight_dtype": "int8", "kv_dtype": pool,
+              "overlap": eng.overlap_mode, "decode_steps": steps,
+              "graph_replays": eng.num_graph_replays,
+              "prefill_forwards": prefills[0], "k4_launches": k4,
+              "q1_launches": q1,
+              "q1_launches_rule": "7 x 32 x (decode replays + prefill "
+                                  "forwards)",
+              "steps_compared": counts["steps"],
+              "replay_vs_gather_plain_q1_max_abs_err":
+                  worst["replay_vs_gather_plain"],
+              "logits_limit": limit,
+              "replay_bitwise_eager_steps": counts["bitwise"],
+              "argmax_agreement_vs_reference":
+                  counts["argmax_same"] / counts["rows"],
+              "int8_weight_bytes_gib": sum(
+                  t.numel() * t.element_size() for st in eng.state["layers"]
+                  for k in D._WEIGHT_KEYS for t in st[k]) / 2**30}
+    streams = [list(r.tokens) for r in reqs]
+    del eng, hooked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, streams
+
+
+def phase_serve_int8w(torch, model, limits, bf16_streams, bf16_row):
+    """llama3-8b served with weight_dtype="int8" (every layer product
+    through Q1), graphs + overlap, the serve mix: once with the bf16
+    pool and once with the int8 pool, each decode step held to the
+    gather path with Q1's plain version (`_int8w_parity_run`); the
+    profile row (graphs + overlap, bf16 pool) beside the bf16-weight
+    row `bf16_row` of this run; one serve_pressure run at
+    `pressure_blocks()` under "swap" against full provisioning; one
+    serve_spec run (k 7: verify width 8) against speculation off, both
+    through per-step logits.  Returns the K4 and Q1 launches by run."""
+    import numpy as np
+    from paddle_tpu_torch.inference import SpecConfig
+    launches = {}
+    for kv in (None, "int8"):
+        pool = kv or "bfloat16"
+        report, streams = _int8w_parity_run(torch, model, kv, limits[pool])
+        if kv is None:
+            report["token_agreement_vs_bf16_weights"] = sum(
+                a == b for x, y in zip(streams, bf16_streams)
+                for a, b in zip(x, y)) / (len(SERVE_LENGTHS) * SERVE_NEW)
+        emit(report)
+        launches[pool] = {"k4": report["k4_launches"],
+                          "q1": report["q1_launches"]}
+    row, _ = phase_profile(torch, model, "graphs_overlap",
+                           weight_dtype="int8")
+    keys = ("decode_step_ms", "device_busy_ms_per_step", "q1_ms_per_step",
+            "gemm_ms_per_step", "k4_ms_per_step", "other_ms_per_step",
+            "device_idle_share")
+    emit({"phase": "serve_int8w", "profile": "graphs_overlap, bf16 pool",
+          "int8_weights": {**{k: row.get(k) for k in keys},
+                           **row["serve"]},
+          "bf16_weights": {**{k: bf16_row.get(k) for k in keys},
+                           **bf16_row["serve"]}})
+    launches["profile"] = row["serve"]["q1_launches"]
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in PRESSURE_LENGTHS]
+    full, ref, _ = _pressure_run(torch, model, None, None, prompts,
+                                 weight_dtype="int8")
+    roundtrip = {}
+    swap, got, _ = _pressure_run(torch, model, None, "swap", prompts,
+                                 roundtrip, weight_dtype="int8")
+    require(got == ref, "serve_int8w pressure (swap): streams differ from "
+            "full provisioning")
+    require(roundtrip.get("equal") is True,
+            f"serve_int8w pressure (swap): parked blocks after resume: "
+            f"{roundtrip}")
+    emit({"phase": "serve_int8w", "run": "serve_pressure", **swap,
+          "streams_equal_full": True,
+          "park_roundtrip_bitwise_blocks": roundtrip["n"],
+          "full_provisioning": {k: full[k] for k in (
+              "tokens_per_s", "itl_p50_ms", "decode_steps", "k4_launches",
+              "peak_mem_gib")}})
+    launches["pressure"] = {"full": full["k4_launches"],
+                            "swap": swap["k4_launches"]}
+
+    sp_prompts = _spec_prompts(torch, model)[0]
+    every = {i: SPEC_NEW - 1 for i in range(SPEC_N)}
+    _, off, want = _spec_run(torch, model, None, sp_prompts, rows_of=every,
+                             warm=False, weight_dtype="int8")
+    on, got, have = _spec_run(torch, model, SpecConfig(k=SPEC_K),
+                              sp_prompts, rows_of=every, warm=False,
+                              weight_dtype="int8")
+    require(on["spec_verify_steps"] > 0 and SPEC_W in on["verify_widths"],
+            "serve_int8w spec: no verify step of width 8 ran")
+    check = _spec_flips(torch, model, sp_prompts, off, got,
+                        limits["bfloat16"], rows=(want, have))
+    emit({"phase": "serve_int8w", "run": "serve_spec", **on, **check,
+          "note": "one pass with logits recorded (no warm-up): times "
+                  "include the recording"})
+    launches["spec"] = {"k4": on["k4_launches"], "q1": on["q1_launches"]}
+    return launches
+
+
+def _gen_logits(torch, model, ids, n, max_new):
+    """The logits before each of the first `n` greedy tokens of
+    `generate(ids, max_new)`, along its own stream, recomputed with its
+    programs and its (B, S + max_new) cache: [(B, V) fp32] * n."""
+    from paddle_tpu_torch.models import llama_decode as D
+    st = D.collect_decode_state(model)
+    B, S = ids.shape
+    cache = D.init_cache(model.config, B, S + max_new, st["embed"].dtype,
+                         device=ids.device)
+    with torch.no_grad():
+        lg, cache = D.prefill(st, model.config, ids, cache)
+        rows = [lg.float()]
+        for i in range(n - 1):
+            lg, cache = D.decode_step(st, model.config,
+                                      torch.argmax(lg, -1), S + i, cache)
+            rows.append(lg.float())
+    return rows
+
+
+def phase_generate(torch, model, limit):
+    """Static KV-cache generation on the serve phase's llama3-8b (bf16,
+    32 layers): `LlamaForCausalLM.generate`, GEN_PROMPTS prompts of
+    GEN_PROMPT_LEN tokens x GEN_NEW new tokens, greedy (tokens/s,
+    per-token ms, peak memory); prompt 0's stream against the bf16
+    engine's greedy stream (graphs + overlap, K4) for that prompt:
+    equal, or the first difference a near tie within `limit` in
+    generate's logits.  `generation.generate`: beam search (GEN_BEAMS
+    beams x GEN_BEAM_NEW tokens) bitwise over two runs; sampling
+    (top_k 50, top_p 0.9, seed 7) equal over two runs, every id in the
+    vocabulary.  Returns the K4 / Q1 launches (none expected: the
+    contiguous path attends in plain torch)."""
+    import numpy as np
+    from paddle_tpu_torch import generation as TG
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.ops import wo_int8_matmul as Q1
+    V = model.config.vocab_size
+    rng = np.random.default_rng(5)
+    prompts = torch.as_tensor(rng.integers(0, V, (GEN_PROMPTS,
+                                                  GEN_PROMPT_LEN)),
+                              device="cuda")
+    model.generate(prompts[:, :16], max_new_tokens=2)      # warm-up
+    PA.LAUNCHES["paged_attention"] = 0
+    Q1.LAUNCHES["wo_int8_matmul"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(out.dtype == torch.int64 and tuple(out.shape)
+            == (GEN_PROMPTS, GEN_PROMPT_LEN + GEN_NEW)
+            and torch.equal(out[:, :GEN_PROMPT_LEN], prompts)
+            and bool(((out >= 0) & (out < V)).all()),
+            f"generate: output {tuple(out.shape)} {out.dtype}")
+    require(torch.equal(model.generate(prompts, max_new_tokens=GEN_NEW),
+                        out), "generate: a second run differs")
+    b1 = TG.generate(model, prompts, max_new_tokens=GEN_BEAM_NEW,
+                     decode_strategy="beam_search", num_beams=GEN_BEAMS)
+    b2 = TG.generate(model, prompts, max_new_tokens=GEN_BEAM_NEW,
+                     decode_strategy="beam_search", num_beams=GEN_BEAMS)
+    require(torch.equal(b1, b2) and tuple(b1.shape)
+            == (GEN_PROMPTS, GEN_PROMPT_LEN + GEN_BEAM_NEW),
+            "generate: beam search differs between two runs")
+    s1 = TG.generate(model, prompts, max_new_tokens=GEN_NEW,
+                     decode_strategy="sampling", **GEN_SAMPLE)
+    s2 = TG.generate(model, prompts, max_new_tokens=GEN_NEW,
+                     decode_strategy="sampling", **GEN_SAMPLE)
+    require(torch.equal(s1, s2) and bool(((s1 >= 0) & (s1 < V)).all()),
+            "generate: sampling differs between two runs of one seed")
+    launches = {"k4": PA.LAUNCHES["paged_attention"],
+                "q1": Q1.LAUNCHES["wo_int8_matmul"]}
+    eng = _serve_engine(model)
+    req = eng.submit(prompts[0].cpu().numpy(), GEN_NEW)
+    eng.run()
+    ref = [int(t) for t in req.tokens]
+    del eng, req
+    torch.cuda.empty_cache()
+    got = out[0, GEN_PROMPT_LEN:].tolist()
+    flip = None
+    if got != ref:
+        t = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        rows = _gen_logits(torch, model, prompts, t + 1, GEN_NEW)
+        require([int(r[0].argmax()) for r in rows] == got[:t + 1],
+                "generate: its logits recomputed give another stream")
+        row = rows[t][0]
+        flip = {"token": t, "generate_minus_engine_choice":
+                (row[got[t]] - row[ref[t]]).item(), "limit": limit}
+        require(flip["generate_minus_engine_choice"] <= limit,
+                f"generate vs engine: first difference at token {t} is no "
+                f"near tie: {flip}")
+    emit({"phase": "generate", "model": "llama3-8b", "dtype": "bfloat16",
+          "prompts": GEN_PROMPTS, "prompt_len": GEN_PROMPT_LEN,
+          "new_tokens": GEN_NEW, "wall_s": wall,
+          "tokens_per_s": GEN_PROMPTS * GEN_NEW / wall,
+          "ms_per_token_step": 1e3 * wall / GEN_NEW, "peak_mem_gib": peak,
+          "repeat_bitwise": True,
+          "prompt0_equals_engine": got == ref, "first_difference": flip,
+          "beam_search": {"beams": GEN_BEAMS, "new_tokens": GEN_BEAM_NEW,
+                          "bitwise_twice": True},
+          "sampling": {**GEN_SAMPLE, "equal_twice": True,
+                       "ids_in_vocab": True},
+          "launches": launches})
+    return launches
+
+
+def phase_generate_debug(torch, model, engine_tokens):
+    """debug-4l in fp32: `LlamaForCausalLM.generate` on each parity
+    prompt (24 new tokens) token-exact with the engine's streams
+    (gather path and kernel path, equal in phase_parity)."""
+    got = []
+    for p in _debug_prompts():
+        out = model.generate(p[None], max_new_tokens=24)
+        got.append(out[0, len(p):].tolist())
+    require(got == engine_tokens, f"generate (debug-4l): streams differ "
+            f"from the engine's: {got} vs {engine_tokens}")
+    emit({"phase": "generate", "model": "debug-4l", "dtype": "float32",
+          "requests": len(got), "tokens_each": 24,
+          "token_exact_vs_engine": True})
+
+
+def phase_generate_moe(torch):
+    """The MoE Llama (moe_train's Qwen1.5-MoE-A2.7B widths, MOE_LAYERS
+    layers, bf16, random weights) generating through the naive
+    full-forward loop: MOE_GEN prompts x new tokens, greedy.  K1 and
+    K5f launches of the loop = new tokens x the launches one forward
+    makes (K1 one a layer); the stream the same on a second run.
+    Returns the launches."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import gmm as G
+    cfg = _moe_cfg()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=4)
+    model.eval()
+    n, S, new = MOE_GEN
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (n, S), device="cuda",
+                        generator=gen)
+
+    def counts():
+        return (FA.LAUNCHES["flash_attention_fwd"], G.LAUNCHES["gmm_fwd"])
+
+    _zero_all_counts()
+    with torch.no_grad():
+        model(ids)
+    per_fwd = counts()
+    require(per_fwd[0] == cfg.num_hidden_layers and per_fwd[1] > 0
+            and per_fwd[1] % cfg.num_hidden_layers == 0,
+            f"generate (moe): one forward launched K1 / K5f {per_fwd}")
+    _zero_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    require(got == (new * per_fwd[0], new * per_fwd[1]),
+            f"generate (moe): K1 / K5f launches {got}, expected {new} "
+            f"forwards x {per_fwd}")
+    require(torch.equal(model.generate(ids, max_new_tokens=new), out),
+            "generate (moe): a second run differs")
+    require(tuple(out.shape) == (n, S + new)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"generate (moe): output {tuple(out.shape)}")
+    emit({"phase": "generate", "model": "moe (Qwen1.5-MoE-A2.7B widths)",
+          "layers": cfg.num_hidden_layers, "prompts": n, "prompt_len": S,
+          "new_tokens": new, "forwards": new, "wall_s": wall,
+          "launches_per_forward": {"flash_attention_fwd": per_fwd[0],
+                                   "gmm_fwd": per_fwd[1]},
+          "launches": {"flash_attention_fwd": got[0], "gmm_fwd": got[1]},
+          "repeat_equal": True})
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": got[0], "gmm_fwd": got[1]}
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
     graph checks for both pools; the same streams from the
     synchronous driver, the eager step and the bucketed widths; then
-    serving under KV pressure and with a shared system prompt."""
+    serving under KV pressure, with a shared system prompt, with
+    speculation and SLO tiers; then with int8 weights (serve_int8w);
+    then static KV-cache generation on the same model."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.from_preset("llama3-8b"),
@@ -2380,9 +3006,9 @@ def phase_serve(torch):
                for a, b in zip(sa, sb))
     emit({"phase": "serve", "int8_vs_bf16_pool_token_agreement":
           same / (len(SERVE_LENGTHS) * SERVE_NEW)})
-    rows = {}
+    rows, profile = {}, {}
     for mode in ("eager", "graphs", "graphs_overlap"):
-        rows[mode] = phase_profile(torch, model, mode)[1]
+        profile[mode], rows[mode] = phase_profile(torch, model, mode)
     _, sync_int8, _ = _serve_once(torch, model, "int8", "graphs")
     _, bucketed, _ = _serve_once(torch, model, None, decode_buckets=True)
     emit({"phase": "serve_graphs", "streams": {
@@ -2405,11 +3031,15 @@ def phase_serve(torch):
     prefix = phase_serve_prefix(torch, model)
     spec = phase_serve_spec(torch, model, limits)
     slo = phase_serve_slo(torch, model, limits)
+    int8w = phase_serve_int8w(torch, model, limits, streams[None],
+                              profile["graphs_overlap"])
+    generate = phase_generate(torch, model, limits["bfloat16"])
     del model
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
             "pressure": pressure, "prefix": prefix, "spec": spec,
-            "slo": {"bfloat16": slo}}
+            "slo": {"bfloat16": slo}, "int8w": int8w,
+            "generate": generate}
 
 
 def _debug_model():
@@ -4207,9 +4837,11 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch)
     train_kernels = phase_train_kernels(torch)
+    q1 = phase_q1_kernels(torch)
     serve_launches = phase_serve(torch)
     debug = _debug_model()
     tokens, parity_launches = phase_parity(torch, debug)
+    phase_generate_debug(torch, debug, tokens)
     phase_server(torch, debug, tokens)
     serve_launches["spec"].update(phase_serve_spec(
         torch, debug, {"float32": DEBUG_SPEC_LIMIT}, name="debug-4l"))
@@ -4222,6 +4854,7 @@ def main() -> int:
     moe_kernels = phase_moe_kernels(torch)
     moe_launches = phase_moe_train(torch)
     phase_moe_parity(torch)
+    moe_generate = phase_generate_moe(torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
                 "int8": serve_launches["int8"], "float32": parity_launches}
@@ -4284,6 +4917,45 @@ def main() -> int:
             "launches_path": f"moe_train, Qwen1.5-MoE-A2.7B widths, "
                              f"{MOE_LAYERS} layers, {TRAIN_STEPS} steps",
             **r})
+    int8w, gen = serve_launches["int8w"], serve_launches["generate"]
+    entries.append({
+        "name": "wo_int8_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/wo_int8_matmul.cu",
+        "replaces": "paddle_tpu/quantization/int8.py:88 matmul_wo_int8 "
+                    "(no Pallas kernel: XLA fuses the int8 convert into "
+                    "the dot's operand read)",
+        "launches": int8w["bfloat16"]["q1"],
+        "launches_path": "serve_int8w llama3-8b, int8 weights, bf16 pool: "
+                         "7 x 32 x (decode replays + prefill forwards), "
+                         "counted from 0",
+        "launches_serve_int8w": {
+            "bf16 pool": int8w["bfloat16"]["q1"],
+            "int8 pool": int8w["int8"]["q1"],
+            "profile serve mix": int8w["profile"],
+            "serve_spec (decode + verify replays)": int8w["spec"]["q1"]},
+        "launches_generate": gen["q1"], **q1})
+    gen_path = ("generate llama3-8b (bf16 weights; the contiguous cache "
+                "attends in plain torch) and the MoE naive loop, counted "
+                "from 0")
+    for e in entries:
+        if e["name"].startswith("paged_attention["):
+            pool = e["name"][len("paged_attention["):-1]
+            e["launches_generate"] = gen["k4"]
+            if pool in int8w:
+                e["launches_serve_int8w"] = int8w[pool]["k4"]
+                require(int8w[pool]["k4"] > 0,
+                        f"{e['name']}: no launch in serve_int8w")
+            if pool == "bfloat16":      # the pressure and spec runs' pool
+                e["launches_serve_int8w_pressure"] = int8w["pressure"]
+                e["launches_serve_int8w_spec"] = int8w["spec"]["k4"]
+        elif e["name"] in moe_generate:
+            e["launches_generate"] = moe_generate[e["name"]]
+            e["launches_serve_int8w"] = 0
+            require(e["launches_generate"] > 0,
+                    f"{e['name']}: no launch in the MoE generate loop")
+        else:
+            continue
+        e["launches_path_generate"] = gen_path
     for e in entries[:len(kernels)]:
         pool = e["name"][len("paged_attention["):-1]
         pressure = {policy: n for (p, policy), n in

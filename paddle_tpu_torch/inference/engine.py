@@ -150,7 +150,6 @@ _MULTI = "multi-GPU serving"
 _UNPORTED = {
     "hot_window": ((None,), _TIERED),
     "prefetch_depth": ((2,), _TIERED),
-    "weight_dtype": ((None, "auto"), "weight-only int8 decode path"),
     "aot_cache": ((None,),
                   "engine sub-slice (j): the AOT serving-program cache"),
     "fabric": ((None,), _FABRIC),
@@ -453,7 +452,10 @@ class LLMEngine:
     shallower one; "swap"; "recompute"), `prefix_cache_blocks` (the
     trie's budget of pool blocks, 0 = off; chunked prefill only) and
     `prefix_block_tokens` (== kv_block_tokens), `kv_dtype` (None /
-    "auto", "bfloat16", "float32", "int8"),
+    "auto", "bfloat16", "float32", "int8"), `weight_dtype` (None /
+    "auto"; "int8" swaps each layer's matmul weights for weight-only
+    int8 pairs, kernel Q1 on the card; embedding, norms and head stay
+    full precision),
     `decode_kernel` ("auto" = "cuda" on a CUDA model, "gather" on the
     CPU; "cuda" on a CPU model runs the kernel's plain version),
     `speculation` (None / False: off; a `SpecConfig`, True for
@@ -468,7 +470,7 @@ class LLMEngine:
     `SLOTargets`, or a {tier: (ttft_s, itl_s)} dict over the defaults),
     `overload` (None: the ladder disarmed; True, an `OverloadConfig` or
     an `OverloadController`).  The parameters are in the JAX engine's
-    order; `hot_window`, `prefetch_depth`, `weight_dtype`, `fabric`,
+    order; `hot_window`, `prefetch_depth`, `fabric`,
     `mesh`, `tp`, `sp` and `aot_cache` raise `NotImplementedError`
     naming their ROADMAP item unless "off".  Single-threaded by design;
     see `serving.LLMServer` for the thread-safe front."""
@@ -486,8 +488,7 @@ class LLMEngine:
                  fabric=None, mesh=None, tp=None, sp=None,
                  overlap="auto", aot_cache=None):
         _reject_unported(hot_window=hot_window,
-                         prefetch_depth=prefetch_depth,
-                         weight_dtype=weight_dtype, fabric=fabric,
+                         prefetch_depth=prefetch_depth, fabric=fabric,
                          mesh=mesh, tp=tp, sp=sp, aot_cache=aot_cache)
         self.cfg = model.config
         self.device = model.device
@@ -599,7 +600,14 @@ class LLMEngine:
         self.overlap_mode = {True: "on", False: "off"}.get(overlap, overlap)
         self.overlap = self.overlap_mode == "on"
 
-        self.state = D.collect_decode_state(model)
+        # "int8": each layer's seven matmul weights as weight-only int8
+        # (data, scale) pairs, run by kernel Q1 in every serving
+        # program; the model's float parameters stay held, as the JAX
+        # engine holds them
+        self.weight_dtype = "auto" if weight_dtype is None \
+            else str(weight_dtype)
+        self.state = D.collect_decode_state(model,
+                                            weight_dtype=weight_dtype)
         dtype = self.state["embed"].dtype
         bmax = -(-self.max_len // bt)            # blocks per full slot
         full = 1 + self.max_slots * bmax + int(prefix_cache_blocks)

@@ -40,7 +40,8 @@ writes K/V.  It runs with token 0, pos 0 and all-trash table rows
 block, so a width first seen mid-serving never touches a live slot's
 rows.  The capture itself launches nothing.
 
-Launch counts.  A kernel wrapper counts its launch when it is called,
+Launch counts.  A kernel wrapper (K4; Q1 with weight-only int8
+weights) counts its launch when it is called,
 and during a capture it is called but launches nothing: the launches
 it counted there are taken back and recorded per graph
 (`recorded[w]`), and every replay adds them again, so a kernel's
@@ -56,6 +57,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import paged_attention as _PA
+from ..ops import wo_int8_matmul as _Q1
+
+# the launch counters of the kernels a serving step runs: K4, and Q1
+# with weight-only int8 weights (each key is one kernel's)
+_COUNTERS = (_PA.LAUNCHES, _Q1.LAUNCHES)
 
 __all__ = ["DecodeGraphs", "VerifyGraphs", "unpack_verify"]
 
@@ -112,16 +118,17 @@ class _Graphs:
         # and lets cuBLAS choose its algorithms before the capture
         self._run(w)
         torch.cuda.current_stream(self.device).synchronize()
-        before = dict(_PA.LAUNCHES)
+        before = [dict(c) for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
         # "thread_local": another thread's CUDA call (an LLMServer
         # caller) does not invalidate a capture on the driver thread
         with torch.cuda.graph(graph, pool=self.pool,
                               capture_error_mode="thread_local"):
             out = self._run(w)
-        self.recorded[w] = {k: _PA.LAUNCHES[k] - n
-                            for k, n in before.items()}
-        _PA.LAUNCHES.update(before)     # the capture launched nothing
+        self.recorded[w] = {k: c[k] - n for c, b in zip(_COUNTERS, before)
+                            for k, n in b.items()}
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)                 # the capture launched nothing
         self._graphs[w] = graph
         self._outputs[w] = out
 
@@ -133,8 +140,9 @@ class _Graphs:
             raise RuntimeError(f"{self.kind} width {w} was never captured")
         graph.replay()
         self.replays += 1
-        for k, n in self.recorded[w].items():
-            _PA.LAUNCHES[k] += n
+        for c in _COUNTERS:
+            for k in c:
+                c[k] += self.recorded[w][k]
         return self._outputs[w]
 
 

@@ -16,7 +16,8 @@ capacity routing, or dropless routing on kernels K5f/K5b) -> residual;
 final RMSNorm; the LM head (tied or untied).  The causal-LM loss runs
 the fused softmax cross-entropy (kernels K3f/K3b); `llama_loss_fn` adds
 the layers' summed MoE aux loss.  Serving reads the same parameters
-through `models/llama_decode.py` (dense models only).
+through `models/llama_decode.py` (dense models only); `generate` runs
+its static KV cache, or the naive full-forward loop for MoE.
 """
 
 from __future__ import annotations
@@ -382,6 +383,24 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is None:
             return h @ self.llama.embed_tokens.weight.T
         return self.lm_head(h)
+
+    def generate(self, input_ids, max_new_tokens=8, use_cache=True):
+        """Greedy generation; returns the int64 ids (B, S +
+        max_new_tokens) on the model's device, prompt included.
+        use_cache on a dense model: the static KV cache
+        (`llama_decode.generate`: prefill, then one-token steps);
+        otherwise, and for every MoE model, the naive loop that re-runs
+        the full forward per token (K1 and, for MoE, K5f on the card)."""
+        from .llama_decode import as_ids
+        from .llama_decode import generate as _kv_generate
+        with torch.no_grad():
+            if use_cache and self.config.moe_num_experts <= 1:
+                return _kv_generate(self, input_ids, max_new_tokens)
+            ids = as_ids(input_ids, self.device)
+            for _ in range(max_new_tokens):
+                nxt = torch.argmax(self.forward(ids)[:, -1, :], dim=-1)
+                ids = torch.cat([ids, nxt[:, None]], dim=1)
+        return ids
 
 
 def _causal_lm_loss_raw(logits, labels):

@@ -1,5 +1,6 @@
-"""Paged KV-cache decoding for the Llama family — the port of the
-serving half of `paddle_tpu/models/llama_decode.py`.
+"""KV-cache decoding for the Llama family — the port of
+`paddle_tpu/models/llama_decode.py`: the engine's paged programs and
+the static contiguous-cache programs behind `generate`.
 
 The engine keeps ONE shared block pool per layer, (n_blocks,
 block_tokens, n_kv, hd) K and V (or int8 data + f32 per-row-per-head
@@ -26,6 +27,21 @@ Four programs run over the pool:
     as single-query rows, each with its slot's table row and depth
     pos + j: exactly what K4 computes for one decode query there.
 
+The contiguous-cache programs serve `generate` (the JAX package's
+static KV cache): `init_cache` allocates (B, max_len, n_kv, hd) K and V
+per layer, `prefill` writes a whole prompt, `prefill_chunk` one chunk
+into a slot of a multi-slot cache, `decode_step` / `decode_step_batch`
+one token a row at a shared or per-row depth, `verify_step` W tokens a
+row, and `decode_greedy` / `generate` loop greedy steps in Python where
+JAX runs `lax.scan`.  Attention there is `_attend` in plain torch, as
+the JAX contiguous path is XLA.
+
+`collect_decode_state(model, weight_dtype="int8")` swaps every layer's
+seven matmul weights for weight-only int8 (data, scale) pairs; `_mm`
+sends a pair through `quantization.int8.matmul_wo_int8` (kernel Q1 on
+the card) and a plain matrix through `@`.  Embedding, norms and the LM
+head stay full precision.
+
 Parking a slot moves its blocks as one flat buffer: `gather_blocks`
 packs them (every layer, K and V, int8 scales) and `scatter_blocks`
 writes them back in place — indexing copies, as the JAX engine leaves
@@ -49,18 +65,30 @@ import torch.nn.functional as F
 from .llama import _rope_tables_at, _rotate_half
 from ..ops.paged_attention import NEG_INF, paged_attention
 from ..ops.paged_attention import paged_view as _paged_view
-from ..quantization.int8 import quantize_kv_rows
+from ..quantization.int8 import (matmul_wo_int8, quantize_kv_rows,
+                                 weight_only_int8)
 
-__all__ = ["collect_decode_state", "init_paged_cache", "paged_write_rows",
+__all__ = ["collect_decode_state", "init_cache", "prefill",
+           "prefill_chunk", "decode_step", "decode_step_batch",
+           "verify_step", "decode_greedy", "generate",
+           "init_paged_cache", "paged_write_rows",
            "paged_decode_step_batch", "paged_verify_step",
            "paged_prefill_chunk",
            "paged_prefill", "pool_is_quant", "pool_leaves",
            "gather_blocks", "scatter_blocks"]
 
+_WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 
-def collect_decode_state(model):
+
+def collect_decode_state(model, weight_dtype=None):
     """{role-name -> tensor} for the decode functions, detached from
-    autograd (serving never differentiates).  Dense models only."""
+    autograd (serving never differentiates).  Dense models only.
+
+    weight_dtype="int8" swaps each layer's matmul weights (q / k / v /
+    o and the SwiGLU triple) for weight-only int8 (data, scale) pairs,
+    quantized one matrix at a time on the weight's device; embedding,
+    norms and the LM head stay full precision (the head feeds argmax
+    directly).  The model's own parameters are left as they are."""
     if model.config.moe_num_experts > 1:
         raise NotImplementedError(
             "serving or generating with an MoE model is not ported yet "
@@ -82,7 +110,23 @@ def collect_decode_state(model):
         "wu": layer.mlp.up_proj.weight.detach(),
         "wd": layer.mlp.down_proj.weight.detach(),
     } for layer in lm.layers]
+    if weight_dtype in (None, "auto"):
+        return state
+    if weight_dtype != "int8":
+        raise ValueError(f"unsupported weight_dtype={weight_dtype!r} "
+                         "(expected None or 'int8')")
+    for st in state["layers"]:
+        for key in _WEIGHT_KEYS:
+            st[key] = weight_only_int8(st[key])
     return state
+
+
+def _mm(x, w):
+    """x @ w where `w` is a plain matrix or a weight-only int8 (data,
+    per-channel scale) pair."""
+    if isinstance(w, tuple):
+        return matmul_wo_int8(x, w[0], w[1])
+    return x @ w
 
 
 def _rms(x, w, eps):
@@ -265,26 +309,40 @@ def paged_write_rows(pk, pv, table_row, rows, k, v):
 
 
 def _block(st, cfg, x, positions, k_cache, v_cache, write_at):
-    """One decoder layer over S tokens at absolute `positions` (S,)
-    against a contiguous cache (B, T, n_kv, hd): this chunk's K/V are
-    written at rows [write_at, write_at + S) IN PLACE (JAX's
-    `dynamic_update_slice`), then row j attends rows t <= positions[j].
-    Returns (x, k_cache, v_cache) as the JAX `_block` does."""
+    """One decoder layer over S tokens at absolute `positions` ((S,)
+    shared by the batch, or (B, S) per row) against a contiguous cache
+    (B, T, n_kv, hd): this chunk's K/V are written IN PLACE (JAX's
+    `dynamic_update_slice` / `.at[].set`), then row j attends rows
+    t <= its position.  `write_at` is a shared first row (a Python int,
+    clamped to [0, T - S] as `dynamic_update_slice` clamps it), a (B,)
+    row a slot (S == 1: each slot writes its token at its own depth), or
+    a (B, S) row matrix (the verify step: S consecutive rows a slot);
+    tensor rows outside the cache are dropped, as JAX's scatter drops
+    them.  Returns (x, k_cache, v_cache) as the JAX `_block` does."""
     B, S, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, st["ln1"], cfg.rms_norm_eps)
-    q = (h @ st["wq"]).reshape(B, S, nh, hd)
-    k = (h @ st["wk"]).reshape(B, S, nkv, hd)
-    v = (h @ st["wv"]).reshape(B, S, nkv, hd)
+    q = _mm(h, st["wq"]).reshape(B, S, nh, hd)
+    k = _mm(h, st["wk"]).reshape(B, S, nkv, hd)
+    v = _mm(h, st["wv"]).reshape(B, S, nkv, hd)
     q, k = _rope_at(q, k, positions, cfg.rope_theta)
-    at = int(write_at)
-    k_cache[:, at:at + S] = k.to(k_cache.dtype)
-    v_cache[:, at:at + S] = v.to(v_cache.dtype)
+    if torch.is_tensor(write_at):
+        at = write_at.long().reshape(B, -1)             # (B, S) or (B, 1)
+        rows = torch.arange(B, device=x.device)[:, None].expand_as(at)
+        keep = (at >= 0) & (at < k_cache.shape[1])
+        kk, vv = (k, v) if at.shape[1] == S else (k[:, :1], v[:, :1])
+        idx = (rows[keep], at[keep])
+        k_cache.index_put_(idx, kk[keep].to(k_cache.dtype))
+        v_cache.index_put_(idx, vv[keep].to(v_cache.dtype))
+    else:
+        at = min(max(int(write_at), 0), k_cache.shape[1] - S)
+        k_cache[:, at:at + S] = k.to(k_cache.dtype)
+        v_cache[:, at:at + S] = v.to(v_cache.dtype)
     attn = _attend(q, k_cache, v_cache, positions, nh, nkv)
-    x = x + attn.reshape(B, S, nh * hd) @ st["wo"]
+    x = x + _mm(attn.reshape(B, S, nh * hd), st["wo"])
     h = _rms(x, st["ln2"], cfg.rms_norm_eps)
-    x = x + (F.silu(h @ st["wg"]) * (h @ st["wu"])) @ st["wd"]
+    x = x + _mm(F.silu(_mm(h, st["wg"])) * _mm(h, st["wu"]), st["wd"])
     return x, k_cache, v_cache
 
 
@@ -304,9 +362,9 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, st["ln1"], cfg.rms_norm_eps)
-    q = (h @ st["wq"]).reshape(B, S, nh, hd)
-    k = (h @ st["wk"]).reshape(B, S, nkv, hd)
-    v = (h @ st["wv"]).reshape(B, S, nkv, hd)
+    q = _mm(h, st["wq"]).reshape(B, S, nh, hd)
+    k = _mm(h, st["wk"]).reshape(B, S, nkv, hd)
+    v = _mm(h, st["wv"]).reshape(B, S, nkv, hd)
     q, k = _rope_at(q, k, positions, cfg.rope_theta)
     blk, col = _paged_rows(table, rows, _entry_data(pk).shape[1])
     _entry_set(pk, blk, col, k)
@@ -326,9 +384,9 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     else:
         raise ValueError(f"unknown decode kernel {kernel!r} "
                          "('gather' or 'cuda')")
-    x = x + attn.reshape(B, S, nh * hd) @ st["wo"]
+    x = x + _mm(attn.reshape(B, S, nh * hd), st["wo"])
     h = _rms(x, st["ln2"], cfg.rms_norm_eps)
-    return x + (F.silu(h @ st["wg"]) * (h @ st["wu"])) @ st["wd"]
+    return x + _mm(F.silu(_mm(h, st["wg"])) * _mm(h, st["wu"]), st["wd"])
 
 
 def paged_decode_step_batch(state, cfg, token, pos, pool, table,
@@ -412,3 +470,127 @@ def paged_prefill(state, cfg, ids, table_row, pool):
         x, kc, vc = _block(st, cfg, x, positions, kc, vc, 0)
         paged_write_rows(pk, pv, table_row, positions, kc[0], vc[0])
     return x, pool
+
+
+# -- the static contiguous-cache programs (generate) --------------------
+
+
+def init_cache(cfg, batch, max_len, dtype, device=None):
+    """Per layer a zeroed (K, V) pair of (batch, max_len, n_kv, hd)."""
+    shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_hidden_layers)]
+
+
+def prefill(state, cfg, ids, cache):
+    """The prompt ids (B, S) in one pass, written at rows [0, S);
+    returns (last-token logits (B, V), cache) — the cache updated in
+    place."""
+    _, S = ids.shape
+    x = state["embed"][ids.long()]
+    positions = torch.arange(S, device=x.device)
+    for st, (kc, vc) in zip(state["layers"], cache):
+        x, _, _ = _block(st, cfg, x, positions, kc, vc, 0)
+    return _logits_last(state, cfg, x), cache
+
+
+def prefill_chunk(state, cfg, ids, off, slot, caches):
+    """One chunk ids (1, C) of a prompt at positions [off, off + C) into
+    slot `slot` of a multi-slot cache: rows [off, off + C) of that slot
+    are written, row j attends the slot's rows t <= off + j, so a prompt
+    split into chunks gives the cache and logits of one whole-prompt
+    pass.  `off` and `slot` are Python ints (`slot` clamped into the
+    cache, as JAX's `dynamic_slice` clamps it).  Returns (chunk hidden
+    states (1, C, D), caches) — the caches updated in place."""
+    _, C = ids.shape
+    x = state["embed"][ids.long()]
+    off = int(off)
+    sl = min(max(int(slot), 0), caches[0][0].shape[0] - 1)
+    positions = off + torch.arange(C, device=x.device)
+    for st, (kc, vc) in zip(state["layers"], caches):
+        x, _, _ = _block(st, cfg, x, positions, kc[sl:sl + 1],
+                         vc[sl:sl + 1], off)
+    return x, caches
+
+
+def decode_step(state, cfg, token, pos, cache):
+    """One token a row, token (B,), at the shared row `pos` (a Python
+    int: no step reads the device on the host).  Returns (logits (B, V),
+    cache)."""
+    x = state["embed"][token.long()[:, None]]
+    positions = torch.tensor([int(pos)], device=x.device)
+    for st, (kc, vc) in zip(state["layers"], cache):
+        x, _, _ = _block(st, cfg, x, positions, kc, vc, int(pos))
+    return _logits_last(state, cfg, x), cache
+
+
+def decode_step_batch(state, cfg, token, pos, cache):
+    """One token a row at per-row depths pos (B,) — the continuous
+    batching step over a contiguous cache: each row's K/V land at its
+    own row, each row attends rows t <= pos[b].  Returns (logits (B, V),
+    cache)."""
+    x = state["embed"][token.long()[:, None]]
+    pos = torch.as_tensor(pos, device=x.device).long()
+    for st, (kc, vc) in zip(state["layers"], cache):
+        x, _, _ = _block(st, cfg, x, pos[:, None], kc, vc, pos)
+    return _logits_last(state, cfg, x), cache
+
+
+def verify_step(state, cfg, tokens, pos, cache):
+    """Speculative decoding's verify over a contiguous cache: tokens
+    (B, W), column 0 each row's committed token and columns 1.. its
+    draft, at rows pos[b] + j; every layer writes all W rows before any
+    attends, so column j sees what a decode step at that depth sees.
+    Rows past the cache are dropped.  Returns (logits (B, W, V), cache)."""
+    _, W = tokens.shape
+    x = state["embed"][tokens.long()]
+    pos = torch.as_tensor(pos, device=x.device).long()
+    positions = pos[:, None] + torch.arange(W, device=x.device)
+    for st, (kc, vc) in zip(state["layers"], cache):
+        x, _, _ = _block(st, cfg, x, positions, kc, vc, positions)
+    h = _rms(x, state["final_norm"], cfg.rms_norm_eps)
+    return h @ state["head"], cache
+
+
+def decode_greedy(state, cfg, first_token, start_pos, cache, steps):
+    """`steps` greedy decode steps from `first_token` (B,) at row
+    `start_pos` (a Python int), a Python loop where JAX runs
+    `lax.scan`.  Returns (tokens (B, steps) in first_token's dtype,
+    cache)."""
+    token, toks = first_token, []
+    for i in range(int(steps)):
+        logits, cache = decode_step(state, cfg, token, int(start_pos) + i,
+                                    cache)
+        token = torch.argmax(logits, dim=-1).to(first_token.dtype)
+        toks.append(token)
+    if not toks:
+        return first_token.new_zeros((first_token.shape[0], 0)), cache
+    return torch.stack(toks, dim=1), cache
+
+
+def as_ids(input_ids, device):
+    """`input_ids` as an int64 tensor on `device` (the same tensor when
+    it already is one)."""
+    ids = torch.as_tensor(input_ids, device=device)
+    return ids if ids.dtype == torch.int64 else ids.long()
+
+
+def generate(model, input_ids, max_new_tokens=8):
+    """Greedy KV-cache generation (the use_cache=True path of
+    `LlamaForCausalLM.generate`): prefill the prompt into a (B, S +
+    max_new_tokens) cache, then greedy steps.  Returns the int64 ids
+    (B, S + max_new_tokens) on the model's device, prompt included."""
+    ids = as_ids(input_ids, model.device)
+    if max_new_tokens <= 0:
+        return ids
+    cfg = model.config
+    state = collect_decode_state(model)
+    B, S = ids.shape
+    cache = init_cache(cfg, B, S + max_new_tokens, state["embed"].dtype,
+                       device=ids.device)
+    logits, cache = prefill(state, cfg, ids, cache)
+    first = torch.argmax(logits, dim=-1)
+    rest, _ = decode_greedy(state, cfg, first, S, cache,
+                            max_new_tokens - 1)
+    return torch.cat([ids, first[:, None], rest], dim=1)

@@ -1,3 +1,5 @@
-from .int8 import dequantize_kv, quantize_kv_rows
+from .int8 import (dequantize_kv, matmul_wo_int8, quantize_kv_rows,
+                   quantize_weight, weight_only_int8)
 
-__all__ = ["quantize_kv_rows", "dequantize_kv"]
+__all__ = ["quantize_weight", "weight_only_int8", "matmul_wo_int8",
+           "quantize_kv_rows", "dequantize_kv"]

@@ -1,7 +1,17 @@
-"""Int8 KV-cache rows — the port of `quantize_kv_rows` / `dequantize_kv`
-from `paddle_tpu/quantization/int8.py`.
+"""Int8 serving arithmetic — the port of `quantize_weight`,
+`weight_only_int8`, `matmul_wo_int8`, `quantize_kv_rows` and
+`dequantize_kv` from `paddle_tpu/quantization/int8.py`.
 
-Symmetric per-row-per-head scales over the head_dim axis: one f32
+Weights: symmetric per-channel int8 (`quantize_weight`), per output
+channel for an `[in, out]` matrix (`weight_only_int8`), computed in
+torch on the weight's device with the JAX package's numpy arithmetic,
+so the int8 data and fp32 scales equal its bitwise.
+`matmul_wo_int8` keeps the JAX semantics (fp32 accumulation, the scale
+on the fp32 result, x's dtype out) and runs kernel Q1
+(`ops/wo_int8_matmul.py`) on a CUDA tensor, its plain version on a CPU
+one.
+
+KV rows: symmetric per-row-per-head scales over the head_dim axis: one f32
 scale per written KV row per kv head, stored in a pool-shaped
 (n_blocks, block_tokens, n_kv) tensor beside the int8 data pool.  A
 row's scale depends only on that row's values, so the engine's
@@ -17,7 +27,41 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quantize_kv_rows", "dequantize_kv"]
+from ..ops.wo_int8_matmul import wo_int8_matmul
+
+__all__ = ["quantize_weight", "weight_only_int8", "matmul_wo_int8",
+           "quantize_kv_rows", "dequantize_kv"]
+
+
+def quantize_weight(w, channel_axis):
+    """Symmetric per-channel int8: scale = absmax / 127 over every dim
+    but `channel_axis` (fp32, at least 1e-12), data = round(w / scale)
+    (half to even, as `np.round`) clipped to +-127.  Returns (int8
+    tensor, fp32 scale per channel) on `w`'s device."""
+    w = torch.as_tensor(w).to(torch.float32)
+    red = tuple(i for i in range(w.dim()) if i != channel_axis)
+    scale = torch.clamp_min(w.abs().amax(dim=red) / 127.0, 1e-12)
+    bshape = [1] * w.dim()
+    bshape[channel_axis] = -1
+    wq = torch.clamp(torch.round(w / scale.reshape(bshape)), -127, 127)
+    return wq.to(torch.int8), scale
+
+
+def weight_only_int8(w):
+    """Weight-only int8 for the serving matmuls: per-output-channel
+    `quantize_weight` of an `[in, out]` matrix -> (int8 data, fp32
+    scale (out,))."""
+    return quantize_weight(w, channel_axis=1)
+
+
+def matmul_wo_int8(x, wq, scale):
+    """x (..., in) @ int8 [in, out] -> (..., out) in x's dtype, products
+    accumulated in fp32 and the per-channel scale applied to the fp32
+    result.  Kernel Q1 on a CUDA tensor; the plain version on a CPU
+    one."""
+    lead = x.shape[:-1]
+    y = wo_int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), wq, scale)
+    return y.reshape(*lead, wq.shape[1])
 
 
 def quantize_kv_rows(x, eps=1e-8):

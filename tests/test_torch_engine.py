@@ -182,7 +182,7 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
 
 @pytest.mark.parametrize("knob,value", [
     ("hot_window", 2), ("prefetch_depth", 4),
-    ("weight_dtype", "int8"), ("mesh", "dp"), ("tp", 2), ("sp", 2),
+    ("mesh", "dp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "cache"), ("fabric", "kvdir")])
 def test_unported_knobs_raise(port_model, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

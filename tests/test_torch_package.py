@@ -56,6 +56,8 @@ def test_port_files_import_neither_jax_nor_paddle_tpu():
     assert len(files) > 10 and files[-1].exists()
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"paddle_tpu_torch/ops/gmm.py", "paddle_tpu_torch/ops/moe_ops.py",
+            "paddle_tpu_torch/ops/wo_int8_matmul.py",
+            "paddle_tpu_torch/generation.py",
             "paddle_tpu_torch/nn/moe.py",
             "paddle_tpu_torch/inference/overload.py",
             "paddle_tpu_torch/observability/timeseries.py"} <= names
@@ -79,6 +81,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "import paddle_tpu_torch, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.ops.paged_attention, paddle_tpu_torch.ops.gmm, "
             "paddle_tpu_torch.ops.moe_ops, paddle_tpu_torch.nn.moe, "
+            "paddle_tpu_torch.ops.wo_int8_matmul, "
+            "paddle_tpu_torch.generation, "
             "paddle_tpu_torch.inference.overload, "
             "paddle_tpu_torch.observability.timeseries, "
             "paddle_tpu_torch.models, chip_smoke; print('ok')")

@@ -153,7 +153,7 @@ def test_request_fabric_fields_raise(knob, value):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("hot_window", 8), ("prefetch_depth", 3), ("weight_dtype", "int8"),
+    ("hot_window", 8), ("prefetch_depth", 3),
     ("fabric", {"disk_root": "/x"}), ("mesh", "tp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "dir")])
 def test_unported_engine_knobs_raise_positionally(port_model, knob, value):
