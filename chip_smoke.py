@@ -49,14 +49,21 @@ the result line:
               the port's own: XLA fuses it in the JAX package) against its
               plain version at llama3-8b's seven layer shapes (4096 x
               4096, 4096 x 1024 twice, 4096 x 4096, 4096 x 14336 twice,
-              14336 x 4096) at M 1, 8, 16, 32, 64, 128 and 2048 rows in
-              bf16, and at debug-4l's shapes in fp32 (M 1, 8, 33): per
-              element within its stated tolerance, bitwise over two
-              calls; then each distinct shape at M 8, 64, 128 and 2048
-              timed in turns (plain, kernel, kernel, plain) by CUDA-graph
-              replay over weight copies past the L2, beside its bound,
-              torch.matmul on the bf16 weight and dequantise-then-matmul
-              (yardsticks the port never calls);
+              14336 x 4096) at M 1, 8, 16, 32, 64, 128, 256 and 2048 rows
+              in bf16 (the weight packed in fragment order), and at
+              debug-4l's shapes in fp32 (M 1, 8, 33): per element within
+              its stated tolerance, bitwise over two calls, a CUDA-graph
+              replay bitwise the eager call, and q / k / v in one
+              launch the same way; then each distinct shape at
+              M 8, 64, 128 and 2048 timed in turns (plain, kernel,
+              kernel, plain) by CUDA-graph replay over weight copies past
+              the L2, beside its bound, torch.matmul on the bf16 weight,
+              dequantise-then-matmul and torch._weight_int8pack_mm where
+              the card has it (yardsticks the port never calls); and one
+              layer's products back to back in one graph as the model
+              launches them (q / k / v in one launch, then o, gate, up,
+              down: the launch gaps and the programmatic dependent
+              launches' overlap);
   4. serve    Llama-3-8B (random weights from a seed, bf16, all 32
               layers) served through LLMEngine with the card's defaults
               (the decode step as a CUDA graph, the overlap driver):
@@ -147,9 +154,10 @@ the result line:
               the gather path with Q1's plain version (the replay's
               logits within the serve_parity limit) and the eager kernel
               step (bitwise); every decode step a replay, K4 launches =
-              32 x replays, Q1 launches = 7 x 32 x (replays + prefill
-              forwards); the profile row (graphs + overlap: device ms a
-              step split into Q1 / cuBLAS GEMMs / K4 / other, idle
+              32 x replays, Q1 launches = 5 x 32 x (replays + prefill
+              forwards: q / k / v share one launch); the profile row
+              (graphs + overlap: device ms a step split into Q1 /
+              cuBLAS GEMMs / K4 / other, idle
               share, tokens/s, ITL, TTFT, peak memory) beside the
               bf16-weight row of this run; serve_pressure at 158 blocks
               under "swap" (streams equal full provisioning, a park's
@@ -407,7 +415,16 @@ def phase_build():
               "wgmma"),
           "q1_kernels": _ptxas_report(
               libs["wo_int8_matmul"].with_suffix(".log").read_text(),
-              "q1")})
+              "q1"),
+          # ptxas's C7512: wgmma issued one at a time (registers short)
+          "wgmma_serialized": sorted({
+              f"{m[0]}<{m[1]}>" if m[1] else m[0]
+              for name, path in libs.items()
+              for m in re.findall(
+                  r"C7512[^\n]*?((?:gmm|flash|q1)_\w*?kernel)"
+                  r"(?:IL[ib](\d+)E)?",
+                  path.with_suffix(".log").read_text()
+                  if path.with_suffix(".log").exists() else "")})})
 
 
 def _ptxas_report(log, word):
@@ -684,7 +701,7 @@ def _serve_once(torch, model, kv_dtype, mode="graphs_overlap", **kw):
     """One engine run of the serve mix; returns its report, its tokens
     and the K4 launches it made (each graph replay counts the launches
     its capture recorded).  With weight_dtype="int8" in `kw`, Q1 must
-    launch 7 x layers a decode step and a prefill forward."""
+    launch 5 x layers a decode step and a prefill forward."""
     import numpy as np
     from paddle_tpu_torch.ops import paged_attention as PA
     from paddle_tpu_torch.ops import wo_int8_matmul as Q1
@@ -896,7 +913,7 @@ def phase_profile(torch, model, mode, steps=6, **kw):
         k4 = _union_us([(a, b) for n, a, b in spans   # split + merge
                         if "paged_split_kernel" in n
                         or "paged_merge_kernel" in n]) / 1e3 / steps
-        q1 = _union_us([(a, b) for n, a, b in spans   # Q1 + its merge
+        q1 = _union_us([(a, b) for n, a, b in spans   # Q1's kernels
                         if "q1_" in n]) / 1e3 / steps
         gemm = sum(v for k, v in dev.items()
                    if any(w in k.lower() for w in ("gemm", "gemv", "cutlass",
@@ -2434,7 +2451,10 @@ Q1_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
              ("wd", 14336, 4096))
 # rows: a decode step (8 slots), a verify of width 2 / 4 / 8, a prefill
 # chunk, the whole-bucket prefill; M 1 for a lone slot
-Q1_M = (1, 8, 16, 32, 64, 128, 2048)
+Q1_M = (1, 8, 16, 32, 64, 128, 256, 2048)
+# the model's launches a layer: q / k / v together (`_mm_shared`), o,
+# gate, up, down
+Q1_LAUNCHES_A_LAYER = 5
 Q1_TIMED_M = (8, 64, 128, 2048)
 # debug-4l's shapes (hidden 256, 4 kv heads of 32, ff 512), fp32 x
 Q1_F32_SHAPES = (("wq", 256, 256), ("wk", 256, 128), ("wg", 256, 512),
@@ -2473,12 +2493,13 @@ def _prefill_calls():
 
 def _q1_expected(eng, layers, steps, prefills, what):
     """Q1's launches since its count was zeroed, held to what the
-    engine's weights make it launch: 7 x layers a device step (decode or
+    engine's weights make it launch: 5 x layers a device step (decode or
     verify; a replay adds what its capture recorded) and a prefill
-    forward with int8 weights, none with float ones."""
+    forward with int8 weights (q / k / v one launch, o, gate, up, down
+    one each), none with float ones."""
     from paddle_tpu_torch.ops import wo_int8_matmul as Q1
     n = Q1.LAUNCHES["wo_int8_matmul"]
-    per = 7 * layers if eng.weight_dtype == "int8" else 0
+    per = Q1_LAUNCHES_A_LAYER * layers if eng.weight_dtype == "int8" else 0
     require(n == per * (steps + prefills),
             f"{what}: {n} Q1 launches, expected {per} x ({steps} device "
             f"steps + {prefills} prefill forwards)")
@@ -2490,74 +2511,120 @@ def _q1_expected(eng, layers, steps, prefills, what):
     return n
 
 
-def _q1_check(torch, x, wq, sc):
-    """Q1 against its plain version on one input: (bitwise over two
-    calls, max abs err, worst err over its limit)."""
+def _q1_check(torch, x, pairs):
+    """Q1 (one launch for `pairs`, the products of one x) against its
+    plain version: (bitwise over two calls, a graph replay bitwise the
+    eager call, max abs err, worst err over its limit)."""
     from paddle_tpu_torch.ops import wo_int8_matmul as Q1
-    y = Q1.wo_int8_matmul(x, wq, sc)
-    same = torch.equal(y, Q1.wo_int8_matmul(x, wq, sc))
-    want = Q1.matmul_wo_int8_plain(x, wq, sc).float()
-    err = (y.float() - want).abs()
+    ys = Q1.wo_int8_matmul_many(x, pairs)
+    same = all(map(torch.equal, ys, Q1.wo_int8_matmul_many(x, pairs)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = Q1.wo_int8_matmul_many(x, pairs)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay = all(map(torch.equal, outs, ys))
+    del graph, outs
     rel, row = Q1_TOL[str(x.dtype).split(".")[-1]]
-    lim = rel * want.abs() + row * want.abs().amax(1, keepdim=True)
-    share = (err / lim.clamp_min(1e-30)).max().item()
-    return same, err.max().item(), share
+    err = share = 0.0
+    for y, want in zip(ys, Q1.matmul_wo_int8_many_plain(x, pairs)):
+        want = want.float()
+        e = (y.float() - want).abs()
+        lim = rel * want.abs() + row * want.abs().amax(1, keepdim=True)
+        err = max(err, e.max().item())
+        share = max(share, (e / lim.clamp_min(1e-30)).max().item())
+    return same, replay, err, share
+
+
+def _int8pack_mm(torch):
+    """torch._weight_int8pack_mm where this torch has a CUDA kernel for
+    it (a yardstick: its scale is rounded to x's dtype), else None."""
+    if not torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::_weight_int8pack_mm", "CUDA"):
+        return None
+    return torch._weight_int8pack_mm
 
 
 def phase_q1_kernels(torch):
     """Kernel Q1 (weight-only int8 W8A16, csrc/wo_int8_matmul.cu) against
     its plain version at llama3-8b's seven layer shapes at every serving
-    row count in bf16, and at debug-4l's shapes in fp32: per element
-    within Q1_TOL, bitwise over two calls.  Then each distinct shape at
+    row count in bf16 (the weight packed, as the decode state holds it
+    on the card), q / k / v in one launch likewise, and at debug-4l's
+    shapes in fp32: per element within Q1_TOL, bitwise over two calls,
+    a graph replay bitwise the eager call.  Then each distinct shape at
     Q1_TIMED_M rows, timed in turns (plain, kernel, kernel, plain) by
-    CUDA-graph replay over weight copies that together pass the L2
-    (a decode step reads each layer's weights cold), beside its bound,
+    CUDA-graph replay over weight copies that together pass the L2 (a
+    decode step reads each layer's weights cold), beside its bound,
     torch.matmul on the bf16 weight (the product int8 is meant to
-    beat) and dequantise-then-matmul: yardsticks the port never calls.
-    Returns the kernels-line entry."""
+    beat), dequantise-then-matmul and torch._weight_int8pack_mm (one
+    call of the same function, where the card has it): yardsticks the
+    port never calls.  Last, one layer's products in one graph as the
+    model launches them (q / k / v in one launch,
+    `llama_decode._mm_shared`) at each timed M.  Returns the
+    kernels-line entry."""
     from paddle_tpu_torch.ops import wo_int8_matmul as Q1
     from paddle_tpu_torch.quantization.int8 import weight_only_int8
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     checks, worst = [], {"bfloat16": [0.0, 0.0], "float32": [0.0, 0.0]}
-    for dtype, shapes, ms in (("bfloat16", Q1_SHAPES, Q1_M),
-                              ("float32", Q1_F32_SHAPES, Q1_F32_M)):
+
+    def weights(K, N, dtype):
+        wq, sc = weight_only_int8(torch.randn(K, N, device=dev,
+                                              generator=gen) * 0.02)
+        return (Q1.pack_weight(wq) if dtype == "bfloat16" else wq), sc
+
+    # each product alone, then q / k / v in one launch as the model runs
+    # them (`llama_decode._mm_shared`)
+    cases = [("bfloat16", Q1_SHAPES, Q1_M), ("float32", Q1_F32_SHAPES,
+                                             Q1_F32_M),
+             ("bfloat16", [("qkv", 4096, (4096, 1024, 1024))], Q1_M)]
+    for dtype, shapes, ms in cases:
         dt = getattr(torch, dtype)
         for role, K, N in shapes:
-            wq, sc = weight_only_int8(torch.randn(K, N, device=dev,
-                                                  generator=gen) * 0.02)
+            pairs = [weights(K, n, dtype)
+                     for n in (N if isinstance(N, tuple) else (N,))]
             for M in ms:
                 x = torch.randn(M, K, device=dev, generator=gen).to(dt)
-                same, err, share = _q1_check(torch, x, wq, sc)
+                same, replay, err, share = _q1_check(torch, x, pairs)
                 checks.append({"dtype": dtype, "role": role, "K": K,
                                "N": N, "M": M, "bitwise_twice": same,
+                               "replay_bitwise_eager": replay,
                                "max_abs_err": err, "err_over_limit": share,
                                "split": Q1.split_k(M, K, N, dt)})
                 w = worst[dtype]
                 w[0], w[1] = max(w[0], err), max(w[1], share)
                 require(same, f"q1 ({dtype} {role} M {M}): two calls "
                         f"differ")
+                require(replay, f"q1 ({dtype} {role} M {M}): a graph "
+                        f"replay differs from the eager call")
                 require(share <= 1.0, f"q1 ({dtype} {role} M {M}): err "
                         f"{err} is {share} x its limit")
-            del wq, sc
+            del pairs
     emit({"phase": "q1_kernels", "checks": len(checks),
           "tolerance": Q1.TOL_TEXT, "worst_max_abs_err":
           {k: v[0] for k, v in worst.items()},
           "worst_err_over_limit": {k: v[1] for k, v in worst.items()},
           "all_bitwise_twice": all(c["bitwise_twice"] for c in checks),
+          "all_replays_bitwise_eager": all(c["replay_bitwise_eager"]
+                                           for c in checks),
           "cases": checks})
     torch.cuda.empty_cache()
 
     timed = {}
     bf = torch.bfloat16
+    lib_fn, lib_errors = _int8pack_mm(torch), []
     for K, N in sorted({(K, N) for _, K, N in Q1_SHAPES}):
         n_q = 1 + -(-Q1_COLD_BYTES // (K * N))
         n_b = 1 + -(-Q1_COLD_BYTES // (2 * K * N))
         ws = [torch.randn(K, N, device=dev, generator=gen) * 0.02
               for _ in range(max(n_q, n_b))]
         wqs = [weight_only_int8(w) for w in ws[:n_q]]
+        wps = [(Q1.pack_weight(q), s) for q, s in wqs]
         wbs = [w.to(bf) for w in ws[:n_b]]
+        # the library call's operands: int8 (N, K), the scale in x's dtype
+        wls = ([(q.t().contiguous(), s.to(bf)) for q, s in wqs]
+               if lib_fn is not None else None)
         del ws
         for M in Q1_TIMED_M:
             xs = [torch.randn(M, K, device=dev, generator=gen).to(bf)
@@ -2568,7 +2635,7 @@ def phase_q1_kernels(torch):
                 return _graph_ms(torch, fn, n, calls, reps)
 
             def kern(i):
-                return Q1.wo_int8_matmul(xs[i], *wqs[i])
+                return Q1.wo_int8_matmul(xs[i], *wps[i])
 
             def plain(i):
                 return Q1.matmul_wo_int8_plain(xs[i], *wqs[i])
@@ -2578,6 +2645,12 @@ def phase_q1_kernels(torch):
             lib = t(lambda i: torch.matmul(xs[i], wbs[i]), n_b)
             deq = t(lambda i: torch.matmul(
                 xs[i], (wqs[i][0].float() * wqs[i][1]).to(bf)), n_q)
+            pack_mm = None
+            if lib_fn is not None:
+                try:        # a yardstick that refuses a shape is noted
+                    pack_mm = t(lambda i: lib_fn(xs[i], *wls[i]), n_q)
+                except RuntimeError as e:
+                    lib_errors.append(f"K {K} N {N} M {M}: {e}"[:300])
             nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
             bound, by = _bound_ms(kind, 2.0 * M * K * N, nbytes)
             timed[K, N, M] = {
@@ -2585,6 +2658,7 @@ def phase_q1_kernels(torch):
                 "ms": (turns[1] + turns[2]) / 2,
                 "plain_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
                 "bound_ms": bound, "bound_by": by,
+                "library_ms": pack_mm,
                 "bf16_matmul_ms": lib, "dequantize_matmul_ms": deq,
                 "bf16_matmul_bound_ms": _bound_ms(
                     kind, 2.0 * M * K * N,
@@ -2593,28 +2667,72 @@ def phase_q1_kernels(torch):
             emit({"phase": "q1_kernels", "timing": "CUDA-graph replay, "
                   "per call", **timed[K, N, M]})
             del xs
-        del wqs, wbs
+        del wqs, wps, wbs, wls
         torch.cuda.empty_cache()
 
-    def layer(M, key):
-        return sum(timed[K, N, M][key] for _, K, N in Q1_SHAPES)
+    # one layer's products back to back in one graph as the model runs
+    # them: q / k / v in one launch, then o, gate, up, down (weights read
+    # once a replay: 218 M of them, past the L2); q / k / v's launch also
+    # timed alone
+    def packed(K, N):
+        q, sc = weight_only_int8(torch.randn(K, N, device=dev,
+                                             generator=gen) * 0.02)
+        return Q1.pack_weight(q), sc
 
-    head = {key: layer(8, key) for key in (
-        "ms", "plain_ms", "bound_ms", "bf16_matmul_ms",
-        "dequantize_matmul_ms", "bf16_matmul_bound_ms")}
-    per_m = {str(M): {key: layer(M, key) for key in (
-        "ms", "bound_ms", "bf16_matmul_ms")} for M in Q1_TIMED_M}
+    layer_w = [packed(K, N) for _, K, N in Q1_SHAPES]
+    # q / k / v alone: 25 MB a set, three sets past the L2
+    qkv_w = [layer_w[:3]] + [[packed(K, N) for _, K, N in Q1_SHAPES[:3]]
+                             for _ in range(2)]
+    layer_graph, qkv_ms = {}, {}
+    for M in Q1_TIMED_M:
+        xs = [torch.randn(M, K, device=dev, generator=gen).to(bf)
+              for _, K, _ in Q1_SHAPES[2:]]
+        calls, reps = (20, 20) if M <= 128 else (4, 4)
+
+        def model_layer(i):
+            return Q1.wo_int8_matmul_many(xs[0], layer_w[:3]) + [
+                Q1.wo_int8_matmul(x, *w) for x, w in zip(xs[1:], layer_w[3:])]
+
+        layer_graph[str(M)] = _graph_ms(torch, model_layer, 1, 4,
+                                        10 if M <= 128 else 4)
+        qkv_ms[str(M)] = _graph_ms(
+            torch, lambda i: Q1.wo_int8_matmul_many(xs[0], qkv_w[i]),
+            len(qkv_w), calls, reps)
+        del xs
+    del layer_w, qkv_w
+    torch.cuda.empty_cache()
+
+    def layer(M, key):
+        vals = [timed[K, N, M][key] for _, K, N in Q1_SHAPES]
+        return None if None in vals else sum(vals)
+
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bf16_matmul_ms",
+            "dequantize_matmul_ms", "bf16_matmul_bound_ms")
+    head = {key: layer(8, key) for key in keys}
+    per_m = {str(M): {**{key: layer(M, key) for key in keys},
+                      "layer_graph_ms": layer_graph[str(M)],
+                      "qkv_one_launch_ms": qkv_ms[str(M)],
+                      "qkv_three_launches_ms": sum(
+                          timed[K, N, M]["ms"] for _, K, N in Q1_SHAPES[:3])}
+             for M in Q1_TIMED_M}
+    library = ("torch._weight_int8pack_mm (its scale rounded to bf16)"
+               if lib_fn is not None else
+               "none: this torch has no CUDA kernel for "
+               "aten::_weight_int8pack_mm")
     emit({"phase": "q1_kernels", "layer_at_m8": head,
-          "layer_by_m": per_m})
+          "layer_by_m": per_m, "library": library,
+          "library_errors": lib_errors})
     return {"max_abs_err": worst["bfloat16"][0],
             "max_abs_err_float32": worst["float32"][0],
             "tolerance": Q1.TOL_TEXT, **head,
             "bound_by": timed[4096, 14336, 8]["bound_by"],
-            "library_ms": head["bf16_matmul_ms"],
+            "library": library,
             "timing": "CUDA-graph replay; ms, plain_ms, bound_ms, "
-                      "library_ms: one llama3-8b layer's seven products "
-                      "at M 8 (a decode step), summed; library: "
-                      "torch.matmul on the bf16 weights",
+                      "library_ms, bf16_matmul_ms: one llama3-8b layer's "
+                      "seven products at M 8 (a decode step), each timed "
+                      "alone and summed; layer_graph_ms: the layer's "
+                      "five launches (q / k / v in one) in one graph",
+            "layer_graph_ms": layer_graph["8"],
             "by_m": per_m,
             "shapes": [timed[k] for k in sorted(timed)]}
 
@@ -2651,10 +2769,12 @@ def _int8w_parity_run(torch, model, kv_dtype, limit):
         saved = PA.LAUNCHES["paged_attention"], Q1.LAUNCHES["wo_int8_matmul"]
         args = (eng.state, cfg, token, pos, eng._kvpool, table)
         TQ.wo_int8_matmul = Q1.matmul_wo_int8_plain
+        TQ.wo_int8_matmul_many = Q1.matmul_wo_int8_many_plain
         try:
             ref, _ = D.paged_decode_step_batch(*args, kernel="gather")
         finally:
             TQ.wo_int8_matmul = Q1.wo_int8_matmul
+            TQ.wo_int8_matmul_many = Q1.wo_int8_matmul_many
         eager, _ = D.paged_decode_step_batch(*args, kernel="cuda",
                                              **eng._decode_kw)
         PA.LAUNCHES["paged_attention"], Q1.LAUNCHES["wo_int8_matmul"] = saved
@@ -2710,7 +2830,7 @@ def _int8w_parity_run(torch, model, kv_dtype, limit):
               "graph_replays": eng.num_graph_replays,
               "prefill_forwards": prefills[0], "k4_launches": k4,
               "q1_launches": q1,
-              "q1_launches_rule": "7 x 32 x (decode replays + prefill "
+              "q1_launches_rule": "5 x 32 x (decode replays + prefill "
                                   "forwards)",
               "steps_compared": counts["steps"],
               "replay_vs_gather_plain_q1_max_abs_err":
@@ -4926,7 +5046,7 @@ def main() -> int:
                     "the dot's operand read)",
         "launches": int8w["bfloat16"]["q1"],
         "launches_path": "serve_int8w llama3-8b, int8 weights, bf16 pool: "
-                         "7 x 32 x (decode replays + prefill forwards), "
+                         "5 x 32 x (decode replays + prefill forwards), "
                          "counted from 0",
         "launches_serve_int8w": {
             "bf16 pool": int8w["bfloat16"]["q1"],

@@ -37,10 +37,13 @@ JAX runs `lax.scan`.  Attention there is `_attend` in plain torch, as
 the JAX contiguous path is XLA.
 
 `collect_decode_state(model, weight_dtype="int8")` swaps every layer's
-seven matmul weights for weight-only int8 (data, scale) pairs; `_mm`
-sends a pair through `quantization.int8.matmul_wo_int8` (kernel Q1 on
-the card) and a plain matrix through `@`.  Embedding, norms and the LM
-head stay full precision.
+seven matmul weights for weight-only int8 (data, scale) pairs (on the
+card a bf16 state holds the data in kernel Q1's fragment order,
+`ops.wo_int8_matmul.pack_weight`); `_mm` sends a pair through
+`quantization.int8.matmul_wo_int8` (kernel Q1 on the card) and a plain
+matrix through `@`; q / k / v, which share their input, go through
+`_mm_shared` (one Q1 launch for the three): five launches a layer.
+Embedding, norms and the LM head stay full precision.
 
 Parking a slot moves its blocks as one flat buffer: `gather_blocks`
 packs them (every layer, K and V, int8 scales) and `scatter_blocks`
@@ -65,8 +68,9 @@ import torch.nn.functional as F
 from .llama import _rope_tables_at, _rotate_half
 from ..ops.paged_attention import NEG_INF, paged_attention
 from ..ops.paged_attention import paged_view as _paged_view
-from ..quantization.int8 import (matmul_wo_int8, quantize_kv_rows,
-                                 weight_only_int8)
+from ..ops.wo_int8_matmul import pack_weight
+from ..quantization.int8 import (matmul_wo_int8, matmul_wo_int8_many,
+                                 quantize_kv_rows, weight_only_int8)
 
 __all__ = ["collect_decode_state", "init_cache", "prefill",
            "prefill_chunk", "decode_step", "decode_step_batch",
@@ -88,7 +92,10 @@ def collect_decode_state(model, weight_dtype=None):
     o and the SwiGLU triple) for weight-only int8 (data, scale) pairs,
     quantized one matrix at a time on the weight's device; embedding,
     norms and the LM head stay full precision (the head feeds argmax
-    directly).  The model's own parameters are left as they are."""
+    directly).  The model's own parameters are left as they are.  A
+    bf16 state on the card holds each int8 matrix in the order kernel
+    Q1's bf16 kernel reads it (`ops.wo_int8_matmul.pack_weight`) instead
+    of `[in, out]`."""
     if model.config.moe_num_experts > 1:
         raise NotImplementedError(
             "serving or generating with an MoE model is not ported yet "
@@ -115,9 +122,11 @@ def collect_decode_state(model, weight_dtype=None):
     if weight_dtype != "int8":
         raise ValueError(f"unsupported weight_dtype={weight_dtype!r} "
                          "(expected None or 'int8')")
+    pack = embed.is_cuda and embed.dtype == torch.bfloat16
     for st in state["layers"]:
         for key in _WEIGHT_KEYS:
-            st[key] = weight_only_int8(st[key])
+            wq, scale = weight_only_int8(st[key])
+            st[key] = (pack_weight(wq) if pack else wq, scale)
     return state
 
 
@@ -127,6 +136,14 @@ def _mm(x, w):
     if isinstance(w, tuple):
         return matmul_wo_int8(x, w[0], w[1])
     return x @ w
+
+
+def _mm_shared(x, *ws):
+    """[x @ w for w in ws] (q / k / v); int8 pairs go through one Q1
+    launch on the card."""
+    if all(isinstance(w, tuple) for w in ws):
+        return matmul_wo_int8_many(x, ws)
+    return [_mm(x, w) for w in ws]
 
 
 def _rms(x, w, eps):
@@ -323,9 +340,10 @@ def _block(st, cfg, x, positions, k_cache, v_cache, write_at):
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, st["ln1"], cfg.rms_norm_eps)
-    q = _mm(h, st["wq"]).reshape(B, S, nh, hd)
-    k = _mm(h, st["wk"]).reshape(B, S, nkv, hd)
-    v = _mm(h, st["wv"]).reshape(B, S, nkv, hd)
+    q, k, v = _mm_shared(h, st["wq"], st["wk"], st["wv"])
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
     q, k = _rope_at(q, k, positions, cfg.rope_theta)
     if torch.is_tensor(write_at):
         at = write_at.long().reshape(B, -1)             # (B, S) or (B, 1)
@@ -362,9 +380,10 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, st["ln1"], cfg.rms_norm_eps)
-    q = _mm(h, st["wq"]).reshape(B, S, nh, hd)
-    k = _mm(h, st["wk"]).reshape(B, S, nkv, hd)
-    v = _mm(h, st["wv"]).reshape(B, S, nkv, hd)
+    q, k, v = _mm_shared(h, st["wq"], st["wk"], st["wv"])
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
     q, k = _rope_at(q, k, positions, cfg.rope_theta)
     blk, col = _paged_rows(table, rows, _entry_data(pk).shape[1])
     _entry_set(pk, blk, col, k)

@@ -9,7 +9,8 @@ so the int8 data and fp32 scales equal its bitwise.
 `matmul_wo_int8` keeps the JAX semantics (fp32 accumulation, the scale
 on the fp32 result, x's dtype out) and runs kernel Q1
 (`ops/wo_int8_matmul.py`) on a CUDA tensor, its plain version on a CPU
-one.
+one; `matmul_wo_int8_many` runs the products that share x (q / k / v)
+as one launch.
 
 KV rows: symmetric per-row-per-head scales over the head_dim axis: one f32
 scale per written KV row per kv head, stored in a pool-shaped
@@ -27,10 +28,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.wo_int8_matmul import wo_int8_matmul
+from ..ops.wo_int8_matmul import wo_int8_matmul, wo_int8_matmul_many
 
 __all__ = ["quantize_weight", "weight_only_int8", "matmul_wo_int8",
-           "quantize_kv_rows", "dequantize_kv"]
+           "matmul_wo_int8_many", "quantize_kv_rows", "dequantize_kv"]
 
 
 def quantize_weight(w, channel_axis):
@@ -55,13 +56,25 @@ def weight_only_int8(w):
 
 
 def matmul_wo_int8(x, wq, scale):
-    """x (..., in) @ int8 [in, out] -> (..., out) in x's dtype, products
-    accumulated in fp32 and the per-channel scale applied to the fp32
-    result.  Kernel Q1 on a CUDA tensor; the plain version on a CPU
-    one."""
+    """x (..., in) @ int8 [in, out] (or its packed form,
+    `ops.wo_int8_matmul.pack_weight`) -> (..., out) in x's dtype,
+    products accumulated in fp32 and the per-channel scale applied to
+    the fp32 result.  Kernel Q1 on a CUDA tensor; the plain version on a
+    CPU one."""
     lead = x.shape[:-1]
     y = wo_int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), wq, scale)
-    return y.reshape(*lead, wq.shape[1])
+    return y.reshape(*lead, scale.shape[0])
+
+
+def matmul_wo_int8_many(x, pairs):
+    """`matmul_wo_int8` of one x with each (wq, scale) of `pairs` (q / k
+    / v): one Q1 launch on a bf16 CUDA tensor; each product exactly as
+    `matmul_wo_int8` computes it on a CPU one."""
+    lead = x.shape[:-1]
+    ys = wo_int8_matmul_many(x.reshape(-1, x.shape[-1]).contiguous(),
+                             pairs)
+    return [y.reshape(*lead, scale.shape[0])
+            for y, (_, scale) in zip(ys, pairs)]
 
 
 def quantize_kv_rows(x, eps=1e-8):

@@ -338,8 +338,12 @@ def test_int8_weight_streams_equal_full_precision():
 @pytest.mark.gpu
 def test_q1_kernel_matches_plain_on_card():
     """Q1 against its plain version at Llama-3-8B's layer shapes and the
-    serving row counts (bf16) and at debug-4l's (fp32), each call twice
-    bitwise, and a CUDA-graph replay bitwise the eager call."""
+    serving row counts up to the whole-bucket prefill (bf16, packed
+    weights) and at debug-4l's (fp32), each call twice bitwise, a
+    CUDA-graph replay bitwise the eager call; then q, k, v back to back
+    in one graph (the programmatic dependent launches overlap) bitwise
+    the three eager calls, and q / k / v in one launch against the plain
+    version, twice bitwise and its replay bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: Q1 has no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -347,14 +351,19 @@ def test_q1_kernel_matches_plain_on_card():
     g = torch.Generator(device=dev).manual_seed(0)
     cases = [("bfloat16", K, N, M) for K, N in ((4096, 4096), (4096, 1024),
                                                   (4096, 14336), (14336, 4096))
-             for M in (1, 8, 64, 128, 300)]
+             for M in (1, 8, 64, 128, 256, 300, 2048)]
     cases += [("float32", K, N, M) for K, N in ((256, 256), (256, 512),
                                                  (512, 256))
               for M in (1, 8, 33)]
-    for dtype, K, N, M in cases:
-        dt = getattr(torch, dtype)
+
+    def weight(K, N, dtype):
         wq, sc = TQ.weight_only_int8(
             torch.randn(K, N, device=dev, generator=g))
+        return (Q1.pack_weight(wq) if dtype == "bfloat16" else wq), sc
+
+    for dtype, K, N, M in cases:
+        dt = getattr(torch, dtype)
+        wq, sc = weight(K, N, dtype)
         x = torch.randn(M, K, device=dev, generator=g).to(dt)
         y = Q1.wo_int8_matmul(x, wq, sc)
         assert torch.equal(y, Q1.wo_int8_matmul(x, wq, sc))
@@ -371,3 +380,22 @@ def test_q1_kernel_matches_plain_on_card():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, y)
+    qkv = [weight(4096, N, "bfloat16") for N in (4096, 1024, 1024)]
+    for M in (8, 64, 2048):
+        x = torch.randn(M, 4096, device=dev, generator=g).to(torch.bfloat16)
+        eager = [Q1.wo_int8_matmul(x, *w) for w in qkv]
+        one = Q1.wo_int8_matmul_many(x, qkv)         # q / k / v, one launch
+        assert all(map(torch.equal, one, Q1.wo_int8_matmul_many(x, qkv)))
+        for y, (wq, sc) in zip(one, qkv):
+            want = Q1.matmul_wo_int8_plain(x, wq, sc).float()
+            lim = (2 ** -7 * want.abs()
+                   + 2 ** -16 * want.abs().amax(1, keepdim=True))
+            assert bool(((y.float() - want).abs() <= lim).all()), M
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [Q1.wo_int8_matmul(x, *w) for w in qkv]
+            outs_one = Q1.wo_int8_matmul_many(x, qkv)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager)), M
+        assert all(torch.equal(a, b) for a, b in zip(outs_one, one)), M
