@@ -27,7 +27,11 @@ the result line:
               view — a yardstick the port never calls); and at a verify
               step's shape (8 slots x 8 columns = 64 rows, each slot's
               table row and depth + j; the bound counts each slot's rows
-              once);
+              once); and with the tiered pool's table at the serve
+              depths (every block behind each slot's last 8, block 0
+              kept, read in place from a pinned host tier, the device
+              copies poisoned): against its plain version, bitwise the
+              call over the device pool and twice, both timed in turns;
   3b. train_kernels
               flash attention forward (K1) and backward (K2: dQ, dK/dV)
               and the fused softmax cross-entropy forward and backward
@@ -171,6 +175,24 @@ the result line:
               limit); `generation.generate` beam search (4 beams x 16)
               bitwise twice, sampling (top_k 50, top_p 0.9, seed 7)
               equal twice, every id in the vocabulary;
+              serve_tiered: four prompts of 3000 / 2400 / 1800 / 1200
+              tokens (256 / 64 / 64 / 64 new; `longctx_config`'s clip,
+              max_len 4096, 4 slots) through the full pool (1,025
+              blocks) and a tiered one of half their peak demand (282
+              blocks, hot_window 8, prefetch_depth 2, 1,024 pinned host
+              rows), bf16 and int8 pools, then the 3000-token prompt
+              alone through 96 blocks (its KV takes 204), without
+              and with speculation (32 tokens, k 7 forced drafts: a
+              verify of width 8 every step reading the tier):
+              streams equal
+              the full pool's, the logits of the first 8 decode replays
+              after the first spill bitwise the full run's for the same
+              request and token, blocks spilled (and promoted, bf16
+              mixed run), no extension row failing its CRC, the pager
+              empty after; tokens/s and ITL, replay device ms with and
+              without extension rows, extension bytes a step, host ms
+              a spill / CRC / promote, peak and pinned GiB; K4 counted
+              through the replays;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact, and `generate` (the contiguous cache) gives
@@ -634,6 +656,90 @@ def _k4_case(torch, mode, gen, depths, kind, cols=1):
     return res
 
 
+def _k4_ext_case(torch, mode, gen, depths, hot=8):
+    """K4 with extension-tier blocks in its table: `_kernel_inputs` at
+    `depths`, every table block of each slot behind its last `hot`
+    live blocks (never block 0: the sink) copied to a pinned host tier
+    (`KVTier`, one per input copy) and renumbered past the pool; the
+    pool's copies poisoned.  The kernel against its plain version over
+    the same tier per slot (the K4 tolerance), bitwise the kernel over
+    the unmoved table (the same bytes) and over two calls; then both
+    timed in turns by graph replay.  Launches made here are not
+    counted."""
+    from paddle_tpu_torch.models import llama_decode as D
+    from paddle_tpu_torch.ops import paged_attention as PA
+    copies = 4
+    launches = PA.LAUNCHES["paged_attention"]
+    q, pools, table, pos = _kernel_inputs(torch, mode, copies, gen, depths)
+    n_dev = D.pool_leaves([pools[0]])[0].shape[0]
+    bt = KERNEL_SHAPE["bt"]
+    moved, cold = table.clone(), []
+    for b, p in enumerate(depths):
+        live = p // bt + 1
+        for j in range(1, max(1, live - hot)):
+            cold.append((b, j))
+    tiers = []
+    for pool in pools:
+        tier = D.KVTier.empty([pool], len(cold), pin=True)
+        ids = torch.stack([table[b, j] for b, j in cold]).long()
+        tier.flat.copy_(D.gather_blocks([pool], ids).view(len(cold), -1))
+        tiers.append(tier)
+    for e, (b, j) in enumerate(cold):
+        moved[b, j] = n_dev + e
+    ref = PA.paged_attention(q, *pools[0], table, pos)
+    plain = PA.paged_attention_plain(q, *pools[0], moved, pos,
+                                     *tiers[0].layers[0])
+    # poison the moved blocks' device copies in the first pool (the
+    # tiered calls must not read them), restored after
+    gone = table[moved >= n_dev].long()
+    leaves = D.pool_leaves([pools[0]])
+    saved = [t[gone].clone() for t in leaves]
+    for t in leaves:
+        t[gone] = 0
+    hk, hv = tiers[0].layers[0]
+    out = PA.paged_attention(q, *pools[0], moved, pos, hk=hk, hv=hv)
+    again = PA.paged_attention(q, *pools[0], moved, pos, hk=hk, hv=hv)
+    torch.cuda.synchronize()
+    for t, x in zip(leaves, saved):
+        t[gone] = x
+    B = len(depths)
+    err_b = (out.float() - plain.float()).abs().reshape(B, -1).amax(1)
+    ref_b = plain.float().abs().reshape(B, -1).amax(1)
+    limit_b = torch.full_like(ref_b, 1e-5) if mode == "float32" \
+        else 2e-2 * ref_b
+    share = (err_b / limit_b).max().item()
+    require(share <= 1.0, f"K4 {mode} with an extension tier: per-slot "
+            f"err {err_b.tolist()} over {limit_b.tolist()}")
+    require(torch.equal(out, ref) and torch.equal(out, again),
+            f"K4 {mode} with an extension tier: not bitwise the call on "
+            f"the device pool (or two calls differ)")
+
+    def kern_ext(i):
+        hk_i, hv_i = tiers[i].layers[0]
+        PA.paged_attention(q, *pools[i], moved, pos, hk=hk_i, hv=hv_i)
+
+    def kern_dev(i):
+        PA.paged_attention(q, *pools[i], table, pos)
+
+    d1 = _graph_ms(torch, kern_dev, copies)
+    x1 = _graph_ms(torch, kern_ext, copies)
+    x2 = _graph_ms(torch, kern_ext, copies)
+    d2 = _graph_ms(torch, kern_dev, copies)
+    PA.LAUNCHES["paged_attention"] = launches
+    ext_bytes = len(cold) * tiers[0].flat.shape[1]
+    res = {"depths": list(depths), "hot_blocks": hot,
+           "ext_blocks": len(cold), "ext_bytes_per_call": ext_bytes,
+           "max_abs_err": err_b.max().item(),
+           "worst_err_over_limit": share,
+           "bitwise_vs_device_pool_and_twice": True,
+           "ms": (x1 + x2) / 2, "ms_turns": [x1, x2],
+           "device_pool_ms": (d1 + d2) / 2, "device_pool_ms_turns": [d1, d2],
+           "ext_gb_per_s": ext_bytes / ((x1 + x2) / 2 * 1e-3) / 1e9}
+    del q, pools, tiers, out, again, ref, plain, saved
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_kernels(torch):
     kind = torch.cuda.get_device_name(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -646,6 +752,10 @@ def phase_kernels(torch):
         # a verify step's call: 8 slots x 8 columns at the spec depths
         results[mode]["verify_shape"] = _k4_case(
             torch, mode, gen, SPEC_DEPTHS, kind, cols=SPEC_W)
+        # the tiered pool's call: blocks behind a hot window of 8 read
+        # from the pinned host tier
+        results[mode]["ext_tier"] = _k4_ext_case(torch, mode, gen,
+                                                 serve_depths)
         emit({"phase": "kernels", "kernel": "paged_attention",
               "mode": mode, "timing": "CUDA-graph replay, per call",
               **results[mode]})
@@ -3100,6 +3210,343 @@ def phase_generate_moe(torch):
     return {"flash_attention_fwd": got[0], "gmm_fwd": got[1]}
 
 
+# the tiered-KV phase (engine sub-slice (g)): `paddle_tpu/testing/
+# traces.py:218 longctx_config`'s prompt clip at scale 1
+TIERED_LENGTHS = [3000, 2400, 1800, 1200]
+TIERED_NEW = [256, 64, 64, 64]      # the long one outlives its partners
+TIERED_KW = dict(max_slots=4, max_len=4096, max_prompt_len=3072,
+                 prefill_chunk=128, kv_block_tokens=16,
+                 prefix_cache_blocks=0)
+TIERED_KNOBS = dict(hot_window=8, prefetch_depth=2, host_pool_blocks=1024)
+TIERED_SOLO_BLOCKS = 96             # below the long sequence's own KV
+TIERED_LOGIT_STEPS = 8              # decode steps after the first spill
+TIERED_SPEC_K, TIERED_SPEC_NEW = 7, 32  # the speculative run (verify W 8)
+
+
+def tiered_blocks():
+    """`bench.py:1224-1233`'s tiered pool: half the peak demand of the
+    `max_slots` largest sequences (+ trash), plus max_slots + 1 blocks
+    of slack above the prefetcher's headroom guard."""
+    bt, slots = TIERED_KW["kv_block_tokens"], TIERED_KW["max_slots"]
+    demand = sorted((-(-(L + n) // bt)
+                     for L, n in zip(TIERED_LENGTHS, TIERED_NEW)),
+                    reverse=True)
+    peak = 1 + sum(demand[:slots])
+    return peak, max(8, peak // 2 + slots + 1)
+
+
+def _hook_tiered(torch, eng, times, logits, want):
+    """Host-clock wrappers on the tiered engine's spill, promote and
+    CRC; CUDA events around every decode replay, each tagged with the
+    extension blocks its table reads (positions up to each live slot's
+    depth) and the slots decoding; and the logits rows of decode
+    replays: with `want` None, every live slot's row of the first
+    TIERED_LOGIT_STEPS replays after the first spill, keyed (request
+    index, token index); else the rows of the keys in `want`.  Verify
+    replays are timed the same way, with the extension blocks they read
+    (`times["verify"]`).  Without tiering only the replays and logits
+    are hooked."""
+    g = eng._graphs
+    replay = g.replay
+    index = times["index"]
+    state = {"after_spill": 0}
+
+    def ext_live(w):
+        ext, live = 0, 0
+        for s, req in enumerate(eng._slots[:w]):
+            if req is None:
+                continue
+            live += 1
+            n = eng._pager.blocks_for(int(eng._pos[s]) + 1)
+            ext += sum(eng._pager.is_ext(b)
+                       for b in eng._pager.slot_blocks[s][:n])
+        return ext, live
+
+    def timed(fn, w, key):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ext, live = ext_live(eng.max_slots if key == "verify" else w)
+        start.record()
+        out = fn(w)
+        end.record()
+        times[key].append((start, end, live, ext))
+        return out
+
+    def timed_replay(w):
+        logits_w, argmax = timed(replay, w, "replays")
+        spilled = eng._tiered and eng._m_kv_spilled.value >= 1
+        record = (want is None and spilled
+                  and state["after_spill"] < TIERED_LOGIT_STEPS)
+        if record:
+            state["after_spill"] += 1
+        for s, req in enumerate(eng._slots[:w]):
+            if req is None or req.rid not in index:
+                continue
+            key = (index[req.rid], len(req.tokens))
+            if record or (want is not None and key in want):
+                logits[key] = logits_w[s].clone()
+        return logits_w, argmax
+
+    g.replay = timed_replay
+    if eng._vgraphs is not None:
+        v_replay = eng._vgraphs.replay
+        eng._vgraphs.replay = lambda W: timed(v_replay, W, "verify")
+    if not eng._tiered:
+        return
+    spill, promote, crc = eng._spill_blocks, eng._promote_ext, eng._ext_crc
+
+    def host_timed(fn, key):
+        def call(*a):
+            t0 = time.perf_counter()
+            n = fn(*a)
+            times[key].append((time.perf_counter() - t0, n))
+            return n
+        return call
+
+    def timed_crc(e):
+        t0 = time.perf_counter()
+        c = crc(e)
+        times["crc"].append(time.perf_counter() - t0)
+        return c
+
+    eng._spill_blocks = host_timed(spill, "spill")
+    eng._promote_ext = host_timed(promote, "promote")
+    eng._ext_crc = timed_crc
+
+
+def _tiered_run(torch, model, kv_dtype, prompts, news, kv_blocks=None,
+                want=None, spec=None):
+    """One run of the long-context traffic through LLMEngine (graphs +
+    overlap): the full pool when `kv_blocks` is None, else a tiered pool
+    of `kv_blocks` blocks (TIERED_KNOBS); `spec`: speculation's k, with
+    every live slot drafting k copies of its token each step (random
+    weights repeat no n-gram, so the drafter alone proposes almost
+    nothing): every step is a verify replay.  Every request done, K4
+    counted exactly through the replays, the pager consistent and empty
+    after it (no device block, no extension block, no host block held)
+    and no extension row failing its CRC.  Returns (report, streams,
+    logits rows: see `_hook_tiered`)."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops import paged_attention as PA
+    tiered = kv_blocks is not None
+    kw = dict(kv_blocks=kv_blocks, **TIERED_KNOBS) if tiered else {}
+    eng = LLMEngine(model, **TIERED_KW, kv_dtype=kv_dtype, speculation=spec,
+                    **kw)
+    require(eng.decode_kernel == "cuda" and eng._graphs is not None
+            and eng.overlap, "the tiered engine is not on K4 in graphs")
+    eng.prepare_programs()
+    times = {"spill": [], "promote": [], "crc": [], "replays": [],
+             "verify": [], "index": {}}
+    logits = {}
+    _hook_tiered(torch, eng, times, logits, want)
+    if spec is not None:
+        def forced_drafts():
+            drafts, cost = [None] * eng.max_slots, 0
+            for s, req in enumerate(eng._slots):
+                kb = 0 if req is None else min(
+                    spec, req.max_new_tokens - len(req.tokens) - 1)
+                if kb > 0:
+                    drafts[s] = [int(eng._token[s])] * kb
+                    cost += kb
+            return (drafts, cost) if cost else (None, 0)
+        eng._propose_drafts = forced_drafts
+    stamps = {}
+
+    def on_token(req, tok):
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PA.LAUNCHES["paged_attention"] = 0
+    t0 = time.perf_counter()
+    reqs = []
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        reqs.append(eng.submit(p, n, on_token=on_token))
+        times["index"][reqs[-1].rid] = i
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.LAUNCHES["paged_attention"]
+    layers = model.config.num_hidden_layers
+    name = (f"serve_tiered ({kv_dtype or 'bfloat16'}, "
+            f"{kv_blocks or eng.kv_blocks} blocks)")
+    for r, n in zip(reqs, news):
+        require(r.done and r.error is None and len(r.tokens) == n,
+                f"{name}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    steps = int(_metric(eng, "decode_steps_total"))
+    require(launches == layers * steps == layers * eng.num_graph_replays,
+            f"{name}: {launches} K4 launches, {steps} steps, "
+            f"{eng.num_graph_replays} replays")
+    eng._pager.check()
+    require(eng._pager.used_blocks == 0 and eng._pager.ext_used == 0
+            and eng._pager.host_blocks_used == 0,
+            f"{name}: {eng._pager.used_blocks} device, "
+            f"{eng._pager.ext_used} ext, {eng._pager.host_blocks_used} "
+            f"host blocks still held")
+    integ = int(eng._m_integrity["ext"].value)
+    require(integ == 0, f"{name}: {integ} extension rows failed their CRC")
+    itl = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    gen = sum(len(r.tokens) for r in reqs)
+    replays = [(s.elapsed_time(e), live, ext)
+               for s, e, live, ext in times["replays"]]
+    verify = [(s.elapsed_time(e), ext) for s, e, _, ext in times["verify"]]
+
+    def med(xs):
+        return _percentile(xs, 50) if xs else None
+
+    def per_block(key):
+        n = sum(k for _, k in times[key])
+        return 1e3 * sum(t for t, _ in times[key]) / n if n else None
+
+    ext_steps = [(ms, x) for ms, live, x in replays if x]
+    report = {
+        "kv_dtype": kv_dtype or "bfloat16",
+        "pool": ("tiered" if tiered else "full provisioning"),
+        "kv_blocks": eng.kv_blocks, "kv_pool_gib": eng.kv_pool_bytes() / 2**30,
+        **({"hot_window": eng.hot_window,
+            "prefetch_depth": eng.prefetch_depth,
+            "host_pool_blocks": eng.host_pool_blocks,
+            "pinned_tier_gib": eng._hext.flat.numel() / 2**30}
+           if tiered else {}),
+        "requests": len(reqs), "prompt_tokens": [len(p) for p in prompts],
+        "generated_tokens": gen, "wall_s": wall, "tokens_per_s": gen / wall,
+        "itl_p50_ms": 1e3 * _percentile(itl, 50),
+        "itl_p99_ms": 1e3 * _percentile(itl, 99),
+        "decode_steps": steps, "k4_launches": launches,
+        "verify_replays": eng.num_verify_replays,
+        "verify_replays_with_ext_blocks": sum(x > 0 for _, x in verify),
+        "verify_replay_device_ms_p50": {
+            "ext" if ext else "device": med([ms for ms, x in verify
+                                             if bool(x) == ext])
+            for ext in (False, True)
+            if any(bool(x) == ext for _, x in verify)},
+        "spec_tokens_accepted": int(_metric(eng,
+                                            "spec_tokens_accepted_total")),
+        "kv_blocks_spilled": int(_metric(eng, "kv_blocks_spilled_total")),
+        "kv_blocks_prefetched": int(_metric(eng,
+                                            "kv_blocks_prefetched_total")),
+        "preemptions": int(_metric(eng, "preemptions_total")),
+        "ext_integrity_failures": integ,
+        "spill_host_ms_per_block": per_block("spill"),
+        "promote_host_ms_per_block": per_block("promote"),
+        "crc_host_ms_per_block": (1e3 * sum(times["crc"]) / len(times["crc"])
+                                  if times["crc"] else None),
+        "kv_block_bytes": eng._kv_block_bytes,
+        "replay_device_ms_p50": {
+            f"{live} slots, {'ext' if ext else 'device'}": med(
+                [ms for ms, lv, x in replays if lv == live and bool(x) == ext])
+            for live in sorted({lv for _, lv, _ in replays})
+            for ext in (False, True)
+            if any(lv == live and bool(x) == ext for _, lv, x in replays)},
+        "replays_with_ext_blocks": len(ext_steps),
+        "ext_bytes_per_ext_step_mean": (
+            sum(x for _, x in ext_steps) * eng._kv_block_bytes
+            / len(ext_steps) if ext_steps else 0),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    streams = [list(r.tokens) for r in reqs]
+    for name_ in ("_spill_blocks", "_promote_ext", "_ext_crc"):
+        vars(eng).pop(name_, None)
+    _unhook(torch, eng)
+    return report, streams, logits
+
+
+def phase_serve_tiered(torch, model):
+    """Tiered KV for long context on llama3-8b (engine sub-slice (g)):
+    four prompts of TIERED_LENGTHS (256 / 64 / 64 / 64 new tokens),
+    max_len 4096, 4 slots, fully provisioned (1 + 4 x 256 blocks) and
+    through `tiered_blocks()` device blocks with hot_window 8,
+    prefetch_depth 2 and a 1024-row pinned host tier, for the bf16 and
+    the int8 pool; then the 3000-token prompt alone in 96 blocks (its
+    KV takes ~204) with speculation (TIERED_SPEC_NEW tokens, a verify
+    of width 8 every step reading the tier), against the full pool with
+    speculation.  Streams
+    token-exact to the full pool's, the decode logits of the first
+    TIERED_LOGIT_STEPS replays after the first spill bitwise the full
+    pool's for the same request and token, at least one block spilled,
+    one promoted in the bf16 mixed run, no extension row failing its
+    CRC.  Returns the K4 launches of each run."""
+    import numpy as np
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in TIERED_LENGTHS]
+    peak, blocks = tiered_blocks()
+    launches, refs = {}, {}
+    for kv in (None, "int8"):
+        pool = kv or "bfloat16"
+        tiered, got, rows = _tiered_run(torch, model, kv, prompts,
+                                        TIERED_NEW, kv_blocks=blocks)
+        full, ref, ref_rows = _tiered_run(torch, model, kv, prompts,
+                                          TIERED_NEW, want=set(rows))
+        launches[pool, "full"] = full["k4_launches"]
+        launches[pool, "tiered"] = tiered["k4_launches"]
+        refs[pool] = ref
+        require(got == ref, f"serve_tiered ({pool}): tiered streams differ "
+                f"from full provisioning")
+        require(rows and set(rows) == set(ref_rows),
+                f"serve_tiered ({pool}): logits rows {sorted(rows)} vs "
+                f"{sorted(ref_rows)}")
+        same = sum(torch.equal(rows[k], ref_rows[k]) for k in rows)
+        require(same == len(rows), f"serve_tiered ({pool}): {same} of "
+                f"{len(rows)} post-spill logits rows bitwise")
+        require(tiered["kv_blocks_spilled"] >= 1,
+                f"serve_tiered ({pool}): nothing spilled")
+        if kv is None:
+            require(tiered["kv_blocks_prefetched"] >= 1,
+                    f"serve_tiered ({pool}): nothing promoted")
+        emit({"phase": "serve_tiered", "model": "llama3-8b",
+              "peak_demand_blocks": peak, "full": full, "tiered": tiered,
+              "streams_equal_full": True,
+              "post_spill_logits_rows_bitwise": same,
+              "tiered_over_full_tokens_per_s":
+                  tiered["tokens_per_s"] / full["tokens_per_s"]})
+        del rows, ref_rows
+    solo, solo_got, _ = _tiered_run(torch, model, None, prompts[:1],
+                                    TIERED_NEW[:1],
+                                    kv_blocks=TIERED_SOLO_BLOCKS)
+    solo_full, solo_ref, _ = _tiered_run(torch, model, None, prompts[:1],
+                                         TIERED_NEW[:1], want=set())
+    launches["bfloat16", "solo"] = solo["k4_launches"]
+    bt = TIERED_KW["kv_block_tokens"]
+    own = -(-(TIERED_LENGTHS[0] + TIERED_NEW[0]) // bt)
+    require(solo_got == solo_ref, "serve_tiered (one sequence in "
+            f"{TIERED_SOLO_BLOCKS} blocks): stream differs")
+    require(solo["kv_blocks_spilled"] >= 1 and own > TIERED_SOLO_BLOCKS - 1,
+            f"serve_tiered (one sequence): {solo['kv_blocks_spilled']} "
+            f"spilled, {own} blocks of KV")
+    emit({"phase": "serve_tiered", "model": "llama3-8b",
+          "one_sequence_kv_blocks": own, "full": solo_full, "tiered": solo,
+          "streams_equal_full": True,
+          "equal_to_its_stream_in_the_mix": solo_got[0] == refs["bfloat16"][0],
+          "tiered_over_full_tokens_per_s":
+              solo["tokens_per_s"] / solo_full["tokens_per_s"]})
+    # the verify graphs over the tier: the 3000-token prompt again, a
+    # verify of width 8 every step on both sides
+    spec, spec_got, _ = _tiered_run(torch, model, None, prompts[:1],
+                                    [TIERED_SPEC_NEW],
+                                    kv_blocks=TIERED_SOLO_BLOCKS,
+                                    spec=TIERED_SPEC_K)
+    spec_full, spec_ref, _ = _tiered_run(torch, model, None, prompts[:1],
+                                         [TIERED_SPEC_NEW], want=set(),
+                                         spec=TIERED_SPEC_K)
+    launches["bfloat16", "spec"] = spec["k4_launches"]
+    require(spec_got == spec_ref, "serve_tiered (speculation): the tiered "
+            "stream differs from the full pool's")
+    require(spec["verify_replays_with_ext_blocks"]
+            >= TIERED_SPEC_NEW // 2,
+            f"serve_tiered (speculation): {spec['verify_replays']} verify "
+            f"replays, {spec['verify_replays_with_ext_blocks']} reading "
+            f"the extension tier")
+    emit({"phase": "serve_tiered", "model": "llama3-8b",
+          "speculation_k": TIERED_SPEC_K,
+          "drafts": "k copies of each slot's token, every step",
+          "full": spec_full, "tiered": spec,
+          "streams_equal_full": True,
+          "tiered_over_full_tokens_per_s":
+              spec["tokens_per_s"] / spec_full["tokens_per_s"]})
+    return launches
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
@@ -3154,12 +3601,13 @@ def phase_serve(torch):
     int8w = phase_serve_int8w(torch, model, limits, streams[None],
                               profile["graphs_overlap"])
     generate = phase_generate(torch, model, limits["bfloat16"])
+    tiered = phase_serve_tiered(torch, model)
     del model
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
             "pressure": pressure, "prefix": prefix, "spec": spec,
             "slo": {"bfloat16": slo}, "int8w": int8w,
-            "generate": generate}
+            "generate": generate, "tiered": tiered}
 
 
 def _debug_model():
@@ -5001,7 +5449,8 @@ def main() -> int:
                 "bound_by", "max_abs_err")},
             "verify_shape": {k: r["verify_shape"][k] for k in (
                 "depths", "cols", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "max_abs_err")}})
+                "bound_ms", "bound_by", "max_abs_err")},
+            "ext_tier": r["ext_tier"]})
     for name, r in train_kernels.items():
         mod, replaces = TRAIN_KERNELS[name]
         entries.append({
@@ -5108,6 +5557,18 @@ def main() -> int:
                     PREFIX_KW["prefix_cache_blocks"]]}
         require(all(n > 0 for n in pressure.values()),
                 f"{e['name']}: no launch in a serve_pressure run")
+        tiered = {run: n for (p, run), n in
+                  serve_launches["tiered"].items() if p == pool}
+        if tiered:
+            e["launches_serve_tiered"] = tiered
+            e["launches_path_serve_tiered"] = (
+                f"serve_tiered llama3-8b, {pool} pool: each run from 0 "
+                f"(full provisioning; {tiered_blocks()[1]} blocks tiered, "
+                f"extension rows read in place; one sequence in "
+                f"{TIERED_SOLO_BLOCKS} blocks, without and with "
+                f"speculation)")
+            require(all(n > 0 for n in tiered.values()),
+                    f"{e['name']}: no launch in a serve_tiered run")
     for e in entries:
         require(e["launches"] > 0, f"{e['name']} never launched on its path")
     emit({"kernels": entries})

@@ -42,6 +42,26 @@
 // probabilities to q's dtype before P.V, so the port holds this kernel
 // to a stated tolerance against the plain version, not to bitwise.
 //
+// The host extension tier (the engine's tiered KV, `hot_window`).  A
+// table entry b >= n_dev names row b - n_dev of a second set of base
+// pointers (ek, ev and, for int8, eks, evs), one block every
+// `ext_stride` bytes: the pinned host rows the engine spilled cold
+// blocks to, read in place over PCIe through their device-mapped (UVA)
+// addresses, so a spilled block never returns to the device to be
+// attended.  The split's row ids carry the tier (an ext row is stored
+// negative, its block and in-block row packed), and a split that holds
+// an ext row copies its rows with plain loads, ld.global.cv: those
+// bypass the caches, so a row the engine rewrote by a later copy is
+// read afresh, and every byte is read once per call anyway.  Splits of
+// device rows keep the cp.async path.  The same bytes reach the same
+// arithmetic in the same order, so a call is bitwise the call on a pool
+// holding those blocks on the device.  Untiered calls pass null ext
+// pointers and n_dev = INT_MAX and run the split kernel built without
+// the ext path (kExt false): its code is the kernel's before the tier
+// existed.  An ext row moves at PCIe's rate (tens
+// of GB/s, against the 3.35 TB/s of device memory): the engine's
+// prefetcher promotes cold blocks back while the pool has room.
+//
 // Bound.  Decode attention is bandwidth-bound: it must read
 //   sum_b (pos_b + 1) * n_kv * hd * 2 * itemsize   bytes of K and V
 // (+ 2 * 4 bytes of scales per row and kv head for int8) plus q and out;
@@ -72,6 +92,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -120,6 +141,35 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// loads from the host extension tier: uncached (.cv), see the header
+__device__ __forceinline__ uint4 ld_ext16(const unsigned char* p) {
+  uint4 v;
+  asm("ld.global.cv.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 ld_ext8(const unsigned char* p) {
+  uint2 v;
+  asm("ld.global.cv.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_ext4(const unsigned char* p) {
+  float v;
+  asm("ld.global.cv.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// An ext row id: -1 - (ext block << kExtShift | row within the block),
+// the row within the block being (t % bt) * n_kv + g
+constexpr int kExtShift = 20;
+__device__ __forceinline__ const unsigned char* ext_row(
+    const unsigned char* base, long long r, long long stride, int row_bytes) {
+  const long long x = -1 - r;
+  return base + (x >> kExtShift) * stride +
+         (x & ((1LL << kExtShift) - 1)) * row_bytes;
 }
 
 __host__ __device__ __forceinline__ int align16(int x) {
@@ -201,12 +251,17 @@ __device__ __forceinline__ void load8(unsigned char* tile, int t, int c,
 
 // Copies rows [0, n) of the split, `row_bytes` each, from the pool into
 // `tile`, in `cb`-byte chunks (16, or 8 for an int8 row that is an odd
-// number of 8-byte chunks); with `scale`, also each row's scale.
-template <typename KT>
+// number of 8-byte chunks); with `scale`, also each row's scale.  With
+// `any_ext` (kExt only), rows with a negative id come from the
+// extension tier `ext` (scales from `escale`) by plain loads.
+template <typename KT, bool kExt>
 __device__ __forceinline__ void copy_rows(unsigned char* tile,
                                           const KT* pool, const float* scale,
                                           float* sscale, const long long* rid,
-                                          int n, int hd, const Smem& L) {
+                                          int n, int hd, const Smem& L,
+                                          const unsigned char* ext,
+                                          const unsigned char* escale,
+                                          long long estride, bool any_ext) {
   const int row_bytes = hd * static_cast<int>(sizeof(KT));
   const int cb = row_bytes % 16 ? 8 : 16;
   const int per_row = row_bytes / cb;
@@ -214,7 +269,7 @@ __device__ __forceinline__ void copy_rows(unsigned char* tile,
   const int dt = kThreads / per_row, dj = kThreads % per_row;
   // the usual case: a thread copies the same chunk of every row it takes,
   // unrolled, without the general loop's wrap test below
-  if (cb == 16 && dj == 0) {
+  if (cb == 16 && dj == 0 && !any_ext) {
     const unsigned char* base =
         reinterpret_cast<const unsigned char*>(pool) + j * 16;
 #pragma unroll 4
@@ -223,12 +278,21 @@ __device__ __forceinline__ void copy_rows(unsigned char* tile,
     t = n;
   }
   while (t < n) {
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(pool + rid[t] * hd) + j * cb;
-    if (cb == 16)
-      cp_async<16>(at(tile, t, j * 16, L), src);
-    else
-      cp_async<8>(at(tile, t, j * 8, L), src);
+    const long long r = rid[t];
+    if (kExt && r < 0) {
+      const unsigned char* src = ext_row(ext, r, estride, row_bytes) + j * cb;
+      if (cb == 16)
+        *reinterpret_cast<uint4*>(at(tile, t, j * 16, L)) = ld_ext16(src);
+      else
+        *reinterpret_cast<uint2*>(at(tile, t, j * 8, L)) = ld_ext8(src);
+    } else {
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(pool + r * hd) + j * cb;
+      if (cb == 16)
+        cp_async<16>(at(tile, t, j * 16, L), src);
+      else
+        cp_async<8>(at(tile, t, j * 8, L), src);
+    }
     t += dt;
     j += dj;
     if (j >= per_row) {
@@ -237,20 +301,31 @@ __device__ __forceinline__ void copy_rows(unsigned char* tile,
     }
   }
   if (scale != nullptr)
-    for (int t2 = threadIdx.x; t2 < n; t2 += kThreads)
-      cp_async<4>(sscale + t2, scale + rid[t2]);
+    for (int t2 = threadIdx.x; t2 < n; t2 += kThreads) {
+      const long long r = rid[t2];
+      if (kExt && r < 0)
+        sscale[t2] = ld_ext4(ext_row(escale, r, estride, 4));
+      else
+        cp_async<4>(sscale + t2, scale + r);
+    }
 }
 
 // One split of one (kv head, slot): rows [s R, s R + R) of the slot's
-// view, capped at pos[b].  REP is the smallest power of two >= rep.
-template <typename QT, typename KT, int REP>
+// view, capped at pos[b].  REP is the smallest power of two >= rep;
+// kExt: the table may name extension-tier rows.
+template <typename QT, typename KT, int REP, bool kExt>
 __global__ void __launch_bounds__(kThreads, REP >= 8 ? 2 : 3)
 paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ pk,
                    const KT* __restrict__ pv, const float* __restrict__ ks,
                    const float* __restrict__ vs,
                    const int* __restrict__ table, const int* __restrict__ pos,
                    float* __restrict__ acc_out, float* __restrict__ ml_out,
-                   int n_kv, int rep, int hd, int bt, int bmax, int R) {
+                   int n_kv, int rep, int hd, int bt, int bmax, int R,
+                   const unsigned char* __restrict__ ek,
+                   const unsigned char* __restrict__ ev,
+                   const unsigned char* __restrict__ eks,
+                   const unsigned char* __restrict__ evs,
+                   long long ext_stride, int n_dev) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   const int g = blockIdx.x;
   const int b = blockIdx.y;
@@ -277,13 +352,24 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ pk,
   unsigned char* kt = smem + L.tiles;
   unsigned char* vt = kt + R * L.stride;
 
-  // pool row of each of the split's rows, as (row * n_kv + g)
+  // pool row of each of the split's rows, as (row * n_kv + g); an
+  // extension-tier row as -1 - (ext block << kExtShift | row in block)
+  const bool ext = kExt && tid < n && blk >= n_dev;
   if (tid < n)
-    rid[tid] = (static_cast<long long>(blk) * bt + t % bt) * n_kv + g;
-  __syncthreads();
-  copy_rows<KT>(kt, pk, kQuant ? ks : nullptr, ksc, rid, n, hd, L);
+    rid[tid] = ext ? -1 - ((static_cast<long long>(blk - n_dev)
+                            << kExtShift) |
+                           ((t % bt) * n_kv + g))
+                   : (static_cast<long long>(blk) * bt + t % bt) * n_kv + g;
+  bool any_ext = false;
+  if constexpr (kExt)
+    any_ext = __syncthreads_or(ext);
+  else
+    __syncthreads();
+  copy_rows<KT, kExt>(kt, pk, kQuant ? ks : nullptr, ksc, rid, n, hd, L, ek,
+                      eks, ext_stride, any_ext);
   cp_commit();
-  copy_rows<KT>(vt, pv, kQuant ? vs : nullptr, vsc, rid, n, hd, L);
+  copy_rows<KT, kExt>(vt, pv, kQuant ? vs : nullptr, vsc, rid, n, hd, L, ev,
+                      evs, ext_stride, any_ext);
   cp_commit();
   // the merge kernel may launch now; it waits for this grid to end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -294,7 +380,7 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ pk,
   for (int i = tid; i < REP * hd; i += kThreads)
     qs[i] = i < rep * hd ? to_f(qb[i]) : 0.f;
   cp_wait<1>();                               // this thread's K rows
-  __syncthreads();                            // everyone's, and q
+  __syncthreads();                 // everyone's (ext rows' stores too), q
 
   // scores: the P = 256 / R lanes of a row, 32 / P apart in one warp,
   // each sum a range of its chunks (each element dequantized once) for
@@ -450,13 +536,22 @@ paged_merge_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
   }
 }
 
+// the extension tier of one call: base pointers, bytes between two of
+// its blocks, and the first table id that names it
+struct Ext {
+  const unsigned char *k, *v, *ks, *vs;
+  long long stride;
+  int n_dev;
+};
+
 template <typename QT, typename KT, typename OT, int REP>
 int launch(const void* q, const void* pk, const void* pv, const void* ks,
            const void* vs, const void* table, const void* pos, void* out,
            void* work, int B, int n_kv, int rep, int hd, int bt, int bmax,
-           int R, cudaStream_t stream) {
+           int R, const Ext& e, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  auto kernel = paged_split_kernel<QT, KT, REP>;
+  auto kernel = e.n_dev == INT_MAX ? paged_split_kernel<QT, KT, REP, false>
+                                   : paged_split_kernel<QT, KT, REP, true>;
   const Smem L(R, rep, REP, hd, static_cast<int>(sizeof(KT)), kQuant);
   if (L.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -475,7 +570,8 @@ int launch(const void* q, const void* pk, const void* pv, const void* ks,
       static_cast<const QT*>(q), static_cast<const KT*>(pk),
       static_cast<const KT*>(pv), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(pos), acc, ml, n_kv, rep, hd, bt, bmax, R);
+      static_cast<const int*>(pos), acc, ml, n_kv, rep, hd, bt, bmax, R,
+      e.k, e.v, e.ks, e.vs, e.stride, e.n_dev);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -498,8 +594,8 @@ template <typename QT, typename KT, typename OT>
 int launch_rep(const void* q, const void* pk, const void* pv, const void* ks,
                const void* vs, const void* table, const void* pos, void* out,
                void* work, int B, int n_kv, int rep, int hd, int bt, int bmax,
-               int R, cudaStream_t stream) {
-#define PA_ARGS q, pk, pv, ks, vs, table, pos, out, work, B, n_kv, rep, hd, bt, bmax, R, stream
+               int R, const Ext& e, cudaStream_t stream) {
+#define PA_ARGS q, pk, pv, ks, vs, table, pos, out, work, B, n_kv, rep, hd, bt, bmax, R, e, stream
   if (rep <= 1) return launch<QT, KT, OT, 1>(PA_ARGS);
   if (rep <= 2) return launch<QT, KT, OT, 2>(PA_ARGS);
   if (rep <= 4) return launch<QT, KT, OT, 4>(PA_ARGS);
@@ -510,9 +606,9 @@ int launch_rep(const void* q, const void* pk, const void* pv, const void* ks,
 int decode(const void* q, const void* pk, const void* pv, const void* ks,
            const void* vs, const void* table, const void* pos, void* out,
            void* work, int B, int n_kv, int rep, int hd, int bt, int bmax,
-           int R, int q_dtype, int kv_dtype, cudaStream_t s) {
+           int R, int q_dtype, int kv_dtype, const Ext& e, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-#define PA_ARGS q, pk, pv, ks, vs, table, pos, out, work, B, n_kv, rep, hd, bt, bmax, R, s
+#define PA_ARGS q, pk, pv, ks, vs, table, pos, out, work, B, n_kv, rep, hd, bt, bmax, R, e, s
   if (q_dtype == 0) {
     if (kv_dtype == 0) return launch_rep<float, float, float>(PA_ARGS);
     if (kv_dtype == 1) return launch_rep<float, bf16, float>(PA_ARGS);
@@ -530,24 +626,36 @@ int decode(const void* q, const void* pk, const void* pv, const void* ks,
 
 // Launches on `stream_ptr` of card `device` (made current for the
 // launches, then restored: cheaper than a device guard on the host).
+// ek / ev / eks / evs, ext_stride and n_dev: the extension tier (see the
+// header); null pointers and n_dev = INT_MAX when there is none.
 extern "C" int paged_attention_decode(const void* q, const void* pk,
                                       const void* pv, const void* ks,
                                       const void* vs, const void* table,
                                       const void* pos, void* out, void* work,
                                       int B, int n_kv, int rep, int hd,
                                       int bt, int bmax, int split_rows,
-                                      int q_dtype, int kv_dtype, int device,
-                                      void* stream_ptr) {
+                                      int q_dtype, int kv_dtype,
+                                      const void* ek, const void* ev,
+                                      const void* eks, const void* evs,
+                                      long long ext_stride, int n_dev,
+                                      int device, void* stream_ptr) {
   const int R = split_rows;
   if (B <= 0 || n_kv <= 0 || rep <= 0 || rep > kRepMax || hd <= 0 ||
       hd > 256 || hd % 8 || bt <= 0 || bmax <= 0 || R < 8 ||
-      R > kThreads || (R & (R - 1)))
+      R > kThreads || (R & (R - 1)) || n_dev <= 0 ||
+      static_cast<long long>(bt) * n_kv > (1LL << kExtShift) ||
+      (n_dev != INT_MAX && (ek == nullptr || ev == nullptr ||
+                            ext_stride <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Ext e = {static_cast<const unsigned char*>(ek),
+                 static_cast<const unsigned char*>(ev),
+                 static_cast<const unsigned char*>(eks),
+                 static_cast<const unsigned char*>(evs), ext_stride, n_dev};
   int prev = device;
   cudaGetDevice(&prev);
   if (prev != device) cudaSetDevice(device);
   const int err = decode(q, pk, pv, ks, vs, table, pos, out, work, B, n_kv,
-                         rep, hd, bt, bmax, R, q_dtype, kv_dtype,
+                         rep, hd, bt, bmax, R, q_dtype, kv_dtype, e,
                          static_cast<cudaStream_t>(stream_ptr));
   if (prev != device) cudaSetDevice(prev);
   return err;

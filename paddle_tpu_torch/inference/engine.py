@@ -83,20 +83,45 @@ What this slice keeps of the JAX engine:
     sheds it (`Overloaded`, at submit and from the queue).  Each
     finished request is met / missed against its tier's
     `slo_targets` (goodput);
+  * TIERED KV for long context (`hot_window`, `prefetch_depth`; chunked
+    prefill and a host tier required): only each sequence's last
+    `hot_window` blocks, its attention-sink block 0 and the rows the
+    current chunk or step writes must stay in the device pool.  Under
+    pool pressure, between cache reclaim and preemption, colder blocks
+    spill to a host EXTENSION tier (`_spill_blocks`: `host_pool_blocks`
+    rows of pinned memory, allocated once; each row stamped with a
+    CRC32C once its copy has landed); table ids >= `kv_blocks` address
+    its rows, and every serving program reads through that one address
+    space (K4 reads the pinned rows in place inside the decode and
+    verify graphs; the gather path over the concatenated view).  Each
+    step the prefetcher promotes up to `prefetch_depth` cold blocks of
+    running slots back, hottest first, never below `max_slots` free
+    blocks, each checked against its stamp (a mismatch drops the
+    owners to recompute).  Admission allocates lazily and grows the
+    table chunk by chunk, so the device pool may be SMALLER than one
+    `max_len` sequence while device and host tiers together cover it.
+    A park keeps the tier map (`cold_idx`) and a resume restores it;
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
     `Request.result(timeout=)`, and the `llm_engine_*` TTFT / ITL /
-    token / host-gap / `spec_*` / tier / overload metrics.
+    token / host-gap / `spec_*` / tier / overload / tiered-KV metrics.
 
-The JAX engine's other knobs (tiered KV, weight-only int8, meshes, the
-AOT cache, the KV fabric) raise `NotImplementedError` naming their
-ROADMAP item — never silently ignored; so do the `Request` fields of
-the fabric (`prefix_hint`, `session_id`, `handoff`).  Of the ladder,
-the port leaves out the CRC32C stamp on parked host copies (with the
-fabric, (h)), the tiered spill rung ((g)) and the disk tier (a parked
-request is always claimable here).  Its bounded compile count becomes
-a bound on captured graphs: `num_graphs` <= `len(decode_widths) +
-len(verify_widths)`.
+The JAX engine's other knobs (meshes, the AOT cache, the KV fabric)
+raise `NotImplementedError` naming their ROADMAP item — never silently
+ignored; so do the `Request` fields of the fabric (`prefix_hint`,
+`session_id`, `handoff`).  Of the ladder, the port leaves out the
+CRC32C stamp on parked host copies (with the fabric, (h)) and the disk
+tier (a parked request is always claimable here); of tiering, the disk
+leg of the prefetcher (its blocking-miss metrics
+`kv_prefetch_miss_total` / `prefetch_wait_seconds` are registered and
+stay 0).  Its bounded compile count becomes a bound on captured
+graphs: `num_graphs` <= `len(decode_widths) + len(verify_widths)`.
+
+Host writes into pinned memory are not ordered with the card's work,
+so the engine never writes an extension row from the host on the card:
+every spill, promote and park moves its bytes by copies queued on the
+one stream, behind the step in flight, and a row is reused only after
+its last reader is queued before the copy that overwrites it.
 
 The graphs hold the pool by address: everything that writes it
 (prefill, the steps, a swap-in's `scatter_blocks`) writes in place, and
@@ -131,6 +156,7 @@ from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
 from ..observability.slo import SLOTargets, SLOTier
 from ..testing import faults as _faults
+from . import kv_fabric as _kvf
 from .kv_pager import KVPager
 from .ngram_draft import NGramIndex, SpecConfig
 from .overload import OverloadConfig, OverloadController
@@ -144,12 +170,9 @@ _REQ_IDS = itertools.count()
 
 # knobs of the JAX engine this slice does not port: name -> (the values
 # that mean "off", the ROADMAP item that ports it)
-_TIERED = "engine sub-slice (g): tiered KV and long context"
 _FABRIC = "engine sub-slice (h): KV fabric and disaggregated serving"
 _MULTI = "multi-GPU serving"
 _UNPORTED = {
-    "hot_window": ((None,), _TIERED),
-    "prefetch_depth": ((2,), _TIERED),
     "aot_cache": ((None,),
                   "engine sub-slice (j): the AOT serving-program cache"),
     "fabric": ((None,), _FABRIC),
@@ -344,14 +367,17 @@ class _ParkedRequest:
     order.  `mode` "swap": `host` holds its blocks (`n_blocks`, packed
     by `llama_decode.gather_blocks`) in pinned host memory, `event` the
     CUDA event after their copy (None on the CPU); "recompute": the KV
-    was dropped and resume re-prefills prompt + tokens[:-1]."""
+    was dropped and resume re-prefills prompt + tokens[:-1].  Under
+    tiering, `cold_idx` holds the table indices that were in the host
+    extension tier at park time (a swap resume puts those still behind
+    the hot window back there)."""
 
     __slots__ = ("req", "mode", "token", "pos", "gen", "spec_idx",
                  "spec_k", "spec_ema", "host", "event", "n_blocks",
-                 "admit_seq", "t_parked")
+                 "admit_seq", "t_parked", "cold_idx")
 
     def __init__(self, req, mode, token, pos, gen, spec_idx, spec_k,
-                 spec_ema, host, event, n_blocks, admit_seq):
+                 spec_ema, host, event, n_blocks, admit_seq, cold_idx=()):
         self.req = req
         self.mode = mode
         self.token = int(token)
@@ -365,6 +391,7 @@ class _ParkedRequest:
         self.n_blocks = int(n_blocks)
         self.admit_seq = admit_seq
         self.t_parked = time.perf_counter()
+        self.cold_idx = tuple(int(j) for j in cold_idx)
 
 
 class _InflightStep:
@@ -469,10 +496,17 @@ class LLMEngine:
     False), `max_queue` (None = unbounded), `slo_targets` (an
     `SLOTargets`, or a {tier: (ttft_s, itl_s)} dict over the defaults),
     `overload` (None: the ladder disarmed; True, an `OverloadConfig` or
-    an `OverloadController`).  The parameters are in the JAX engine's
-    order; `hot_window`, `prefetch_depth`, `fabric`,
-    `mesh`, `tp`, `sp` and `aot_cache` raise `NotImplementedError`
-    naming their ROADMAP item unless "off".  Single-threaded by design;
+    an `OverloadController`), `hot_window` (None: off; k >= 1 keeps
+    each sequence's last k blocks and its sink block on the device and
+    lets colder ones spill to the host extension tier of
+    `host_pool_blocks` rows; chunked prefill and a host tier required;
+    `kv_blocks` may then go down to the working set of trash + sink + k
+    + one chunk's blocks + 1, with device and host tiers together
+    covering one `max_len` sequence), `prefetch_depth` (blocks the
+    prefetcher may promote a step, >= 1).  The parameters are in the
+    JAX engine's order; `fabric`, `mesh`, `tp`, `sp` and `aot_cache`
+    raise `NotImplementedError` naming their ROADMAP item unless
+    "off".  Single-threaded by design;
     see `serving.LLMServer` for the thread-safe front."""
 
     def __init__(self, model, max_slots=4, max_len=256,
@@ -487,9 +521,8 @@ class LLMEngine:
                  slo_targets=None, overload=None,
                  fabric=None, mesh=None, tp=None, sp=None,
                  overlap="auto", aot_cache=None):
-        _reject_unported(hot_window=hot_window,
-                         prefetch_depth=prefetch_depth, fabric=fabric,
-                         mesh=mesh, tp=tp, sp=sp, aot_cache=aot_cache)
+        _reject_unported(fabric=fabric, mesh=mesh, tp=tp, sp=sp,
+                         aot_cache=aot_cache)
         self.cfg = model.config
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -618,17 +651,81 @@ class LLMEngine:
         if preempt_policy not in ("auto", "swap", "recompute"):
             raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
         self.preempt_policy = preempt_policy
-        if self.kv_blocks < 1 + bmax:
-            raise ValueError(
-                f"kv_blocks={self.kv_blocks} cannot cover one "
-                f"max_len sequence (+trash block): need >= "
-                f"{1 + bmax}")
+        # tiered KV: each sequence's last `hot_window` blocks (plus the
+        # attention-sink block 0 and the write frontier) stay in the
+        # device pool; colder ones spill to the host extension tier
+        self.hot_window = None if hot_window is None else int(hot_window)
+        self.prefetch_depth = int(prefetch_depth)
+        if self.prefetch_depth < 1:
+            raise ValueError("prefetch_depth must be >= 1")
+        self._tiered = self.hot_window is not None
+        if self._tiered:
+            if self.hot_window < 1:
+                raise ValueError("hot_window must be >= 1 (or None to "
+                                 "disable tiering)")
+            if self.prefill_chunk is None:
+                raise ValueError("hot_window requires chunked prefill "
+                                 "(prefill_chunk)")
+            if self.host_pool_blocks <= 0:
+                raise ValueError("hot_window requires a host tier "
+                                 "(host_pool_blocks > 0): spilled "
+                                 "blocks live there")
+        # pool-coverage floor: an untiered pool holds one max_len
+        # sequence; a tiered one only each slot's frontier working set
+        # (trash + sink + hot window + one chunk's write span), the
+        # host tier the rest
+        if not self._tiered:
+            if self.kv_blocks < 1 + bmax:
+                raise ValueError(
+                    f"kv_blocks={self.kv_blocks} cannot cover one "
+                    f"max_len sequence (+trash block): need >= "
+                    f"{1 + bmax}")
+        else:
+            span = -(-self.prefill_chunk // bt) + 1
+            wset = 1 + 1 + self.hot_window + span
+            if self.kv_blocks < wset:
+                raise ValueError(
+                    f"kv_blocks={self.kv_blocks} cannot hold the "
+                    f"tiered working set (trash + sink + "
+                    f"hot_window={self.hot_window} + chunk span "
+                    f"{span}): need >= {wset}")
+            if self.kv_blocks - 1 + self.host_pool_blocks < bmax:
+                raise ValueError(
+                    f"device + host tiers "
+                    f"({self.kv_blocks - 1} + {self.host_pool_blocks} "
+                    f"blocks) cannot cover one max_len sequence: "
+                    f"need >= {bmax}")
         self._pager = KVPager(self.kv_blocks, bt, self.max_slots, bmax,
                               host_pool_blocks=self.host_pool_blocks,
-                              kv_dtype=self.kv_dtype)
+                              kv_dtype=self.kv_dtype,
+                              ext_blocks=(self.host_pool_blocks
+                                          if self._tiered else 0))
         self._kvpool = D.init_paged_cache(self.cfg, self.kv_blocks, bt,
                                           dtype, kv_dtype=kv_dtype,
                                           device=self.device)
+        # the host extension tier: one row a block (`gather_blocks`'
+        # layout), pinned on the card and allocated once at its full
+        # size, so the graphs hold its address; a CRC32C stamp a row,
+        # set once the row's copy has landed (`_ext_landing`: row ->
+        # the CUDA event after its copy)
+        self._hext = None
+        self._hext_crc: list = []
+        self._ext_landing: dict = {}
+        if self._tiered:
+            self._hext = D.KVTier.empty(self._kvpool, self.host_pool_blocks,
+                                        pin=on_cuda)
+            self._hext_crc = [None] * self.host_pool_blocks
+            crc, landing, pager = (self._hext_crc, self._ext_landing,
+                                   self._pager)
+
+            def on_ext_free(e):
+                # a closure over the tier's bookkeeping, not the engine:
+                # the pager holding the engine would be a reference
+                # cycle around its CUDA graphs
+                crc[e] = None
+                landing.pop(e, None)
+                pager.host_release(1)
+            self._pager.on_ext_free = on_ext_free
         # bytes of one block over every layer, K and V (int8 scales
         # included): the unit of swap accounting
         self._kv_block_bytes = sum(t.numel() // self.kv_blocks
@@ -699,10 +796,13 @@ class LLMEngine:
 
         # the decode step as CUDA graphs (one per width) on a CUDA
         # model; the CPU runs the same step eagerly
+        step_kw = dict(self._decode_kw)
+        if self._tiered:
+            step_kw["hpool"] = self._hext
         self._decode_logits = _decode_fn(self.state, self.cfg, self._kvpool,
-                                         self.decode_kernel, self._decode_kw)
+                                         self.decode_kernel, step_kw)
         self._verify_logits = _verify_fn(self.state, self.cfg, self._kvpool,
-                                         self.decode_kernel, self._decode_kw)
+                                         self.decode_kernel, step_kw)
         self._graphs = self._vgraphs = None
         if on_cuda:
             self._graphs = DecodeGraphs(self._decode_logits,
@@ -847,6 +947,34 @@ class LLMEngine:
             "park_time_seconds",
             help="park -> resume wall time per preemption",
             buckets=log_buckets(1e-4, 600.0, per_decade=3))
+        # tiered KV
+        self._m_kv_spilled = reg.counter(
+            "kv_blocks_spilled_total",
+            help="cold KV blocks demoted device -> host extension tier "
+                 "by the frontier-window spill rung (tiered mode)")
+        self._m_kv_prefetched = reg.counter(
+            "kv_blocks_prefetched_total",
+            help="KV blocks promoted back ahead of need by the prefetch "
+                 "tick (extension-tier promotes)")
+        self._m_kv_prefetch_miss = reg.counter(
+            "kv_prefetch_miss_total",
+            help="blocks the prefetcher did NOT land in time (the disk "
+                 "leg's blocking fetch; 0 until the disk tier is ported)")
+        self._m_prefetch_wait = reg.histogram(
+            "prefetch_wait_seconds",
+            help="stall served inline by a blocking fetch on a prefetch "
+                 "miss (per miss event; empty until the disk tier is "
+                 "ported)",
+            buckets=log_buckets(1e-4, 60.0, per_decade=3))
+        integ = reg.counter(
+            "kv_integrity_failures_total",
+            help="CRC32C mismatches caught at a KV transfer boundary, by "
+                 "path; each degraded to recompute — corrupted bytes are "
+                 "never served (only \"ext\", the extension tier's "
+                 "promotes, is checked here)", labelnames=("path",))
+        self._m_integrity = {p: integ.labels(path=p) for p in
+                             ("pull", "ticket", "disk", "manifest",
+                              "swap", "handoff", "ext")}
         # speculative decoding
         self._m_spec_steps = reg.counter(
             "spec_verify_steps_total",
@@ -1217,11 +1345,12 @@ class LLMEngine:
                 if self._slots[s] is None and s not in self._prefill]
 
     def _alloc_blocks(self, k):
-        """Pool allocation with the preempt ladder's first rung built
-        in: on shortage, reclaim unpinned prefix-cache blocks before
-        giving up.  The `kv.alloc` fault site makes a shortage testable:
-        an injected fault is a FAILED allocation (a schedulable event),
-        never an error."""
+        """Pool allocation with the preempt ladder's first rungs built
+        in: on shortage, reclaim unpinned prefix-cache blocks, then
+        (tiered) spill cold blocks to the host tier, before giving up.
+        The `kv.alloc` fault site makes a shortage testable: an injected
+        fault is a FAILED allocation (a schedulable event), never an
+        error."""
         try:
             _faults.fire("kv.alloc", need=k, free=self._pager.free_blocks)
         except _faults.InjectedFault:
@@ -1229,6 +1358,11 @@ class LLMEngine:
             return None
         got = self._pager.alloc(k, count_failure=False)
         if got is None and self._reclaim_cache(k - self._pager.free_blocks):
+            got = self._pager.alloc(k, count_failure=False)
+        if got is None and self._spill_blocks(k - self._pager.free_blocks):
+            # the tiered rung: between cache reclaim and preemption,
+            # because spilling keeps every request RUNNING where
+            # preemption stalls one
             got = self._pager.alloc(k, count_failure=False)
         if got is None:
             # one shortage counts once, however many attempts it took
@@ -1246,6 +1380,264 @@ class LLMEngine:
             self._m_kv_reclaimed.inc(freed)
             self._note_cache()
         return freed
+
+    # -- tiered KV -----------------------------------------------------------
+
+    def _ext_rows_landed(self, rows):
+        """Extension rows `rows` were just written by copies queued on
+        the stream: stamp their CRC32C now on the CPU; on the card
+        record one CUDA event after the copies, and `_stamp_ext` stamps
+        them once it has passed (the stamp needs the bytes on the
+        host)."""
+        if self.device.type == "cpu":
+            for e in rows:
+                self._hext_crc[e] = self._ext_crc(e)
+            return
+        event = torch.cuda.Event()
+        event.record()
+        for e in rows:
+            self._ext_landing[e] = event
+
+    def _ext_crc(self, e):
+        return _kvf.crc32c(self._hext.flat[e].numpy())
+
+    def _stamp_ext(self):
+        """Stamp the extension rows whose copies have landed (never
+        waits: a row still in flight is stamped at a later step)."""
+        for e, event in list(self._ext_landing.items()):
+            if event.query():
+                del self._ext_landing[e]
+                self._hext_crc[e] = self._ext_crc(e)
+
+    def _gather_rows(self, ids):
+        """The blocks `ids` in `gather_blocks`' flat layout on the
+        pool's device, whatever their tier: device blocks gathered from
+        the pool, extension rows copied in behind them (their places
+        gather the trash block first).  What a park carries, so its
+        bytes are the same whether or not a block had spilled."""
+        pager = self._pager
+        dev = [0 if pager.is_ext(b) else b for b in ids]
+        flat = D.gather_blocks(self._kvpool,
+                               self._upload(np.asarray(dev, np.int64)))
+        rows = flat.view(len(ids), -1)
+        for j, b in enumerate(ids):
+            if pager.is_ext(b):
+                rows[j].copy_(self._hext.flat[pager.ext_index(b)],
+                              non_blocking=True)
+        return flat
+
+    def _spill_blocks(self, need):
+        """The tiered rung: move up to `need` cold device blocks
+        (behind every sequence's hot window, never its sink block) to
+        the host extension tier, coldest first — one gather for the
+        batch, then one copy a row into the pinned tier, each row
+        stamped once landed — and remap every table and trie node that
+        names them.  Returns the number of device blocks freed."""
+        if not self._tiered or need <= 0:
+            return 0
+        pager = self._pager
+        batch, seen = [], set()
+        for _slot, _idx, bid in pager.spill_candidates(self._pos,
+                                                       self.hot_window):
+            if len(batch) >= need:
+                break
+            if bid in seen:
+                continue
+            if not pager.host_reserve(1):
+                break
+            gid = pager.ext_alloc()
+            if gid is None:
+                pager.host_release(1)
+                break
+            batch.append((bid, gid))
+            seen.add(bid)
+        if not batch:
+            return 0
+        rows = self._gather_rows([b for b, _ in batch]).view(len(batch), -1)
+        ext = [pager.ext_index(g) for _, g in batch]
+        for j, e in enumerate(ext):
+            self._hext.flat[e].copy_(rows[j], non_blocking=True)
+        self._ext_rows_landed(ext)
+        mapping = dict(batch)
+        pager.remap_blocks(mapping)
+        if self._pcache is not None:
+            self._pcache.remap_blocks(mapping)
+        self._m_kv_spilled.inc(len(batch))
+        self._note_kv()
+        return len(batch)
+
+    def _prefetch_tick(self):
+        """One step's prefetch budget (`prefetch_depth` blocks): promote
+        running slots' extension blocks back to the device.  Rides the
+        `kv.prefetch` fault site: an injected fault skips the tick, and
+        the extension rows are read in place instead."""
+        if not self._tiered:
+            return
+        try:
+            _faults.fire("kv.prefetch", depth=self.prefetch_depth,
+                         ext_used=self._pager.ext_used)
+        except _faults.InjectedFault:
+            return
+        self._promote_ext(self.prefetch_depth)
+
+    def _promote_ext(self, budget):
+        """Promote up to `budget` extension blocks of running slots back
+        to the device pool, hottest (nearest its owner's frontier) first,
+        while the pool keeps more than `max_slots` free blocks (a step's
+        headroom).  Each row is checked against its CRC32C stamp first:
+        a row that fails never reaches the pool, its owners degrade to
+        recompute (`_handle_ext_corruption`).  A row whose copy has not
+        landed yet (no stamp) waits for a later tick.  Returns the
+        blocks promoted."""
+        pager = self._pager
+        cands, seen = [], set()
+        for slot, blocks in enumerate(pager.slot_blocks):
+            if self._slots[slot] is None and slot not in self._prefill:
+                continue
+            fb = int(self._pos[slot]) // pager.block_tokens
+            for idx, bid in enumerate(blocks):
+                if pager.is_ext(bid) and bid not in seen:
+                    seen.add(bid)
+                    cands.append((fb - idx, bid))
+        if not cands:
+            return 0
+        cands.sort()
+        take = []
+        for _d, bid in cands:
+            if len(take) >= budget:
+                break
+            if pager.free_blocks - len(take) <= self.max_slots:
+                break   # promotion must never starve the decode step
+            if pager.ext_index(bid) in self._ext_landing:
+                continue
+            take.append(bid)
+        if not take:
+            return 0
+        got = pager.alloc(len(take), count_failure=False)
+        if got is None:
+            return 0
+        good = []
+        for bid in take:
+            if pager.refcount(bid) <= 0:
+                continue        # freed by an earlier corruption's park
+            e = pager.ext_index(bid)
+            if self._ext_crc(e) != self._hext_crc[e]:
+                self._handle_ext_corruption(bid)
+                continue
+            good.append(bid)
+        # a corruption parks or requeues every owner of its block, whose
+        # release may drop blocks checked before it
+        good = [b for b in good if pager.refcount(b) > 0]
+        mapping = dict(zip(good, got))
+        for bid in got[len(good):]:
+            pager.decref(bid)
+        if not mapping:
+            return 0
+        flat = self._hext.select([pager.ext_index(b) for b in good],
+                                 self.device).flat.view(-1)
+        D.scatter_blocks(self._kvpool, self._upload(
+            np.asarray(got[:len(good)], np.int64)), flat)
+        pager.remap_blocks(mapping)
+        if self._pcache is not None:
+            self._pcache.remap_blocks(mapping)
+        self._m_kv_prefetched.inc(len(mapping))
+        self._note_kv()
+        return len(mapping)
+
+    def _handle_ext_corruption(self, bid):
+        """An extension row failed its promote-time CRC: its KV is
+        untrusted.  Drop every cached path through it and degrade each
+        owning slot — a mid-prefill slot requeues, a decoder parks in
+        recompute mode (its resume replays prompt + tokens).  The block
+        id frees as its owners let go."""
+        self._m_integrity["ext"].inc()
+        if self._pcache is not None:
+            self._pcache.drop_block(bid)
+        for slot in range(self.max_slots):
+            if bid not in self._pager.slot_blocks[slot]:
+                continue
+            if slot in self._prefill:
+                self._requeue_prefill(slot)
+            elif self._slots[slot] is not None:
+                self._park_slot(slot, mode="recompute")
+
+    def _tier_table(self, slot):
+        """`slot`'s table row for an eager prefill chunk, and the host
+        tier it reads (None when every block is on the device): only
+        the extension rows the row names, copied to the device and
+        renumbered from `kv_blocks` on."""
+        row = self._pager.table[slot].copy()
+        if not self._tiered:
+            return row, None
+        pager = self._pager
+        ext = [j for j, b in enumerate(row) if pager.is_ext(b)]
+        if not ext:
+            return row, None
+        rows = [pager.ext_index(row[j]) for j in ext]
+        for k, j in enumerate(ext):
+            row[j] = self.kv_blocks + k
+        return row, self._hext.select(rows, self.device)
+
+    def _check_hot(self, slot, lo, hi):
+        """Tiered: the rows [lo, hi) that a chunk or step writes for
+        `slot` lie in device blocks (the spill policy keeps every write
+        frontier hot; the graphs cannot check it on the card)."""
+        if not self._tiered:
+            return
+        pager, bt = self._pager, self.kv_block_tokens
+        blocks = pager.slot_blocks[slot][lo // bt:(hi - 1) // bt + 1]
+        if any(pager.is_ext(b) for b in blocks):
+            raise RuntimeError(f"slot {slot} writes rows [{lo}, {hi}) into "
+                               f"the extension tier")
+
+    def _place_resume_blocks(self, pr, need):
+        """A resuming slot's `need` block ids in table order, honouring
+        its park-time tier map: indices in `pr.cold_idx` still behind
+        the resumed frontier's hot window go back to the extension tier
+        (while it has room), the rest come from the device pool.  None
+        on a device-pool shortage (every placement undone)."""
+        pager = self._pager
+        cold = []
+        if self._tiered and pr.cold_idx:
+            fb = pr.pos // self.kv_block_tokens
+            for j in sorted(set(pr.cold_idx)):
+                if not (1 <= j <= fb - self.hot_window) or j >= need:
+                    continue
+                if not pager.host_reserve(1):
+                    break
+                gid = pager.ext_alloc()
+                if gid is None:
+                    pager.host_release(1)
+                    break
+                cold.append((j, gid))
+        got = self._alloc_blocks(need - len(cold))
+        if got is None:
+            for _j, gid in cold:
+                pager.decref(gid)
+            return None
+        cm = dict(cold)
+        it = iter(got)
+        return [cm[j] if j in cm else next(it) for j in range(need)]
+
+    def _install_resume_blocks(self, slot, pr, ids, flat):
+        """Write a resumed slot's parked blocks (`flat`, on the device)
+        into their placed ids: device blocks in place
+        (`scatter_blocks`; extension positions aim at the trash block),
+        extension rows by copies into the host tier, stamped once
+        landed; then the slot owns `ids`."""
+        pager = self._pager
+        n = pr.n_blocks
+        dev = [0 if pager.is_ext(b) else b for b in ids[:n]]
+        D.scatter_blocks(self._kvpool, self._upload(np.asarray(dev, np.int64)),
+                         flat)
+        ext = [(j, pager.ext_index(b)) for j, b in enumerate(ids[:n])
+               if pager.is_ext(b)]
+        if ext:
+            rows = flat.view(n, -1)
+            for j, e in ext:
+                self._hext.flat[e].copy_(rows[j], non_blocking=True)
+            self._ext_rows_landed([e for _, e in ext])
+        pager.adopt(slot, ids)
 
     def _admit(self):
         """Move queued requests into free slots, after every parked
@@ -1272,6 +1664,14 @@ class LLMEngine:
                 matched, bids, nodes = self._pcache.match(req.prompt)
                 self._pcache.acquire(nodes)
             need = self._pager.blocks_for(L + 1) - len(bids)
+            if self._tiered and need > 0:
+                # tiered admission allocates only the first uncached
+                # chunk's blocks; `_run_chunks` grows the table chunk by
+                # chunk, spilling cold blocks as the frontier advances —
+                # a prompt whose KV exceeds the device pool streams
+                # through it
+                rows_now = min(matched + self.prefill_chunk, L + 1)
+                need = max(self._pager.blocks_for(rows_now) - len(bids), 0)
             got = self._alloc_blocks(need) if need > 0 else []
             if got is None:
                 if self._pcache is not None:
@@ -1328,13 +1728,19 @@ class LLMEngine:
         that guarantee for the LOWEST tier and caps its chunks to a
         shrunken share of the budget.  A slot prefills `ps.ids` from
         its frontier `ps.off` (past any cache hit); a
-        drop-and-recompute restore samples nothing at its final chunk."""
+        drop-and-recompute restore samples nothing at its final chunk.
+        Tiered, each chunk first grows the slot's table over its rows,
+        climbing the preempt ladder on a shortage (the spill rung first;
+        the ladder may requeue this very slot), and reads the extension
+        rows its table names."""
         rung = self.overload_rung
         low_budget = budget if rung < 2 else int(
             budget * self._overload.cfg.degraded_prefill_frac)
         chunks = 0
         for slot in list(self._prefill.keys()):
-            ps = self._prefill[slot]
+            ps = self._prefill.get(slot)
+            if ps is None:
+                continue        # requeued by an earlier slot's ladder
             req = ps.req
             degraded = rung >= 2 and req.tier == SLOTier.lowest()
             L = ps.ids.size
@@ -1345,14 +1751,26 @@ class LLMEngine:
                         break       # out of the degraded share: next slot
                 elif chunks > 0 and C > budget:
                     return
+                if self._tiered:
+                    stalled = False
+                    while not self._ensure_rows(slot, min(ps.off + C, L)):
+                        if not self._preempt_one(protect=slot) \
+                                or self._prefill.get(slot) is not ps:
+                            stalled = True
+                            break
+                    if stalled or self._prefill.get(slot) is not ps:
+                        break
+                    self._check_hot(slot, ps.off, min(ps.off + C, L))
                 ids = np.zeros((1, C), np.int32)
                 seg = ps.ids[ps.off:ps.off + C]
                 ids[0, :seg.size] = seg
                 final = ps.off + C >= L
+                table, hpool = self._tier_table(slot)
+                tier = {} if hpool is None else {"hpool": hpool}
                 tc = _tr.t0()
                 x, _ = D.paged_prefill_chunk(
                     self.state, self.cfg, self._upload(ids), ps.off,
-                    self._upload(self._pager.table[slot]), self._kvpool)
+                    self._upload(table), self._kvpool, **tier)
                 tok = None
                 if final and ps.restore is None:
                     tok = self._first_token(slot, req, x[:, L - 1 - ps.off])
@@ -1554,19 +1972,26 @@ class LLMEngine:
             self._m_queue.set(len(self._queue))
         self._m_prefill_requeued.inc()
 
-    def _park_slot(self, slot):
+    def _park_slot(self, slot, mode=None):
         """Park a decoding slot: swap its blocks to the pinned host tier
         or — for a shallow slot under "auto", a full host tier or an
         injected swap fault — drop them and recompute at resume.  The
         record keeps the last token, depth and generator, so the resumed
-        stream is the unpreempted one.  No step is in flight here (the
-        ladder runs after the commit), and the blocks are freed only
-        after their gather was queued: every later write to them is
-        queued behind it on the same stream."""
+        stream is the unpreempted one, and (tiered, swap) which table
+        indices were in the extension tier.  `mode` overrides the
+        policy (an extension row that failed its CRC forces
+        "recompute").  No step is in flight here (the ladder runs after
+        the commit), and the blocks are freed only after their gather
+        was queued: every later write to them is queued behind it on
+        the same stream."""
         req = self._slots[slot]
         pos = int(self._pos[slot])
         nb = len(self._pager.slot_blocks[slot])
-        mode = self.preempt_policy
+        cold_idx = tuple(j for j, b in
+                         enumerate(self._pager.slot_blocks[slot])
+                         if self._pager.is_ext(b)) if self._tiered else ()
+        if mode is None:
+            mode = self.preempt_policy
         if mode == "auto":
             mode = ("swap" if pos > 2 * self.kv_block_tokens
                     else "recompute")
@@ -1578,7 +2003,8 @@ class LLMEngine:
                             self._gens[slot], self._spec_idx[slot],
                             self._spec_k[slot], self._spec_ema[slot],
                             host, event, nb if mode == "swap" else 0,
-                            self._slot_seq[slot])
+                            self._slot_seq[slot],
+                            cold_idx if mode == "swap" else ())
         self._parked.append(pr)
         _tr.point("req/park", trace_id=req.trace_id, rid=req.rid,
                   mode=mode, pos=pos)
@@ -1598,8 +2024,7 @@ class LLMEngine:
             return None
         if not self._pager.host_reserve(nb):
             return None
-        ids = np.asarray(self._pager.slot_blocks[slot][:nb], np.int64)
-        flat = D.gather_blocks(self._kvpool, self._upload(ids))
+        flat = self._gather_rows(self._pager.slot_blocks[slot][:nb])
         event = None
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype,
@@ -1649,7 +2074,7 @@ class LLMEngine:
         under overlap, behind the step in flight), so nothing waits
         here; the resumed slot first decodes in the next dispatch."""
         need = max(pr.n_blocks, self._pager.blocks_for(pr.pos + 1))
-        got = self._alloc_blocks(need)
+        got = self._place_resume_blocks(pr, need)
         if got is None:
             return False
         try:
@@ -1663,9 +2088,7 @@ class LLMEngine:
             self._swap_ready += 1
         flat = pr.host if pr.event is None else \
             pr.host.to(self.device, non_blocking=True)
-        ids = np.asarray(got[:pr.n_blocks], np.int64)
-        D.scatter_blocks(self._kvpool, self._upload(ids), flat)
-        self._pager.adopt(slot, got)
+        self._install_resume_blocks(slot, pr, got, flat)
         self._unpark(pr)
         self._install_parked(slot, pr)
         if self._pcache is not None:
@@ -1776,11 +2199,14 @@ class LLMEngine:
         t = _tr.t0()
         self._reap_cancelled()
         self._overload_tick()
+        if self._tiered:
+            self._stamp_ext()
         self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
         self._admit()
         _tr.end("step/admit", t)
+        self._prefetch_tick()
         drafts, cost = self._draft()
         if self._prefill:
             self._run_chunks(self.step_token_budget - self.num_active
@@ -1812,6 +2238,12 @@ class LLMEngine:
             self._t_prev_step = None        # idle gap: disarm the EMA clock
             self._t_retire = None           # ... and the host-gap anchor
             return self.has_work
+        for slot in range(self.max_slots):
+            # every row the step writes (a mid-prefill slot's garbage
+            # row at its frontier included)
+            pos = int(self._pos[slot])
+            self._check_hot(slot, pos,
+                             pos + (1 if widths is None else widths[slot]))
         run()
         self._m_active.set(self.num_active)
         return True
@@ -1839,6 +2271,8 @@ class LLMEngine:
         t = _tr.t0()
         self._reap_cancelled(decoding=self._inflight is None)
         self._overload_tick()
+        if self._tiered:
+            self._stamp_ext()
         self._try_resume()
         _tr.end("step/schedule", t)
         t = _tr.t0()
@@ -1851,6 +2285,9 @@ class LLMEngine:
             self._reap_decoding()
             self._try_resume()
             self._admit()
+        # after the commit boundary: a promote whose row fails its CRC
+        # parks a slot, which must not race the step in flight
+        self._prefetch_tick()
         drafts, _ = self._draft()
 
         def dispatch():

@@ -47,6 +47,12 @@ it counted there are taken back and recorded per graph
 (`recorded[w]`), and every replay adds them again, so a kernel's
 count stays "launches that ran on the card".
 
+With a tiered engine (`hot_window`) the step also reads the host
+extension tier: pinned memory allocated once at its full size, whose
+address each graph records (K4 reads it in place).  A spill or promote
+changes only table entries and the tier's bytes, so no graph is
+captured again.
+
 A failed capture or replay raises; nothing falls back to the eager
 step.  The graphs exist only on a CUDA device: the CPU has none, and
 the engine runs the eager steps there.

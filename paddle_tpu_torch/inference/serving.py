@@ -56,8 +56,9 @@ from .engine import (EngineUnhealthy, LLMEngine, QueueFull, Request,
 
 __all__ = ["LLMServer"]
 
-# a fabric counter's operations and integrity paths, all 0 here (the
-# JAX engine's label sets, so /healthz keeps its shape)
+# a fabric counter's operations (all 0 here) and the integrity paths
+# (the JAX engine's label sets, so /healthz keeps its shape; only "ext",
+# the tiered pool's promotes, can count here)
 _FABRIC_OPS = ("pull", "migrate", "spill")
 _INTEGRITY_PATHS = ("pull", "ticket", "disk", "manifest", "swap",
                     "handoff", "ext")
@@ -430,12 +431,14 @@ class LLMServer:
             "preempted": eng.num_parked,
             "kv_blocks_free": eng._pager.free_blocks,
             "kv_blocks_total": eng.kv_blocks - 1,
-            # tiered KV (engine sub-slice (g)) is off
-            "kv_tiered": False,
-            "kv_ext_used": 0,
-            "kv_blocks_spilled": 0,
-            "kv_blocks_prefetched": 0,
-            "kv_prefetch_misses": 0,
+            # tiered KV: spill / promote traffic and extension-tier
+            # occupancy (the miss count stays 0 until the disk leg of
+            # the prefetcher is ported)
+            "kv_tiered": eng._tiered,
+            "kv_ext_used": int(eng._pager.ext_used) if eng._tiered else 0,
+            "kv_blocks_spilled": int(eng._m_kv_spilled.value),
+            "kv_blocks_prefetched": int(eng._m_kv_prefetched.value),
+            "kv_prefetch_misses": int(eng._m_kv_prefetch_miss.value),
             # one card: every block's bytes live here
             "tp": 1,
             "kv_block_bytes_per_chip": int(eng._kv_block_bytes),
@@ -453,7 +456,9 @@ class LLMServer:
                 "prefill_tokens_saved_remote": 0,
                 "disk_blocks": 0,
                 "disk_sessions": 0,
-                "integrity_failures": {p: 0 for p in _INTEGRITY_PATHS},
+                "integrity_failures": {
+                    p: int(eng._m_integrity[p].value)
+                    for p in _INTEGRITY_PATHS},
                 "disk_evictions": 0,
                 "handoff_chunks": 0,
                 "handoff_bytes": 0,

@@ -46,9 +46,24 @@ matrix through `@`; q / k / v, which share their input, go through
 Embedding, norms and the LM head stay full precision.
 
 Parking a slot moves its blocks as one flat buffer: `gather_blocks`
-packs them (every layer, K and V, int8 scales) and `scatter_blocks`
-writes them back in place — indexing copies, as the JAX engine leaves
-its `swap_out_fn` / `swap_in_fn` to XLA.
+packs them block after block (each block every layer's K and V, int8
+scales, in `pool_leaves` order) and `scatter_blocks` writes them back
+in place — indexing copies, as the JAX engine leaves its `swap_out_fn`
+/ `swap_in_fn` to XLA.
+
+The tiered pool (the engine's `hot_window`): a `KVTier` holds the host
+extension tier, rows of that same one-block layout in one (rows, block
+bytes) buffer (pinned host memory on the card), with pool-shaped views
+of it per layer (`KVTier.layers`).  The paged programs take it as
+`hpool` (the JAX programs' argument): table ids >= the pool's block
+count address its rows.  Writes stay on the device pool (the spill
+policy keeps every write frontier hot); reads go through the
+concatenated view (`ops.paged_attention.tiered_entry`, the JAX
+`_tiered_entry`) on the gather path, or K4 reads the tier's rows in
+place (kernel="cuda").  A gather step on the card first copies the
+whole tier to the device (the JAX route: it ships the tier every
+call); the engine's prefill passes a tier of only the rows its table
+names, already on the device (`KVTier.select`).
 
 Math mirrors the JAX package: RMSNorm in fp32 cast back to the input
 dtype before the weight, rope applied in the input dtype, GQA by head
@@ -68,6 +83,7 @@ import torch.nn.functional as F
 from .llama import _rope_tables_at, _rotate_half
 from ..ops.paged_attention import NEG_INF, paged_attention
 from ..ops.paged_attention import paged_view as _paged_view
+from ..ops.paged_attention import tiered_entry
 from ..ops.wo_int8_matmul import pack_weight
 from ..quantization.int8 import (matmul_wo_int8, matmul_wo_int8_many,
                                  quantize_kv_rows, weight_only_int8)
@@ -79,7 +95,7 @@ __all__ = ["collect_decode_state", "init_cache", "prefill",
            "paged_decode_step_batch", "paged_verify_step",
            "paged_prefill_chunk",
            "paged_prefill", "pool_is_quant", "pool_leaves",
-           "gather_blocks", "scatter_blocks"]
+           "gather_blocks", "scatter_blocks", "KVTier"]
 
 _WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 
@@ -238,33 +254,38 @@ def pool_leaves(pool):
             for t in (entry if isinstance(entry, tuple) else (entry,))]
 
 
-def _block_layout(pool, n):
-    """(leaf, byte offset, byte length) of each leaf's `n` blocks in a
-    flat buffer; every offset 16-byte aligned."""
+def _block_layout(pool):
+    """(leaf, byte offset, byte length) of each leaf's part of ONE
+    block in the flat layout, and the block's bytes; every offset
+    16-byte aligned."""
     out, off = [], 0
     for t in pool_leaves(pool):
-        nbytes = n * (t.numel() // t.shape[0]) * t.element_size()
+        nbytes = (t.numel() // t.shape[0]) * t.element_size()
         out.append((t, off, nbytes))
         off += -(-nbytes // 16) * 16
     return out, off
 
 
-def _leaf_view(flat, t, off, nbytes, n):
-    return flat[off:off + nbytes].view(t.dtype).view(n, *t.shape[1:])
+def _leaf_rows(rows, t, off, nbytes):
+    """Leaf `t`'s part of every block of `rows` ((n, block bytes)
+    uint8) as an (n, *t.shape[1:]) view (strided over the blocks)."""
+    n = rows.shape[0]
+    return rows[:, off:off + nbytes].view(t.dtype).view(n, *t.shape[1:])
 
 
 def gather_blocks(pool, table_row):
-    """One slot's blocks, in table order, of every layer's K and V (and
-    the int8 scales), packed into ONE flat uint8 tensor on the pool's
-    device — what parking copies to the host tier in a single transfer
-    (the JAX engine's `swap_out_fn`).  `table_row`: int64 block ids on
-    the pool's device."""
+    """The blocks `table_row` names (int64 ids on the pool's device),
+    in table order, each of every layer's K and V (and the int8
+    scales), packed block after block into ONE flat uint8 tensor on the
+    pool's device — what parking copies to the host tier in a single
+    transfer (the JAX engine's `swap_out_fn`), and what a row of the
+    extension tier holds."""
     n = int(table_row.numel())
-    layout, total = _block_layout(pool, n)
-    flat = torch.empty(total, dtype=torch.uint8, device=table_row.device)
+    layout, bb = _block_layout(pool)
+    flat = torch.empty(n * bb, dtype=torch.uint8, device=table_row.device)
+    rows = flat.view(n, bb)
     for t, off, nbytes in layout:
-        torch.index_select(t, 0, table_row,
-                           out=_leaf_view(flat, t, off, nbytes, n))
+        _leaf_rows(rows, t, off, nbytes).copy_(t.index_select(0, table_row))
     return flat
 
 
@@ -274,13 +295,66 @@ def scatter_blocks(pool, table_row, flat):
     (`index_copy_`), so CUDA graphs captured over the pool read the
     restored rows (the JAX engine's `swap_in_fn`)."""
     n = int(table_row.numel())
-    layout, total = _block_layout(pool, n)
-    if flat.numel() != total:
+    layout, bb = _block_layout(pool)
+    if flat.numel() != n * bb:
         raise ValueError(f"{flat.numel()} bytes for {n} blocks of this "
-                         f"pool, which take {total}")
+                         f"pool, which take {n * bb}")
+    rows = flat.view(n, bb)
     for t, off, nbytes in layout:
-        t.index_copy_(0, table_row, _leaf_view(flat, t, off, nbytes, n))
+        t.index_copy_(0, table_row, _leaf_rows(rows, t, off, nbytes))
     return pool
+
+
+class KVTier:
+    """The host extension tier of a paged pool: `flat`, (rows, block
+    bytes) uint8, each row one block in `gather_blocks`' layout, and
+    `layers`, per layer (K entry, V entry) views of it shaped like the
+    pool's ((rows, bt, n_kv, hd), int8 (data, scale) pairs), strided by
+    a row.  `KVTier.empty(pool, rows, pin=True)` allocates one (pinned
+    host memory: the card reads it in place); `to` and `select` make a
+    tier over a copy of all or some rows."""
+
+    def __init__(self, pool, flat):
+        self.flat = flat
+        layout, bb = _block_layout(pool)
+        if flat.dim() != 2 or flat.shape[1] != bb \
+                or flat.dtype != torch.uint8:
+            raise ValueError(f"a tier of this pool is (rows, {bb}) "
+                             f"uint8, got {flat.dtype} "
+                             f"{tuple(flat.shape)}")
+        self._pool = pool
+        views = iter([_leaf_rows(flat, t, off, nbytes)
+                      for t, off, nbytes in layout])
+
+        def entry(e):
+            return (next(views), next(views)) if isinstance(e, tuple) \
+                else next(views)
+        self.layers = [(entry(k), entry(v)) for k, v in pool]
+
+    @classmethod
+    def empty(cls, pool, rows, pin=False):
+        """A zeroed tier of `rows` rows in host memory (pinned with
+        `pin`)."""
+        flat = torch.zeros((int(rows), _block_layout(pool)[1]),
+                           dtype=torch.uint8, pin_memory=bool(pin))
+        return cls(pool, flat)
+
+    def to(self, device, non_blocking=False):
+        """The tier copied to `device` (itself when it is there)."""
+        if self.flat.device == torch.device(device):
+            return self
+        return KVTier(self._pool, self.flat.to(device,
+                                               non_blocking=non_blocking))
+
+    def select(self, rows, device):
+        """A tier of the rows `rows` (a list of ints), in that order, on
+        `device`: each row copied on its own (pinned: without blocking,
+        queued on the current stream)."""
+        flat = torch.empty((len(rows), self.flat.shape[1]),
+                           dtype=torch.uint8, device=device)
+        for j, e in enumerate(rows):
+            flat[j].copy_(self.flat[e], non_blocking=True)
+        return KVTier(self._pool, flat)
 
 
 def _entry_set(entry, blk, col, x):
@@ -365,7 +439,7 @@ def _block(st, cfg, x, positions, k_cache, v_cache, write_at):
 
 
 def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
-                 kernel="gather", split=None):
+                 kernel="gather", split=None, hk=None, hv=None):
     """One decoder layer over the paged pool: K/V written through the
     block table first, then attention reads the pool through it.
     kernel="gather" gathers each slot's contiguous view and runs
@@ -375,7 +449,9 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     single-query rows, row (b, j) with table row b and depth
     positions[b, j] (positions (B, S) per-slot rows, as the decode and
     verify steps give).  table (B, Bmax) int32; rows (B, S) absolute
-    write rows."""
+    write rows.  hk / hv: this layer's host extension tier entries
+    (table ids >= the pool's blocks read there; writes never go
+    there), or None."""
     B, S, _ = x.shape
     nh, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
@@ -386,6 +462,11 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     v = v.reshape(B, S, nkv, hd)
     q, k = _rope_at(q, k, positions, cfg.rope_theta)
     blk, col = _paged_rows(table, rows, _entry_data(pk).shape[1])
+    if hk is not None and not blk.is_cuda \
+            and not bool((blk < _entry_data(pk).shape[0]).all()):
+        # the card's steps are graphs (no host read); the engine checks
+        # its write frontiers on the host before every dispatch
+        raise ValueError("a KV write targets the host extension tier")
     _entry_set(pk, blk, col, k)
     _entry_set(pv, blk, col, v)
     if kernel == "cuda":
@@ -393,13 +474,15 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
         # reshape copies the table rows without a host read (graph-safe)
         rows_table = table if S == 1 else \
             table[:, None, :].expand(B, S, table.shape[1]).reshape(B * S, -1)
+        tier = {} if hk is None else {"hk": hk, "hv": hv}
         attn = paged_attention(q.reshape(B * S, nh, hd), pk, pv,
                                rows_table,
                                positions.reshape(B * S).to(torch.int32),
-                               split=split).reshape(B, S, nh, hd)
+                               split=split, **tier).reshape(B, S, nh, hd)
     elif kernel == "gather":
-        attn = _attend(q, _paged_view(pk, table, q.dtype),
-                       _paged_view(pv, table, q.dtype), positions, nh, nkv)
+        attn = _attend(q, _paged_view(tiered_entry(pk, hk), table, q.dtype),
+                       _paged_view(tiered_entry(pv, hv), table, q.dtype),
+                       positions, nh, nkv)
     else:
         raise ValueError(f"unknown decode kernel {kernel!r} "
                          "('gather' or 'cuda')")
@@ -408,24 +491,39 @@ def _paged_block(st, cfg, x, positions, pk, pv, table, rows,
     return x + _mm(F.silu(_mm(h, st["wg"])) * _mm(h, st["wu"]), st["wd"])
 
 
+def _tier_layers(hpool, kernel, device, n_layers):
+    """Per layer (hk, hv) of the host tier `hpool` (a `KVTier` or None)
+    for a step on `device`: the gather path on another device than the
+    tier's first copies the whole tier there (without blocking, so a
+    CUDA graph records the copy); K4 reads it where it lies."""
+    if hpool is None:
+        return [(None, None)] * n_layers
+    if kernel != "cuda":
+        hpool = hpool.to(device, non_blocking=True)
+    return hpool.layers
+
+
 def paged_decode_step_batch(state, cfg, token, pos, pool, table,
-                            kernel="gather", split=None):
+                            kernel="gather", split=None, hpool=None):
     """One token per slot at per-slot depths: token (B,) ids, pos (B,)
     int32 rows, table (B, Bmax) int32.  An inactive slot's all-trash
     table row makes its garbage write harmless.  `split` is K4's split
-    size (kernel="cuda" only).  Returns (logits (B, V), pool) — the
-    pool updated in place.  Nothing here reads a device value on the
-    host, so the step can be captured in a CUDA graph."""
+    size (kernel="cuda" only); `hpool` the host extension tier (a
+    `KVTier`: table ids >= the pool's blocks read its rows).  Returns
+    (logits (B, V), pool) — the pool updated in place.  Nothing here
+    reads a device value on the host, so the step can be captured in a
+    CUDA graph."""
     x = state["embed"][token.long()[:, None]]
     positions = pos.long()[:, None]
-    for st, (pk, pv) in zip(state["layers"], pool):
+    tiers = _tier_layers(hpool, kernel, x.device, len(pool))
+    for st, (pk, pv), (hk, hv) in zip(state["layers"], pool, tiers):
         x = _paged_block(st, cfg, x, positions, pk, pv, table, positions,
-                         kernel=kernel, split=split)
+                         kernel=kernel, split=split, hk=hk, hv=hv)
     return _logits_last(state, cfg, x), pool
 
 
 def paged_verify_step(state, cfg, tokens, pos, pool, table,
-                      kernel="gather", split=None):
+                      kernel="gather", split=None, hpool=None):
     """Speculative decoding's verify over the paged pool (the JAX
     package's `paged_verify_step`): tokens (B, W) ids, column 0 each
     slot's committed token and columns 1.. its draft; pos (B,) int32,
@@ -436,34 +534,40 @@ def paged_verify_step(state, cfg, tokens, pos, pool, table,
     become visible because `pos` never advances past the accepted
     length; rows past the table land in the trash block.
     kernel="gather" is the JAX path (`_attend` over the gathered view);
-    kernel="cuda" runs K4 over the B * W columns (see `_paged_block`).
-    Returns (logits (B, W, V), pool) — the pool updated in place, and no
-    device value read on the host, so the step can be captured in a
-    CUDA graph."""
+    kernel="cuda" runs K4 over the B * W columns (see `_paged_block`);
+    `hpool` as `paged_decode_step_batch`.  Returns (logits (B, W, V),
+    pool) — the pool updated in place, and no device value read on the
+    host, so the step can be captured in a CUDA graph."""
     B, W = tokens.shape
     x = state["embed"][tokens.long()]
     positions = pos.long()[:, None] + torch.arange(W, device=x.device)
-    for st, (pk, pv) in zip(state["layers"], pool):
+    tiers = _tier_layers(hpool, kernel, x.device, len(pool))
+    for st, (pk, pv), (hk, hv) in zip(state["layers"], pool, tiers):
         x = _paged_block(st, cfg, x, positions, pk, pv, table, positions,
-                         kernel=kernel, split=split)
+                         kernel=kernel, split=split, hk=hk, hv=hv)
     h = _rms(x, state["final_norm"], cfg.rms_norm_eps)
     return h @ state["head"], pool
 
 
-def paged_prefill_chunk(state, cfg, ids, off, table_row, pool):
+def paged_prefill_chunk(state, cfg, ids, off, table_row, pool,
+                        hpool=None):
     """One slot's chunk ids (1, C) at rows [off, off + C), written
     through its (Bmax,) table row, attention against the slot's view
-    masked to t <= off + j.  A padded tail writes garbage rows past the
-    prompt, which the decode step overwrites before they become
-    visible; rows past the table land in the trash block.  Returns
-    (chunk hidden states (1, C, D), pool) — the pool updated in place."""
+    masked to t <= off + j (through the gather path; with `hpool`, the
+    host extension tier, over the concatenated view).  A padded tail
+    writes garbage rows past the prompt, which the decode step
+    overwrites before they become visible; rows past the table land in
+    the trash block.  Returns (chunk hidden states (1, C, D), pool) —
+    the pool updated in place."""
     _, C = ids.shape
     x = state["embed"][ids.long()]
     positions = int(off) + torch.arange(C, device=x.device)
     table = table_row.reshape(1, -1)
     rows = positions[None, :]
-    for st, (pk, pv) in zip(state["layers"], pool):
-        x = _paged_block(st, cfg, x, positions, pk, pv, table, rows)
+    tiers = _tier_layers(hpool, "gather", x.device, len(pool))
+    for st, (pk, pv), (hk, hv) in zip(state["layers"], pool, tiers):
+        x = _paged_block(st, cfg, x, positions, pk, pv, table, rows,
+                         hk=hk, hv=hv)
     return x, pool
 
 

@@ -12,6 +12,14 @@ the slot's view through the table, then `_attend`'s masked fp32 softmax
 and P.V.  The CPU tests compare the plain version with the JAX package;
 `chip_smoke.py` compares the kernel with the plain version on the card.
 
+With the engine's tiered pool (`hot_window`), table ids >= the pool's
+block count address a second pool, the host extension tier (`hk`,
+`hv`: entries shaped like the pool's, (N_ext, bt, n_kv, hd), rows of a
+block contiguous, any stride between blocks): the kernel reads those
+rows in place from pinned host memory; the plain version gathers from
+the pool and the tier concatenated (`tiered_entry`, the JAX package's
+`_tiered_entry`).
+
 The kernel splits each slot's rows into splits of `split_rows(...)`
 rows (flash-decoding): one CUDA block per (split, kv head, slot) writes
 the split's unnormalised softmax (m, l, acc) in fp32 to a workspace,
@@ -37,7 +45,8 @@ from ..quantization.int8 import dequantize_kv
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_view",
-           "split_rows", "SPLIT_ROWS", "NEG_INF", "LAUNCHES"]
+           "tiered_entry", "split_rows", "SPLIT_ROWS", "NEG_INF",
+           "LAUNCHES"]
 
 NEG_INF = -1e30          # the gather path's mask fill (`_attend`)
 # launches of the kernel on CUDA tensors; CPU calls count nothing
@@ -53,12 +62,14 @@ SPLIT_ROWS = 128
 _KV_TILE_BYTES = 64 * 1024
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_INT_MAX = 2 ** 31 - 1                   # n_dev of an untiered call
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"paged_attention_decode": (
     _P, _P, _P, _P, _P, _P, _P, _P, _P,      # q pk pv ks vs table pos out work
     _I, _I, _I, _I, _I, _I, _I,              # B n_kv rep hd bt bmax split
-    _I, _I, _I,                              # q dtype, pool dtype, device
-    _P)}                                     # stream
+    _I, _I,                                  # q dtype, pool dtype
+    _P, _P, _P, _P, _L, _I,                  # ek ev eks evs, stride, n_dev
+    _I, _P)}                                 # device, stream
 
 
 def _split(entry):
@@ -83,13 +94,25 @@ def paged_view(entry, table, dtype=None):
     return dequantize_kv(d, s, dtype)
 
 
-def paged_attention_plain(q, pk, pv, table, pos):
+def tiered_entry(entry, hentry):
+    """A pool entry concatenated with its host extension tier on the
+    block dim (the tier moved to the entry's device), so table ids >=
+    N address the tier's rows; `hentry` None returns `entry`."""
+    if hentry is None:
+        return entry
+    if isinstance(entry, (tuple, list)):
+        return tuple(tiered_entry(e, h) for e, h in zip(entry, hentry))
+    return torch.cat([entry, hentry.to(entry.device)])
+
+
+def paged_attention_plain(q, pk, pv, table, pos, hk=None, hv=None):
     """The plain PyTorch version of K4: q (B, nh, hd); pk/pv a float
     pool (N, bt, n_kv, hd) or an int8 (data, f32 scale (N, bt, n_kv))
-    pair; table (B, Bmax) int32; pos (B,) int32.  Returns (B, nh, hd)
-    in promote(q, pool) (q's dtype for an int8 pool)."""
-    k = paged_view(pk, table, q.dtype)
-    v = paged_view(pv, table, q.dtype)
+    pair; table (B, Bmax) int32; pos (B,) int32; hk/hv the extension
+    tier's entries (table ids >= N), or None.  Returns (B, nh, hd) in
+    promote(q, pool) (q's dtype for an int8 pool)."""
+    k = paged_view(tiered_entry(pk, hk), table, q.dtype)
+    v = paged_view(tiered_entry(pv, hv), table, q.dtype)
     B, nh, hd = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(B, n_kv, nh // n_kv, hd)
@@ -150,6 +173,39 @@ def _check(q, kd, vd, ks, vs, table, pos):
                              "(the kernel loads rows as vectors)")
 
 
+def _ext_args(q, kd, ks, hk, hv):
+    """(ek, ev, eks, evs, stride in bytes, n_dev) for the kernel: the
+    extension tier's base pointers, or nulls and n_dev = INT_MAX.  Every
+    ext leaf is pinned host memory (or on q's card), its blocks'
+    rows contiguous, one stride in bytes between blocks for all of
+    them (the engine's tier is one (N_ext, block bytes) buffer)."""
+    if hk is None and hv is None:
+        return None, None, None, None, 0, _INT_MAX
+    (ekd, eks), (evd, evs) = _split(hk), _split(hv)
+    leaves = [(ekd, kd), (evd, kd)]
+    if ks is not None:
+        if eks is None or evs is None:
+            raise ValueError("an int8 pool's extension tier needs scales")
+        leaves += [(eks, ks), (evs, ks)]
+    stride = ekd.stride(0) * ekd.element_size()
+    for e, p in leaves:
+        if e.dtype != p.dtype or e.shape[1:] != p.shape[1:]:
+            raise ValueError(f"extension tier leaf {e.dtype} "
+                             f"{tuple(e.shape)} does not match the pool's "
+                             f"{p.dtype} {tuple(p.shape)}")
+        if not e[0].is_contiguous() or e.stride(0) * e.element_size() \
+                != stride or stride % 16 or e.data_ptr() % 16:
+            raise ValueError("extension tier leaves must hold contiguous, "
+                             "16-byte aligned blocks at one stride")
+        if not (e.device == q.device or (e.device.type == "cpu"
+                                         and e.is_pinned())):
+            raise ValueError(f"the extension tier must be pinned host "
+                             f"memory or on {q.device}, found {e.device}")
+    return (ekd.data_ptr(), evd.data_ptr(),
+            None if eks is None else eks.data_ptr(),
+            None if evs is None else evs.data_ptr(), stride, kd.shape[0])
+
+
 def split_rows(hd, itemsize, rows=SPLIT_ROWS):
     """Rows of one split for a pool of `itemsize`-byte elements at
     head_dim `hd`: `rows`, cut until a split's K and V rows fit
@@ -158,14 +214,15 @@ def split_rows(hd, itemsize, rows=SPLIT_ROWS):
     return 1 << (fit.bit_length() - 1)
 
 
-def paged_attention(q, pk, pv, table, pos, split=None):
+def paged_attention(q, pk, pv, table, pos, split=None, hk=None, hv=None):
     """Decode attention for one token per slot over the paged pool
-    (shapes as `paged_attention_plain`).  A CUDA `q` launches the
-    Hopper kernels (counted once in `LAUNCHES`), with splits of `split`
-    rows (a power of two in [8, 256]; default `split_rows(...)`); a CPU
-    `q` runs the plain version."""
+    (shapes as `paged_attention_plain`; `hk` / `hv` the host extension
+    tier, read in place).  A CUDA `q` launches the Hopper kernels
+    (counted once in `LAUNCHES`), with splits of `split` rows (a power of
+    two in [8, 256]; default `split_rows(...)`); a CPU `q` runs the
+    plain version."""
     if q.device.type == "cpu":
-        return paged_attention_plain(q, pk, pv, table, pos)
+        return paged_attention_plain(q, pk, pv, table, pos, hk, hv)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -180,6 +237,7 @@ def paged_attention(q, pk, pv, table, pos, split=None):
     if R < 8 or R > 256 or R & (R - 1):
         raise ValueError(f"split of {R} rows: must be a power of two "
                          f"in [8, 256]")
+    ext = _ext_args(q, kd, ks, hk, hv)
     n_splits = -(-table.shape[1] * bt // R)
     out = torch.empty((B, nh, hd), dtype=out_dtype, device=q.device)
     work = torch.empty(B * nh * n_splits * (hd + 2), dtype=torch.float32,
@@ -196,7 +254,7 @@ def paged_attention(q, pk, pv, table, pos, split=None):
         None if vs is None else vs.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         work.data_ptr(), B, n_kv, nh // n_kv, hd, bt, table.shape[1], R,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[kd.dtype], dev,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[kd.dtype], *ext, dev,
         torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "

@@ -38,6 +38,10 @@ Sites wired in the port:
   kv.swap_in       LLMEngine resume path, before the host blocks
                    scatter back to the pool; the request RE-PARKS with
                    its host tier intact (ctx: slot, rid)
+  kv.prefetch      LLMEngine._prefetch_tick, once per scheduler step of a
+                   tiered engine (`hot_window`); an injected fault
+                   SKIPS the tick: no block is promoted, the extension
+                   rows are read in place (ctx: depth, ext_used)
   engine.overload  LLMEngine._overload_tick, once per scheduler step
                    while the overload ladder is armed; an injected
                    fault FORCES one ladder escalation (bypassing

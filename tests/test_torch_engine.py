@@ -185,6 +185,15 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
     ("mesh", "dp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "cache"), ("fabric", "kvdir")])
 def test_unported_knobs_raise(port_model, knob, value):
+    """The JAX knobs the port lacks raise naming their ROADMAP item;
+    the tiered-KV pair (engine sub-slice (g)) is ported: `hot_window`
+    builds a tiered engine, `prefetch_depth` is taken as given."""
+    if knob in ("hot_window", "prefetch_depth"):
+        eng = LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))
+        assert getattr(eng, knob) == value
+        assert eng._tiered == (knob == "hot_window")
+        assert (eng._hext is not None) == eng._tiered
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))
 

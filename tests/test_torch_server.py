@@ -158,13 +158,21 @@ def test_request_fabric_fields_raise(knob, value):
     ("aot_cache", "dir")])
 def test_unported_engine_knobs_raise_positionally(port_model, knob, value):
     """An unported knob passed at its JAX position raises naming its
-    ROADMAP item; at its "off" value it is accepted."""
+    ROADMAP item; at its "off" value it is accepted.  The tiered-KV
+    pair is ported: passed at its JAX position, `hot_window` builds a
+    tiered engine and `prefetch_depth` binds to its own parameter."""
     names = list(inspect.signature(LLMEngine.__init__).parameters)[2:]
     defaults = {n: p.default for n, p in inspect.signature(
         LLMEngine.__init__).parameters.items()}
     args = [defaults[n] for n in names]
     args[names.index(knob)] = value
     args[:3] = [4, 64, 32]          # max_slots, max_len, max_prompt_len
+    if knob in ("hot_window", "prefetch_depth"):
+        eng = LLMEngine(port_model, *args)
+        assert getattr(eng, knob) == value
+        assert eng._tiered == (knob == "hot_window")
+        assert eng.max_len == 64
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port_model, *args)
     args[names.index(knob)] = defaults[knob]
