@@ -193,6 +193,30 @@ the result line:
               without extension rows, extension bytes a step, host ms
               a spill / CRC / promote, peak and pinned GiB; K4 counted
               through the replays;
+              serve_fabric: two LLMServers over the one model, each
+              booted (graphs captured) before either takes traffic, the
+              KV crossing a TCP socket on 127.0.0.1: (a) serve_prefix's
+              16 requests on A, then on B (an empty trie) with a hint
+              naming A: 24 blocks pulled, B's streams equal A's and
+              serve_prefix's, bf16 and int8 pools; (b) serve_pressure's
+              traffic on A (158 blocks, swap), a parked session taken
+              live by B: its stream and A's others equal full
+              provisioning's; (c) the same traffic with a 24-block host
+              tier and a temporary disk root: parks spilled to disk
+              ("disk" mode), one adopted by B from the root exactly once
+              (the source's resume sees the claim), streams equal full
+              provisioning's, then a disk-warm prefix served by a fresh
+              engine; (d) the serve mix prefilled on P (pool_role
+              "prefill") and handed off chunk by chunk to D ("decode"):
+              adopted streams equal D's colocated ones, two or more
+              frames for every prompt of two or more chunks, bf16 and
+              int8 pools; every move's counters required (a silent
+              recompute fails), integrity failures 0; host ms to export,
+              CRC, send / receive and land a pull (and a block), MB a
+              move, migration seconds, disk ms a block, TTFT pulled vs
+              recomputed vs a trie hit, TTFT at P and ITL at D vs
+              colocated; K4 = 32 x the replays of both servers while a
+              move ran;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact, and `generate` (the contiguous cache) gives
@@ -1271,7 +1295,9 @@ def _unhook(torch, eng):
     CUDA graphs could be freed inside a later capture, which
     invalidates that capture.  Remove the hooks, free it now."""
     for name in ("_park_slot", "_resume_swap", "_resume_recompute",
-                 "_preempt_one", "_propose_drafts"):
+                 "_preempt_one", "_propose_drafts", "_export_blocks",
+                 "_host_rows", "_serve_pull", "_pull_remote_prefix",
+                 "_land_prefix_blocks", "_ho_send"):
         vars(eng).pop(name, None)
     for graphs in (eng._graphs, eng._vgraphs):
         if graphs is not None:
@@ -1510,16 +1536,18 @@ def phase_serve_pressure(torch, model, limits):
     full run's token for token and one parked slot's blocks return
     bitwise; recompute streams equal them, or stay within the
     serve_parity logits bound up to each flip (`limits` by pool).
-    Returns the K4 launches of each run."""
+    Returns the K4 launches of each run and the full-provisioning
+    streams by pool."""
     import numpy as np
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, model.config.vocab_size, L)
                for L in PRESSURE_LENGTHS]
-    launches = {}
+    launches, full_streams = {}, {}
     for kv, policies in ((None, ("swap", "recompute", "auto")),
                          ("int8", ("swap",))):
         pool = kv or "bfloat16"
         full, ref, _ = _pressure_run(torch, model, kv, None, prompts)
+        full_streams[pool] = ref
         emit({"phase": "serve_pressure", "model": "llama3-8b", **full})
         launches[pool, "full"] = full["k4_launches"]
         for policy in policies:
@@ -1540,7 +1568,7 @@ def phase_serve_pressure(torch, model, limits):
                                report["parked_requests"], limits[pool])
             emit({"phase": "serve_pressure", "model": "llama3-8b",
                   **report, **check})
-    return launches
+    return launches, full_streams
 
 
 def phase_serve_prefix(torch, model):
@@ -1551,7 +1579,7 @@ def phase_serve_prefix(torch, model):
     later request must hit (384 tokens saved each), a trie block must
     be shared (refcount >= 2) while the decode graphs replay, and the
     streams must equal the uncached run's token for token.  Returns
-    the K4 launches of each run."""
+    the K4 launches of each run and the cached run's streams."""
     import numpy as np
     from paddle_tpu_torch.ops import paged_attention as PA
     rng = np.random.default_rng(4)
@@ -1635,7 +1663,7 @@ def phase_serve_prefix(torch, model):
             "serve_prefix: streams with the prefix cache differ from "
             "those without it")
     emit({"phase": "serve_prefix", "streams_equal_uncached": True})
-    return launches
+    return launches, streams[PREFIX_KW["prefix_cache_blocks"]]
 
 
 # --------------------------------------------------------------------------
@@ -3547,6 +3575,624 @@ def phase_serve_tiered(torch, model):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the KV fabric (engine sub-slice (h)): two LLMServers over one model on
+# one card, every move across a real TCP socket on 127.0.0.1
+# --------------------------------------------------------------------------
+
+FABRIC_TIMEOUT = 120.0        # s: a socket round trip and a driver job
+FABRIC_HOST_BLOCKS = 24       # (c): a host tier smaller than the deeper parks
+
+
+def _fabric_server(model, name, **kw):
+    """One `LLMServer` at the serve shape with a fabric endpoint, booted:
+    its graphs captured here, before any server takes traffic (a capture
+    is "global": a CUDA call of another thread would break it; the
+    fabric's own threads make none)."""
+    from paddle_tpu_torch.inference import LLMServer
+    fabric = dict({"timeout": FABRIC_TIMEOUT}, **kw.pop("fabric", {}))
+    srv = LLMServer(model, name=name, series_interval=None,
+                    watchdog_deadline=None, fabric=fabric,
+                    **dict(SERVE_KW, **kw))
+    eng = srv.engine
+    require(eng._graphs is not None and eng.overlap
+            and eng.decode_kernel == "cuda",
+            f"serve_fabric: server {name} off the card's path")
+    eng.prepare_programs()
+    return srv
+
+
+def _drop_servers(torch, *servers):
+    """Shut servers down and free them before the next capture (each
+    fabric endpoint's handler closes over its engine)."""
+    for s in servers:
+        s.shutdown(timeout=60)
+        require(not s._thread.is_alive(),
+                f"serve_fabric: {s.name}'s driver still runs")
+    for s in servers:
+        _unhook(torch, s.engine)
+
+
+def _fab_counts(srv):
+    return srv.health_snapshot()["fabric"]
+
+
+def _total_replays(*servers):
+    return sum(sum(_replays(s.engine)) for s in servers)
+
+
+def _k4_fabric(torch, what, since, *servers):
+    """K4's launches since they were zeroed, held to layers x every
+    decode / verify replay of `servers` since `since` (their summed
+    `_replays` then); returns them."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    launches = PA.LAUNCHES["paged_attention"]
+    replays = _total_replays(*servers) - since
+    layers = servers[0].engine.cfg.num_hidden_layers
+    require(replays > 0 and launches == layers * replays,
+            f"serve_fabric {what}: {launches} K4 launches for {replays} "
+            f"replays x {layers} layers")
+    return launches
+
+
+@contextlib.contextmanager
+def _fabric_clock():
+    """Host-clock timers on the fabric's module functions for the block:
+    `crc32c` by thread, `pack_leaves`, `unpack_leaves` and
+    `fabric_request` (ms, summed).  Restored on exit."""
+    import threading
+    from paddle_tpu_torch.inference import kv_fabric as KF
+    times = {}
+
+    def timed(name, fn, by_thread=False):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                key = (name, threading.current_thread().name) \
+                    if by_thread else name
+                times[key] = times.get(key, 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+        return call
+
+    saved = {n: getattr(KF, n) for n in ("crc32c", "pack_leaves",
+                                         "unpack_leaves", "fabric_request")}
+    KF.crc32c = timed("crc", saved["crc32c"], by_thread=True)
+    for n in ("pack_leaves", "unpack_leaves", "fabric_request"):
+        setattr(KF, n, timed(n, saved[n]))
+    try:
+        yield times
+    finally:
+        for n, fn in saved.items():
+            setattr(KF, n, fn)
+
+
+def _time_method(eng, name, into):
+    """Accumulate the host ms of `eng.name` calls in `into[name]` (an
+    instance attribute: `_unhook` takes it off)."""
+    fn = getattr(eng, name)
+
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            into[name] = into.get(name, 0.0) + 1e3 * (time.perf_counter()
+                                                      - t0)
+            into[name + "_calls"] = into.get(name + "_calls", 0) + 1
+    setattr(eng, name, call)
+
+
+def _freeze_at_park(eng, mode):
+    """Freeze `eng`'s parks (its quarantine flag: no resume, admissions
+    go on) on the driver thread the first time a park of `mode` lands,
+    so the harness can move that session before it resumes."""
+    park, armed = eng._park_slot, [True]
+
+    def parked(slot, mode_=None):
+        park(slot, mode_)
+        if armed[0] and eng._parked and eng._parked[-1].mode == mode:
+            armed[0] = False
+            eng.freeze_parked = True
+    eng._park_slot = parked
+
+
+def _stamped(stamps, key):
+    def on_token(req, tok):
+        stamps.setdefault(key, []).append(time.perf_counter())
+    return on_token
+
+
+def _fabric_pull(torch, model, kv, prefix_streams):
+    """(a) A holds serve_prefix's 384-token system prompt in its trie
+    (request 0 alone: local recompute; request 1 alone: a trie hit;
+    then the other 14); B, an empty trie, serves the same 16 requests
+    with a hint naming A: request 0 pulls the 24 prompt blocks over the
+    socket, the other 15 hit B's trie.  B's streams equal A's (bf16:
+    and serve_prefix's cached run); 24 blocks, 24 blocks' bytes and 384
+    tokens moved; no integrity failure.  K4 = 32 x B's replays."""
+    import numpy as np
+    from paddle_tpu_torch.ops import paged_attention as PA
+    rng = np.random.default_rng(4)
+    vocab = model.config.vocab_size
+    system = rng.integers(0, vocab, PREFIX_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, vocab,
+                                                     PREFIX_SUFFIX)])
+               for _ in range(PREFIX_N)]
+    pool = kv or "bfloat16"
+    name = f"serve_fabric pull ({pool})"
+    a = _fabric_server(model, "fabA", kv_dtype=kv, **PREFIX_KW)
+    b = _fabric_server(model, "fabB", kv_dtype=kv, **PREFIX_KW)
+    try:
+        stamps, t_sub = {}, {}
+
+        def run(srv, idx, hint=None):
+            reqs = []
+            for i in idx:
+                t_sub[srv.name, i] = time.perf_counter()
+                reqs.append(srv.submit(
+                    prompts[i], PREFIX_NEW,
+                    on_token=_stamped(stamps, (srv.name, i)),
+                    **({} if hint is None else {"prefix_hint": hint})))
+            for r in reqs:
+                srv.result(r, timeout=SLO_WAIT_S)
+                require(r.error is None and len(r.tokens) == PREFIX_NEW,
+                        f"{name}: request {r.rid}: {r.error!r}")
+            return [list(r.tokens) for r in reqs]
+
+        def ttft(srv, i):
+            return 1e3 * (stamps[srv.name, i][0] - t_sub[srv.name, i])
+
+        ref = run(a, [0]) + run(a, [1]) + run(a, range(2, PREFIX_N))
+        if prefix_streams is not None:
+            require(ref == prefix_streams,
+                    f"{name}: the holder's streams differ from "
+                    f"serve_prefix's cached run")
+        hint = {"addr": list(a.fabric_address), "tokens": PREFIX_SYSTEM}
+        times = {}
+        _time_method(a.engine, "_export_blocks", times)
+        _time_method(a.engine, "_host_rows", times)
+        _time_method(a.engine, "_serve_pull", times)
+        _time_method(b.engine, "_pull_remote_prefix", times)
+        _time_method(b.engine, "_land_prefix_blocks", times)
+        torch.cuda.synchronize()
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _total_replays(a, b)
+        with _fabric_clock() as clock:
+            out = run(b, [0], hint)
+        out += run(b, range(1, PREFIX_N), hint)
+        torch.cuda.synchronize()
+        launches = _k4_fabric(torch, name, since, a, b)
+        require(out == ref, f"{name}: the puller's streams differ from "
+                f"the holder's")
+        fb = _fab_counts(b)
+        nb = PREFIX_SYSTEM // SERVE_KW["kv_block_tokens"]
+        block = b.engine._kv_block_bytes
+        require(fb["blocks_moved"]["pull"] == nb
+                and fb["bytes_moved"]["pull"] == nb * block
+                and fb["prefill_tokens_saved_remote"] == PREFIX_SYSTEM,
+                f"{name}: moved {fb}")
+        for s in (a, b):
+            require(not any(_fab_counts(s)["integrity_failures"].values()),
+                    f"{name}: integrity failures on {s.name}")
+        # CRC ms by the thread that ran it: A's driver packs, B's unpacks
+        crc = {k[1]: ms for k, ms in clock.items() if isinstance(k, tuple)}
+        crc_send = sum(ms for t, ms in crc.items() if t.endswith("fabA"))
+        crc_recv = sum(ms for t, ms in crc.items() if t.endswith("fabB"))
+        rt = clock["fabric_request"]
+        report = {
+            "phase": "serve_fabric", "move": "pull", "pool": pool,
+            "model": "llama3-8b", "requests": PREFIX_N,
+            "blocks": nb, "mb_moved": nb * block / 1e6,
+            "tokens_saved_remote": fb["prefill_tokens_saved_remote"],
+            "streams_equal_holder": True,
+            "streams_equal_serve_prefix": prefix_streams is not None,
+            "host_ms": {
+                "pull_total": times["_pull_remote_prefix"],
+                "export_gather_copy_wait": times["_host_rows"],
+                "export_total": times["_export_blocks"],
+                "export_pack": clock["pack_leaves"],
+                "crc_sender": crc_send, "crc_receiver": crc_recv,
+                "serve_on_holder": times["_serve_pull"],
+                "round_trip": rt,
+                "send_receive": rt - times["_serve_pull"],
+                "receive_unpack": clock["unpack_leaves"],
+                "land": times["_land_prefix_blocks"]},
+            "host_ms_per_block": {
+                "export": times["_export_blocks"] / nb,
+                "crc_sender": crc_send / nb, "crc_receiver": crc_recv / nb,
+                "send_receive": (rt - times["_serve_pull"]) / nb,
+                "land": times["_land_prefix_blocks"] / nb},
+            "ttft_ms": {"pulled": ttft(b, 0),
+                        "local_recompute": ttft(a, 0),
+                        "local_trie_hit": ttft(a, 1)},
+            "export_waits": int(_metric(a.engine,
+                                        "fabric_export_waits_total")),
+            "k4_launches": launches,
+            "decode_replays": {s.name: sum(_replays(s.engine))
+                               for s in (a, b)}}
+        emit(report)
+        return launches
+    finally:
+        _drop_servers(torch, a, b)
+
+
+def _pressure_prompts(model):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, model.config.vocab_size, L)
+            for L in PRESSURE_LENGTHS]
+
+
+def _fabric_migrate(torch, model, ref):
+    """(b) serve_pressure's traffic (bf16, 158 blocks, swap) on A with a
+    session id a request; once sessions park, A's parks freeze and B
+    (full provisioning) takes one over the socket and continues it; B's
+    stream of it equals serve_pressure's full-provisioning stream, as do
+    A's other 15 (the rule serve_pressure holds swap streams to: token
+    for token).  K4 = 32 x (A's + B's replays)."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    prompts = _pressure_prompts(model)
+    name = "serve_fabric migrate (bfloat16)"
+    a = _fabric_server(model, "migA", kv_blocks=pressure_blocks(),
+                       preempt_policy="swap")
+    b = _fabric_server(model, "migB")
+    try:
+        torch.cuda.synchronize()
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _total_replays(a, b)
+        t0 = time.perf_counter()
+        _freeze_at_park(a.engine, "swap")
+        reqs = [a.submit(p, PRESSURE_NEW, session_id=f"p{i}")
+                for i, p in enumerate(prompts)]
+        _bounded(lambda: a.engine.freeze_parked
+                 or all(r.done for r in reqs), f"{name}: a park on A")
+        require(a.engine.freeze_parked, f"{name}: no session parked on A")
+        sid = next(p.sid for p in list(a.engine._parked)
+                   if p.mode == "swap")
+        t_adopt = time.perf_counter()
+        adopted = b.adopt({"kind": "peer", "addr": list(a.fabric_address),
+                           "session_id": sid})
+        adopt_ms = 1e3 * (time.perf_counter() - t_adopt)
+        a.engine.freeze_parked = False
+        a._pending.put(None)            # wake A's driver for its resumes
+        i = int(sid[1:])
+        for r in reqs:
+            a.result(r, timeout=SLO_WAIT_S)
+        b.result(adopted, timeout=SLO_WAIT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _k4_fabric(torch, name, since, a, b)
+        src = reqs[i]
+        require(src.migrated and src.error is None
+                and len(src.tokens) < PRESSURE_NEW,
+                f"{name}: the source request: migrated {src.migrated}, "
+                f"{len(src.tokens)} tokens, {src.error!r}")
+        require(list(adopted.tokens) == ref[i],
+                f"{name}: the adopted stream differs from full "
+                f"provisioning's")
+        for j, r in enumerate(reqs):
+            if j != i:
+                require(list(r.tokens) == ref[j],
+                        f"{name}: request {j} differs from full "
+                        f"provisioning's")
+        fb = _fab_counts(b)
+        require(fb["blocks_moved"]["migrate"] >= 1
+                and fb["bytes_moved"]["migrate"] > 0,
+                f"{name}: moved {fb}")
+        for s in (a, b):
+            require(not any(_fab_counts(s)["integrity_failures"].values()),
+                    f"{name}: integrity failures on {s.name}")
+        mig = b.engine.metrics()["llm_engine_fabric_migration_seconds"][
+            "series"][""]
+        report = {
+            "phase": "serve_fabric", "move": "migrate", "pool": "bfloat16",
+            "model": "llama3-8b", "requests": len(reqs),
+            "kv_blocks": a.engine.kv_blocks,
+            "adopted_request": i, "tokens_before_move": len(src.tokens),
+            "blocks": fb["blocks_moved"]["migrate"],
+            "mb_moved": fb["bytes_moved"]["migrate"] / 1e6,
+            "fabric_migration_ms": 1e3 * mig["sum"] / max(mig["count"], 1),
+            "adopt_call_ms": adopt_ms,
+            "streams_equal_full_provisioning": True,
+            "preemptions_on_A": int(_metric(a.engine, "preemptions_total")),
+            "swap_crc_failures": int(
+                _fab_counts(a)["integrity_failures"]["swap"]),
+            "export_waits_on_A": int(_metric(
+                a.engine, "fabric_export_waits_total")),
+            "wall_s": wall, "k4_launches": launches,
+            "decode_replays": {s.name: sum(_replays(s.engine))
+                               for s in (a, b)}}
+        emit(report)
+        return launches
+    finally:
+        _drop_servers(torch, a, b)
+
+
+def _fabric_disk(torch, model, ref, prefix_streams, root):
+    """(c) the pressure traffic on A with a disk tier under `root` and a
+    host tier of FABRIC_HOST_BLOCKS rows: the parks it cannot hold take
+    the "disk" mode (their blocks in a ticket on disk, resumed from
+    it); streams equal full provisioning; blocks and bytes spilled, no
+    integrity failure.  One disk-parked session is adopted by a second
+    server over the same root while A's parks are frozen: its stream
+    equals full provisioning, a second claim finds nothing, and A's own
+    resume then sees the claim (the request ends `migrated`).  Then a
+    prefix engine writes serve_prefix's request 0 through to the disk
+    tier and a fresh engine over the root serves it warm (24 blocks from
+    disk) with the same stream.  K4 = 32 x every replay."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    prompts = _pressure_prompts(model)
+    name = "serve_fabric disk (bfloat16)"
+    sess = str(root / "pressure")
+    a = _fabric_server(model, "diskA", kv_blocks=pressure_blocks(),
+                       preempt_policy="swap",
+                       host_pool_blocks=FABRIC_HOST_BLOCKS,
+                       fabric={"disk_root": sess,
+                               "persist_sessions": False})
+    b = _fabric_server(model, "diskB", fabric={"disk_root": sess,
+                                               "persist_sessions": False})
+    try:
+        io = {}
+        for eng in (a.engine, b.engine):
+            _time_method(eng._disk, "put_session", io)
+            _time_method(eng._disk, "claim_session", io)
+        torch.cuda.synchronize()
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _total_replays(a, b)
+        _freeze_at_park(a.engine, "disk")
+        reqs = [a.submit(p, PRESSURE_NEW, session_id=f"d{i}")
+                for i, p in enumerate(prompts)]
+        _bounded(lambda: a.engine.freeze_parked
+                 or all(r.done for r in reqs), f"{name}: a disk park on A")
+        require(a.engine.freeze_parked, f"{name}: no disk-mode park on A")
+        sid = next(p.sid for p in list(a.engine._parked)
+                   if p.mode == "disk")
+        adopted = b.adopt({"kind": "disk", "session_id": sid})
+        try:
+            b.adopt({"kind": "disk", "session_id": sid})
+            require(False, f"{name}: a disk ticket claimed twice")
+        except KeyError:
+            pass
+        a.engine.freeze_parked = False
+        a._pending.put(None)
+        i = int(sid[1:])
+        for r in reqs:
+            a.result(r, timeout=SLO_WAIT_S)
+        b.result(adopted, timeout=SLO_WAIT_S)
+        torch.cuda.synchronize()
+        launches = _k4_fabric(torch, name, since, a, b)
+        src = reqs[i]
+        require(src.migrated and src.error is None,
+                f"{name}: the source's resume did not see the claim: "
+                f"migrated {src.migrated}, {src.error!r}")
+        require(list(adopted.tokens) == ref[i],
+                f"{name}: the adopted stream differs from full "
+                f"provisioning's")
+        for j, r in enumerate(reqs):
+            if j != i:
+                require(list(r.tokens) == ref[j],
+                        f"{name}: request {j} differs from full "
+                        f"provisioning's")
+        fa, fb = _fab_counts(a), _fab_counts(b)
+        require(fa["blocks_moved"]["spill"] > 0
+                and fa["bytes_moved"]["spill"] > 0,
+                f"{name}: nothing spilled to disk: {fa}")
+        for f in (fa, fb):
+            require(not any(f["integrity_failures"].values()),
+                    f"{name}: integrity failures {f['integrity_failures']}")
+        spilled = fa["blocks_moved"]["spill"]
+        report = {
+            "phase": "serve_fabric", "move": "disk park", "pool": "bfloat16",
+            "model": "llama3-8b", "host_pool_blocks": FABRIC_HOST_BLOCKS,
+            "preemptions": int(_metric(a.engine, "preemptions_total")),
+            "spilled_blocks": spilled,
+            "spilled_mb": fa["bytes_moved"]["spill"] / 1e6,
+            "resumed_from_disk_blocks": fa["blocks_moved"]["pull"],
+            "adopted_request": i, "adopted_blocks":
+                fb["blocks_moved"]["migrate"],
+            "disk_write_ms_per_block": io.get("put_session", 0.0)
+            / max(spilled, 1),
+            "disk_claim_read_ms_per_block": io.get("claim_session", 0.0)
+            / max(fa["blocks_moved"]["pull"] + fb["blocks_moved"]
+                  ["migrate"], 1),
+            "streams_equal_full_provisioning": True,
+            "claimed_once": True, "source_saw_claim": True,
+            "k4_launches": launches}
+        emit(report)
+    finally:
+        _drop_servers(torch, a, b)
+    # the prefix half: write through, then a fresh engine reads it warm
+    import numpy as np
+    rng = np.random.default_rng(4)
+    vocab = model.config.vocab_size
+    prompt = np.concatenate([rng.integers(0, vocab, PREFIX_SYSTEM),
+                             rng.integers(0, vocab, PREFIX_SUFFIX)])
+    pref = str(root / "prefix")
+    streams, io2, prefix_launches = [], {}, 0
+    layers = model.config.num_hidden_layers
+    report = {"phase": "serve_fabric", "move": "disk prefix",
+              "pool": "bfloat16", "model": "llama3-8b"}
+    for step in ("write", "read"):
+        eng = _serve_engine(model, **PREFIX_KW,
+                            fabric={"disk_root": pref})
+        _time_method(eng._disk, "put_block", io2)
+        _time_method(eng._disk, "get_block", io2)
+        torch.cuda.synchronize()
+        PA.LAUNCHES["paged_attention"] = 0
+        since = sum(_replays(eng))
+        r = eng.submit(prompt, PREFIX_NEW)
+        eng.run()
+        torch.cuda.synchronize()
+        require(r.error is None and len(r.tokens) == PREFIX_NEW,
+                f"{name}: prefix {step}: {r.error!r}")
+        replays = sum(_replays(eng)) - since
+        require(PA.LAUNCHES["paged_attention"] == layers * replays > 0,
+                f"{name}: prefix {step}: {PA.LAUNCHES['paged_attention']} "
+                f"K4 launches for {replays} replays")
+        prefix_launches += PA.LAUNCHES["paged_attention"]
+        streams.append(list(r.tokens))
+        report[f"prefix_{step}_blocks"] = {
+            k: int(eng.metrics()["llm_engine_fabric_blocks_moved_total"]
+                   ["series"][f"op={k}"]["value"]) for k in ("pull", "spill")}
+        _unhook(torch, eng)
+    nb = PREFIX_SYSTEM // SERVE_KW["kv_block_tokens"]
+    require(report["prefix_read_blocks"]["pull"] == nb,
+            f"{name}: the fresh engine read {report['prefix_read_blocks']} "
+            f"blocks from disk, want {nb}")
+    require(streams[0] == streams[1] and (prefix_streams is None
+                                          or streams[0] == prefix_streams[0]),
+            f"{name}: the disk-warm stream differs")
+    report.update({
+        "prefix_streams_equal": True,
+        "disk_put_block_ms": io2.get("put_block", 0.0)
+        / max(io2.get("put_block_calls", 1), 1),
+        "disk_get_block_ms": io2.get("get_block", 0.0)
+        / max(io2.get("get_block_calls", 1), 1),
+        "k4_launches": prefix_launches})
+    emit(report)
+    return launches + prefix_launches
+
+
+def _fabric_handoff(torch, model, kv):
+    """(d) P (pool_role "prefill") and D ("decode"): the serve mix (8
+    requests x 32 tokens) colocated on D, then prefilled on P with D as
+    the handoff target and adopted on D ({"kind": "handoff"}): every
+    adopted stream equals D's colocated one; every request of two or
+    more prefill chunks shipped two or more frames.  TTFT at P, ITL at
+    D against colocated.  K4 = 32 x (P's + D's replays)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import paged_attention as PA
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in SERVE_LENGTHS]
+    pool = kv or "bfloat16"
+    name = f"serve_fabric handoff ({pool})"
+    P = _fabric_server(model, "P", kv_dtype=kv, pool_role="prefill")
+    Dd = _fabric_server(model, "D", kv_dtype=kv, pool_role="decode")
+    try:
+        torch.cuda.synchronize()
+        PA.LAUNCHES["paged_attention"] = 0
+        since = _total_replays(P, Dd)
+        stamps, t_sub = {}, {}
+        t0 = time.perf_counter()
+        colo = [Dd.submit(p, SERVE_NEW, on_token=_stamped(stamps, ("c", i)))
+                for i, p in enumerate(prompts)]
+        for r in colo:
+            Dd.result(r, timeout=SLO_WAIT_S)
+        ref = [list(r.tokens) for r in colo]
+        frames = {}
+        send = P.engine._ho_send
+
+        def counted(hs, header, payload, rec=None):
+            frames[hs["sid"]] = frames.get(hs["sid"], 0) + 1
+            return send(hs, header, payload, rec)
+        P.engine._ho_send = counted
+        t1 = time.perf_counter()
+        reqs = []
+        for i, p in enumerate(prompts):
+            t_sub[i] = time.perf_counter()
+            reqs.append(P.submit(p, SERVE_NEW, session_id=f"h{i}",
+                                 handoff={"addr": list(Dd.fabric_address)},
+                                 on_token=_stamped(stamps, ("p", i))))
+        adopted, adopt_ms = [None] * len(reqs), []
+        deadline = time.monotonic() + SLO_WAIT_S
+        while any(a is None for a in adopted):
+            require(time.monotonic() < deadline,
+                    f"{name}: handoffs never completed")
+            for i, r in enumerate(reqs):
+                if adopted[i] is None and r.done:
+                    require(r.migrated and r.error is None,
+                            f"{name}: request {i} not handed off "
+                            f"({r.error!r})")
+                    ta = time.perf_counter()
+                    adopted[i] = Dd.adopt(
+                        {"kind": "handoff", "session_id": f"h{i}"},
+                        on_token=_stamped(stamps, ("d", i)))
+                    adopt_ms.append(1e3 * (time.perf_counter() - ta))
+            time.sleep(0.002)
+        for r in adopted:
+            Dd.result(r, timeout=SLO_WAIT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _k4_fabric(torch, name, since, P, Dd)
+        out = [list(r.tokens) for r in adopted]
+        require(out == ref, f"{name}: adopted streams differ from D's "
+                f"colocated streams")
+        require(all(list(r.tokens) == x[:1] for r, x in zip(reqs, ref)),
+                f"{name}: the prefill side emitted more than the first "
+                f"token")
+        for i, p in enumerate(prompts):
+            off, chunks = 0, 0
+            while off < len(p):
+                off += P.engine._chunk_for(len(p) - off)
+                chunks += 1
+            require(chunks < 2 or frames.get(f"h{i}", 0) >= 2,
+                    f"{name}: request {i} ({len(p)} tokens, {chunks} "
+                    f"chunks) shipped {frames.get(f'h{i}', 0)} frames")
+        fp, fd = _fab_counts(P), _fab_counts(Dd)
+        for f in (fp, fd):
+            require(not any(f["integrity_failures"].values()),
+                    f"{name}: integrity failures {f['integrity_failures']}")
+        # the adopted stream's first stamp is the replayed first token:
+        # D's ITL starts at its first decoded token
+        itl = {k: [b - a for i in range(len(prompts))
+                   for a, b in zip(stamps[k, i][skip:],
+                                   stamps[k, i][skip + 1:])]
+               for k, skip in (("c", 0), ("d", 1))}
+        ttft_p = [stamps["p", i][0] - t_sub[i] for i in range(len(reqs))]
+        ttft_c = [stamps["c", i][0] - t0 for i in range(len(colo))]
+        report = {
+            "phase": "serve_fabric", "move": "handoff", "pool": pool,
+            "model": "llama3-8b", "requests": len(prompts),
+            "frames_per_request": [frames.get(f"h{i}", 0)
+                                   for i in range(len(prompts))],
+            "handoff_chunks": fp["handoff_chunks"],
+            "mb_moved": fp["handoff_bytes"] / 1e6,
+            "streams_equal_colocated": True,
+            "ttft_p50_ms": {"at_P": 1e3 * _percentile(ttft_p, 50),
+                            "colocated": 1e3 * _percentile(ttft_c, 50)},
+            "itl_ms": {"at_D_p50": 1e3 * _percentile(itl["d"], 50),
+                       "at_D_p99": 1e3 * _percentile(itl["d"], 99),
+                       "colocated_p50": 1e3 * _percentile(itl["c"], 50),
+                       "colocated_p99": 1e3 * _percentile(itl["c"], 99)},
+            "adopt_call_ms_p50": _percentile(adopt_ms, 50),
+            "handoff_wall_s": wall, "k4_launches": launches,
+            "decode_replays": {s.name: sum(_replays(s.engine))
+                               for s in (P, Dd)}}
+        emit(report)
+        return launches
+    finally:
+        _drop_servers(torch, P, Dd)
+
+
+def phase_serve_fabric(torch, model, prefix_streams, pressure_streams):
+    """The KV fabric between two servers on one card (llama3-8b, all 32
+    layers, bf16, the serve shape): (a) a prefix pull, bf16 and int8
+    pools; (b) a live session migration; (c) disk parks, a disk
+    adoption claimed once, a disk-warm prefix after a restart; (d) the
+    chunk-streamed prefill -> decode handoff, bf16 and int8 pools.
+    Every move must have moved blocks (a silent fallback to recompute
+    fails the phase).  Returns K4's launches by (pool, move)."""
+    import tempfile
+    t0 = time.perf_counter()
+    launches = {}
+    for kv in (None, "int8"):
+        launches[kv or "bfloat16", "pull"] = _fabric_pull(
+            torch, model, kv, prefix_streams if kv is None else None)
+    launches["bfloat16", "migrate"] = _fabric_migrate(
+        torch, model, pressure_streams)
+    with tempfile.TemporaryDirectory(prefix="fabric-disk-") as d:
+        launches["bfloat16", "disk"] = _fabric_disk(
+            torch, model, pressure_streams, prefix_streams, Path(d))
+    for kv in (None, "int8"):
+        launches[kv or "bfloat16", "handoff"] = _fabric_handoff(
+            torch, model, kv)
+    emit({"phase": "serve_fabric", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
@@ -3554,7 +4200,8 @@ def phase_serve(torch):
     synchronous driver, the eager step and the bucketed widths; then
     serving under KV pressure, with a shared system prompt, with
     speculation and SLO tiers; then with int8 weights (serve_int8w);
-    then static KV-cache generation on the same model."""
+    then static KV-cache generation on the same model; then tiered KV
+    and the KV fabric between two servers."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.from_preset("llama3-8b"),
@@ -3594,20 +4241,22 @@ def phase_serve(torch):
               for kv in (None, "int8")}
     for kv in (None, "int8"):
         _verify_parity(torch, model, kv, limits[kv or "bfloat16"])
-    pressure = phase_serve_pressure(torch, model, limits)
-    prefix = phase_serve_prefix(torch, model)
+    pressure, pressure_streams = phase_serve_pressure(torch, model, limits)
+    prefix, prefix_streams = phase_serve_prefix(torch, model)
     spec = phase_serve_spec(torch, model, limits)
     slo = phase_serve_slo(torch, model, limits)
     int8w = phase_serve_int8w(torch, model, limits, streams[None],
                               profile["graphs_overlap"])
     generate = phase_generate(torch, model, limits["bfloat16"])
     tiered = phase_serve_tiered(torch, model)
+    fabric = phase_serve_fabric(torch, model, prefix_streams,
+                                pressure_streams["bfloat16"])
     del model
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
             "pressure": pressure, "prefix": prefix, "spec": spec,
             "slo": {"bfloat16": slo}, "int8w": int8w,
-            "generate": generate, "tiered": tiered}
+            "generate": generate, "tiered": tiered, "fabric": fabric}
 
 
 def _debug_model():
@@ -5559,6 +6208,16 @@ def main() -> int:
                 f"{e['name']}: no launch in a serve_pressure run")
         tiered = {run: n for (p, run), n in
                   serve_launches["tiered"].items() if p == pool}
+        fabric = {move: n for (p, move), n in
+                  serve_launches["fabric"].items() if p == pool}
+        if fabric:
+            e["launches_serve_fabric"] = fabric
+            e["launches_path_serve_fabric"] = (
+                f"serve_fabric llama3-8b, {pool} pool, two servers on one "
+                f"card: each move from 0, layers x the replays of both "
+                f"servers while it ran (pull: the puller's only)")
+            require(all(n > 0 for n in fabric.values()),
+                    f"{e['name']}: no launch in a serve_fabric move")
         if tiered:
             e["launches_serve_tiered"] = tiered
             e["launches_path_serve_tiered"] = (

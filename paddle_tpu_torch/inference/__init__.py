@@ -2,12 +2,15 @@
 continuous-batching paged-KV engine), `LLMServer` (its thread-safe
 front), `KVPager` (the block-pool bookkeeping), `SpecConfig` (the
 speculative-decoding knobs), the SLO tiers (`SLOTier`, `SLOTargets`,
-`goodput`) and the overload ladder (`OverloadConfig`,
-`OverloadController`), under the JAX package's public names."""
+`goodput`), the overload ladder (`OverloadConfig`,
+`OverloadController`) and the KV fabric (`DiskTier`, `FabricServer`,
+`FabricError`, `SessionTicket`), under the JAX package's public
+names."""
 
 from ..observability.slo import SLOTargets, SLOTier, goodput
 from .engine import (DeadlineExceeded, EngineUnhealthy, LLMEngine,
                      Overloaded, QueueFull, Request, ResultTimeout)
+from .kv_fabric import DiskTier, FabricError, FabricServer, SessionTicket
 from .kv_pager import BlocksExhausted, KVPager
 from .ngram_draft import SpecConfig
 from .overload import OverloadConfig, OverloadController
@@ -17,4 +20,5 @@ __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
            "QueueFull", "EngineUnhealthy", "ResultTimeout", "Overloaded",
            "KVPager", "BlocksExhausted", "SpecConfig", "SLOTier",
            "SLOTargets", "goodput", "OverloadConfig",
-           "OverloadController"]
+           "OverloadController", "DiskTier", "FabricServer",
+           "FabricError", "SessionTicket"]

@@ -101,21 +101,40 @@ What this slice keeps of the JAX engine:
     table chunk by chunk, so the device pool may be SMALLER than one
     `max_len` sequence while device and host tiers together cover it.
     A park keeps the tier map (`cold_idx`) and a resume restores it;
+  * the KV FABRIC (`fabric`: None, a disk-root path, or a dict of
+    `timeout`, `disk_root`, `disk_capacity_bytes`, `persist_prefixes`,
+    `persist_sessions`; `inference/kv_fabric.py`): a prompt past its
+    local trie match pulls the peer's blocks named by
+    `Request(prefix_hint=)` and the disk tier's content-addressed
+    blocks, landed in place and grafted into the trie; a parked
+    request (`Request(session_id=)`) exports as a `SessionTicket` a
+    peer adopts (`adopt_ticket`, `fabric_handler`'s "take"), parks to
+    the disk tier when the host tier is full ("disk" mode) and is
+    mirrored there (`persist_sessions`), a claim deciding which of the
+    local resume and an adopter continues it; a prefill with
+    `Request(handoff=)` streams each finished chunk's blocks to a
+    decode peer and ends `migrated` at its first token.  Every parked
+    host copy is stamped with a CRC32C once its copy has landed and
+    checked before it is resumed or exported; corrupt bytes degrade to
+    recompute, never land.  A fabric failure of any kind is a local
+    recompute, never a lost request;
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
     `Request.result(timeout=)`, and the `llm_engine_*` TTFT / ITL /
-    token / host-gap / `spec_*` / tier / overload / tiered-KV metrics.
+    token / host-gap / `spec_*` / tier / overload / tiered-KV / fabric
+    metrics.
 
-The JAX engine's other knobs (meshes, the AOT cache, the KV fabric)
-raise `NotImplementedError` naming their ROADMAP item — never silently
-ignored; so do the `Request` fields of the fabric (`prefix_hint`,
-`session_id`, `handoff`).  Of the ladder, the port leaves out the
-CRC32C stamp on parked host copies (with the fabric, (h)) and the disk
-tier (a parked request is always claimable here); of tiering, the disk
-leg of the prefetcher (its blocking-miss metrics
-`kv_prefetch_miss_total` / `prefetch_wait_seconds` are registered and
-stay 0).  Its bounded compile count becomes a bound on captured
-graphs: `num_graphs` <= `len(decode_widths) + len(verify_widths)`.
+The JAX engine's meshes and AOT cache raise `NotImplementedError`
+naming their ROADMAP item — never silently ignored.  Its bounded
+compile count becomes a bound on captured graphs: `num_graphs` <=
+`len(decode_widths) + len(verify_widths)`.
+
+Fabric bytes cross threads but the card does not: the fabric's
+connection and handoff-sender threads move host bytes only; every
+export (a gather, one pinned copy and a host wait on its event: the
+one host wait the overlap driver makes outside a commit, counted in
+`fabric_export_waits_total`) and every landing (`scatter_blocks` in
+place) runs on the thread that steps the engine.
 
 Host writes into pinned memory are not ordered with the card's work,
 so the engine never writes an extension row from the host on the card:
@@ -170,19 +189,13 @@ _REQ_IDS = itertools.count()
 
 # knobs of the JAX engine this slice does not port: name -> (the values
 # that mean "off", the ROADMAP item that ports it)
-_FABRIC = "engine sub-slice (h): KV fabric and disaggregated serving"
 _MULTI = "multi-GPU serving"
 _UNPORTED = {
     "aot_cache": ((None,),
                   "engine sub-slice (j): the AOT serving-program cache"),
-    "fabric": ((None,), _FABRIC),
     "mesh": ((None,), _MULTI),
     "tp": ((None, 1), _MULTI),
     "sp": ((None, 1), _MULTI),
-    # the Request fields of the KV fabric
-    "prefix_hint": ((None,), _FABRIC),
-    "session_id": ((None,), _FABRIC),
-    "handoff": ((None,), _FABRIC),
 }
 
 
@@ -240,16 +253,20 @@ class Request:
     scheduling class: admission, park and resume order and the overload
     ladder key on it; `priority` breaks ties within a tier (under pool
     pressure the lowest priority, then the most recently admitted,
-    decoding slot parks first).  `prefix_hint`, `session_id` and
-    `handoff` belong to the KV fabric and raise unless None."""
+    decoding slot parks first).  The KV fabric's fields: `session_id`
+    (stable across replicas: tickets and adoption key on it),
+    `prefix_hint` ({"addr": [host, port], "tokens": n}: a peer holding
+    this prompt's prefix; advisory) and `handoff` ({"addr": [host,
+    port]}: the decode peer a prefill streams its blocks to; the
+    request then ends `migrated` at its first token).  `migrated`
+    flips when a peer takes the stream over: the completion that
+    follows is a hand-off, not an answer."""
 
     def __init__(self, prompt_ids, max_new_tokens, temperature=1.0,
                  top_p=1.0, greedy=True, eos_token_id=None, seed=0,
                  on_token=None, on_done=None, deadline=None, priority=0,
                  tier=None, prefix_hint=None, session_id=None,
                  trace_id=None, handoff=None):
-        _reject_unported(prefix_hint=prefix_hint, session_id=session_id,
-                         handoff=handoff)
         self.rid = next(_REQ_IDS)
         self.trace_id = None if trace_id is None else str(trace_id)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -265,11 +282,15 @@ class Request:
         self.seed = int(seed)
         self.priority = int(priority)
         self.tier = SLOTier.check(tier)
+        self.session_id = None if session_id is None else str(session_id)
+        self.prefix_hint = prefix_hint
+        self.handoff = handoff
         self.on_token = on_token
         self.on_done = on_done
         self.tokens: list[int] = []
         self.done = False
         self.cancelled = False
+        self.migrated = False
         self.error: BaseException | None = None
         self._done_fired = False
         self._done_ev = threading.Event()
@@ -347,9 +368,12 @@ class _PrefillState:
     drop-and-recompute resume), its write frontier `off` (rows [0, off)
     of the slot's cache are valid, cache-hit rows included), the
     prefix-cache nodes pinned on its behalf, and the parked record
-    being restored (None for a fresh admission)."""
+    being restored (None for a fresh admission).  `handoff`: None, or
+    the live chunk stream to a decode peer (addr, sid, seq, blocks
+    shipped, bytes, frames pending, torn, t0); a wire failure tears it
+    and the slot decodes locally."""
 
-    __slots__ = ("req", "ids", "off", "nodes", "restore")
+    __slots__ = ("req", "ids", "off", "nodes", "restore", "handoff")
 
     def __init__(self, req, off, nodes, ids=None, restore=None):
         self.req = req
@@ -357,6 +381,7 @@ class _PrefillState:
         self.off = off
         self.nodes = nodes
         self.restore = restore
+        self.handoff = None
 
 
 class _ParkedRequest:
@@ -370,11 +395,17 @@ class _ParkedRequest:
     was dropped and resume re-prefills prompt + tokens[:-1].  Under
     tiering, `cold_idx` holds the table indices that were in the host
     extension tier at park time (a swap resume puts those still behind
-    the hot window back there)."""
+    the hot window back there).  The fabric's: `sid` (the session key on
+    the disk tier), `persisted` (a ticket of this park is on the disk
+    tier: a peer may adopt it, so the local resume claims it first;
+    mode "disk" means the blocks live only in that ticket) and
+    `host_crc` (the CRC32C of the host copy, stamped once its copy
+    landed; None before)."""
 
     __slots__ = ("req", "mode", "token", "pos", "gen", "spec_idx",
                  "spec_k", "spec_ema", "host", "event", "n_blocks",
-                 "admit_seq", "t_parked", "cold_idx")
+                 "admit_seq", "t_parked", "cold_idx", "sid", "persisted",
+                 "host_crc")
 
     def __init__(self, req, mode, token, pos, gen, spec_idx, spec_k,
                  spec_ema, host, event, n_blocks, admit_seq, cold_idx=()):
@@ -392,6 +423,9 @@ class _ParkedRequest:
         self.admit_seq = admit_seq
         self.t_parked = time.perf_counter()
         self.cold_idx = tuple(int(j) for j in cold_idx)
+        self.sid = req.session_id or f"r{req.rid}"
+        self.persisted = False
+        self.host_crc = None
 
 
 class _InflightStep:
@@ -503,11 +537,15 @@ class LLMEngine:
     `kv_blocks` may then go down to the working set of trash + sink + k
     + one chunk's blocks + 1, with device and host tiers together
     covering one `max_len` sequence), `prefetch_depth` (blocks the
-    prefetcher may promote a step, >= 1).  The parameters are in the
-    JAX engine's order; `fabric`, `mesh`, `tp`, `sp` and `aot_cache`
-    raise `NotImplementedError` naming their ROADMAP item unless
-    "off".  Single-threaded by design;
-    see `serving.LLMServer` for the thread-safe front."""
+    prefetcher may promote a step, >= 1), `fabric` (None; a disk-root
+    path; or a dict: `timeout` (s, default 30), `disk_root`,
+    `disk_capacity_bytes`, `persist_prefixes` and `persist_sessions`
+    (default True: write fresh prefix blocks and parked tickets through
+    to the disk tier)).  The parameters are in the JAX engine's order;
+    `mesh`, `tp`, `sp` and `aot_cache` raise `NotImplementedError`
+    naming their ROADMAP item unless "off".  Single-threaded by design
+    (`fabric_handler` and `adopt_ticket` too): see `serving.LLMServer`
+    for the thread-safe front, which runs them on its driver thread."""
 
     def __init__(self, model, max_slots=4, max_len=256,
                  max_prompt_len=None, min_bucket=16, prefill_chunk=64,
@@ -521,8 +559,7 @@ class LLMEngine:
                  slo_targets=None, overload=None,
                  fabric=None, mesh=None, tp=None, sp=None,
                  overlap="auto", aot_cache=None):
-        _reject_unported(fabric=fabric, mesh=mesh, tp=tp, sp=sp,
-                         aot_cache=aot_cache)
+        _reject_unported(mesh=mesh, tp=tp, sp=sp, aot_cache=aot_cache)
         self.cfg = model.config
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -825,7 +862,56 @@ class LLMEngine:
                  torch.empty(m, dtype=torch.int64, pin_memory=True))
                 for _ in range(2)]
             self._n_dispatched = 0
+        self._init_fabric(fabric)
         self._init_metrics()
+
+    def _init_fabric(self, fabric):
+        """The KV fabric's state.  The fingerprint and the job queue
+        exist on every engine (a hint can reach any engine); the disk
+        tier only with a root.  `fabric` stays JSON-able."""
+        if fabric is None:
+            fabric = {}
+        elif isinstance(fabric, str):
+            fabric = {"disk_root": fabric}
+        if not isinstance(fabric, dict):
+            raise ValueError("fabric must be None, a disk-root path, "
+                             "or a config dict")
+        self._fabric_cfg = dict(fabric)
+        self._fabric_timeout = float(fabric.get("timeout", 30.0))
+        self._persist_prefixes = bool(fabric.get("persist_prefixes", True))
+        self._persist_sessions = bool(fabric.get("persist_sessions", True))
+        root = fabric.get("disk_root")
+        self._disk = (_kvf.DiskTier(root, capacity_bytes=fabric.get(
+            "disk_capacity_bytes")) if root else None)
+        self._fabric_fp = _kvf.pool_fingerprint(D.pool_leaves(self._kvpool),
+                                                self.kv_block_tokens)
+        # the server's own fabric address (a hint naming it would make
+        # the driver wait on itself)
+        self._fabric_self_addr = None
+        # engine-state work of other threads (serving a pull, adopting
+        # a ticket): zero-argument jobs the driver drains at each step
+        # boundary
+        self._fabric_jobs: deque = deque()
+        # handoff, decode side: streams being received (sid -> {"frames":
+        # [(kv_meta, payload)], "t"}) and assembled tickets waiting for
+        # their adoption (sid -> (bytes, t)); the rx verbs run on fabric
+        # connection threads under this lock, and stale entries of a
+        # prefill peer that went quiet are dropped after `_handoff_ttl`
+        self._handoff_rx: dict = {}
+        self._handoff_tickets: dict = {}
+        self._handoff_ttl = max(60.0, 4.0 * self._fabric_timeout)
+        self._ho_rx_lock = threading.Lock()
+        # handoff, prefill side: frames go out on sender threads (started
+        # at the first frame), one FIFO a bucket, a stream hashed to one
+        # bucket so its frames keep their order; a slot whose commit frame
+        # is in flight waits in `_committing` (slot -> record) holding its
+        # blocks until the ack or the refusal comes back
+        self._ho_nbuckets = 8
+        self._ho_txq: list = [deque() for _ in range(self._ho_nbuckets)]
+        self._ho_cv = threading.Condition()
+        self._ho_threads: list = []
+        self._ho_closing = False
+        self._committing: dict = {}
 
     # -- telemetry ---------------------------------------------------------
 
@@ -959,22 +1045,68 @@ class LLMEngine:
         self._m_kv_prefetch_miss = reg.counter(
             "kv_prefetch_miss_total",
             help="blocks the prefetcher did NOT land in time (the disk "
-                 "leg's blocking fetch; 0 until the disk tier is ported)")
+                 "leg's blocking fetch at admission)")
         self._m_prefetch_wait = reg.histogram(
             "prefetch_wait_seconds",
             help="stall served inline by a blocking fetch on a prefetch "
-                 "miss (per miss event; empty until the disk tier is "
-                 "ported)",
+                 "miss (per miss event)",
             buckets=log_buckets(1e-4, 60.0, per_decade=3))
+        # the KV fabric: pull = prefix blocks landed from a peer or the
+        # disk tier, migrate = ticket blocks adopted, spill = blocks
+        # written to the disk tier
+        fb = reg.counter(
+            "fabric_blocks_moved_total",
+            help="pool blocks moved by the KV fabric, by operation "
+                 "(pull/migrate/spill)", labelnames=("op",))
+        self._m_fab_blocks = {op: fb.labels(op)
+                              for op in ("pull", "migrate", "spill")}
+        fby = reg.counter(
+            "fabric_bytes_total",
+            help="payload bytes moved by the KV fabric, by operation "
+                 "(pull/migrate/spill)", labelnames=("op",))
+        self._m_fab_bytes = {op: fby.labels(op)
+                             for op in ("pull", "migrate", "spill")}
+        self._m_remote_saved = reg.counter(
+            "prefill_tokens_saved_remote_total",
+            help="prompt tokens covered by fabric-transferred KV (remote "
+                 "pull or disk tier) instead of local prefill compute — "
+                 "the fabric's share of prefill_tokens_saved_total")
+        self._m_migration = reg.histogram(
+            "fabric_migration_seconds",
+            help="session-ticket export -> adoption latency (wall clock, "
+                 "comparable across processes)",
+            buckets=log_buckets(1e-3, 60.0, per_decade=3))
+        self._m_export_waits = reg.counter(
+            "fabric_export_waits_total",
+            help="fabric exports whose host copy the driver waited for "
+                 "(a gather queued behind the step in flight, then one "
+                 "pinned copy and its event)")
+        self._m_handoff_chunks = reg.counter(
+            "handoff_chunks_total",
+            help="chunk-streamed handoff frames shipped to a decode peer "
+                 "(prefill side; the commit frame counts too)")
+        self._m_handoff_bytes = reg.counter(
+            "handoff_bytes_total",
+            help="KV payload bytes shipped in chunk-streamed prefill -> "
+                 "decode handoffs (prefill side)")
+        self._m_handoff_s = reg.histogram(
+            "handoff_seconds",
+            help="first shipped handoff frame -> decode-peer commit ack, "
+                 "per handed-off prefill",
+            buckets=log_buckets(1e-3, 60.0, per_decade=3))
         integ = reg.counter(
             "kv_integrity_failures_total",
             help="CRC32C mismatches caught at a KV transfer boundary, by "
-                 "path; each degraded to recompute — corrupted bytes are "
-                 "never served (only \"ext\", the extension tier's "
-                 "promotes, is checked here)", labelnames=("path",))
+                 "path (pull/ticket/disk/manifest/swap/handoff/ext); each "
+                 "degraded to recompute — corrupted bytes are never "
+                 "served", labelnames=("path",))
         self._m_integrity = {p: integ.labels(path=p) for p in
                              ("pull", "ticket", "disk", "manifest",
                               "swap", "handoff", "ext")}
+        self._m_disk_evict = reg.counter(
+            "fabric_disk_evictions_total",
+            help="disk-tier prefix blocks evicted by the byte-capacity "
+                 "LRU bound (parked-session tickets are exempt)")
         # speculative decoding
         self._m_spec_steps = reg.counter(
             "spec_verify_steps_total",
@@ -1057,8 +1189,12 @@ class LLMEngine:
             "overload_deescalations_total",
             help="ladder steps DOWN (recovery, gated by hysteresis)")
         self._seen_evictions = 0
+        self._seen_disk_evict = 0
+        self._seen_disk_integrity = {"disk": 0, "manifest": 0}
         self._t_prev_step = None
         self._tput_ema = None
+        # a corrupt manifest record is found at boot, before the metrics
+        self._note_disk()
 
     def _note_cache(self):
         pc = self._pcache
@@ -1073,6 +1209,22 @@ class LLMEngine:
         self._m_kv_used.set(self._pager.used_blocks)
         self._m_kv_host.set(self._pager.host_blocks_used)
         self._m_parked.set(len(self._parked))
+        self._note_disk()
+
+    def _note_disk(self):
+        """Fold the disk tier's own counters (evictions, integrity
+        failures at rest) into the registry by delta."""
+        d = self._disk
+        if d is None:
+            return
+        if d.evictions > self._seen_disk_evict:
+            self._m_disk_evict.inc(d.evictions - self._seen_disk_evict)
+            self._seen_disk_evict = d.evictions
+        for path, n in d.integrity_failures.items():
+            seen = self._seen_disk_integrity.get(path, 0)
+            if n > seen:
+                self._m_integrity[path].inc(n - seen)
+                self._seen_disk_integrity[path] = n
 
     def metrics(self) -> dict:
         """Snapshot of this engine's metrics registry."""
@@ -1301,6 +1453,10 @@ class LLMEngine:
         for pr in [p for p in self._parked
                    if p.req.cancelled or p.req.expired(now)]:
             self._unpark(pr)
+            if pr.persisted and self._disk is not None:
+                # retire the disk ticket: no peer may adopt a stream its
+                # owner just failed or cancelled
+                self._disk.drop_session(pr.sid)
             self._finish_dead(pr.req, f"while parked after "
                                       f"{len(pr.req.tokens)} tokens")
 
@@ -1342,7 +1498,8 @@ class LLMEngine:
 
     def _free_slots(self):
         return [s for s in range(self.max_slots)
-                if self._slots[s] is None and s not in self._prefill]
+                if self._slots[s] is None and s not in self._prefill
+                and s not in self._committing]
 
     def _alloc_blocks(self, k):
         """Pool allocation with the preempt ladder's first rungs built
@@ -1468,9 +1625,11 @@ class LLMEngine:
 
     def _prefetch_tick(self):
         """One step's prefetch budget (`prefetch_depth` blocks): promote
-        running slots' extension blocks back to the device.  Rides the
-        `kv.prefetch` fault site: an injected fault skips the tick, and
-        the extension rows are read in place instead."""
+        running slots' extension blocks back to the device, then warm
+        queued requests' disk-tier prefixes into the trie with what is
+        left.  Rides the `kv.prefetch` fault site: an injected fault
+        skips the tick, the extension rows are read in place and a
+        prefix on disk loads at admission (a metered prefetch miss)."""
         if not self._tiered:
             return
         try:
@@ -1478,7 +1637,33 @@ class LLMEngine:
                          ext_used=self._pager.ext_used)
         except _faults.InjectedFault:
             return
-        self._promote_ext(self.prefetch_depth)
+        budget = self.prefetch_depth - self._promote_ext(
+            self.prefetch_depth)
+        if budget > 0:
+            self._prefetch_disk_prefixes(budget)
+
+    def _prefetch_disk_prefixes(self, budget):
+        """The prefetcher's disk leg: land the first queued requests'
+        disk-tier prefix blocks into the trie before their admission
+        needs them (there they are ordinary trie blocks, aliased for
+        free instead of the blocking load at admission)."""
+        if (self._disk is None or not self._persist_prefixes
+                or self._pcache is None or not self._queue):
+            return
+        pager, bt = self._pager, self.kv_block_tokens
+        for req in list(self._queue)[:2]:
+            if budget <= 0 or pager.free_blocks <= self.max_slots:
+                return
+            matched, _bids, _nodes = self._pcache.match(req.prompt)
+            self._pcache.match_undo(matched)
+            first = matched // bt
+            want = (req.prompt.size - 1) // bt
+            n = self._disk_prefix_fill(req, first,
+                                       min(want, first + budget),
+                                       blocking=False)
+            if n:
+                self._m_kv_prefetched.inc(n)
+                budget -= n
 
     def _promote_ext(self, budget):
         """Promote up to `budget` extension blocks of running slots back
@@ -1554,7 +1739,8 @@ class LLMEngine:
         if self._pcache is not None:
             self._pcache.drop_block(bid)
         for slot in range(self.max_slots):
-            if bid not in self._pager.slot_blocks[slot]:
+            if bid not in self._pager.slot_blocks[slot] \
+                    or slot in self._committing:
                 continue
             if slot in self._prefill:
                 self._requeue_prefill(slot)
@@ -1663,6 +1849,17 @@ class LLMEngine:
             if self._pcache is not None:
                 matched, bids, nodes = self._pcache.match(req.prompt)
                 self._pcache.acquire(nodes)
+                if self._fabric_prefix_fill(req, matched):
+                    # the fabric grafted blocks past the local match into
+                    # the trie: match again so this admission aliases
+                    # them (undo the first match: it must not count)
+                    self._pcache.release(nodes)
+                    self._pcache.match_undo(matched)
+                    was = matched
+                    matched, bids, nodes = self._pcache.match(req.prompt)
+                    self._pcache.acquire(nodes)
+                    if matched > was:
+                        self._m_remote_saved.inc(matched - was)
             need = self._pager.blocks_for(L + 1) - len(bids)
             if self._tiered and need > 0:
                 # tiered admission allocates only the first uncached
@@ -1698,7 +1895,16 @@ class LLMEngine:
             if self.prefill_chunk is None:
                 self._prefill_whole(slot, req)
             else:
-                self._prefill[slot] = _PrefillState(req, matched, nodes)
+                ps = self._prefill[slot] = _PrefillState(req, matched, nodes)
+                # the handoff stream: a one-token request never decodes,
+                # and a target naming this engine would wait on itself
+                ho = req.handoff
+                if ho and ho.get("addr") and req.max_new_tokens > 1 \
+                        and tuple(ho["addr"]) != self._fabric_self_addr:
+                    ps.handoff = {"addr": tuple(ho["addr"]),
+                                  "sid": req.session_id or f"r{req.rid}",
+                                  "seq": 0, "shipped": 0, "bytes": 0,
+                                  "pending": 0, "torn": False, "t0": None}
         self._m_queue.set(len(self._queue))
         self._note_tier_queue()
 
@@ -1785,6 +1991,10 @@ class LLMEngine:
                 if final:
                     self._finish_prefill(slot, ps, tok)
                     break
+                if ps.handoff is not None:
+                    # ship the blocks this chunk finished while the later
+                    # chunks compute: the commit then carries only the tail
+                    self._handoff_stream_chunk(slot, ps)
             if budget <= 0:
                 break
 
@@ -1824,8 +2034,10 @@ class LLMEngine:
             return
         L = req.prompt.size
         if self._pcache is not None:
-            self._pcache.insert(req.prompt, L,
-                                blocks=self._pager.slot_blocks[slot])
+            new = self._pcache.insert(req.prompt, L,
+                                      blocks=self._pager.slot_blocks[slot])
+            if new and self._disk is not None and self._persist_prefixes:
+                self._persist_prefix_blocks(req.prompt, new)
             self._note_cache()
         now = time.perf_counter()
         req._ttft = now - req._t_submit
@@ -1836,6 +2048,12 @@ class LLMEngine:
         _tr.point("req/first_token", trace_id=req.trace_id, rid=req.rid,
                   ttft_s=req._ttft)
         if not req._emit(tok):
+            if ps.handoff is not None \
+                    and self._handoff_commit_start(slot, ps, tok):
+                # the commit frame follows the streamed chunks; the slot
+                # waits in `_committing`, holding its blocks, until
+                # `_reap_commits` sees the peer's answer
+                return
             self._slots[slot] = req
             self._slot_nodes[slot] = ps.nodes
             self._token[slot] = tok
@@ -1997,17 +2215,26 @@ class LLMEngine:
                     else "recompute")
         swapped = self._swap_out(slot, nb) if mode == "swap" else None
         host, event = swapped or (None, None)
-        if swapped is None:
-            mode = "recompute"
+        if mode == "swap" and swapped is None:
+            # the host tier refused: spill the blocks to the disk tier
+            # before dropping all the way to recompute
+            mode = "disk" if self._disk is not None else "recompute"
+        kept = mode in ("swap", "disk")
         pr = _ParkedRequest(req, mode, self._token[slot], pos,
                             self._gens[slot], self._spec_idx[slot],
                             self._spec_k[slot], self._spec_ema[slot],
-                            host, event, nb if mode == "swap" else 0,
+                            host, event, nb if kept else 0,
                             self._slot_seq[slot],
-                            cold_idx if mode == "swap" else ())
+                            cold_idx if kept else ())
+        if mode == "disk" and not self._spill_parked(pr, slot):
+            pr.mode, pr.n_blocks, pr.cold_idx = "recompute", 0, ()
+        elif self._disk is not None and self._persist_sessions:
+            # failover insurance: a ticket on the disk tier lets a peer
+            # adopt the session if this replica dies while it is parked
+            self._persist_parked(pr)
         self._parked.append(pr)
         _tr.point("req/park", trace_id=req.trace_id, rid=req.rid,
-                  mode=mode, pos=pos)
+                  mode=pr.mode, pos=pos)
         self._free_slot(slot)
         self._m_preempt.inc()
         self._note_kv()
@@ -2037,12 +2264,24 @@ class LLMEngine:
         return flat, event
 
     def _unpark(self, pr):
-        """Drop a parked record (resume, cancel or expiry): return its
-        host-tier reservation."""
+        """Drop a parked record (resume, cancel, expiry or a peer's
+        take): return its host-tier reservation."""
         self._parked.remove(pr)
         if pr.mode == "swap":
             self._pager.host_release(pr.n_blocks)
         pr.host = pr.event = None
+
+    def _swap_crc_tick(self):
+        """Stamp the parked host copies whose copy to the host has landed
+        with their CRC32C (never waits: a copy in flight is stamped at a
+        later step).  Resume and export check the stamp, so a bit flip
+        in host memory degrades to recompute instead of landing."""
+        for pr in self._parked:
+            if pr.mode != "swap" or pr.host_crc is not None:
+                continue
+            if pr.event is not None and not pr.event.query():
+                continue
+            pr.host_crc = _kvf.crc32c(pr.host.numpy())
 
     def _try_resume(self):
         """Parked requests resume highest tier first, then oldest
@@ -2059,8 +2298,19 @@ class LLMEngine:
             if not free:
                 break
             slot = free[0]
-            ok = (self._resume_swap(slot, pr) if pr.mode == "swap"
-                  else self._resume_recompute(slot, pr))
+            if pr.mode == "swap":
+                ok = self._resume_swap(slot, pr)
+            elif pr.mode == "disk":
+                ok = self._resume_disk(slot, pr)
+            else:
+                ok = self._resume_recompute(slot, pr)
+            if ok is None:
+                # a peer adopted the session's disk ticket while it was
+                # parked here: the stream goes on there
+                self._parked.remove(pr)
+                pr.req.migrated = True
+                pr.req._finish_cancelled()
+                continue
             if not ok:
                 break    # pool still short: keep order, retry next step
             free.pop(0)
@@ -2077,6 +2327,10 @@ class LLMEngine:
         got = self._place_resume_blocks(pr, need)
         if got is None:
             return False
+        if not self._claim_parked(pr):
+            for bid in got:
+                self._pager.decref(bid)
+            return None
         try:
             _faults.fire("kv.swap_in", slot=slot, rid=pr.req.rid)
         except _faults.InjectedFault:
@@ -2086,9 +2340,19 @@ class LLMEngine:
         self._swap_total += 1
         if pr.event is None or pr.event.query():
             self._swap_ready += 1
-        flat = pr.host if pr.event is None else \
-            pr.host.to(self.device, non_blocking=True)
-        self._install_resume_blocks(slot, pr, got, flat)
+        if pr.host_crc is not None \
+                and _kvf.crc32c(pr.host.numpy()) != pr.host_crc:
+            # the host copy rotted while parked: rebuild the KV by
+            # recompute, corrupt rows never reach the pool
+            self._m_integrity["swap"].inc()
+            for bid in got:
+                self._pager.decref(bid)
+            self._pager.host_release(pr.n_blocks)
+            pr.host = pr.event = pr.host_crc = None
+            pr.mode, pr.n_blocks, pr.cold_idx = "recompute", 0, ()
+            return self._resume_recompute(slot, pr)
+        self._install_resume_blocks(slot, pr, got,
+                                    self._host_to_device(pr.host))
         self._unpark(pr)
         self._install_parked(slot, pr)
         if self._pcache is not None:
@@ -2138,6 +2402,13 @@ class LLMEngine:
                 self._pcache.release(nodes)
                 self._pcache.match_undo(matched)
             return False
+        if not self._claim_parked(pr):
+            if self._pcache is not None:
+                self._pcache.release(nodes)
+                self._pcache.match_undo(matched)
+            for bid in got:
+                self._pager.decref(bid)
+            return None
         if matched:
             self._pager.alias_prefix(slot, bids)
         self._pager.adopt(slot, got)
@@ -2158,6 +2429,821 @@ class LLMEngine:
         self._token[slot] = 0
         return True
 
+    # -- the KV fabric -----------------------------------------------------
+    # Export gathers blocks (`_gather_rows`: device blocks and extension
+    # rows alike) and waits for one pinned copy; landing scatters into
+    # freshly allocated blocks in place.  The wire carries each leaf's
+    # rows in leaf-major order, cut out of the block-major flat layout
+    # by `llama_decode._leaf_rows`.
+
+    def _run_fabric_jobs(self):
+        """Run the engine-state work other threads queued (a peer's pull
+        or take, an adoption): the only way fabric verbs touch the
+        scheduler's state."""
+        while self._fabric_jobs:
+            self._fabric_jobs.popleft()()
+
+    def _host_rows(self, flat, n):
+        """`flat` (n blocks, `gather_blocks`' layout) as (n, block bytes)
+        on the host.  On the card: one pinned copy queued behind the
+        work in flight and a wait for its event (counted)."""
+        if flat.device.type == "cpu":
+            return flat.view(n, -1)
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        self._m_export_waits.inc()
+        return host.view(n, -1)
+
+    def _leaf_views(self, rows):
+        """The wire leaves of host block rows `rows` ((n, block bytes)):
+        per layer K then V (int8: data, then scale), each (n, *block
+        shape) in the pool's dtype — strided views, no copy."""
+        layout, _ = D._block_layout(self._kvpool)
+        return [D._leaf_rows(rows, t, off, nbytes)
+                for t, off, nbytes in layout]
+
+    def _export_blocks(self, bids):
+        """The blocks `bids` -> (kv_meta, payload) in the wire format."""
+        rows = self._host_rows(self._gather_rows(list(bids)), len(bids))
+        return _kvf.pack_leaves(self._leaf_views(rows))
+
+    def _rows_from_leaves(self, leaves, k, pin=False):
+        """`k` blocks of wire leaves as one flat host tensor in
+        `gather_blocks`' layout (pinned with `pin`), or None when a
+        leaf's count, shape or dtype disagrees with this pool: a foreign
+        or torn payload never lands."""
+        layout, bb = D._block_layout(self._kvpool)
+        if k <= 0 or k > self._pager.max_blocks \
+                or len(leaves) != len(layout):
+            return None
+        host = torch.zeros((k, bb), dtype=torch.uint8, pin_memory=pin)
+        hv = host.numpy()
+        for a, (t, off, nbytes) in zip(leaves, layout):
+            a = np.asarray(a)
+            if a.dtype != _kvf.numpy_dtype(_kvf.dtype_name(t)) \
+                    or tuple(a.shape) != (k,) + tuple(t.shape[1:]):
+                return None
+            hv[:, off:off + nbytes] = np.ascontiguousarray(a).view(
+                np.uint8).reshape(k, nbytes)
+        return host.view(-1)
+
+    def _host_to_device(self, host):
+        """A host flat block buffer on the pool's device: pinned and
+        sent without blocking on the card (queued behind the work in
+        flight)."""
+        if self.device.type == "cpu":
+            return host
+        if not host.is_pinned():
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    # -- remote and disk prefix pull ---------------------------------------
+
+    def _fabric_prefix_fill(self, req, matched):
+        """Cover prompt blocks past the local trie match with KV from the
+        fabric: the hinted peer first, then the disk tier.  True when a
+        block landed in the trie (the caller matches again).  Every
+        failure is silent: the admission prefills locally."""
+        if req.prefix_hint is None and self._disk is None:
+            return False
+        bt = self.kv_block_tokens
+        first = matched // bt
+        want = (req.prompt.size - 1) // bt
+        if want <= first:
+            return False
+        n = 0
+        hint = req.prefix_hint
+        if hint and hint.get("addr") \
+                and int(hint.get("tokens", 0)) // bt > first:
+            take = min(want, int(hint["tokens"]) // bt)
+            n = self._pull_remote_prefix(req, first, take)
+        if self._disk is not None and self._persist_prefixes:
+            n += self._disk_prefix_fill(req, first + n, want)
+        return n > 0
+
+    def _pull_remote_prefix(self, req, first, take):
+        """One pull of prefix blocks [first, take) from the hinted peer;
+        the blocks landed (0 on any failure: recompute is the
+        fallback)."""
+        addr = tuple(req.prefix_hint["addr"])
+        if addr == self._fabric_self_addr:
+            return 0    # a pull from itself would wait on its own driver
+        tp = _tr.t0()
+        try:
+            _faults.fire("fabric.pull", addr=addr, op="pull")
+            reply, payload = _kvf.fabric_request(
+                addr, {"verb": "pull", "tokens": req.prompt.tolist(),
+                       "have": first, "max_blocks": take - first,
+                       "fingerprint": self._fabric_fp,
+                       "trace_id": req.trace_id},
+                timeout=self._fabric_timeout)
+        except (_faults.InjectedFault, _kvf.FabricError, OSError):
+            _tr.end("fabric/pull", tp, trace_id=req.trace_id, error=True,
+                    args={"addr": list(addr)})
+            return 0
+        _tr.end("fabric/pull", tp, trace_id=req.trace_id,
+                args={"addr": list(addr),
+                      "n_blocks": int(reply.get("n_blocks", 0))})
+        k = min(int(reply.get("n_blocks", 0)), take - first)
+        if k <= 0:
+            return 0
+        try:
+            leaves = _kvf.unpack_leaves(reply.get("kv_meta", []), payload)
+        except _kvf.IntegrityError:
+            self._m_integrity["pull"].inc()
+            return 0
+        except _kvf.FabricError:
+            return 0
+        return self._land_prefix_blocks(req.prompt, first, k, leaves)
+
+    def _disk_prefix_fill(self, req, first, want, blocking=True):
+        """Land the contiguous content-addressed prefix blocks [first,
+        want) the disk tier holds (a missing or torn block ends the run).
+        Returns the blocks landed.  `blocking` is the admission's inline
+        load: on a tiered engine that is a prefetch MISS, metered in
+        `kv_prefetch_miss_total` and `prefetch_wait_seconds`; the
+        prefetcher's own call passes False."""
+        t0 = time.perf_counter()
+        bt = self.kv_block_tokens
+        per_block = []
+        for j in range(first, want):
+            key = _kvf.prefix_block_key(req.prompt, j, bt, self._fabric_fp)
+            try:
+                got = self._disk.get_block(key)
+            except (_faults.InjectedFault, OSError):
+                got = None
+            if got is None:
+                break
+            meta, payload = got
+            try:
+                leaves = _kvf.unpack_leaves(meta.get("kv_meta", []),
+                                            payload)
+            except _kvf.IntegrityError:
+                self._m_integrity["disk"].inc()
+                break
+            except _kvf.FabricError:
+                break
+            if per_block and len(leaves) != len(per_block[0]):
+                break
+            per_block.append(leaves)
+        if not per_block:
+            return 0
+        leaves = [np.concatenate([b[i] for b in per_block], axis=0)
+                  for i in range(len(per_block[0]))]
+        n = self._land_prefix_blocks(req.prompt, first, len(per_block),
+                                     leaves)
+        if n and blocking and self._tiered:
+            self._m_kv_prefetch_miss.inc(n)
+            self._m_prefetch_wait.observe(time.perf_counter() - t0)
+        return n
+
+    def _land_prefix_blocks(self, tokens, first, k, leaves):
+        """Allocate `k` pool blocks, write the transferred rows into them
+        in place and graft them into the trie, which takes them over.
+        Returns the blocks adopted; every failure gives the blocks
+        back."""
+        got = self._alloc_blocks(k)
+        if got is None:
+            return 0
+        host = self._rows_from_leaves([np.asarray(a)[:k] for a in leaves],
+                                      k, pin=self.device.type == "cuda")
+        if host is None:
+            for bid in got:
+                self._pager.decref(bid)
+            return 0
+        D.scatter_blocks(self._kvpool,
+                         self._upload(np.asarray(got, np.int64)),
+                         self._host_to_device(host))
+        adopted = self._pcache.adopt_blocks(tokens, tokens.size, got,
+                                            first_block=first)
+        nb = adopted // self.kv_block_tokens
+        if nb:
+            self._m_fab_blocks["pull"].inc(nb)
+            self._m_fab_bytes["pull"].inc(nb * self._kv_block_bytes)
+            self._note_cache()
+        return nb
+
+    def _persist_prefix_blocks(self, prompt, new):
+        """Write freshly cached prefix blocks through to the disk tier
+        (content-addressed: a restart or a peer serves them without
+        recompute), one export for all of them.  Best effort: a failure
+        leaves the KV on the device, never fails a request."""
+        bt = self.kv_block_tokens
+        todo = [(bid, _kvf.prefix_block_key(prompt, off // bt, bt,
+                                            self._fabric_fp))
+                for bid, off in new]
+        todo = [(b, k) for b, k in todo if not self._disk.has_block(k)]
+        if not todo:
+            return
+        try:
+            rows = self._host_rows(self._gather_rows([b for b, _ in todo]),
+                                   len(todo))
+            for j, (_bid, key) in enumerate(todo):
+                meta, payload = _kvf.pack_leaves(
+                    self._leaf_views(rows[j:j + 1]))
+                if self._disk.put_block(key, {"kv_meta": meta}, payload):
+                    self._m_fab_blocks["spill"].inc()
+                    self._m_fab_bytes["spill"].inc(len(payload))
+        except (_faults.InjectedFault, OSError, _kvf.FabricError):
+            pass
+
+    # -- session tickets: park persistence, spill, claim, resume ------------
+
+    def _gen_keys(self, gen, seed):
+        """A ticket's `keys`: a sampled request's generator state (its
+        bytes), a greedy one's the JAX engine's `PRNGKey(seed)` words (a
+        JAX engine adopting the ticket reads them; greedy decoding never
+        does)."""
+        if gen is None:
+            return [0, int(seed) & 0xFFFFFFFF]
+        return gen.get_state().tolist()
+
+    def _gen_from_keys(self, ticket):
+        """The sampling generator a ticket carries (None for greedy);
+        FabricError when its state is not this device's generator's."""
+        if ticket.greedy:
+            return None
+        gen = torch.Generator(device=self.device)
+        state = torch.tensor(ticket.keys, dtype=torch.uint8)
+        if state.numel() != gen.get_state().numel():
+            raise _kvf.FabricError(
+                "ticket's sampling state is not this device's generator "
+                "state (a sampled ticket of another package or device)")
+        gen.set_state(state)
+        return gen
+
+    def _ticket_head(self, pr, mode, kv_meta, kv_payload):
+        req = pr.req
+        return _kvf.SessionTicket(
+            session_id=pr.sid, prompt=req.prompt.tolist(),
+            tokens=[int(t) for t in req.tokens],
+            max_new_tokens=req.max_new_tokens,
+            temperature=req.temperature, top_p=req.top_p,
+            greedy=bool(req.greedy), eos_token_id=req.eos_token_id,
+            seed=req.seed, mode=mode, token=int(pr.token),
+            pos=int(pr.pos), keys=self._gen_keys(pr.gen, req.seed),
+            spec_k=int(pr.spec_k), spec_ema=float(pr.spec_ema),
+            n_blocks=int(pr.n_blocks) if mode == "swap" else 0,
+            fingerprint=self._fabric_fp, t_export=time.time(),
+            kv_meta=kv_meta, kv_payload=kv_payload,
+            cold_idx=list(pr.cold_idx) if mode == "swap" else [])
+
+    def _ticket_from_parked(self, pr):
+        """A parked record as a portable SessionTicket: a swap-mode park
+        carries its blocks (waiting for its copy to the host if still in
+        flight, and checked against its stamp), a recompute-mode one only
+        its head."""
+        if pr.mode == "swap":
+            if pr.event is not None:
+                pr.event.synchronize()
+            if pr.host_crc is not None \
+                    and _kvf.crc32c(pr.host.numpy()) != pr.host_crc:
+                # never export a rotted host copy: the take is refused,
+                # the adopter replays, the local resume recomputes
+                self._m_integrity["swap"].inc()
+                raise _kvf.IntegrityError(
+                    "host swap payload checksum mismatch: refusing to "
+                    "export corrupted KV")
+            kv_meta, payload = _kvf.pack_leaves(
+                self._leaf_views(pr.host.view(pr.n_blocks, -1)))
+            return self._ticket_head(pr, "swap", kv_meta, payload)
+        if pr.mode == "disk":
+            raise _kvf.FabricError(
+                "disk-mode park: the ticket lives on the disk tier")
+        return self._ticket_head(pr, "recompute", [], b"")
+
+    def _spill_parked(self, pr, slot):
+        """The host tier refused a swap: write the slot's blocks as a
+        swap-mode ticket to the disk tier (the "disk" park mode), before
+        the blocks are freed.  False: the caller drops to recompute."""
+        try:
+            kv_meta, payload = self._export_blocks(
+                self._pager.slot_blocks[slot])
+            t = self._ticket_head(pr, "swap", kv_meta, payload)
+            self._disk.put_session(pr.sid, t.to_bytes())
+        except (_faults.InjectedFault, OSError, _kvf.FabricError):
+            return False
+        pr.persisted = True
+        self._m_fab_blocks["spill"].inc(pr.n_blocks)
+        self._m_fab_bytes["spill"].inc(len(payload))
+        return True
+
+    def _persist_parked(self, pr):
+        """Failover insurance: mirror a parked session's ticket to the
+        disk tier, so a survivor can adopt it if this replica dies.
+        Best effort."""
+        try:
+            t = self._ticket_from_parked(pr)
+            self._disk.put_session(pr.sid, t.to_bytes())
+        except (_faults.InjectedFault, OSError, _kvf.FabricError):
+            return
+        pr.persisted = True
+
+    def _claim_parked(self, pr):
+        """Before a parked session whose ticket is on the disk tier
+        resumes, CLAIM the ticket (atomic rename): exactly one of the
+        local resume and a peer's adoption continues the stream.  False:
+        a peer took it."""
+        if not pr.persisted or self._disk is None:
+            return True
+        pr.persisted = False
+        try:
+            data = self._disk.claim_session(pr.sid)
+        except (_faults.InjectedFault, OSError):
+            return True         # the tier is unreadable: still ours
+        return data is not None
+
+    def _resume_disk(self, slot, pr):
+        """Resume a disk-parked session: blocks first, then claim the
+        ticket and write its blocks back (claiming first would make the
+        ticket vanish for a step on every pool shortage).  None: a peer
+        adopted it; False: a pool shortage (the ticket untouched); a torn
+        or unreadable ticket degrades to recompute."""
+        need = max(pr.n_blocks, self._pager.blocks_for(pr.pos + 1))
+        got = self._place_resume_blocks(pr, need)
+        if got is None:
+            return False
+        data = b""
+        try:
+            _faults.fire("fabric.pull", addr=None, op="disk")
+            data = self._disk.claim_session(pr.sid)
+        except (_faults.InjectedFault, OSError):
+            self._disk.drop_session(pr.sid)     # unreadable: retire it
+        if data is None:
+            for bid in got:
+                self._pager.decref(bid)
+            return None
+        pr.persisted = False
+        host = t = None
+        if data:
+            try:
+                t = _kvf.SessionTicket.from_bytes(data)
+                host = self._rows_from_leaves(
+                    _kvf.unpack_leaves(t.kv_meta, t.kv_payload),
+                    pr.n_blocks, pin=self.device.type == "cuda")
+            except _kvf.IntegrityError:
+                self._m_integrity["ticket"].inc()
+            except (_kvf.FabricError, ValueError, KeyError, TypeError):
+                pass
+        if host is None:
+            for bid in got:
+                self._pager.decref(bid)
+            pr.mode, pr.n_blocks, pr.cold_idx = "recompute", 0, ()
+            return self._resume_recompute(slot, pr)
+        self._install_resume_blocks(slot, pr, got,
+                                    self._host_to_device(host))
+        self._unpark(pr)
+        self._install_parked(slot, pr)
+        self._m_fab_blocks["pull"].inc(pr.n_blocks)
+        self._m_fab_bytes["pull"].inc(len(t.kv_payload))
+        return True
+
+    # -- adoption and the wire handler ---------------------------------------
+
+    def prepare_ticket_kv(self, ticket):
+        """CRC-check and unpack a swap-mode ticket's blocks into one flat
+        host buffer in `gather_blocks`' layout; None when they are
+        corrupt or foreign.  Host byte work only (no CUDA call), so a
+        server runs it on the calling thread, off the driver."""
+        if ticket.mode != "swap":
+            return None
+        try:
+            leaves = _kvf.unpack_leaves(ticket.kv_meta, ticket.kv_payload)
+            return self._rows_from_leaves(leaves, int(ticket.n_blocks))
+        except _kvf.IntegrityError:
+            self._m_integrity["ticket"].inc()
+            return None
+        except _kvf.FabricError:
+            return None
+
+    #: "the caller did not run prepare_ticket_kv", distinct from None
+    #: ("prepared, and found corrupt or foreign": recompute, metered)
+    _KV_UNPREPARED = object()
+
+    def adopt_ticket(self, ticket, on_token=None, on_done=None,
+                     trace_id=None, prepared_kv=_KV_UNPREPARED):
+        """Adopt a migrated session (the stepping thread only): rebuild
+        the Request, replay its delivered tokens through `on_token`, then
+        park it so the resume path continues the stream.  Raises
+        FabricError on an incompatible ticket (the caller replays the
+        prompt).  `prepared_kv`: the ticket's blocks already checked and
+        unpacked by `prepare_ticket_kv` on the calling thread."""
+        if ticket.fingerprint != self._fabric_fp:
+            raise _kvf.FabricError("session ticket fingerprint mismatch")
+        if int(ticket.pos) + 1 >= self.max_len:
+            raise _kvf.FabricError("ticket position exceeds max_len")
+        req = Request(np.asarray(ticket.prompt, np.int32),
+                      ticket.max_new_tokens, temperature=ticket.temperature,
+                      top_p=ticket.top_p, greedy=ticket.greedy,
+                      eos_token_id=ticket.eos_token_id, seed=ticket.seed,
+                      on_token=on_token, on_done=on_done,
+                      session_id=ticket.session_id, trace_id=trace_id)
+        if req.trace_id is None:
+            req.trace_id = _tr.mint()
+        self._check(req)
+        gen = self._gen_from_keys(ticket)
+        _tr.point("req/adopt_ticket", trace_id=req.trace_id,
+                  sid=str(ticket.session_id), mode=ticket.mode,
+                  delivered=len(ticket.tokens))
+        for t in ticket.tokens:
+            req._emit(int(t))
+        if req.done:
+            raise _kvf.FabricError("ticket is already complete")
+        mode, host, nb = ticket.mode, None, 0
+        if mode == "swap":
+            host = (self.prepare_ticket_kv(ticket)
+                    if prepared_kv is self._KV_UNPREPARED else prepared_kv)
+            if host is not None and self._pager.host_reserve(
+                    int(ticket.n_blocks)):
+                nb = int(ticket.n_blocks)
+            else:
+                host, mode = None, "recompute"
+        else:
+            mode = "recompute"
+        pr = _ParkedRequest(req, mode, ticket.token, ticket.pos, gen, None,
+                            int(ticket.spec_k or 0),
+                            float(ticket.spec_ema or 1.0), host, None, nb,
+                            next(self._admit_counter),
+                            cold_idx=(ticket.cold_idx
+                                      if mode == "swap" and self._tiered
+                                      else ()))
+        pr.sid = str(ticket.session_id)
+        if self.spec is not None:
+            idx = NGramIndex(req.prompt, self.spec.max_ngram,
+                             self.spec.min_ngram)
+            for t in req.tokens:
+                idx.extend(int(t))
+            pr.spec_idx = idx
+            if pr.spec_k <= 0:
+                pr.spec_k = self.spec.k
+        self._parked.append(pr)
+        self._m_fab_blocks["migrate"].inc(nb)
+        self._m_fab_bytes["migrate"].inc(len(ticket.kv_payload))
+        self._m_migration.observe(
+            max(0.0, time.time() - float(ticket.t_export)))
+        self._note_kv()
+        return req
+
+    def fabric_handler(self, verb, header, payload):
+        """Serve one fabric frame (on the stepping thread; the handoff
+        verbs touch host staging only).  The `fabric.push` site refuses
+        a transfer server-side: the puller recomputes."""
+        _faults.fire("fabric.push", verb=verb)
+        if verb == "pull":
+            return self._serve_pull(header)
+        if verb == "take":
+            return self._serve_take(header)
+        if verb == "handoff_chunk":
+            return self._serve_handoff_chunk(header, payload)
+        if verb == "handoff_commit":
+            return self._serve_handoff_commit(header, payload)
+        return {"ok": False, "error": f"unknown verb {verb!r}"}, b""
+
+    def _serve_pull(self, header):
+        if header.get("fingerprint") != self._fabric_fp:
+            return {"ok": False, "error": "fingerprint mismatch"}, b""
+        none = ({"ok": True, "n_blocks": 0, "kv_meta": []}, b"")
+        if self._pcache is None:
+            return none
+        toks = np.asarray(header.get("tokens", ()), np.int32)
+        if toks.size < 2:
+            return none
+        have = max(0, int(header.get("have", 0)))
+        cap = header.get("max_blocks")
+        matched, bids, nodes = self._pcache.match(toks)
+        # serving a peer is no local hit (undo the stats), but the path
+        # stays pinned while its blocks are gathered
+        self._pcache.acquire(nodes)
+        self._pcache.match_undo(matched)
+        k = matched // self.kv_block_tokens - have
+        if cap is not None:
+            k = min(k, int(cap))
+        if k <= 0:
+            self._pcache.release(nodes)
+            return none
+        try:
+            kv_meta, data = self._export_blocks(bids[have:have + k])
+        finally:
+            self._pcache.release(nodes)
+        return ({"ok": True, "n_blocks": k, "matched_tokens": matched,
+                 "kv_meta": kv_meta}, data)
+
+    def _serve_take(self, header):
+        sid = header.get("session_id")
+        pr = next((p for p in self._parked if p.sid == sid), None)
+        if pr is None:
+            return {"ok": False,
+                    "error": f"session {sid!r} not parked here"}, b""
+        if pr.mode == "disk":
+            try:
+                data = self._disk.claim_session(sid)
+            except (_faults.InjectedFault, OSError):
+                data = None
+            if not data:
+                return {"ok": False, "error":
+                        f"session {sid!r} ticket unavailable"}, b""
+        else:
+            try:
+                data = self._ticket_from_parked(pr).to_bytes()
+            except _kvf.FabricError as e:
+                return {"ok": False, "error": str(e)}, b""
+            if pr.persisted and self._disk is not None:
+                self._disk.drop_session(sid)    # one adopter only
+        # the adopter owns the stream: drop the record and finish the
+        # local request without another token (`migrated`: a hand-off,
+        # not an answer)
+        self._unpark(pr)
+        pr.req.migrated = True
+        pr.req._finish_cancelled()
+        return {"ok": True, "session_id": sid}, data
+
+    # -- the chunk-streamed prefill -> decode handoff ------------------------
+
+    def _handoff_stream_chunk(self, slot, ps):
+        """Stage the slot's newly finished full blocks for the decode
+        peer, one frame a retired chunk: the export (a host copy) here,
+        the round trip on a sender thread while the next chunk computes.
+        A torn stream is dropped: the slot decodes locally."""
+        hs = ps.handoff
+        if hs["torn"]:
+            ps.handoff = None
+            return
+        nfull = min(ps.off, ps.ids.size) // self.kv_block_tokens
+        if nfull <= hs["shipped"]:
+            return
+        bids = self._pager.slot_blocks[slot][hs["shipped"]:nfull]
+        if hs["t0"] is None:
+            hs["t0"] = time.perf_counter()
+        kv_meta, payload = self._export_blocks(bids)
+        header = {"verb": "handoff_chunk", "session_id": hs["sid"],
+                  "seq": hs["seq"], "first_block": hs["shipped"],
+                  "kv_meta": kv_meta, "fingerprint": self._fabric_fp,
+                  "trace_id": ps.req.trace_id}
+        hs["seq"] += 1
+        hs["shipped"] = nfull
+        self._ho_send(hs, header, payload)
+
+    def _ho_send(self, hs, header, payload, rec=None):
+        """Queue one handoff frame on its stream's sender bucket (the
+        threads start at the first frame).  `rec` marks the COMMIT
+        frame: the sender writes its outcome to ``rec["ok"]`` for
+        `_reap_commits`."""
+        with self._ho_cv:
+            if not self._ho_threads:
+                for i in range(self._ho_nbuckets):
+                    th = threading.Thread(
+                        target=self._ho_send_loop, args=(i,),
+                        daemon=True, name=f"handoff-tx-{i}")
+                    th.start()
+                    self._ho_threads.append(th)
+            hs["pending"] += 1
+            self._ho_txq[hash(hs["sid"]) % self._ho_nbuckets].append(
+                (hs, header, payload, rec))
+            self._ho_cv.notify_all()
+
+    def _ho_send_loop(self, bucket):
+        """Sender thread: ship one bucket's frames in FIFO order (a
+        stream's seq order: it hashes to one bucket, its commit frame
+        queued last).  A failed frame tears its stream: its later frames
+        are dropped unsent.  Moves bytes only, never touches the card;
+        exits once `close_fabric` ran and its queue is empty."""
+        q = self._ho_txq[bucket]
+        while True:
+            with self._ho_cv:
+                while not q and not self._ho_closing:
+                    self._ho_cv.wait()
+                if not q:
+                    return
+                hs, header, payload, rec = q.popleft()
+            ok = False
+            try:
+                if not hs["torn"]:
+                    _faults.fire("fabric.handoff_chunk", addr=hs["addr"],
+                                 sid=hs["sid"], seq=header["seq"])
+                    _kvf.fabric_request(hs["addr"], header, payload,
+                                        timeout=self._fabric_timeout)
+                    hs["bytes"] += len(payload)
+                    self._m_handoff_chunks.inc()
+                    self._m_handoff_bytes.inc(len(payload))
+                    ok = True
+            except BaseException:
+                hs["torn"] = True
+            finally:
+                with self._ho_cv:
+                    if rec is not None:
+                        rec["ok"] = ok
+                    hs["pending"] -= 1
+                    self._ho_cv.notify_all()
+
+    def _handoff_commit_start(self, slot, ps, tok):
+        """Launch the final handoff frame: the remaining blocks and a
+        decode-ready ticket head (the first token included).  It rides
+        the stream's sender FIFO behind its chunk frames; the slot waits
+        in `_committing` while the scheduler steps the others.  True: the
+        commit is in flight; False: the stream was torn, the caller
+        decodes locally."""
+        hs = ps.handoff
+        if hs["torn"]:
+            ps.handoff = None
+            return False
+        req = ps.req
+        bids = self._pager.slot_blocks[slot]
+        total = len(bids)
+        if hs["t0"] is None:
+            hs["t0"] = time.perf_counter()
+        gen = self._gens[slot]
+        head = {
+            "session_id": hs["sid"], "prompt": req.prompt.tolist(),
+            "tokens": [int(tok)], "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature, "top_p": req.top_p,
+            "greedy": bool(req.greedy), "eos_token_id": req.eos_token_id,
+            "seed": req.seed, "mode": "swap", "token": int(tok),
+            "pos": int(ps.ids.size), "keys": self._gen_keys(gen, req.seed),
+            "spec_k": int(self.spec.k) if self.spec is not None else 0,
+            "spec_ema": 1.0, "n_blocks": total,
+            "fingerprint": self._fabric_fp, "t_export": time.time()}
+        kv_meta, payload = (self._export_blocks(bids[hs["shipped"]:])
+                            if hs["shipped"] < total else ([], b""))
+        header = {"verb": "handoff_commit", "session_id": hs["sid"],
+                  "seq": hs["seq"], "first_block": hs["shipped"],
+                  "kv_meta": kv_meta, "head": head,
+                  "fingerprint": self._fabric_fp, "trace_id": req.trace_id}
+        rec = {"ps": ps, "tok": int(tok), "gen": gen, "hs": hs,
+               "blocks": total, "ok": None}
+        self._committing[slot] = rec
+        self._ho_send(hs, header, payload, rec=rec)
+        return True
+
+    def _reap_commits(self):
+        """Resolve the commit frames the senders finished.  An ack: the
+        peer owns the stream, the slot is released and the request ends
+        `migrated`.  A refusal or a tear: the slot decodes locally from
+        the token, depth and generator the commit captured, the stream
+        it would have had without the handoff."""
+        if not self._committing:
+            return
+        if not (self._queue or self._prefill or self._parked
+                or self.num_active or self._fabric_jobs
+                or self._inflight is not None):
+            # commits in flight are the only work: wait for an answer
+            # instead of spinning the GIL away from the threads that
+            # move their bytes (and from every other server's)
+            with self._ho_cv:
+                self._ho_cv.wait_for(
+                    lambda: any(r["ok"] is not None
+                                for r in self._committing.values()),
+                    timeout=0.005)
+        for slot in [s for s, r in self._committing.items()
+                     if r["ok"] is not None]:
+            rec = self._committing.pop(slot)
+            ps, hs = rec["ps"], rec["hs"]
+            req = ps.req
+            if rec["ok"]:
+                self._m_handoff_s.observe(time.perf_counter() - hs["t0"])
+                _tr.point("req/handoff_commit", trace_id=req.trace_id,
+                          rid=req.rid, sid=hs["sid"], blocks=rec["blocks"],
+                          streamed=hs["shipped"])
+                if self._pcache is not None and ps.nodes:
+                    self._pcache.release(ps.nodes)
+                self._pager.release_slot(slot)
+                self._pos[slot] = 0
+                self._token[slot] = 0
+                self._gens[slot] = None
+                req.migrated = True
+                req._finish_cancelled()
+                continue
+            ps.handoff = None
+            self._slots[slot] = req
+            self._slot_nodes[slot] = ps.nodes
+            self._token[slot] = rec["tok"]
+            self._pos[slot] = ps.ids.size
+            self._temp[slot] = req.temperature
+            self._topp[slot] = req.top_p
+            self._greedy[slot] = req.greedy
+            self._gens[slot] = rec["gen"]
+            if self.spec is not None:
+                idx = NGramIndex(req.prompt, self.spec.max_ngram,
+                                 self.spec.min_ngram)
+                idx.extend(rec["tok"])
+                self._spec_idx[slot] = idx
+                self._spec_k[slot] = self.spec.k
+                self._spec_ema[slot] = 1.0
+
+    def _serve_handoff_chunk(self, header, payload):
+        """Take one streamed handoff frame (decode side, host memory
+        only): frames arrive in seq order, each checked against its
+        leaves' CRCs on arrival, so a corrupt frame is refused while the
+        prefill side can still decode locally."""
+        if header.get("fingerprint") != self._fabric_fp:
+            return {"ok": False, "error": "fingerprint mismatch"}, b""
+        sid = str(header.get("session_id"))
+        seq = int(header.get("seq", -1))
+        with self._ho_rx_lock:
+            self._gc_handoffs()
+            rx = self._handoff_rx.get(sid)
+            if rx is None:
+                rx = self._handoff_rx[sid] = {"frames": [],
+                                              "t": time.monotonic()}
+            if seq != len(rx["frames"]):
+                self._handoff_rx.pop(sid, None)
+                return {"ok": False,
+                        "error": f"handoff frame out of order (seq {seq}, "
+                                 f"have {len(rx['frames'])})"}, b""
+            try:
+                _kvf.unpack_leaves(header.get("kv_meta", []), payload)
+            except _kvf.IntegrityError as e:
+                self._handoff_rx.pop(sid, None)
+                self._m_integrity["handoff"].inc()
+                return {"ok": False, "error": str(e)}, b""
+            except _kvf.FabricError as e:
+                self._handoff_rx.pop(sid, None)
+                return {"ok": False, "error": str(e)}, b""
+            rx["frames"].append((header.get("kv_meta", []), payload))
+            rx["t"] = time.monotonic()
+        return {"ok": True, "seq": seq}, b""
+
+    def _serve_handoff_commit(self, header, payload):
+        """Assemble the streamed frames and this commit's tail into one
+        swap-mode SessionTicket and stage its bytes for adoption (decode
+        side): it means exactly what a park-and-take of the same slot
+        would, so `adopt_ticket` continues the stream."""
+        if header.get("fingerprint") != self._fabric_fp:
+            return {"ok": False, "error": "fingerprint mismatch"}, b""
+        sid = str(header.get("session_id"))
+        with self._ho_rx_lock:
+            rx = self._handoff_rx.pop(sid, None)
+        frames = list(rx["frames"]) if rx else []
+        if int(header.get("seq", -1)) != len(frames):
+            # a frame was lost or refused: the prefill side falls back
+            # to local decode, so never adopt a gappy prefix
+            return {"ok": False, "error": "handoff stream incomplete"}, b""
+        head = dict(header.get("head") or {})
+        if payload or header.get("kv_meta"):
+            frames.append((header.get("kv_meta", []), payload))
+        try:
+            per = [_kvf.unpack_leaves(m, p) for m, p in frames]
+            nleaf = len(per[0]) if per else 0
+            if any(len(b) != nleaf for b in per):
+                raise _kvf.FabricError(
+                    "handoff frames disagree on leaf structure")
+            leaves = [np.concatenate([b[i] for b in per], axis=0)
+                      for i in range(nleaf)]
+            if not leaves or leaves[0].shape[0] != int(
+                    head.get("n_blocks", -1)):
+                raise _kvf.FabricError("handoff block count mismatch")
+            # repack with the frames' own dtype names (bfloat16 leaves
+            # unpack as uint16 words)
+            metas = [m for m, _ in frames]
+            kv_meta = [dict(metas[0][i], shape=list(a.shape),
+                            crc=_kvf.crc32c(a.tobytes()))
+                       for i, a in enumerate(leaves)]
+            data = _kvf.SessionTicket(
+                kv_meta=kv_meta,
+                kv_payload=b"".join(a.tobytes() for a in leaves),
+                **head).to_bytes()
+        except _kvf.IntegrityError as e:
+            self._m_integrity["handoff"].inc()
+            return {"ok": False, "error": str(e)}, b""
+        except (_kvf.FabricError, ValueError, KeyError, TypeError,
+                IndexError) as e:
+            return ({"ok": False, "error": f"{type(e).__name__}: {e}"},
+                    b"")
+        with self._ho_rx_lock:
+            self._handoff_tickets[sid] = (data, time.monotonic())
+        return ({"ok": True, "session_id": sid,
+                 "n_blocks": int(head["n_blocks"])}, b"")
+
+    def claim_handoff(self, sid):
+        """Pop a staged handoff ticket's bytes; None when absent (the
+        caller replays the prompt)."""
+        with self._ho_rx_lock:
+            self._gc_handoffs()
+            ent = self._handoff_tickets.pop(str(sid), None)
+        return None if ent is None else ent[0]
+
+    def _gc_handoffs(self):
+        """Drop handoff state whose prefill peer went quiet (died mid
+        stream, or nobody adopted): host memory, never correctness.  The
+        caller holds `_ho_rx_lock`."""
+        cut = time.monotonic() - self._handoff_ttl
+        for d, stamp in ((self._handoff_rx, lambda v: v["t"]),
+                         (self._handoff_tickets, lambda v: v[1])):
+            for sid in [s for s, v in d.items() if stamp(v) < cut]:
+                d.pop(sid, None)
+
+    def close_fabric(self, timeout=5.0):
+        """Stop the handoff sender threads once their queues drain (they
+        hold the engine; `LLMServer.shutdown` calls this)."""
+        with self._ho_cv:
+            self._ho_closing = True
+            self._ho_cv.notify_all()
+        for th in self._ho_threads:
+            th.join(timeout)
+        self._ho_threads = []
+
     # -- the scheduler -----------------------------------------------------
 
     @property
@@ -2172,7 +3258,8 @@ class LLMEngine:
     @property
     def has_work(self):
         return bool(self._queue or self._prefill or self._parked
-                    or self.num_active or self._inflight is not None)
+                    or self.num_active or self._fabric_jobs
+                    or self._committing or self._inflight is not None)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -2197,8 +3284,11 @@ class LLMEngine:
             return self._step_overlap()
         self.last_step_t = time.monotonic()   # the watchdog's heartbeat
         t = _tr.t0()
+        self._run_fabric_jobs()
+        self._reap_commits()
         self._reap_cancelled()
         self._overload_tick()
+        self._swap_crc_tick()
         if self._tiered:
             self._stamp_ext()
         self._try_resume()
@@ -2260,7 +3350,9 @@ class LLMEngine:
         the just-committed tokens (the chunks above were budgeted
         against active slots only: the drafts are unknown before the
         commit), the preempt ladder (parks run here, with no step in
-        flight) and the dispatch of step N+1.  A slot's
+        flight) and the dispatch of step N+1.  Fabric jobs (a peer's
+        pull or take, an adoption) and finished handoff commits run
+        first in phase A.  A slot's
         token depends only on its own token, depth, generator and KV,
         all fixed at dispatch, so deferring the read changes no stream;
         only WHEN host work runs differs.  The overload tick runs in
@@ -2269,8 +3361,11 @@ class LLMEngine:
         admissions (both passes), chunks and drafts."""
         self.last_step_t = time.monotonic()   # the watchdog's heartbeat
         t = _tr.t0()
+        self._run_fabric_jobs()
+        self._reap_commits()
         self._reap_cancelled(decoding=self._inflight is None)
         self._overload_tick()
+        self._swap_crc_tick()
         if self._tiered:
             self._stamp_ext()
         self._try_resume()

@@ -27,12 +27,25 @@ Beside the driver, as in the JAX server:
     `health_snapshot()`;
   * the metrics series (`series_interval`): a `TimeSeriesStore`
     sampling the engine's registry on its own thread, whose windowed
-    ITL p50 feeds the overload ladder.
+    ITL p50 feeds the overload ladder;
+  * the KV fabric endpoint (an engine `fabric` config): a
+    `kv_fabric.FabricServer` on 127.0.0.1 (`fabric_address`) serving
+    the engine's cached prefixes, parked sessions and handoff frames to
+    peers; every verb that touches the engine runs on the driver thread
+    (`_fabric_exec`), the handoff rx verbs (host memory only) on the
+    connection thread.  `adopt()` continues a session from the disk
+    tier, a peer or a staged handoff; `pool_role` ("prefill", "decode",
+    "mixed") is advertised in `health_snapshot()` (placement is a
+    router's job: the engine serves either way).
 
-Not ported (each raises naming its ROADMAP item, or is absent): the KV
-fabric endpoint and session adoption, the disaggregated pool roles,
-router epochs and the poison drill.  `health_snapshot()` reports each
-missing feature at its "off" value.
+Not ported (absent): router epochs and the poison drill.
+`health_snapshot()` reports each missing feature at its "off" value.
+
+On the card, capture every server's graphs (the engine's
+`prepare_programs()`) before any traffic reaches any of them: a CUDA
+graph is captured in the default "global" mode, and a CUDA call from
+another thread during a capture would break it.  The fabric's threads
+make none (they move host bytes); the driver threads do.
 """
 
 from __future__ import annotations
@@ -51,17 +64,12 @@ from ..observability import tracing as _tr
 from ..observability.slo import SLOTier
 from ..observability.timeseries import TimeSeriesStore
 from ..testing import faults as _faults
+from . import kv_fabric as _kvf
 from .engine import (EngineUnhealthy, LLMEngine, QueueFull, Request,
                      ResultTimeout)
+from .kv_fabric import FabricServer
 
 __all__ = ["LLMServer"]
-
-# a fabric counter's operations (all 0 here) and the integrity paths
-# (the JAX engine's label sets, so /healthz keeps its shape; only "ext",
-# the tiered pool's promotes, can count here)
-_FABRIC_OPS = ("pull", "migrate", "spill")
-_INTEGRITY_PATHS = ("pull", "ticket", "disk", "manifest", "swap",
-                    "handoff", "ext")
 
 
 class LLMServer:
@@ -72,8 +80,11 @@ class LLMServer:
     wait), `name`, `canary_interval` / `canary_prompt_len` /
     `canary_max_new`, `watchdog_deadline` (seconds; None disables it),
     `series_interval` (seconds; None or 0 disables the sampler) /
-    `series_tiers` / `series_max_bytes`, and `pool_role` (only
-    "mixed": the other roles are engine sub-slice (h))."""
+    `series_tiers` / `series_max_bytes`, and `pool_role` ("prefill",
+    "decode" or "mixed"; any other raises ValueError).  With a `fabric`
+    config (not empty, and no ``"serve": False`` in it) the server
+    listens on ``fabric_host`` (127.0.0.1) / ``fabric_port`` (0:
+    ephemeral)."""
 
     def __init__(self, model, metrics_port=None, metrics_host="127.0.0.1",
                  default_result_timeout=600.0, name=None,
@@ -84,11 +95,6 @@ class LLMServer:
         if pool_role not in ("prefill", "decode", "mixed"):
             raise ValueError(f"unknown pool_role {pool_role!r} "
                              "('prefill', 'decode', or 'mixed')")
-        if pool_role != "mixed":
-            raise NotImplementedError(
-                f"pool_role={pool_role!r} is not ported to "
-                f"paddle_tpu_torch yet (ROADMAP: engine sub-slice (h): "
-                f"KV fabric and disaggregated serving)")
         self.pool_role = pool_role
         t_boot = time.perf_counter()
         self._t_boot_anchor = t_boot
@@ -135,6 +141,18 @@ class LLMServer:
             "heartbeat older than watchdog_deadline")
         if metrics_port is not None:
             self._start_metrics_http(metrics_host, metrics_port)
+        # the KV fabric endpoint: its handler closes over the engine, so
+        # drop the server with `shutdown()` (and, on the card, run
+        # gc.collect() before the next capture)
+        self._fabric = None
+        fcfg = self.engine._fabric_cfg
+        if fcfg and fcfg.get("serve", True):
+            self._fabric = FabricServer(
+                self.engine.fabric_handler, executor=self._fabric_exec,
+                host=fcfg.get("fabric_host", "127.0.0.1"),
+                port=int(fcfg.get("fabric_port", 0)),
+                conn_timeout=self.engine._fabric_timeout)
+            self.engine._fabric_self_addr = tuple(self._fabric.address)
         if self._canary_interval is not None:
             self._canary_capture(int(canary_prompt_len),
                                  int(canary_max_new))
@@ -157,6 +175,134 @@ class LLMServer:
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name=f"driver-{self.name}")
         self._thread.start()
+
+    # -- the KV fabric -------------------------------------------------------
+
+    @property
+    def fabric_address(self):
+        """(host, port) of this server's fabric endpoint, or None."""
+        return None if self._fabric is None else self._fabric.address
+
+    def _fabric_exec(self, fn, verb=None):
+        """Run `fn` on the driver thread (the engine is single-threaded):
+        queue a job, wake an idle driver, wait.  The handoff rx verbs
+        touch only host staging behind their own lock and run here, on
+        the connection thread, so a prefill peer's frame costs wire time,
+        not a decode step."""
+        if self._error is not None or self._closing.is_set():
+            raise RuntimeError(f"LLMServer {self.name} is not serving")
+        if verb in ("handoff_chunk", "handoff_commit"):
+            return fn()
+        done = threading.Event()
+        box = {}
+
+        def job():
+            try:
+                box["out"] = fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                box["err"] = e
+            finally:
+                done.set()
+
+        self.engine._fabric_jobs.append(job)
+        self._pending.put(None)         # wake the driver if parked idle
+        if not done.wait(self.engine._fabric_timeout):
+            raise TimeoutError(
+                f"fabric job timed out after "
+                f"{self.engine._fabric_timeout}s on {self.name}")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def adopt(self, source, on_token=None, on_done=None):
+        """Adopt a migrated session.  `source`: ``{"kind": "disk",
+        "session_id": sid}`` (claim its ticket from the disk tier),
+        ``{"kind": "peer", "addr": [host, port], "session_id": sid}``
+        (take it live from a peer over the fabric) or ``{"kind":
+        "handoff", "session_id": sid}`` (claim the ticket a prefill peer
+        staged here).  The session's delivered tokens replay through
+        `on_token` before this returns; the resume path then continues
+        the stream.  Returns the new Request; raises KeyError or
+        FabricError when the session cannot be adopted (the caller
+        replays the prompt)."""
+        if self._error is not None:
+            raise EngineUnhealthy(
+                f"LLMServer driver thread crashed: {self._error!r}")
+        if self._closing.is_set() or self._draining.is_set() \
+                or self._quarantined.is_set():
+            raise RuntimeError(
+                f"LLMServer {self.name} is not accepting adoptions")
+        eng = self.engine
+        sid = source["session_id"]
+        kind = source.get("kind", "disk")
+        if kind == "handoff":
+            # a tripped adopt loses the staged ticket's shortcut, never
+            # the request: the caller replays the prompt
+            _faults.fire("handoff.adopt", sid=sid, name=self.name)
+            data = eng.claim_handoff(sid)
+            if data is None:
+                raise KeyError(f"no staged handoff ticket for session "
+                               f"{sid!r} on {self.name}")
+        elif kind == "peer":
+            try:
+                _faults.fire("fabric.pull", addr=tuple(source["addr"]),
+                             op="take")
+                _reply, data = _kvf.fabric_request(
+                    tuple(source["addr"]),
+                    {"verb": "take", "session_id": sid,
+                     "trace_id": source.get("trace_id")},
+                    timeout=eng._fabric_timeout)
+            except (_faults.InjectedFault, OSError) as e:
+                raise _kvf.FabricError(
+                    f"peer take of {sid!r} failed: {e}") from e
+        else:
+            if eng._disk is None:
+                raise _kvf.FabricError(
+                    f"{self.name}: no disk tier to adopt {sid!r} from")
+            data = eng._disk.claim_session(sid)
+            if data is None:
+                raise KeyError(f"no ticket for session {sid!r}")
+        try:
+            ticket = _kvf.SessionTicket.from_bytes(data)
+        except _kvf.IntegrityError:
+            # corrupt in flight or at rest: metered and consumed (the
+            # same bytes can never succeed); the caller replays
+            eng._m_integrity["ticket"].inc()
+            raise
+        # CRC and unpacking here, on the calling thread, not the driver
+        prepared = eng.prepare_ticket_kv(ticket)
+        done = threading.Event()
+
+        def wrapped_done(req):
+            if on_done is not None:
+                on_done(req)
+            with self._events_lock:
+                self._n_unfinished -= 1
+            done.set()
+
+        def job():
+            req = eng.adopt_ticket(ticket, on_token=on_token,
+                                   on_done=wrapped_done,
+                                   trace_id=source.get("trace_id"),
+                                   prepared_kv=prepared)
+            # registered before the driver steps it again: a drain
+            # waits for adopted sessions too
+            with self._events_lock:
+                self._events[req.rid] = done
+                self._n_unfinished += 1
+            return req
+
+        try:
+            return self._fabric_exec(job)
+        except Exception:
+            if kind == "disk":
+                # the claim consumed the ticket: put it back, so the
+                # session stays adoptable
+                try:
+                    eng._disk.put_session(sid, data)
+                except OSError:
+                    pass
+            raise
 
     # -- liveness, quarantine and the canary -------------------------------
 
@@ -431,9 +577,8 @@ class LLMServer:
             "preempted": eng.num_parked,
             "kv_blocks_free": eng._pager.free_blocks,
             "kv_blocks_total": eng.kv_blocks - 1,
-            # tiered KV: spill / promote traffic and extension-tier
-            # occupancy (the miss count stays 0 until the disk leg of
-            # the prefetcher is ported)
+            # tiered KV: spill / promote traffic, extension-tier
+            # occupancy, the disk leg's blocking loads
             "kv_tiered": eng._tiered,
             "kv_ext_used": int(eng._pager.ext_used) if eng._tiered else 0,
             "kv_blocks_spilled": int(eng._m_kv_spilled.value),
@@ -448,21 +593,27 @@ class LLMServer:
             "overload_escalations": int(eng._m_escal.value),
             "shed": {t: int(c.value) for t, c in eng._m_shed.items()},
             "degraded": eng.overload_rung > 0,
-            # the KV fabric (engine sub-slice (h)) is off
-            "fabric_address": None,
+            # the KV fabric: what moved instead of being recomputed, and
+            # where this server's endpoint listens
+            "fabric_address": (None if self.fabric_address is None
+                               else list(self.fabric_address)),
             "fabric": {
-                "blocks_moved": {op: 0 for op in _FABRIC_OPS},
-                "bytes_moved": {op: 0 for op in _FABRIC_OPS},
-                "prefill_tokens_saved_remote": 0,
-                "disk_blocks": 0,
-                "disk_sessions": 0,
+                "blocks_moved": {op: int(c.value)
+                                 for op, c in eng._m_fab_blocks.items()},
+                "bytes_moved": {op: int(c.value)
+                                for op, c in eng._m_fab_bytes.items()},
+                "prefill_tokens_saved_remote":
+                    int(eng._m_remote_saved.value),
+                "disk_blocks": (0 if eng._disk is None
+                                else eng._disk.n_blocks),
+                "disk_sessions": (0 if eng._disk is None
+                                  else len(eng._disk.list_sessions())),
                 "integrity_failures": {
-                    p: int(eng._m_integrity[p].value)
-                    for p in _INTEGRITY_PATHS},
-                "disk_evictions": 0,
-                "handoff_chunks": 0,
-                "handoff_bytes": 0,
-                "handoff_staged": 0,
+                    p: int(c.value) for p, c in eng._m_integrity.items()},
+                "disk_evictions": int(eng._m_disk_evict.value),
+                "handoff_chunks": int(eng._m_handoff_chunks.value),
+                "handoff_bytes": int(eng._m_handoff_bytes.value),
+                "handoff_staged": len(eng._handoff_tickets),
             },
             "overlap": eng.overlap_mode,
             "step_inflight": eng._inflight is not None,
@@ -647,8 +798,14 @@ class LLMServer:
         if self._series_thread is not None:
             self._series_thread.join(timeout)
             self._series_thread = None
+        # the fabric endpoint stops before the driver: its executor
+        # hands jobs to the driver thread, which is exiting
+        if self._fabric is not None:
+            self._fabric.close()
+            self._fabric = None
         self._pending.put(None)   # wake the driver if it is parked idle
         self._thread.join(timeout)
+        self.engine.close_fabric(timeout)
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()

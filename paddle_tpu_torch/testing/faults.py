@@ -58,6 +58,23 @@ Sites wired in the port:
                    step (never on idle wakeups); a raise there crashes
                    the driver: every pending request fails with
                    EngineUnhealthy (ctx: name)
+  fabric.pull      client side of a fabric transfer: a prefix pull
+                   (LLMEngine._pull_remote_prefix, op "pull"), a disk
+                   resume's claim (LLMEngine._resume_disk, op "disk")
+                   and a peer take (LLMServer.adopt, op "take"); a pull
+                   recomputes locally, a disk resume recomputes, a take
+                   raises FabricError to the caller (ctx: addr, op)
+  fabric.push      LLMEngine.fabric_handler, before serving any verb;
+                   the peer gets a refusal and recomputes (ctx: verb)
+  fabric.disk_io   DiskTier, before each block or ticket read / write;
+                   a failed write leaves the KV where it was, a failed
+                   read recomputes (ctx: op, key)
+  fabric.handoff_  a handoff sender thread, before each frame: the
+  chunk            stream tears and the prefill side decodes locally
+                   (ctx: addr, sid, seq)
+  handoff.adopt    LLMServer.adopt of a staged handoff ticket: raises
+                   to the caller, who replays the prompt (ctx: sid,
+                   name)
   ===============  ====================================================
 """
 

@@ -184,10 +184,20 @@ def test_eos_cancel_deadline_and_queue_bound(port_model):
     ("hot_window", 2), ("prefetch_depth", 4),
     ("mesh", "dp"), ("tp", 2), ("sp", 2),
     ("aot_cache", "cache"), ("fabric", "kvdir")])
-def test_unported_knobs_raise(port_model, knob, value):
+def test_unported_knobs_raise(port_model, knob, value, tmp_path,
+                              monkeypatch):
     """The JAX knobs the port lacks raise naming their ROADMAP item;
     the tiered-KV pair (engine sub-slice (g)) is ported: `hot_window`
-    builds a tiered engine, `prefetch_depth` is taken as given."""
+    builds a tiered engine, `prefetch_depth` is taken as given; so is
+    the KV fabric (engine sub-slice (h)): a path is the disk tier's
+    root, as in the JAX engine."""
+    if knob == "fabric":
+        monkeypatch.chdir(tmp_path)
+        eng = LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))
+        assert eng._fabric_cfg == {"disk_root": value}
+        assert eng._disk is not None and (tmp_path / value).is_dir()
+        assert eng._persist_prefixes and eng._persist_sessions
+        return
     if knob in ("hot_window", "prefetch_depth"):
         eng = LLMEngine(port_model, **dict(ENGINE_KW, **{knob: value}))
         assert getattr(eng, knob) == value
@@ -220,8 +230,13 @@ def test_request_tier_raises(port_model):
 def test_unknown_knob_and_server_knobs(port_model):
     with pytest.raises(TypeError):
         LLMEngine(port_model, decode_kernal="cuda", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMServer(port_model, pool_role="prefill", **ENGINE_KW)
+    with pytest.raises(ValueError, match="pool_role"):
+        LLMServer(port_model, pool_role="prefil", **ENGINE_KW)
+    srv = LLMServer(port_model, pool_role="prefill", **ENGINE_KW)
+    try:
+        assert srv.health_snapshot()["pool_role"] == "prefill"
+    finally:
+        srv.shutdown()
 
 
 def test_server_returns_engine_tokens(port_model):

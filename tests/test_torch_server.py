@@ -146,21 +146,29 @@ def test_every_jax_parameter_binds_positionally(cls):
     ("prefix_hint", {"addr": ["h", 1], "tokens": 8}),
     ("session_id", "s1"), ("handoff", {"addr": ["h", 1]})])
 def test_request_fabric_fields_raise(knob, value):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP: engine sub-slice \(h\)"):
-        Request([1, 2, 3], 2, **{knob: value})
-    assert Request([1, 2, 3], 2, **{knob: None}).tier == SLOTier.STANDARD
+    """The KV fabric's Request fields (engine sub-slice (h)) are
+    ported: each is kept as the JAX Request keeps it (`session_id` as a
+    string), defaults to None, and a new request is not `migrated`."""
+    from paddle_tpu.inference.engine import Request as JRequest
+    r = Request([1, 2, 3], 2, **{knob: value})
+    j = JRequest([1, 2, 3], 2, **{knob: value})
+    assert getattr(r, knob) == getattr(j, knob) == value
+    assert r.migrated is j.migrated is False
+    none = Request([1, 2, 3], 2, **{knob: None})
+    assert getattr(none, knob) is None and none.tier == SLOTier.STANDARD
 
 
 @pytest.mark.parametrize("knob,value", [
     ("hot_window", 8), ("prefetch_depth", 3),
-    ("fabric", {"disk_root": "/x"}), ("mesh", "tp"), ("tp", 2), ("sp", 2),
-    ("aot_cache", "dir")])
+    ("fabric", {"timeout": 5.0, "persist_sessions": False}), ("mesh", "tp"),
+    ("tp", 2), ("sp", 2), ("aot_cache", "dir")])
 def test_unported_engine_knobs_raise_positionally(port_model, knob, value):
     """An unported knob passed at its JAX position raises naming its
     ROADMAP item; at its "off" value it is accepted.  The tiered-KV
-    pair is ported: passed at its JAX position, `hot_window` builds a
-    tiered engine and `prefetch_depth` binds to its own parameter."""
+    pair and the KV fabric are ported: passed at its JAX position,
+    `hot_window` builds a tiered engine, `prefetch_depth` binds to its
+    own parameter and `fabric` configures the fabric as the JAX engine
+    reads it (a dict without a disk root: no disk tier)."""
     names = list(inspect.signature(LLMEngine.__init__).parameters)[2:]
     defaults = {n: p.default for n, p in inspect.signature(
         LLMEngine.__init__).parameters.items()}
@@ -173,18 +181,34 @@ def test_unported_engine_knobs_raise_positionally(port_model, knob, value):
         assert eng._tiered == (knob == "hot_window")
         assert eng.max_len == 64
         return
+    if knob == "fabric":
+        eng = LLMEngine(port_model, *args)
+        assert eng._fabric_cfg == value and eng._disk is None
+        assert eng._fabric_timeout == 5.0
+        assert not eng._persist_sessions and eng._persist_prefixes
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(port_model, *args)
     args[names.index(knob)] = defaults[knob]
     assert LLMEngine(port_model, *args).max_len == 64
 
 
-@pytest.mark.parametrize("role,exc", [("prefill", NotImplementedError),
-                                      ("decode", NotImplementedError),
+@pytest.mark.parametrize("role,exc", [("prefill", None), ("decode", None),
                                       ("bogus", ValueError)])
 def test_pool_role_raises(port_model, role, exc):
-    with pytest.raises(exc):
-        LLMServer(port_model, pool_role=role, **KW)
+    """The disaggregated pool roles are ported (engine sub-slice (h)):
+    "prefill" and "decode" build a server advertising the role, as the
+    JAX server does; an unknown role still raises ValueError."""
+    if exc is not None:
+        with pytest.raises(exc):
+            LLMServer(port_model, pool_role=role, **KW)
+        return
+    srv = LLMServer(port_model, pool_role=role, **KW)
+    try:
+        assert srv.pool_role == role
+        assert srv.health_snapshot()["pool_role"] == role
+    finally:
+        srv.shutdown()
 
 
 # -- result / generate / metrics_text (ROADMAP Queue 3 item 1) ----------------
