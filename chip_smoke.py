@@ -63,7 +63,8 @@ the result line:
               kernel, plain) by CUDA-graph replay over weight copies past
               the L2, beside its bound, torch.matmul on the bf16 weight,
               dequantise-then-matmul and torch._weight_int8pack_mm where
-              the card has it (yardsticks the port never calls); and one
+              the card has it (yardsticks the port never calls; the last,
+              30-900x Q1's time, by two replays of two calls); and one
               layer's products back to back in one graph as the model
               launches them (q / k / v in one launch, then o, gate, up,
               down: the launch gaps and the programmatic dependent
@@ -132,7 +133,9 @@ the result line:
               limit (top-2 margin at the flip printed); then the int8
               pool with speculation on against off through per-step
               logits;
-              serve_slo: serve_pressure's 16 requests x 256 tokens
+              serve_slo (on the model's first 16 layers, `_shallow`:
+              each run holds itself to its own references):
+              serve_pressure's 16 requests x 256 tokens
               through LLMServer (158 blocks, "swap", the overload ladder,
               default SLO targets, /metrics on an ephemeral port, the
               watchdog, the series sampler, a canary), tiers round-robin
@@ -175,9 +178,10 @@ the result line:
               limit); `generation.generate` beam search (4 beams x 16)
               bitwise twice, sampling (top_k 50, top_p 0.9, seed 7)
               equal twice, every id in the vocabulary;
-              serve_tiered: four prompts of 3000 / 2400 / 1800 / 1200
-              tokens (256 / 64 / 64 / 64 new; `longctx_config`'s clip,
-              max_len 4096, 4 slots) through the full pool (1,025
+              serve_tiered (on the first 16 layers, as serve_slo): four
+              prompts of 3000 / 2400 / 1800 / 1200 tokens (256 / 64 /
+              64 / 64 new; `longctx_config`'s clip, max_len 4096, 4
+              slots) through the full pool (1,025
               blocks) and a tiered one of half their peak demand (282
               blocks, hot_window 8, prefetch_depth 2, 1,024 pinned host
               rows), bf16 and int8 pools, then the 3000-token prompt
@@ -206,8 +210,9 @@ the result line:
               ("disk" mode), one adopted by B from the root exactly once
               (the source's resume sees the claim), streams equal full
               provisioning's, then a disk-warm prefix served by a fresh
-              engine; (d) the serve mix prefilled on P (pool_role
-              "prefill") and handed off chunk by chunk to D ("decode"):
+              engine; (d) on the first 16 layers, the serve mix
+              prefilled on P (pool_role "prefill") and handed off chunk
+              by chunk to D ("decode"):
               adopted streams equal D's colocated ones, two or more
               frames for every prompt of two or more chunks, bf16 and
               int8 pools; every move's counters required (a silent
@@ -215,8 +220,33 @@ the result line:
               CRC, send / receive and land a pull (and a block), MB a
               move, migration seconds, disk ms a block, TTFT pulled vs
               recomputed vs a trie hit, TTFT at P and ITL at D vs
-              colocated; K4 = 32 x the replays of both servers while a
-              move ran;
+              colocated; K4 = layers x the replays of both servers while
+              a move ran;
+              serve_fleet: a TCPStore master with a WAL in a temp dir and
+              a LocalFleet of two LLMServers over the one llama3-8b (all
+              32 layers; each booted, graphs captured, before either
+              takes traffic; lease ttl 5 s): (a) both leases live at
+              generation 1, the serve mix half to each replica through
+              Replica.submit, streams equal the serve phase's; (b)
+              replica 1's generation fenced: its heartbeat stops and its
+              lease never beats again; a new lease under its name is
+              live at once at generation 2; (c) the store crashed once
+              the mix is in flight, down for a ttl + 0.5 s, restarted:
+              every key recovered from the WAL, both leases graced by
+              the outage, no replica fenced, the streams equal (a)'s;
+              (d) serve_slo's pressure traffic over both replicas under
+              SLO targets every request misses: both replicas'
+              metrics_series() pulled into one FleetMetricsAggregator
+              every 0.25 s, a BurnRateRule (1 s / 3 s windows) fires and
+              resolves after the traffic stops, fleet_sum of the token
+              rate within 25 % of the replicas' own rates; (e)
+              raw_step() with all 8 slots decoding the serve mix, bf16
+              and int8 weights: ms by CUDA events, (param_bytes +
+              kv_pool_bytes) / ms and decode_attn_bytes_per_step / ms
+              against the card's memory rate, the streams after it equal
+              the ones without, num_compiles within its bound; heartbeat
+              RPC ms, store recovery ms, WAL ms per append with fsync
+              off and on; K4 = layers x the replicas' replays a drill;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact, and `generate` (the contiguous cache) gives
@@ -827,8 +857,8 @@ def _serve_engine(model, mode="graphs_overlap", **kw):
     return eng
 
 
-def _metric(eng, name, field="value"):
-    return eng.metrics()["llm_engine_" + name]["series"][""][field]
+def _metric(eng, name, field="value", series=""):
+    return eng.metrics()["llm_engine_" + name]["series"][series][field]
 
 
 def _serve_once(torch, model, kv_dtype, mode="graphs_overlap", **kw):
@@ -1273,6 +1303,8 @@ def phase_serve_parity(torch, model, kv_dtype):
 # --------------------------------------------------------------------------
 
 PRESSURE_LENGTHS = SERVE_LENGTHS * 2      # 16 requests
+# the depth of the phases run on `_shallow(model, SHALLOW_LAYERS)`
+SHALLOW_LAYERS = 16
 PRESSURE_NEW = 256
 PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_N, PREFIX_NEW = 384, 16, 16, 32
 PREFIX_KW = dict(max_prompt_len=400, prefix_cache_blocks=64,
@@ -2442,7 +2474,8 @@ def phase_serve_slo(torch, model, limits):
         # cycle): free its graphs now, not inside a later capture
         gc.collect()
         torch.cuda.empty_cache()
-        emit({"phase": "serve_slo", "model": "llama3-8b", **reports[-1]})
+        emit({"phase": "serve_slo", "model": "llama3-8b",
+              "layers": model.config.num_hidden_layers, **reports[-1]})
     mixed, fifo = reports
     inter = [p for p, t in zip(prompts, tiers) if t == "interactive"]
     ladder, got, _ = _ladder_run(torch, model, inter, overload=True)
@@ -2467,7 +2500,8 @@ def phase_serve_slo(torch, model, limits):
         require(worst <= limits["bfloat16"],
                 f"serve_slo ladder: logits err {worst} > "
                 f"{limits['bfloat16']}")
-    emit({"phase": "serve_slo", "model": "llama3-8b", "run": "forced ladder",
+    emit({"phase": "serve_slo", "model": "llama3-8b",
+          "layers": model.config.num_hidden_layers, "run": "forced ladder",
           **ladder, **check, "unloaded_k4_launches": calm["k4_launches"]})
     return {"mixed tiers": mixed["k4_launches"],
             "one tier (FIFO)": fifo["k4_launches"],
@@ -2786,7 +2820,10 @@ def phase_q1_kernels(torch):
             pack_mm = None
             if lib_fn is not None:
                 try:        # a yardstick that refuses a shape is noted
-                    pack_mm = t(lambda i: lib_fn(xs[i], *wls[i]), n_q)
+                    # 30-900x Q1's time: two calls a graph, two replays
+                    pack_mm = _graph_ms(torch, lambda i: lib_fn(xs[i],
+                                                                *wls[i]),
+                                        n_q, 2, 2)
                 except RuntimeError as e:
                     lib_errors.append(f"K {K} N {N} M {M}: {e}"[:300])
             nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
@@ -2996,7 +3033,8 @@ def phase_serve_int8w(torch, model, limits, bf16_streams, bf16_row):
     row `bf16_row` of this run; one serve_pressure run at
     `pressure_blocks()` under "swap" against full provisioning; one
     serve_spec run (k 7: verify width 8) against speculation off, both
-    through per-step logits.  Returns the K4 and Q1 launches by run."""
+    through per-step logits.  Returns the K4 and Q1 launches by run, and
+    the bf16 pool's serve-mix streams ("streams")."""
     import numpy as np
     from paddle_tpu_torch.inference import SpecConfig
     launches = {}
@@ -3007,6 +3045,7 @@ def phase_serve_int8w(torch, model, limits, bf16_streams, bf16_row):
             report["token_agreement_vs_bf16_weights"] = sum(
                 a == b for x, y in zip(streams, bf16_streams)
                 for a, b in zip(x, y)) / (len(SERVE_LENGTHS) * SERVE_NEW)
+            launches["streams"] = streams
         emit(report)
         launches[pool] = {"k4": report["k4_launches"],
                           "q1": report["q1_launches"]}
@@ -3523,6 +3562,7 @@ def phase_serve_tiered(torch, model):
             require(tiered["kv_blocks_prefetched"] >= 1,
                     f"serve_tiered ({pool}): nothing promoted")
         emit({"phase": "serve_tiered", "model": "llama3-8b",
+              "layers": model.config.num_hidden_layers,
               "peak_demand_blocks": peak, "full": full, "tiered": tiered,
               "streams_equal_full": True,
               "post_spill_logits_rows_bitwise": same,
@@ -3543,6 +3583,7 @@ def phase_serve_tiered(torch, model):
             f"serve_tiered (one sequence): {solo['kv_blocks_spilled']} "
             f"spilled, {own} blocks of KV")
     emit({"phase": "serve_tiered", "model": "llama3-8b",
+          "layers": model.config.num_hidden_layers,
           "one_sequence_kv_blocks": own, "full": solo_full, "tiered": solo,
           "streams_equal_full": True,
           "equal_to_its_stream_in_the_mix": solo_got[0] == refs["bfloat16"][0],
@@ -3566,6 +3607,7 @@ def phase_serve_tiered(torch, model):
             f"replays, {spec['verify_replays_with_ext_blocks']} reading "
             f"the extension tier")
     emit({"phase": "serve_tiered", "model": "llama3-8b",
+          "layers": model.config.num_hidden_layers,
           "speculation_k": TIERED_SPEC_K,
           "drafts": "k copies of each slot's token, every step",
           "full": spec_full, "tiered": spec,
@@ -3621,7 +3663,7 @@ def _total_replays(*servers):
     return sum(sum(_replays(s.engine)) for s in servers)
 
 
-def _k4_fabric(torch, what, since, *servers):
+def _k4_servers(torch, what, since, *servers):
     """K4's launches since they were zeroed, held to layers x every
     decode / verify replay of `servers` since `since` (their summed
     `_replays` then); returns them."""
@@ -3630,8 +3672,8 @@ def _k4_fabric(torch, what, since, *servers):
     replays = _total_replays(*servers) - since
     layers = servers[0].engine.cfg.num_hidden_layers
     require(replays > 0 and launches == layers * replays,
-            f"serve_fabric {what}: {launches} K4 launches for {replays} "
-            f"replays x {layers} layers")
+            f"{what}: {launches} K4 launches for {replays} replays x "
+            f"{layers} layers")
     return launches
 
 
@@ -3763,7 +3805,7 @@ def _fabric_pull(torch, model, kv, prefix_streams):
             out = run(b, [0], hint)
         out += run(b, range(1, PREFIX_N), hint)
         torch.cuda.synchronize()
-        launches = _k4_fabric(torch, name, since, a, b)
+        launches = _k4_servers(torch, name, since, a, b)
         require(out == ref, f"{name}: the puller's streams differ from "
                 f"the holder's")
         fb = _fab_counts(b)
@@ -3863,7 +3905,7 @@ def _fabric_migrate(torch, model, ref):
         b.result(adopted, timeout=SLO_WAIT_S)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _k4_fabric(torch, name, since, a, b)
+        launches = _k4_servers(torch, name, since, a, b)
         src = reqs[i]
         require(src.migrated and src.error is None
                 and len(src.tokens) < PRESSURE_NEW,
@@ -3962,7 +4004,7 @@ def _fabric_disk(torch, model, ref, prefix_streams, root):
             a.result(r, timeout=SLO_WAIT_S)
         b.result(adopted, timeout=SLO_WAIT_S)
         torch.cuda.synchronize()
-        launches = _k4_fabric(torch, name, since, a, b)
+        launches = _k4_servers(torch, name, since, a, b)
         src = reqs[i]
         require(src.migrated and src.error is None,
                 f"{name}: the source's resume did not see the claim: "
@@ -4116,7 +4158,7 @@ def _fabric_handoff(torch, model, kv):
             Dd.result(r, timeout=SLO_WAIT_S)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches = _k4_fabric(torch, name, since, P, Dd)
+        launches = _k4_servers(torch, name, since, P, Dd)
         out = [list(r.tokens) for r in adopted]
         require(out == ref, f"{name}: adopted streams differ from D's "
                 f"colocated streams")
@@ -4145,7 +4187,8 @@ def _fabric_handoff(torch, model, kv):
         ttft_c = [stamps["c", i][0] - t0 for i in range(len(colo))]
         report = {
             "phase": "serve_fabric", "move": "handoff", "pool": pool,
-            "model": "llama3-8b", "requests": len(prompts),
+            "model": "llama3-8b", "layers": model.config.num_hidden_layers,
+            "requests": len(prompts),
             "frames_per_request": [frames.get(f"h{i}", 0)
                                    for i in range(len(prompts))],
             "handoff_chunks": fp["handoff_chunks"],
@@ -4167,14 +4210,17 @@ def _fabric_handoff(torch, model, kv):
         _drop_servers(torch, P, Dd)
 
 
-def phase_serve_fabric(torch, model, prefix_streams, pressure_streams):
-    """The KV fabric between two servers on one card (llama3-8b, all 32
-    layers, bf16, the serve shape): (a) a prefix pull, bf16 and int8
-    pools; (b) a live session migration; (c) disk parks, a disk
-    adoption claimed once, a disk-warm prefix after a restart; (d) the
-    chunk-streamed prefill -> decode handoff, bf16 and int8 pools.
-    Every move must have moved blocks (a silent fallback to recompute
-    fails the phase).  Returns K4's launches by (pool, move)."""
+def phase_serve_fabric(torch, model, prefix_streams, pressure_streams,
+                       shallow):
+    """The KV fabric between two servers on one card (llama3-8b, bf16,
+    the serve shape): (a) a prefix pull, bf16 and int8 pools; (b) a live
+    session migration; (c) disk parks, a disk adoption claimed once, a
+    disk-warm prefix after a restart, all three on all 32 layers (their
+    references are the earlier phases' streams); (d) the chunk-streamed
+    prefill -> decode handoff, bf16 and int8 pools, on `shallow` (its
+    own colocated reference).  Every move must have moved blocks (a
+    silent fallback to recompute fails the phase).  Returns K4's
+    launches by (pool, move)."""
     import tempfile
     t0 = time.perf_counter()
     launches = {}
@@ -4188,8 +4234,483 @@ def phase_serve_fabric(torch, model, prefix_streams, pressure_streams):
             torch, model, pressure_streams, prefix_streams, Path(d))
     for kv in (None, "int8"):
         launches[kv or "bfloat16", "handoff"] = _fabric_handoff(
-            torch, model, kv)
+            torch, shallow, kv)
     emit({"phase": "serve_fabric", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+FLEET_JOB = "serve-fleet"
+FLEET_TTL = 5.0               # s: the JAX lease default (a beat every ttl / 3)
+FLEET_SERIES_S = 0.25         # s: each replica's series sampler (tier 0)
+FLEET_SERIES_TIERS = ((FLEET_SERIES_S, 480), (5.0, 120))
+# (d): engine SLO targets below the card's decode step (TTFT 50 ms, ITL
+# 5 ms), so every request of the traffic misses; the rule's windows are
+# short enough to fire and resolve inside the phase
+FLEET_SLO = {"standard": (0.05, 0.005)}
+FLEET_RULE = dict(target=0.9, fast_window_s=1.0, slow_window_s=3.0,
+                  fast_burn=2.0, slow_burn=1.0, fire_after=2,
+                  resolve_after=2)
+FLEET_POLL_S = 0.25           # (d): the harness's ingest + evaluate cadence
+FLEET_ALERT_WAIT_S = 180.0    # (d): the traffic, the fire and the resolve
+# (d): |fleet_sum(token rate) - sum of the replicas' own rates| <= this x
+# the sum: fleet_sum is a mean of per-interval rates sampled on a host
+# thread, the reference each replica's tokens over the traffic's span
+FLEET_RATE_TOL = 0.25
+FLEET_RAW_CALLS = 10          # (e): raw_step calls between CUDA events
+FLEET_WAL_APPENDS = 200       # WAL ms per append, fsync on and off
+
+
+def _shallow(torch, model, layers):
+    """`model`'s first `layers` decoder layers as a model of their own:
+    the same parameter tensors (nothing copied), the config's depth cut.
+    The phases that hold themselves to their own references run on it
+    to keep the run inside its time budget."""
+    import copy
+    import dataclasses
+    cfg = dataclasses.replace(model.config, num_hidden_layers=layers)
+    lm = copy.copy(model.llama)
+    lm._modules = dict(model.llama._modules)
+    lm.layers = torch.nn.ModuleList(list(model.llama.layers)[:layers])
+    lm.config = cfg
+    out = copy.copy(model)
+    out._modules = dict(model._modules)
+    out.llama = lm
+    out.config = cfg
+    return out
+
+
+def _wal_append_ms(root):
+    """ms per WAL append of a durable master, fsync off and on:
+    FLEET_WAL_APPENDS sets of a lease-sized value each, timed around
+    `_Durable.append` on this machine's disk (the run's temp dir)."""
+    from paddle_tpu_torch.distributed import TCPStore
+    out = {}
+    for fsync in (False, True):
+        s = TCPStore("127.0.0.1", 0, is_master=True, wal_fsync=fsync,
+                     durable_dir=str(root / f"wal-fsync-{fsync}"))
+        try:
+            dur, times = s._server.kv_durable, []
+            append = dur.append
+
+            def timed(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return append(*a, **k)
+                finally:
+                    times.append(1e3 * (time.perf_counter() - t))
+            dur.append = timed
+            for i in range(FLEET_WAL_APPENDS):
+                s.set(f"fleet/wal/replica/r{i % 4}",
+                      (time.time(), FLEET_TTL, i))
+        finally:
+            s.close()
+        require(len(times) == FLEET_WAL_APPENDS,
+                f"serve_fleet WAL: {len(times)} appends timed")
+        out["fsync_on" if fsync else "fsync_off"] = {
+            "p50": _percentile(times, 50), "p99": _percentile(times, 99),
+            "n": len(times)}
+    return out
+
+
+def _time_heartbeats(store):
+    """Host ms of every store RPC made off the main thread (the leases'
+    heartbeats: the fence read and the lease write), as (start, end,
+    ms) — an instance attribute over `store._rpc`, which serialises the
+    client's RPCs, so a beat's time includes waiting for the socket."""
+    import threading
+    rpc, main, out = store._rpc, threading.main_thread(), []
+
+    def timed(*a, **k):
+        if threading.current_thread() is main:
+            return rpc(*a, **k)
+        t = time.perf_counter()
+        try:
+            return rpc(*a, **k)
+        finally:
+            e = time.perf_counter()
+            out.append((t, e, 1e3 * (e - t)))
+    store._rpc = timed
+    return out
+
+
+def _fleet_mix(torch, fleet, prompts, new, what, during=None):
+    """`prompts` sent alternately to the fleet's replicas through
+    `Replica.submit` (request i to replica i % n); `during()` runs once
+    every request has its first token; then every result.  K4 is held
+    to layers x the replicas' replays.  Returns (streams, report)."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    servers = [r.server for r in fleet.replicas]
+    torch.cuda.synchronize()
+    PA.LAUNCHES["paged_attention"] = 0
+    since = _total_replays(*servers)
+    stamps = {}
+    t0 = time.perf_counter()
+    reqs = [fleet.replicas[i % len(servers)].submit(
+        p, new, on_token=_stamped(stamps, i)) for i, p in enumerate(prompts)]
+    if during is not None:
+        _bounded(lambda: all(r.tokens or r.done for r in reqs),
+                 f"{what}: first tokens")
+        during()
+    for r in reqs:
+        r.result(timeout=SLO_WAIT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _k4_servers(torch, what, since, *servers)
+    for r in reqs:
+        require(r.done and r.error is None and len(r.tokens) == new,
+                f"{what}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    ttft = [stamps[i][0] - t0 for i in range(len(reqs))]
+    itl = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    gen = sum(len(r.tokens) for r in reqs)
+    return [list(r.tokens) for r in reqs], {
+        "requests": len(reqs), "wall_s": wall, "tokens_per_s": gen / wall,
+        "ttft_p50_ms": 1e3 * _percentile(ttft, 50),
+        "itl_p50_ms": 1e3 * _percentile(itl, 50),
+        "itl_p99_ms": 1e3 * _percentile(itl, 99),
+        "k4_launches": launches,
+        "placed": {r.name: sum(1 for i in range(len(reqs))
+                               if i % len(servers) == j)
+                   for j, r in enumerate(fleet.replicas)}}
+
+
+def _fleet_alerts(torch, fleet, prompts):
+    """(d) serve_slo's pressure traffic (16 x PRESSURE_NEW tokens) over
+    both replicas, every request missing FLEET_SLO: the harness pulls
+    each replica's `metrics_series()` into one FleetMetricsAggregator
+    and evaluates a BurnRateRule every FLEET_POLL_S, until the alert has
+    fired and, after the traffic stopped, resolved.  fleet_sum of the
+    token rate over the traffic's span against each replica's own
+    tokens over it.  Returns the report."""
+    from paddle_tpu_torch.observability import (AlertManager, BurnRateRule,
+                                                FleetMetricsAggregator)
+    from paddle_tpu_torch.ops import paged_attention as PA
+    what = "serve_fleet (d)"
+    servers = [r.server for r in fleet.replicas]
+    agg = FleetMetricsAggregator(stale_after_s=10.0)
+    mgr = AlertManager([BurnRateRule("fleet-standard-burn", "standard",
+                                     **FLEET_RULE)])
+    key = "llm_engine_generated_tokens_total"
+
+    def made():
+        return [int(_metric(s.engine, "generated_tokens_total"))
+                for s in servers]
+
+    torch.cuda.synchronize()
+    PA.LAUNCHES["paged_attention"] = 0
+    since = _total_replays(*servers)
+    before = made()
+    t_sub = time.time()
+    reqs = [fleet.replicas[i % len(servers)].submit(p, PRESSURE_NEW)
+            for i, p in enumerate(prompts)]
+    fired = resolved = t_done = span = None
+    early = 0                   # resolutions while the traffic still ran
+    deadline = time.monotonic() + FLEET_ALERT_WAIT_S
+    while resolved is None:
+        require(t_done is None or fired is None or mgr.firing(),
+                f"{what}: the alert resolved before the traffic stopped")
+        require(time.monotonic() < deadline,
+                f"{what}: the alert never fired and resolved")
+        time.sleep(FLEET_POLL_S)
+        now = time.time()
+        for rep in fleet.replicas:
+            agg.ingest(rep.name, rep.server.metrics_series(n=64), now=now)
+        for a in mgr.evaluate(agg.error_rate, now=now):
+            if a.state == "firing":
+                fired = fired or a
+            elif t_done is None:
+                early += 1
+            else:
+                resolved = a
+        if t_done is None and all(r.done for r in reqs):
+            t_done = now
+            after = made()
+            # the sampler's points over the traffic: from the submit to
+            # the poll that saw it end
+            span = t_done - t_sub
+            rates = [(b - a) / span for a, b in zip(before, after)]
+            fleet_rate = agg.fleet_sum(key, span, now=t_done)
+    for r in reqs:
+        require(r.done and r.error is None
+                and len(r.tokens) == PRESSURE_NEW,
+                f"{what}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    require(fired is not None and fired.fired_t < resolved.resolved_t,
+            f"{what}: the alert did not fire before it resolved")
+    launches = _k4_servers(torch, what, since, *servers)
+    require(fleet_rate is not None and abs(fleet_rate - sum(rates))
+            <= FLEET_RATE_TOL * sum(rates),
+            f"{what}: fleet_sum of the token rate {fleet_rate} vs the "
+            f"replicas' {sum(rates)}")
+    missed = sum(int(_metric(s.engine, "slo_missed_total",
+                             series="tier=standard")) for s in servers)
+    require(missed >= len(reqs),
+            f"{what}: {missed} requests missed their SLO of {len(reqs)}")
+    return {"drill": "d_series_alerts", "requests": len(reqs),
+            "new_tokens": PRESSURE_NEW, "slo_targets": FLEET_SLO,
+            "rule": FLEET_RULE, "poll_s": FLEET_POLL_S,
+            "series_interval_s": FLEET_SERIES_S,
+            "fired_s_after_submit": fired.fired_t - t_sub,
+            "fired_s_after_traffic": fired.fired_t - t_done,
+            "resolved_while_traffic_ran": early,
+            "burn_at_fire": {"fast": fired.burn_fast,
+                             "slow": fired.burn_slow},
+            "traffic_s": span,
+            "resolved_s_after_traffic": resolved.resolved_t - t_done,
+            "slo_missed": missed,
+            "token_rate": {"fleet_sum": fleet_rate,
+                           "replicas": dict(zip(
+                               [r.name for r in fleet.replicas], rates)),
+                           "tolerance": f"|fleet_sum - sum| <= "
+                                        f"{FLEET_RATE_TOL} x sum"},
+            "series_ingested": agg.ingests,
+            "aggregator": {n: {k: v for k, v in r.items() if k != "series"}
+                           for n, r in agg.replicas().items()},
+            "k4_launches": launches}
+
+
+def _raw_step_run(torch, model, weight_dtype, prompts, ref):
+    """(e) `raw_step()` on a serve-shape engine (graphs + overlap) with
+    every slot decoding the serve mix: FLEET_RAW_CALLS calls between
+    CUDA events after two warm-up calls, K4 = layers x calls, the
+    attention-byte counter moved by a step's bytes a call; then the
+    mix runs to its end, its streams equal to `ref` (raw steps change
+    no stream).  The two byte figures over the measured ms, each against
+    the card's memory rate; num_compiles against its bound."""
+    from paddle_tpu_torch.observability.roofline import peak_hbm_bw
+    from paddle_tpu_torch.ops import paged_attention as PA
+    what = f"serve_fleet (e) raw_step ({weight_dtype or 'bf16'} weights)"
+    eng = _serve_engine(model, weight_dtype=weight_dtype)
+    reqs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    steps = 0
+    while eng.num_active < eng.max_slots or eng.num_prefilling:
+        require(eng.has_work and steps < 1000,
+                f"{what}: the slots never all decoded")
+        eng.step()
+        steps += 1
+    eng.flush()
+    active = eng.num_active
+    roof = f"kernel=cuda,kv_dtype=auto,tp={eng.tp}"
+    bytes0 = _metric(eng, "decode_attn_bytes_total", series=roof)
+    torch.cuda.synchronize()
+    PA.LAUNCHES["paged_attention"] = 0
+    for _ in range(2):
+        eng.raw_step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FLEET_RAW_CALLS):
+        eng.raw_step()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FLEET_RAW_CALLS
+    calls = 2 + FLEET_RAW_CALLS
+    layers = model.config.num_hidden_layers
+    k4 = PA.LAUNCHES["paged_attention"]
+    require(k4 == layers * calls,
+            f"{what}: {k4} K4 launches for {calls} calls x {layers} layers")
+    moved = _metric(eng, "decode_attn_bytes_total", series=roof) - bytes0
+    require(moved == calls * eng.decode_attn_bytes_per_step,
+            f"{what}: decode_attn_bytes_total moved {moved}")
+    eng.run()
+    got = [list(r.tokens) for r in reqs]
+    require(got == ref, f"{what}: streams differ from the run without "
+            f"raw steps")
+    bound = len(eng.decode_widths) + len(eng.verify_widths)
+    require(eng.num_compiles == eng.num_graphs <= bound
+            and _metric(eng, "compile_events_total") == eng.num_compiles,
+            f"{what}: num_compiles {eng.num_compiles}, graphs "
+            f"{eng.num_graphs}, bound {bound}")
+    peak = peak_hbm_bw(torch.cuda.get_device_name(0))
+    pb, kp = eng.param_bytes(), eng.kv_pool_bytes()
+    attn = eng.decode_attn_bytes_per_step
+    report = {
+        "drill": "e_raw_step", "weight_dtype": weight_dtype or "bfloat16",
+        "width": eng.max_slots, "slots_decoding": active,
+        "steps_before": steps, "calls_timed": FLEET_RAW_CALLS,
+        "raw_step_ms": ms, "timing": "CUDA events around the calls",
+        "param_bytes": pb, "kv_pool_bytes": kp,
+        "kv_pool_bytes_per_chip": eng.kv_pool_bytes_per_chip(),
+        "decode_attn_bytes_per_step": attn,
+        "param_and_pool_bytes_per_s": (pb + kp) / (ms / 1e3),
+        "param_and_pool_share_of_peak": (pb + kp) / (ms / 1e3) / peak,
+        "attn_bytes_per_s": attn / (ms / 1e3),
+        "attn_share_of_peak": attn / (ms / 1e3) / peak,
+        "peak_hbm_bytes_per_s": peak,
+        "roofline_gauge": _metric(eng, "decode_attn_roofline_util",
+                                  series=roof),
+        "num_compiles": eng.num_compiles, "num_compiles_bound": bound,
+        "k4_launches": k4, "streams_equal_without_raw_steps": True}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_serve_fleet(torch, model, serve_streams, serve_tps,
+                      int8w_streams):
+    """The fleet substrate on one card (llama3-8b, all 32 layers, bf16,
+    the serve shape): a TCPStore master with a WAL under a temp dir,
+    two replicas of one LocalFleet (each booted, its graphs captured,
+    before either takes traffic; lease ttl FLEET_TTL).  (a) both leases
+    live at generation 1; the serve mix half to each replica, streams
+    equal the serve phase's; (b) replica 1's generation fenced: its
+    heartbeat stops and never makes it live; a new lease under its name
+    is live at once at generation 2; (c) the store crashes once the mix
+    is in flight, stays down longer than a ttl and restarts: every key
+    recovered from the WAL, both leases graced, nobody fenced, the
+    streams equal (a)'s; (d) fleet series and a burn-rate alert
+    (`_fleet_alerts`); (e) `raw_step` at full width with bf16 and int8
+    weights (`_raw_step_run`).  Heartbeat RPC ms, WAL ms per append
+    (fsync off / on), store recovery ms.  Returns K4's launches by
+    drill."""
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed import TCPStore
+    from paddle_tpu_torch.inference import LocalFleet, ReplicaLease
+    from paddle_tpu_torch.inference import fleet_serving as FS
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.config.vocab_size, L)
+               for L in SERVE_LENGTHS]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="serve-fleet-") as d:
+        wal = _wal_append_ms(Path(d))
+        store = TCPStore("127.0.0.1", 0, is_master=True,
+                         durable_dir=str(Path(d) / "store"))
+        beats = _time_heartbeats(store)
+        fleet = None
+        try:
+            t_boot = time.perf_counter()
+            fleet = LocalFleet(model, 2, store=store, job_id=FLEET_JOB,
+                               lease_ttl=FLEET_TTL,
+                               series_interval=FLEET_SERIES_S,
+                               series_tiers=FLEET_SERIES_TIERS,
+                               watchdog_deadline=None, slo_targets=FLEET_SLO,
+                               **SERVE_KW)
+            boot_s = time.perf_counter() - t_boot
+            names = [r.name for r in fleet.replicas]
+            for r in fleet.replicas:
+                e = r.server.engine
+                require(e._graphs is not None and e.overlap
+                        and e.decode_kernel == "cuda"
+                        and e.num_graphs == len(e.decode_widths),
+                        f"serve_fleet: {r.name} not booted on the card's "
+                        f"path")
+            # (a) membership and traffic
+            live = fleet.live()
+            require(sorted(live) == names
+                    and all(v[2] == 1 for v in live.values()),
+                    f"serve_fleet (a): live {live}")
+            a_streams, a = _fleet_mix(torch, fleet, prompts, SERVE_NEW,
+                                      "serve_fleet (a)")
+            require(a_streams == serve_streams, "serve_fleet (a): streams "
+                    "differ from the serve phase's single engine")
+            launches["a membership"] = a["k4_launches"]
+            emit({"phase": "serve_fleet", "model": "llama3-8b",
+                  "drill": "a_membership", "replicas": names,
+                  "generations": {n: v[2] for n, v in live.items()},
+                  "boot_s": boot_s, **a,
+                  "single_engine_tokens_per_s": serve_tps,
+                  "streams_equal_single_engine": True})
+            # (b) fence and re-register
+            rep1 = fleet.replicas[1]
+            gen1 = rep1.lease.generation
+            lkey = f"fleet/{FLEET_JOB}/replica/{rep1.name}"
+            require(FS.fence_replica(store, FLEET_JOB, rep1.name, gen1)
+                    == gen1, "serve_fleet (b): fence")
+            stamp = store.get(lkey)
+            _bounded(lambda: not rep1.lease._thread.is_alive(),
+                     "serve_fleet (b): the fenced heartbeat to stop",
+                     timeout=10 * rep1.lease.interval + 30)
+            require(rep1.name not in fleet.live()
+                    and tuple(store.get(lkey)) == tuple(stamp),
+                    "serve_fleet (b): a fenced generation beat again")
+            again = ReplicaLease(store, FLEET_JOB, rep1.name, ttl=FLEET_TTL)
+            gen2 = again.register()
+            live = fleet.live()
+            require(gen2 == gen1 + 1 and live.get(rep1.name, (0,) * 3)[2]
+                    == gen2, f"serve_fleet (b): re-registered at {gen2}, "
+                    f"live {live}")
+            rep1.lease = again          # released by fleet.shutdown()
+            emit({"phase": "serve_fleet", "drill": "b_fence",
+                  "fenced_generation": gen1, "reregistered_generation": gen2,
+                  "live_after": {n: v[2] for n, v in live.items()}})
+            # (c) store crash and restart during traffic
+            keys = store.list_keys()
+            crash = {}
+
+            def outage():
+                crash["t"] = time.perf_counter()
+                store.crash()
+                time.sleep(FLEET_TTL + 0.5)     # longer than one ttl
+                t = time.perf_counter()
+                crash["rec"] = store.restart()
+                crash["end"] = time.perf_counter()
+                crash["restart_ms"] = 1e3 * (crash["end"] - t)
+
+            c_streams, c = _fleet_mix(torch, fleet, prompts, SERVE_NEW,
+                                      "serve_fleet (c)", during=outage)
+            rec = crash["rec"]
+            require(c_streams == a_streams, "serve_fleet (c): streams "
+                    "differ from (a)'s")
+            require(rec["keys"] == len(keys)
+                    and set(store.list_keys()) == set(keys),
+                    f"serve_fleet (c): {rec['keys']} keys recovered of "
+                    f"{len(keys)}")
+            require(rec["graced_leases"] == 2 and rec["outage_s"] > FLEET_TTL,
+                    f"serve_fleet (c): recovery {rec}")
+            fences = {n: FS.fenced_generation(store, FLEET_JOB, n)
+                      for n in names}
+            require(fences == {names[0]: 0, names[1]: gen1},
+                    f"serve_fleet (c): fences {fences}")
+            _bounded(lambda: sorted(fleet.live()) == names,
+                     "serve_fleet (c): both leases live after the restart",
+                     timeout=10 * rep1.lease.interval + 30)
+            launches["c store crash"] = c["k4_launches"]
+            ok = [ms for t, e, ms in beats
+                  if e < crash["t"] or t > crash["end"]]
+            emit({"phase": "serve_fleet", "drill": "c_store_crash", **c,
+                  "streams_equal_a": True, "outage_s": rec["outage_s"],
+                  "store_recovery_ms": crash["restart_ms"],
+                  "keys_recovered": rec["keys"],
+                  "wal_records_replayed": rec["wal_records"],
+                  "snapshot": rec["snapshot"],
+                  "leases_graced": rec["graced_leases"],
+                  "fences_after": fences,
+                  "heartbeat_rpc_ms": {
+                      "p50": _percentile(ok, 50), "p99": _percentile(ok, 99),
+                      "n": len(ok), "interval_ms": 1e3 * rep1.lease.interval,
+                      "outside_the_outage": True}})
+            # (d) fleet series and burn-rate alerts
+            prng = np.random.default_rng(3)
+            press = [prng.integers(0, model.config.vocab_size, L)
+                     for L in PRESSURE_LENGTHS]
+            report = _fleet_alerts(torch, fleet, press)
+            launches["d series and alerts"] = report["k4_launches"]
+            emit({"phase": "serve_fleet", **report})
+        finally:
+            if fleet is not None:
+                fleet.shutdown()
+                for r in fleet.replicas:
+                    require(not r.server._thread.is_alive(),
+                            f"serve_fleet: {r.name}'s driver still runs")
+                    _unhook(torch, r.server.engine)
+            store.close()
+    emit({"phase": "serve_fleet", "wal_append_ms": wal,
+          "heartbeat_rpc_ms_all": {"p50": _percentile([b[2] for b in beats],
+                                                      50),
+                                   "p99": _percentile([b[2] for b in beats],
+                                                      99),
+                                   "n": len(beats)}})
+    # (e) item 3 on the card
+    for wd, ref in ((None, serve_streams), ("int8", int8w_streams)):
+        report = _raw_step_run(torch, model, wd, prompts, ref)
+        launches[f"e raw_step {report['weight_dtype']} weights"] = \
+            report["k4_launches"]
+        emit({"phase": "serve_fleet", "model": "llama3-8b", **report})
+    emit({"phase": "serve_fleet", "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -4201,7 +4722,11 @@ def phase_serve(torch):
     serving under KV pressure, with a shared system prompt, with
     speculation and SLO tiers; then with int8 weights (serve_int8w);
     then static KV-cache generation on the same model; then tiered KV
-    and the KV fabric between two servers."""
+    and the KV fabric between two servers; then the fleet substrate
+    (serve_fleet).  serve_slo, serve_tiered and the fabric's handoff
+    run on the model's first SHALLOW_LAYERS layers (`_shallow`): each
+    holds itself to its own references, and the run keeps inside its
+    time budget."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.from_preset("llama3-8b"),
@@ -4209,13 +4734,13 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    launches = {}
-    streams = {}
+    launches, streams, reports = {}, {}, {}
     for kv in (None, "int8"):
-        report, streams[kv], launches[kv] = _serve_once(torch, model, kv)
+        reports[kv], streams[kv], launches[kv] = _serve_once(torch, model,
+                                                             kv)
         emit({"phase": "serve", "model": "llama3-8b", "dtype": "bfloat16",
               "layers": model.config.num_hidden_layers,
-              "params": n_params, "init_s": init_s, **report})
+              "params": n_params, "init_s": init_s, **reports[kv]})
     same = sum(a == b for sa, sb in zip(streams[None], streams["int8"])
                for a, b in zip(sa, sb))
     emit({"phase": "serve", "int8_vs_bf16_pool_token_agreement":
@@ -4244,19 +4769,24 @@ def phase_serve(torch):
     pressure, pressure_streams = phase_serve_pressure(torch, model, limits)
     prefix, prefix_streams = phase_serve_prefix(torch, model)
     spec = phase_serve_spec(torch, model, limits)
-    slo = phase_serve_slo(torch, model, limits)
+    shallow = _shallow(torch, model, SHALLOW_LAYERS)
+    slo = phase_serve_slo(torch, shallow, limits)
     int8w = phase_serve_int8w(torch, model, limits, streams[None],
                               profile["graphs_overlap"])
+    int8w_streams = int8w.pop("streams")
     generate = phase_generate(torch, model, limits["bfloat16"])
-    tiered = phase_serve_tiered(torch, model)
+    tiered = phase_serve_tiered(torch, shallow)
     fabric = phase_serve_fabric(torch, model, prefix_streams,
-                                pressure_streams["bfloat16"])
-    del model
+                                pressure_streams["bfloat16"], shallow)
+    fleet = phase_serve_fleet(torch, model, streams[None],
+                              reports[None]["tokens_per_s"], int8w_streams)
+    del model, shallow
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
             "pressure": pressure, "prefix": prefix, "spec": spec,
             "slo": {"bfloat16": slo}, "int8w": int8w,
-            "generate": generate, "tiered": tiered, "fabric": fabric}
+            "generate": generate, "tiered": tiered, "fabric": fabric,
+            "fleet": fleet}
 
 
 def _debug_model():
@@ -6218,6 +6748,14 @@ def main() -> int:
                 f"servers while it ran (pull: the puller's only)")
             require(all(n > 0 for n in fabric.values()),
                     f"{e['name']}: no launch in a serve_fabric move")
+        if pool == "bfloat16":
+            e["launches_serve_fleet"] = serve_launches["fleet"]
+            e["launches_path_serve_fleet"] = (
+                "serve_fleet llama3-8b, bf16 pool, two LocalFleet "
+                "replicas on one card: each drill from 0, layers x the "
+                "replicas' replays; raw_step: layers x its calls")
+            require(all(n > 0 for n in serve_launches["fleet"].values()),
+                    f"{e['name']}: no launch in a serve_fleet drill")
         if tiered:
             e["launches_serve_tiered"] = tiered
             e["launches_path_serve_tiered"] = (

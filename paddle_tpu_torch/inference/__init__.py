@@ -3,13 +3,15 @@ continuous-batching paged-KV engine), `LLMServer` (its thread-safe
 front), `KVPager` (the block-pool bookkeeping), `SpecConfig` (the
 speculative-decoding knobs), the SLO tiers (`SLOTier`, `SLOTargets`,
 `goodput`), the overload ladder (`OverloadConfig`,
-`OverloadController`) and the KV fabric (`DiskTier`, `FabricServer`,
-`FabricError`, `SessionTicket`), under the JAX package's public
-names."""
+`OverloadController`), the KV fabric (`DiskTier`, `FabricServer`,
+`FabricError`, `SessionTicket`) and the fleet's membership
+(`LocalFleet`, `Replica`, `ReplicaLease`), under the JAX package's
+public names."""
 
 from ..observability.slo import SLOTargets, SLOTier, goodput
 from .engine import (DeadlineExceeded, EngineUnhealthy, LLMEngine,
                      Overloaded, QueueFull, Request, ResultTimeout)
+from .fleet_serving import LocalFleet, Replica, ReplicaLease
 from .kv_fabric import DiskTier, FabricError, FabricServer, SessionTicket
 from .kv_pager import BlocksExhausted, KVPager
 from .ngram_draft import SpecConfig
@@ -21,4 +23,5 @@ __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
            "KVPager", "BlocksExhausted", "SpecConfig", "SLOTier",
            "SLOTargets", "goodput", "OverloadConfig",
            "OverloadController", "DiskTier", "FabricServer",
-           "FabricError", "SessionTicket"]
+           "FabricError", "SessionTicket", "LocalFleet", "Replica",
+           "ReplicaLease"]

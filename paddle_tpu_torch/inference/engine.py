@@ -121,13 +121,16 @@ What this slice keeps of the JAX engine:
   * EOS, `max_new_tokens`, cancellation and deadline handling at step
     boundaries, a bounded admission queue (`max_queue` -> `QueueFull`),
     `Request.result(timeout=)`, and the `llm_engine_*` TTFT / ITL /
-    token / host-gap / `spec_*` / tier / overload / tiered-KV / fabric
-    metrics.
+    token / host-gap / `spec_*` / tier / overload / tiered-KV / fabric /
+    decode-attention roofline metrics;
+  * the JAX engine's report hooks: `raw_step()` (one decode step over
+    every slot, no host bookkeeping), `param_bytes()`,
+    `kv_pool_bytes_per_chip()`, `prefix_pool_bytes()`, `num_compiles`.
 
 The JAX engine's meshes and AOT cache raise `NotImplementedError`
 naming their ROADMAP item — never silently ignored.  Its bounded
-compile count becomes a bound on captured graphs: `num_graphs` <=
-`len(decode_widths) + len(verify_widths)`.
+compile count becomes a bound on captured graphs: `num_compiles` ==
+`num_graphs` <= `len(decode_widths) + len(verify_widths)`.
 
 Fabric bytes cross threads but the card does not: the fabric's
 connection and handoff-sender threads move host bytes only; every
@@ -173,6 +176,7 @@ from ..generation import (accept_rows, greedy_accept,
 from ..models import llama_decode as D
 from ..observability import tracing as _tr
 from ..observability.metrics import MetricsRegistry, log_buckets
+from ..observability.roofline import peak_hbm_bw
 from ..observability.slo import SLOTargets, SLOTier
 from ..testing import faults as _faults
 from . import kv_fabric as _kvf
@@ -768,6 +772,26 @@ class LLMEngine:
         self._kv_block_bytes = sum(t.numel() // self.kv_blocks
                                    * t.element_size()
                                    for t in D.pool_leaves(self._kvpool))
+        # one card: it holds every block's bytes (the JAX engine's tp
+        # shards them over chips)
+        self.tp = 1
+        self.kv_block_bytes_per_chip = self._kv_block_bytes // self.tp
+        # analytic attention bytes one decode step moves: every slot's
+        # full table view (bmax blocks); the gather path moves each byte
+        # twice (pool read + gathered-copy write), K4 reads the pool in
+        # place once
+        self.decode_attn_bytes_per_step = (
+            self.max_slots * bmax * self.kv_block_bytes_per_chip
+            * (1 if self.decode_kernel == "cuda" else 2))
+        # the card's memory rate for the roofline gauge; None (the gauge
+        # stays 0) on the CPU and on a card the table does not know
+        self._peak_hbm_bw = None
+        if on_cuda:
+            try:
+                self._peak_hbm_bw = peak_hbm_bw(
+                    torch.cuda.get_device_name(self.device))
+            except KeyError:
+                pass
         self._pcache = None
         if int(prefix_cache_blocks) > 0:
             if self.prefill_chunk is None:
@@ -777,6 +801,7 @@ class LLMEngine:
             # aliases its blocks into the slot's table (refcount + 1)
             self._pcache = RadixPrefixCache(int(prefix_cache_blocks), bt,
                                             pager=self._pager)
+            self.prefix_block_tokens = bt
 
         # host-side mirrors of the per-slot decode inputs (tiny arrays)
         B = self.max_slots
@@ -862,6 +887,8 @@ class LLMEngine:
                  torch.empty(m, dtype=torch.int64, pin_memory=True))
                 for _ in range(2)]
             self._n_dispatched = 0
+        # raw_step's own pinned input buffer and the event after its copy
+        self._raw_stage = self._raw_event = None
         self._init_fabric(fabric)
         self._init_metrics()
 
@@ -942,9 +969,25 @@ class LLMEngine:
                                   help="requests waiting for a slot")
         self._m_active = reg.gauge("slots_active",
                                    help="slots generating right now")
+        reg.gauge("slots_total", help="configured slot pool size") \
+            .set(self.max_slots)
+        self._m_slot_steps = reg.counter(
+            "slot_steps_total",
+            help="sum of active slots over decode steps (occupancy "
+                 "integral: / (slots_total * decode_steps) = utilization)")
         self._m_steps = reg.counter(
             "decode_steps_total",
             help="vectorized device steps run (decode or verify)")
+        self._m_prefill = reg.histogram(
+            "prefill_bucket_tokens",
+            help="pow-2 bucket size each admitted prompt padded to "
+                 "(legacy whole-bucket path) or rounded up to (chunked)",
+            buckets=[float(b) for b in self.buckets])
+        self._m_chunks = reg.histogram(
+            "prefill_chunks_per_step",
+            help="prefill chunks run by one scheduler step (chunked "
+                 "prefill: observed on steps with prefill work pending)",
+            buckets=[1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0])
         self._m_ttft = reg.histogram(
             "ttft_seconds", help="submit -> first token (queue wait "
             "+ prefill + first sample)",
@@ -959,6 +1002,10 @@ class LLMEngine:
                                   help="tokens sampled (all requests)")
         self._m_prompt = reg.counter("prompt_tokens_total",
                                      help="true prompt tokens admitted")
+        self._m_compiles = reg.counter(
+            "compile_events_total",
+            help="CUDA graphs captured (decode and verify widths; the "
+                 "JAX engine counts its XLA programs here)")
         # the host-side headline: time between a decode step's tokens
         # reaching the host and the next decode dispatch, the window
         # the card waits on the scheduler (idle queue waits excluded)
@@ -1128,6 +1175,25 @@ class LLMEngine:
                  "one verify step",
             buckets=[0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
                      1.0])
+        # the decode attention's roofline, labelled by the engine's
+        # (kernel, kv_dtype, tp) as the JAX engine labels it
+        roof = dict(kernel=self.decode_kernel, kv_dtype=self.kv_dtype,
+                    tp=str(self.tp))
+        self._m_attn_bytes = reg.counter(
+            "decode_attn_bytes_total",
+            help="analytic PER-CHIP attention HBM bytes moved by "
+                 "single-token decode steps (every slot's full table "
+                 "view at 1/tp of each block's bytes; the gather path "
+                 "counts 2x — pool read + gathered-copy write; verify "
+                 "steps excluded)",
+            labelnames=tuple(roof)).labels(**roof)
+        self._m_roofline = reg.gauge(
+            "decode_attn_roofline_util",
+            help="per-chip decode-step attention bytes / (step wall "
+                 "time * one chip's peak HBM bandwidth) — fraction of "
+                 "the memory roofline the decode attention path "
+                 "sustains (single-token steps only)",
+            labelnames=tuple(roof)).labels(**roof)
         self._m_step_tokens = reg.histogram(
             "tokens_emitted_per_step",
             help="tokens emitted by one scheduler step across all slots "
@@ -1189,6 +1255,7 @@ class LLMEngine:
             "overload_deescalations_total",
             help="ladder steps DOWN (recovery, gated by hysteresis)")
         self._seen_evictions = 0
+        self._seen_compiles = 0
         self._seen_disk_evict = 0
         self._seen_disk_integrity = {"disk": 0, "manifest": 0}
         self._t_prev_step = None
@@ -1250,9 +1317,25 @@ class LLMEngine:
                    if g is not None)
 
     @property
+    def num_compiles(self):
+        """The port's compile count: CUDA graphs captured, decode
+        widths plus verify widths (0 on the CPU), the same number as
+        `num_graphs` and bounded by `len(decode_widths) +
+        len(verify_widths)`.  The JAX engine's count also holds its
+        prefill-chunk (or prefill-bucket) and swap programs; the port
+        runs prefill and swaps eagerly, so they add nothing here."""
+        return self.num_graphs
+
+    def _note_compiles(self):
+        n = self.num_compiles
+        if n > self._seen_compiles:
+            self._m_compiles.inc(n - self._seen_compiles)
+            self._seen_compiles = n
+
+    @property
     def num_graph_replays(self):
-        """Device steps (decode and verify) run as graph replays (0 on
-        the CPU)."""
+        """Device steps (decode and verify) run as graph replays, and
+        `raw_step`'s replays (0 on the CPU)."""
         return sum(g.replays for g in (self._graphs, self._vgraphs)
                    if g is not None)
 
@@ -1308,6 +1391,7 @@ class LLMEngine:
                     self._upload(np.zeros((1, Sb), np.int32)),
                     self._upload(trash), self._kvpool)
             resolved["prefill"] = len(self.buckets)
+        self._note_compiles()
         return resolved
 
     def _upload(self, a):
@@ -1892,6 +1976,7 @@ class LLMEngine:
             self._token[slot] = 0
             self._m_admitted.inc()
             self._m_prompt.inc(L)
+            self._m_prefill.observe(self._bucket_for(L))
             if self.prefill_chunk is None:
                 self._prefill_whole(slot, req)
             else:
@@ -1956,6 +2041,7 @@ class LLMEngine:
                     if C > low_budget:
                         break       # out of the degraded share: next slot
                 elif chunks > 0 and C > budget:
+                    self._m_chunks.observe(chunks)
                     return
                 if self._tiered:
                     stalled = False
@@ -1997,6 +2083,8 @@ class LLMEngine:
                     self._handoff_stream_chunk(slot, ps)
             if budget <= 0:
                 break
+        if chunks:
+            self._m_chunks.observe(chunks)
 
     def _first_token(self, slot, req, h_last):
         """Sample the first generated token from the prompt's last row
@@ -3554,9 +3642,13 @@ class LLMEngine:
         now = time.perf_counter()
         self._t_retire = now                # host-gap anchor
         self._m_steps.inc()
+        self._m_slot_steps.inc(inf.active)
         self._m_gen.inc(inf.active)
         self._m_step_tokens.observe(inf.active)
-        self._tput_tick(now, inf.active)
+        self._note_compiles()
+        self._m_attn_bytes.inc(self.decode_attn_bytes_per_step)
+        self._tput_tick(now, inf.active,
+                        attn_bytes=self.decode_attn_bytes_per_step)
         row_of = None
         if inf.rows is not None:
             row_of = {}
@@ -3706,6 +3798,8 @@ class LLMEngine:
         self._t_retire = now                # host-gap anchor
         self._m_steps.inc()
         self._m_spec_steps.inc()
+        self._m_slot_steps.inc(inf.active)
+        self._note_compiles()
         step_tokens, emitted_of = 0, {}
         for slot, req in enumerate(inf.reqs):
             if req is None:
@@ -3773,7 +3867,7 @@ class LLMEngine:
         elif ema >= sp.recover and k < sp.k:
             self._spec_k[slot] = min(sp.k, k * 2)
 
-    def _tput_tick(self, now, tokens):
+    def _tput_tick(self, now, tokens, attn_bytes=None):
         if self._t_prev_step is not None:
             dt = now - self._t_prev_step
             if dt > 0:
@@ -3781,6 +3875,9 @@ class LLMEngine:
                 self._tput_ema = tput if self._tput_ema is None else \
                     0.8 * self._tput_ema + 0.2 * tput
                 self._m_tput.set(self._tput_ema)
+                if attn_bytes is not None and self._peak_hbm_bw:
+                    self._m_roofline.set(
+                        attn_bytes / (dt * self._peak_hbm_bw))
         self._t_prev_step = now
 
     def run(self, max_steps=None):
@@ -3802,9 +3899,81 @@ class LLMEngine:
         self.run()
         return [r.tokens for r in reqs]
 
+    # -- benchmarking and report hooks -------------------------------------
+
+    @torch.no_grad()
+    def raw_step(self):
+        """One decode step over every slot, active or not, with no host
+        bookkeeping: the decode-roofline hook (`bench.py:485`), timed
+        at full occupancy.  On the card it replays the decode graph of
+        width `max_slots` (captured first if it never was); on the CPU
+        it runs the eager step.  A step in flight is committed first
+        (`flush`), so the replay never races it.  Each slot's current
+        token's K/V is written at its depth, which its next step writes
+        again before attending (a free slot's table row is all trash),
+        and nothing is sampled (no generator moves), so no request's
+        stream changes.  Adds `decode_attn_bytes_per_step` to
+        `decode_attn_bytes_total`.  Returns the greedy tokens of the
+        `max_slots` rows (on the engine's device)."""
+        self.flush()
+        B = self.max_slots
+        for slot in range(B):
+            self._check_hot(slot, int(self._pos[slot]),
+                            int(self._pos[slot]) + 1)
+        self._m_attn_bytes.inc(self.decode_attn_bytes_per_step)
+        if self._graphs is None:
+            logits = self._decode_logits(self._upload(self._token),
+                                         self._upload(self._pos),
+                                         self._upload(self._pager.table))
+            return torch.argmax(logits.to(torch.float32), dim=-1)
+        g, n = self._graphs, self._graphs.flat_len(B)
+        if self._raw_stage is None:
+            self._raw_stage = torch.empty(n, dtype=torch.int32,
+                                          pin_memory=True)
+        elif self._raw_event is not None:
+            # the previous raw step's copy must have read the pinned
+            # buffer before the host writes it again
+            self._raw_event.synchronize()
+        tok_v, pos_v, tab_v = g.views(self._raw_stage.numpy(), B)
+        tok_v[:] = self._token
+        pos_v[:] = self._pos
+        tab_v[:] = self._pager.table
+        g.inputs(B).copy_(self._raw_stage, non_blocking=True)
+        self._raw_event = torch.cuda.Event()
+        self._raw_event.record()
+        _, argmax = g.replay(B)
+        self._note_compiles()
+        return argmax
+
+    def param_bytes(self):
+        """Bytes of the decode state one step reads: every tensor of
+        `state` (with `weight_dtype="int8"`, the int8 weights and their
+        fp32 scales; a tied LM head counts beside the embedding, as in
+        the JAX engine)."""
+        def leaves(x):
+            if isinstance(x, torch.Tensor):
+                yield x
+            elif isinstance(x, dict):
+                for v in x.values():
+                    yield from leaves(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    yield from leaves(v)
+        return sum(t.numel() * t.element_size() for t in leaves(self.state))
+
     def kv_pool_bytes(self):
         """Total bytes of the paged KV pool (all layers, K+V, int8
         scale tensors included)."""
         return sum(x.numel() * x.element_size()
                    for entry in self._kvpool for part in entry
                    for x in (part if isinstance(part, tuple) else (part,)))
+
+    def kv_pool_bytes_per_chip(self):
+        """Pool bytes one card holds: `kv_pool_bytes() // tp`, tp 1."""
+        return self.kv_pool_bytes() // self.tp
+
+    def prefix_pool_bytes(self):
+        """0: the prefix cache reserves no pool of its own, its trie
+        aliases blocks of the shared pool (counted by
+        `kv_pool_bytes`)."""
+        return 0

@@ -585,9 +585,9 @@ class LLMServer:
             "kv_blocks_prefetched": int(eng._m_kv_prefetched.value),
             "kv_prefetch_misses": int(eng._m_kv_prefetch_miss.value),
             # one card: every block's bytes live here
-            "tp": 1,
-            "kv_block_bytes_per_chip": int(eng._kv_block_bytes),
-            "kv_pool_bytes_per_chip": int(eng.kv_pool_bytes()),
+            "tp": eng.tp,
+            "kv_block_bytes_per_chip": int(eng.kv_block_bytes_per_chip),
+            "kv_pool_bytes_per_chip": int(eng.kv_pool_bytes_per_chip()),
             "tier_queue_depth": self._tier_depths(),
             "overload_rung": eng.overload_rung,
             "overload_escalations": int(eng._m_escal.value),

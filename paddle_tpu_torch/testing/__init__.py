@@ -1,6 +1,9 @@
 """paddle_tpu_torch.testing — the fault-injection harness the engine's
-fault sites consult (`faults.py`)."""
+and the store's fault sites consult, and the file-damage helpers
+(`faults.py`)."""
 
-from .faults import FaultInjector, InjectedFault, fire, get_injector
+from .faults import (FaultInjector, InjectedConnectionError, InjectedFault,
+                     corrupt_bytes, fire, get_injector, truncate_file)
 
-__all__ = ["FaultInjector", "InjectedFault", "fire", "get_injector"]
+__all__ = ["FaultInjector", "InjectedFault", "InjectedConnectionError",
+           "fire", "get_injector", "truncate_file", "corrupt_bytes"]

@@ -75,17 +75,31 @@ Sites wired in the port:
   handoff.adopt    LLMServer.adopt of a staged handoff ticket: raises
                    to the caller, who replays the prompt (ctx: sid,
                    name)
+  store.rpc        TCPStore client, before each RPC attempt; a
+                   ConnectionError (`InjectedConnectionError`) is a
+                   dropped socket the client reconnects and retries
+                   under the op's deadline (ctx: op, key, attempt)
+  store.crash      TCPStore request handler, before each op is
+                   applied; an injected fault is a SIGKILL of the
+                   master: listener and every connection torn down
+                   (`TCPStore.crash`), nothing applied (ctx: op, key)
   ===============  ====================================================
+
+`truncate_file` and `corrupt_bytes` damage a file on disk the way a
+crash mid-write or rotten media would (the store's WAL and snapshot
+tests use them).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
 
-__all__ = ["InjectedFault", "FaultInjector", "get_injector", "fire",
-           "ENABLED"]
+__all__ = ["InjectedFault", "InjectedConnectionError", "FaultInjector",
+           "get_injector", "fire", "ENABLED", "truncate_file",
+           "corrupt_bytes"]
 
 #: the harness's master switch (see the module docstring)
 ENABLED = False
@@ -93,6 +107,12 @@ ENABLED = False
 
 class InjectedFault(RuntimeError):
     """An error raised on purpose by the fault harness."""
+
+
+class InjectedConnectionError(ConnectionError, InjectedFault):
+    """An injected fault the store treats as a dropped socket (a
+    ConnectionError, so its recovery path cannot tell it from a real
+    one)."""
 
 
 class _Rule:
@@ -195,3 +215,42 @@ def fire(site, **ctx):
     if not _INJECTOR._rules or not ENABLED:
         return
     _INJECTOR.fire(site, **ctx)
+
+
+def truncate_file(path, keep_bytes=None, frac=0.5):
+    """Tear a file the way a crash mid-write would: keep only the first
+    `keep_bytes` (default `frac` of the current size).  Returns the new
+    size."""
+    size = os.path.getsize(path)
+    keep = int(size * frac) if keep_bytes is None else int(keep_bytes)
+    keep = max(0, min(keep, size))
+    with open(path, "r+b") as f:
+        f.truncate(keep)
+        f.flush()
+        os.fsync(f.fileno())
+    return keep
+
+
+def corrupt_bytes(path, n=1, offset=None, seed=0):
+    """Corrupt a file silently, as rotten media would: XOR `n` bytes at
+    seeded positions (or from `offset` on) with a non-zero mask, the
+    size unchanged, so only a checksum can tell.  Returns the corrupted
+    offsets."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return []
+    rng = random.Random(seed)
+    n = max(1, min(int(n), size))
+    if offset is None:
+        offs = sorted(rng.sample(range(size), n))
+    else:
+        offs = [min(int(offset) + i, size - 1) for i in range(n)]
+    with open(path, "r+b") as f:
+        for off in offs:
+            f.seek(off)
+            b = f.read(1)[0]
+            f.seek(off)
+            f.write(bytes([b ^ rng.randrange(1, 256)]))
+        f.flush()
+        os.fsync(f.fileno())
+    return offs
