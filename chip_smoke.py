@@ -4255,7 +4255,7 @@ FLEET_ALERT_WAIT_S = 180.0    # (d): the traffic, the fire and the resolve
 # (d): |fleet_sum(token rate) - sum of the replicas' own rates| <= this x
 # the sum: fleet_sum is a mean of per-interval rates sampled on a host
 # thread, the reference each replica's tokens over the traffic's span
-FLEET_RATE_TOL = 0.25
+FLEET_RATE_TOL = 0.10
 FLEET_RAW_CALLS = 10          # (e): raw_step calls between CUDA events
 FLEET_WAL_APPENDS = 200       # WAL ms per append, fsync on and off
 

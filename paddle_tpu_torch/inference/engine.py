@@ -169,6 +169,7 @@ from collections import deque
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from ..generation import (accept_rows, greedy_accept,
                           sample_logits_per_slot, sample_rows,
@@ -3950,16 +3951,8 @@ class LLMEngine:
         `state` (with `weight_dtype="int8"`, the int8 weights and their
         fp32 scales; a tied LM head counts beside the embedding, as in
         the JAX engine)."""
-        def leaves(x):
-            if isinstance(x, torch.Tensor):
-                yield x
-            elif isinstance(x, dict):
-                for v in x.values():
-                    yield from leaves(v)
-            elif isinstance(x, (list, tuple)):
-                for v in x:
-                    yield from leaves(v)
-        return sum(t.numel() * t.element_size() for t in leaves(self.state))
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.state))
 
     def kv_pool_bytes(self):
         """Total bytes of the paged KV pool (all layers, K+V, int8

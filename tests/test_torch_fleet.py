@@ -102,10 +102,10 @@ def test_replica_lease_fence_and_reregister():
         assert not lease2.fenced
         # a lease whose heartbeat died expires by its ttl: written as it
         # would stand one ttl after its last beat
-        lease3 = ReplicaLease(store, "job", "r1", ttl=0.15, interval=60.0)
+        lease3 = ReplicaLease(store, "job", "r1", ttl=30.0, interval=60.0)
         lease3.register()
         assert "r1" in live_replicas(store, "job")
-        store.set("fleet/job/replica/r1", (time.time() - 1.0, 0.15,
+        store.set("fleet/job/replica/r1", (time.time() - 31.0, 30.0,
                                            lease3.generation))
         assert "r1" not in live_replicas(store, "job")
         for ls in (lease, lease2, lease3):
