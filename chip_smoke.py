@@ -239,7 +239,7 @@ the result line:
               metrics_series() pulled into one FleetMetricsAggregator
               every 0.25 s, a BurnRateRule (1 s / 3 s windows) fires and
               resolves after the traffic stops, fleet_sum of the token
-              rate within 25 % of the replicas' own rates; (e)
+              rate within 10 % of the replicas' own rates; (e)
               raw_step() with all 8 slots decoding the serve mix, bf16
               and int8 weights: ms by CUDA events, (param_bytes +
               kv_pool_bytes) / ms and decode_attn_bytes_per_step / ms
@@ -247,6 +247,38 @@ the result line:
               the ones without, num_compiles within its bound; heartbeat
               RPC ms, store recovery ms, WAL ms per append with fsync
               off and on; K4 = layers x the replicas' replays a drill;
+              serve_router: the Router (paddle_tpu_torch/inference/
+              router.py) over replicas of one durable store, every one
+              booted before any traffic (fleet "replica": two at the
+              serve shape with the fabric's disk root in a temp dir;
+              "prefix": two with the radix cache; "tight": one whose
+              pool holds one max_len sequence; "pool": a "prefill" and a
+              "decode" replica on the first 16 layers): (a) the serve
+              mix through Router.submit (affinity), streams equal the
+              serve phase's; TTFT / ITL beside serve_fleet (a)'s direct
+              submits, host ms Router.submit -> Replica.submit and a
+              journal "tok" append, autoscale_signal(), /debug/fleet's
+              keys over HTTP; (b) serve_prefix's stream under affinity,
+              then round robin (tries cleared between): streams equal
+              serve_prefix's, affinity hits >= round robin's; (c) two
+              1000-token prompts outgrow the tight pool, the second
+              parks and is frozen; drain() peer-takes it onto a full
+              replica: streams equal the undisturbed ones, one
+              migration, no replay, no failover; (d) the router shut
+              down with the mix in flight, a successor resubmits its
+              journal: every stream complete, the delivered prefix
+              deduped exactly once; (e) replica 0 crashed at its 16th
+              step mid-mix: streams equal, one failover, tokens deduped,
+              no replay mismatch; the dead replica dropped and a fresh
+              one spawned while idle; (f) a dispatch at router epoch 5,
+              then a direct submit at epoch 4 refused
+              (StaleRouterEpoch); a chaos_mark request convicted
+              (PoisonedRequest) at poison_threshold 1 with one replica
+              fenced, four innocents then finish with the serve
+              streams; (g) the serve mix handed off prefill -> decode by
+              the Router: streams equal the 16-layer colocated run, one
+              handoff a request, TTFT at P, ITL at D; K4 = layers x the
+              replays of the drill's replicas;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact, and `generate` (the contiguous cache) gives
@@ -4564,7 +4596,7 @@ def phase_serve_fleet(torch, model, serve_streams, serve_tps,
     (`_fleet_alerts`); (e) `raw_step` at full width with bf16 and int8
     weights (`_raw_step_run`).  Heartbeat RPC ms, WAL ms per append
     (fsync off / on), store recovery ms.  Returns K4's launches by
-    drill."""
+    drill and (a)'s report."""
     import tempfile
     import numpy as np
     from paddle_tpu_torch.distributed import TCPStore
@@ -4711,6 +4743,629 @@ def phase_serve_fleet(torch, model, serve_streams, serve_tps,
             report["k4_launches"]
         emit({"phase": "serve_fleet", "model": "llama3-8b", **report})
     emit({"phase": "serve_fleet", "seconds": time.perf_counter() - t0})
+    return launches, a
+
+
+ROUTER_JOB = "serve-router"
+ROUTER_POLL_S = 0.25          # every router's health-poll interval
+ROUTER_CRASH_STEP = 16        # (e): replica 0 dies at its 16th real step
+ROUTER_EPOCH = 5              # (f): the leadership epoch the router carries
+ROUTER_DRAIN = (1000, 96)     # (c): two prompts of 1000 tokens, 96 new each
+# (c): the least pool one max_len sequence allows: the two sequences
+# outgrow it at 1024 tokens each, and the second (priority -1) parks
+ROUTER_DRAIN_BLOCKS = 1 + SERVE_KW["max_len"] // SERVE_KW["kv_block_tokens"]
+
+
+def _rv(router, name):
+    return router.metrics()[f"router_{name}"]["series"][""]["value"]
+
+
+def _router_counts(router, names):
+    return {n: _rv(router, n) for n in names}
+
+
+def _router_mix(torch, router, prompts, new, what, servers, itl_from=0):
+    """`prompts` through `router.submit`, every result; K4 held to
+    layers x the replays of `servers`.  ITL over each stream's intervals
+    from token `itl_from` on.  Returns (streams, report)."""
+    from paddle_tpu_torch.ops import paged_attention as PA
+    torch.cuda.synchronize()
+    PA.LAUNCHES["paged_attention"] = 0
+    since = _total_replays(*servers)
+    stamps = {}
+    t0 = time.perf_counter()
+    reqs = [router.submit(p, new, on_token=_stamped(stamps, i))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        r.result(timeout=SLO_WAIT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _k4_servers(torch, what, since, *servers)
+    for r in reqs:
+        require(r.done and r.error is None and len(r.tokens) == new,
+                f"{what}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    ttft = [stamps[i][0] - t0 for i in range(len(reqs))]
+    itl = [b - a for ts in stamps.values()
+           for a, b in zip(ts[itl_from:], ts[itl_from + 1:])]
+    return [list(r.tokens) for r in reqs], {
+        "requests": len(reqs), "wall_s": wall,
+        "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+        "ttft_p50_ms": 1e3 * _percentile(ttft, 50),
+        "itl_p50_ms": 1e3 * _percentile(itl, 50),
+        "itl_p99_ms": 1e3 * _percentile(itl, 99),
+        "placed": {n: sum(r.replica == n for r in reqs)
+                   for n in sorted({r.replica for r in reqs})},
+        "k4_launches": launches}
+
+
+def _time_router(router, replicas):
+    """Host-clock wrappers (instance attributes) on `router.submit`, on
+    each replica's `submit` (matched by the session id the router
+    passes: its rid) and on the journal's `record` ("tok" appends).
+    Returns (entry times by rid, dispatch times by rid, tok append ms,
+    a function that takes the wrappers off)."""
+    t_in, t_out, tok_ms = {}, {}, []
+    submit, journal = router.submit, router._journal
+    record = journal.record
+
+    def timed_submit(*a, **k):
+        t = time.perf_counter()
+        rr = submit(*a, **k)
+        t_in[rr.rid] = t
+        return rr
+
+    def timed_record(ev, rid, **f):
+        if ev != "tok":
+            return record(ev, rid, **f)
+        t = time.perf_counter()
+        try:
+            return record(ev, rid, **f)
+        finally:
+            tok_ms.append(1e3 * (time.perf_counter() - t))
+
+    def replica_submit(fn):
+        def timed(prompt, new=16, **k):
+            t_out.setdefault(k.get("session_id"), time.perf_counter())
+            return fn(prompt, new, **k)
+        return timed
+
+    router.submit = timed_submit
+    journal.record = timed_record
+    for rep in replicas:
+        rep.submit = replica_submit(rep.submit)
+
+    def undo():
+        vars(router).pop("submit", None)
+        vars(journal).pop("record", None)
+        for rep in replicas:
+            vars(rep).pop("submit", None)
+    return t_in, t_out, tok_ms, undo
+
+
+def _idle(servers, what):
+    _bounded(lambda: all(not s.engine.has_work for s in servers
+                         if s.healthy), f"{what}: the replicas idle")
+
+
+def _drop_replica(torch, rep, what):
+    """A dead or poisoned replica off the card before any later capture:
+    its server shut down, the cyclic GC run, the stream drained."""
+    rep.server.shutdown(timeout=60)
+    require(not rep.server._thread.is_alive(),
+            f"{what}: {rep.name}'s driver still runs")
+    _unhook(torch, rep.server.engine)
+    torch.cuda.synchronize()
+
+
+def _router_prefix(torch, fleet, prompts, ref):
+    """(b) serve_prefix's stream (request 0 alone, then the other 15 at
+    once) through a Router under `affinity`, then `round_robin`, on the
+    same two replicas with radix caches, tries cleared before each run.
+    Streams equal serve_prefix's cached run under both; affinity has at
+    least as many trie hits.  TTFT and ITL are the 15's; K4 counts all
+    16."""
+    from paddle_tpu_torch.inference import Router
+    servers = [r.server for r in fleet.replicas]
+    out = {}
+    for policy in ("affinity", "round_robin"):
+        for s in servers:
+            eng = s.engine
+            s._fabric_exec(lambda eng=eng: eng._reclaim_cache(1 << 30))
+            require(eng._pcache.blocks_used == 0,
+                    f"serve_router (b): {s.name}'s trie not cleared")
+
+        def counts():
+            return {k: sum(int(_metric(s.engine, k)) for s in servers)
+                    for k in ("prefix_cache_hits_total",
+                              "prefill_tokens_saved_total",
+                              "prefill_tokens_saved_remote_total")}
+        before = counts()
+        router = Router(fleet.replicas, store=fleet.store,
+                        job_id=fleet.job_id, policy=policy,
+                        poll_interval=ROUTER_POLL_S)
+        try:
+            what = f"serve_router (b) {policy}"
+            first, rep0 = _router_mix(torch, router, prompts[:1],
+                                      PREFIX_NEW, what + " request 0",
+                                      servers)
+            rest, rep = _router_mix(torch, router, prompts[1:], PREFIX_NEW,
+                                    what, servers)
+            rep["k4_launches"] += rep0["k4_launches"]
+            after = counts()
+            got = {k: after[k] - before[k] for k in after}
+            require(first + rest == ref, f"{what}: streams differ from "
+                    "serve_prefix's cached run")
+            out[policy] = dict(rep, **{
+                "trie_hits": got["prefix_cache_hits_total"],
+                "prefill_tokens_saved": got["prefill_tokens_saved_total"],
+                "prefill_tokens_saved_remote":
+                    got["prefill_tokens_saved_remote_total"],
+                "affinity_hit_rate": _rv(router, "affinity_hit_rate"),
+                "affinity_hits": _rv(router, "affinity_hits_total")})
+        finally:
+            router.shutdown()
+        _idle(servers, "serve_router (b)")
+    require(out["affinity"]["trie_hits"] >= out["round_robin"]["trie_hits"],
+            f"serve_router (b): affinity {out['affinity']['trie_hits']} "
+            f"trie hits < round robin's {out['round_robin']['trie_hits']}")
+    return out
+
+
+def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
+                       fleet_a):
+    """The Router on one card (llama3-8b, bf16, graphs + overlap, the
+    serve shape): the fleets of one durable TCPStore, every replica
+    booted (graphs captured) before any takes traffic, the fabric's disk
+    root in the run's temp dir.  Drills (a)–(g) as the module docstring
+    lists them; every gate a `require`.  Returns K4's launches by drill."""
+    import tempfile
+    import types
+    import urllib.request
+    import numpy as np
+    from paddle_tpu_torch.distributed import TCPStore
+    from paddle_tpu_torch.inference import (LocalFleet, PoisonedRequest,
+                                            Router, RoutingJournal,
+                                            StaleRouterEpoch)
+    from paddle_tpu_torch.ops import paged_attention as PA
+    from paddle_tpu_torch.testing import faults
+    t0 = time.perf_counter()
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, L) for L in SERVE_LENGTHS]
+    prng = np.random.default_rng(4)
+    system = prng.integers(0, vocab, PREFIX_SYSTEM)
+    pprompts = [np.concatenate([system, prng.integers(0, vocab,
+                                                      PREFIX_SUFFIX)])
+                for _ in range(PREFIX_N)]
+    drng = np.random.default_rng(7)
+    dprompts = [drng.integers(0, vocab, ROUTER_DRAIN[0]) for _ in range(2)]
+    launches, seconds = {}, {}
+    routers, fleets = [], []
+
+    def router(reps, **kw):
+        r = Router(reps, store=store, job_id=ROUTER_JOB,
+                   poll_interval=ROUTER_POLL_S, **kw)
+        routers.append(r)
+        return r
+
+    with tempfile.TemporaryDirectory(prefix="serve-router-") as d:
+        root = Path(d)
+        store = TCPStore("127.0.0.1", 0, is_master=True,
+                         durable_dir=str(root / "store"))
+        common = dict(store=store, job_id=ROUTER_JOB, lease_ttl=FLEET_TTL,
+                      watchdog_deadline=None)
+        disk = {"timeout": FABRIC_TIMEOUT, "disk_root": str(root / "disk")}
+        peers = {"timeout": FABRIC_TIMEOUT}
+        try:
+            t = time.perf_counter()
+            A = LocalFleet(model, 2, series_interval=FLEET_SERIES_S,
+                           series_tiers=FLEET_SERIES_TIERS, fabric=disk,
+                           **common, **SERVE_KW)
+            fleets.append(A)
+            B = LocalFleet(model, 2, name_prefix="prefix",
+                           series_interval=None, fabric=peers, **common,
+                           **SERVE_KW, **PREFIX_KW)
+            fleets.append(B)
+            C = LocalFleet(model, 1, name_prefix="tight",
+                           series_interval=None, fabric=disk,
+                           kv_blocks=ROUTER_DRAIN_BLOCKS,
+                           preempt_policy="swap", **common, **SERVE_KW)
+            fleets.append(C)
+            G = LocalFleet(shallow, 2, name_prefix="pool",
+                           roles=("prefill", "decode"), series_interval=None,
+                           fabric=peers, **common, **SERVE_KW)
+            fleets.append(G)
+            boot_s = time.perf_counter() - t
+            for f in fleets:
+                for r in f.replicas:
+                    e = r.server.engine
+                    require(e._graphs is not None and e.overlap
+                            and e.decode_kernel == "cuda"
+                            and e.num_graphs == len(e.decode_widths)
+                            and r.fabric_address is not None,
+                            f"serve_router: {r.name} not booted on the "
+                            f"card's path")
+            a0, a1 = A.replicas
+            sa = [a0.server, a1.server]
+            j1 = str(root / "router-1.jsonl")
+
+            # (a) parity and overhead
+            t = time.perf_counter()
+            r1 = router(A.replicas, journal_path=j1, policy="affinity",
+                        debug_port=0)
+            t_in, t_out, tok_ms, undo = _time_router(r1, A.replicas)
+            a_streams, a = _router_mix(torch, r1, prompts, SERVE_NEW,
+                                       "serve_router (a)", sa)
+            undo()
+            require(a_streams == serve_streams, "serve_router (a): streams "
+                    "differ from the serve phase's single engine")
+            dispatch_ms = [1e3 * (t_out[rid] - t_in[rid]) for rid in t_in]
+            require(len(dispatch_ms) == len(prompts)
+                    and len(tok_ms) == len(prompts) * SERVE_NEW,
+                    f"serve_router (a): {len(dispatch_ms)} dispatches, "
+                    f"{len(tok_ms)} tok appends timed")
+            c = _router_counts(r1, ("requests_routed_total",
+                                    "failovers_total",
+                                    "tokens_delivered_total"))
+            require(c == {"requests_routed_total": len(prompts),
+                          "failovers_total": 0,
+                          "tokens_delivered_total": len(prompts) * SERVE_NEW}
+                    and not RoutingJournal.incomplete(j1),
+                    f"serve_router (a): counters {c}")
+            sig = r1.autoscale_signal()
+            host, port = r1.debug_address
+            with urllib.request.urlopen(f"http://{host}:{port}/debug/fleet",
+                                        timeout=30) as resp:
+                doc = json.loads(resp.read().decode())
+            require(sorted(doc["replicas"]) == ["replica0", "replica1"]
+                    and doc["queue_depth"] == 0,
+                    f"serve_router (a): /debug/fleet {sorted(doc)}")
+            launches["a routed mix"] = a["k4_launches"]
+            seconds["a"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "model": "llama3-8b",
+                  "drill": "a_parity", "boot_s": boot_s,
+                  "replicas": {f.replicas[0].name[:-1]: len(f.replicas)
+                               for f in fleets}, **a,
+                  "streams_equal_single_engine": True,
+                  "direct_replica_submit": {
+                      k: fleet_a[k] for k in ("ttft_p50_ms", "itl_p50_ms",
+                                              "itl_p99_ms", "tokens_per_s")},
+                  "router_to_replica_submit_ms": {
+                      "p50": _percentile(dispatch_ms, 50),
+                      "p99": _percentile(dispatch_ms, 99),
+                      "n": len(dispatch_ms)},
+                  "journal_tok_append_ms": {
+                      "p50": _percentile(tok_ms, 50),
+                      "p99": _percentile(tok_ms, 99), "n": len(tok_ms)},
+                  "autoscale_signal": sig,
+                  "debug_fleet_keys": sorted(doc)})
+
+            # (b) placement by prefix
+            t = time.perf_counter()
+            b = _router_prefix(torch, B, pprompts, prefix_streams)
+            launches["b affinity"] = b["affinity"]["k4_launches"]
+            launches["b round_robin"] = b["round_robin"]["k4_launches"]
+            seconds["b"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "b_prefix", **b,
+                  "streams_equal_serve_prefix": True})
+
+            # (c) drain migration
+            t = time.perf_counter()
+            c0 = C.replicas[0]
+            sc = [c0.server, a1.server]
+            undisturbed = [a1.submit(p, ROUTER_DRAIN[1]) for p in dprompts]
+            ref_c = [list(a1.server.result(q, timeout=SLO_WAIT_S))
+                     for q in undisturbed]
+            eng_c = c0.server.engine
+            _freeze_at_park(eng_c, "swap")
+            fab0 = _fab_counts(a1.server)
+            adopt, adopt_s = a1.adopt, []
+
+            def timed_adopt(*args, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return adopt(*args, **kw)
+                finally:
+                    adopt_s.append(time.perf_counter() - t1)
+            a1.adopt = timed_adopt
+            rc = router([c0], journal_path=str(root / "router-c.jsonl"))
+            torch.cuda.synchronize()
+            PA.LAUNCHES["paged_attention"] = 0
+            since = _total_replays(*sc)
+            q1 = rc.submit(dprompts[0], ROUTER_DRAIN[1])
+            q2 = rc.submit(dprompts[1], ROUTER_DRAIN[1], priority=-1)
+            _bounded(lambda: eng_c.freeze_parked and eng_c.num_parked == 1,
+                     "serve_router (c): the park on the tight replica")
+            rc.add_replica(a1)
+            td = time.perf_counter()
+            clean = rc.drain(c0.name, timeout=SLO_WAIT_S)
+            drain_s = time.perf_counter() - td
+            got = [q.result(timeout=SLO_WAIT_S) for q in (q1, q2)]
+            torch.cuda.synchronize()
+            del a1.adopt
+            launches["c drain migration"] = _k4_servers(
+                torch, "serve_router (c)", since, *sc)
+            fab1 = _fab_counts(a1.server)
+            blocks = (fab1["blocks_moved"]["migrate"]
+                      - fab0["blocks_moved"]["migrate"])
+            mb = 1e-6 * (fab1["bytes_moved"]["migrate"]
+                         - fab0["bytes_moved"]["migrate"])
+            cc = _router_counts(rc, ("migrations_total",
+                                     "requests_replayed_total",
+                                     "failovers_total",
+                                     "replay_mismatch_total",
+                                     "replicas_drained_total"))
+            require(clean and got == ref_c and q2.replica == a1.name
+                    and q1.replica == c0.name,
+                    f"serve_router (c): clean {clean}, streams equal "
+                    f"{got == ref_c}, placed {q1.replica} / {q2.replica}")
+            require(cc["migrations_total"] >= 1 and blocks > 0
+                    and cc["requests_replayed_total"] == 0
+                    and cc["failovers_total"] == 0
+                    and cc["replay_mismatch_total"] == 0,
+                    f"serve_router (c): counters {cc}")
+            rc.shutdown()
+            _unhook(torch, eng_c)
+            seconds["c"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "c_drain",
+                  "prompt_tokens": ROUTER_DRAIN[0],
+                  "new_tokens": ROUTER_DRAIN[1],
+                  "kv_blocks": ROUTER_DRAIN_BLOCKS, **cc,
+                  "drain_s": drain_s, "blocks_migrated": blocks,
+                  "mb_migrated": mb,
+                  # the refused take of the active stream, then the
+                  # parked session's
+                  "adopt_calls_s": adopt_s,
+                  "streams_equal_undisturbed": True,
+                  "k4_launches": launches["c drain migration"]})
+
+            # (d) router restart
+            t = time.perf_counter()
+            _idle(sa, "serve_router (d)")
+            torch.cuda.synchronize()
+            PA.LAUNCHES["paged_attention"] = 0
+            since = _total_replays(*sa)
+            reqs1 = [r1.submit(p, SERVE_NEW) for p in prompts]
+            _bounded(lambda: any(len(r.tokens) >= 4 for r in reqs1),
+                     "serve_router (d): a stream 4 tokens deep")
+            r1.shutdown()
+            delivered = {tuple(p.tolist()): list(r.tokens)
+                         for p, r in zip(prompts, reqs1)}
+            inc = RoutingJournal.incomplete(j1)
+            by_prompt = {tuple(p.tolist()): s
+                         for p, s in zip(prompts, a_streams)}
+            require(all(r.error is not None for r in reqs1 if r.done
+                        and len(r.tokens) < SERVE_NEW)
+                    and all(tuple(st["prompt"]) in by_prompt
+                            for st in inc.values()),
+                    "serve_router (d): the journal after the kill")
+            r2 = router(A.replicas, journal_path=str(root / "router-2.jsonl"),
+                        policy="affinity")
+            tr = time.perf_counter()
+            recovered = r2.resubmit_incomplete(j1)
+            resubmit_ms = 1e3 * (time.perf_counter() - tr)
+            pre_seeded = 0
+            for old, rr in recovered.items():
+                key = tuple(rr.prompt.tolist())
+                require(rr.result(timeout=SLO_WAIT_S) == by_prompt[key]
+                        and inc[old]["delivered"] == delivered[key],
+                        f"serve_router (d): {old}'s stream after the "
+                        f"restart")
+                pre_seeded += len(inc[old]["delivered"])
+            recover_s = time.perf_counter() - tr
+            done_before = [k for k in delivered if k not in
+                           {tuple(st["prompt"]) for st in inc.values()}]
+            require(all(delivered[k] == by_prompt[k] for k in done_before),
+                    "serve_router (d): a stream finished before the kill "
+                    "differs")
+            torch.cuda.synchronize()
+            launches["d router restart"] = _k4_servers(
+                torch, "serve_router (d)", since, *sa)
+            dc = _router_counts(r2, ("tokens_deduped_total",
+                                     "replay_mismatch_total",
+                                     "tokens_delivered_total",
+                                     "requests_resubmitted_total"))
+            require(pre_seeded > 0 and recovered
+                    and dc["tokens_deduped_total"] == pre_seeded
+                    and dc["replay_mismatch_total"] == 0
+                    and dc["requests_resubmitted_total"] == len(recovered)
+                    and dc["tokens_delivered_total"] == sum(
+                        len(rr.tokens) for rr in recovered.values())
+                    - pre_seeded
+                    and not RoutingJournal.incomplete(r2.journal_path),
+                    f"serve_router (d): counters {dc}, pre-seeded "
+                    f"{pre_seeded}")
+            seconds["d"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "d_restart",
+                  "requests_resubmitted": len(recovered),
+                  "finished_before_the_kill": len(done_before),
+                  "delivered_before_the_kill": pre_seeded,
+                  "resubmit_incomplete_ms": resubmit_ms,
+                  "recovery_s": recover_s, **dc,
+                  "streams_equal_a": True,
+                  "k4_launches": launches["d router restart"]})
+
+            # (e) crash failover
+            t = time.perf_counter()
+            _idle(sa, "serve_router (e)")
+            crash, steps = {}, {"n": 0}
+
+            def kill(ctx):
+                if ctx.get("name") == a0.name:
+                    steps["n"] += 1
+                    if steps["n"] == ROUTER_CRASH_STEP:
+                        crash["t"] = time.perf_counter()
+                        return faults.InjectedFault
+
+            names = ("failovers_total", "tokens_deduped_total",
+                     "replay_mismatch_total", "migrations_total",
+                     "requests_replayed_total")
+            before = _router_counts(r2, names)
+            faults.get_injector().clear()
+            faults.get_injector().inject("replica.crash", times=None,
+                                         exc=None, callback=kill)
+            faults.ENABLED = True
+            stamps = {}
+
+            def stamp(i):
+                def on_token(rr, tok):
+                    stamps.setdefault(i, []).append(
+                        (time.perf_counter(), rr.replica))
+                return on_token
+            try:
+                torch.cuda.synchronize()
+                PA.LAUNCHES["paged_attention"] = 0
+                since = _total_replays(*sa)
+                reqs = [r2.submit(p, SERVE_NEW, on_token=stamp(i))
+                        for i, p in enumerate(prompts)]
+                e_streams = [r.result(timeout=SLO_WAIT_S) for r in reqs]
+            finally:
+                faults.ENABLED = False
+                faults.get_injector().clear()
+            torch.cuda.synchronize()
+            launches["e crash failover"] = _k4_servers(
+                torch, "serve_router (e)", since, *sa)
+            after = _router_counts(r2, names)
+            ec = {k: after[k] - before[k] for k in names}
+            victims = [i for i, r in enumerate(reqs) if r.attempts > 1]
+            # the survivor's first token of a victim (the crashed
+            # driver's commit of its step in flight delivers a few more
+            # from replica 0 first)
+            first_new = min(ts for i in victims for ts, rep in stamps[i]
+                            if rep == a1.name and ts > crash["t"])
+            require(e_streams == a_streams, "serve_router (e): streams "
+                    "differ from (a)'s")
+            require(ec["failovers_total"] == 1
+                    and ec["tokens_deduped_total"] > 0
+                    and ec["replay_mismatch_total"] == 0 and victims
+                    and not a0.server.healthy
+                    and r2.live_replica_names() == [a1.name],
+                    f"serve_router (e): counters {ec}, victims {victims}")
+            _drop_replica(torch, a0, "serve_router (e)")
+            _idle([a1.server], "serve_router (e)")
+            ts = time.perf_counter()
+            a2 = A.spawn()
+            spawn_s = time.perf_counter() - ts
+            r2.add_replica(a2)
+            seconds["e"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "e_crash",
+                  "crash_step": ROUTER_CRASH_STEP, **ec,
+                  "victims": len(victims),
+                  "crash_to_first_new_token_s": first_new - crash["t"],
+                  "respawn_s": spawn_s, "streams_equal_a": True,
+                  "k4_launches": launches["e crash failover"]})
+
+            # (f) router epochs and poison
+            t = time.perf_counter()
+            sf = [a1.server, a2.server]
+            torch.cuda.synchronize()
+            PA.LAUNCHES["paged_attention"] = 0
+            since = _total_replays(*sf)
+            r2.router_epoch = ROUTER_EPOCH
+            er = r2.submit(prompts[0], 4)
+            require(er.result(timeout=SLO_WAIT_S) == a_streams[0][:4],
+                    "serve_router (f): the epoch dispatch's stream")
+            target = next(r for r in (a1, a2) if r.name == er.replica)
+            require(target.server._router_epoch_hw == ROUTER_EPOCH,
+                    "serve_router (f): the epoch mark")
+            try:
+                target.submit(prompts[0], 4, router_epoch=ROUTER_EPOCH - 1)
+                stale = False
+            except StaleRouterEpoch:
+                stale = True
+            require(stale, "serve_router (f): a lower epoch accepted")
+            r2.poison_threshold = 1
+            before = _router_counts(r2, ("failovers_total",
+                                         "poisoned_total"))
+            faults.get_injector().clear()
+            rule = faults.get_injector().inject("replica.poison", times=1)
+            faults.ENABLED = True
+            try:
+                poison = r2.submit(prompts[1], SERVE_NEW,
+                                   chaos_mark="serve_router drill")
+                try:
+                    poison.result(timeout=SLO_WAIT_S)
+                    convicted = False
+                except PoisonedRequest:
+                    convicted = True
+            finally:
+                faults.ENABLED = False
+                faults.get_injector().clear()
+            innocents = [r2.submit(p, SERVE_NEW) for p in prompts[:4]]
+            i_streams = [r.result(timeout=SLO_WAIT_S) for r in innocents]
+            torch.cuda.synchronize()
+            launches["f epochs and poison"] = _k4_servers(
+                torch, "serve_router (f)", since, *sf)
+            after = _router_counts(r2, ("failovers_total", "poisoned_total"))
+            fc = {k: after[k] - before[k] for k in after}
+            dead = [r for r in (a1, a2) if not r.server.healthy]
+            require(convicted and rule.fired == 1
+                    and fc == {"failovers_total": 1, "poisoned_total": 1}
+                    and len(dead) == 1
+                    and i_streams == a_streams[:4],
+                    f"serve_router (f): convicted {convicted}, counters "
+                    f"{fc}, dead {[r.name for r in dead]}, innocents equal "
+                    f"{i_streams == a_streams[:4]}")
+            _drop_replica(torch, dead[0], "serve_router (f)")
+            seconds["f"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "f_epoch_poison",
+                  "router_epoch": ROUTER_EPOCH,
+                  "stale_epoch_refused": True,
+                  "poison_threshold": 1, "poisoned": fc["poisoned_total"],
+                  "replicas_fenced": fc["failovers_total"],
+                  "poison_strikes": poison.poison_strikes,
+                  "innocents_equal_single_engine": True,
+                  "k4_launches": launches["f epochs and poison"]})
+
+            # (g) placement by pool and the handoff (16 layers)
+            t = time.perf_counter()
+            g0, g1 = G.replicas
+            sg = [g0.server, g1.server]
+            colo, colo_rep = _fleet_mix(
+                torch, types.SimpleNamespace(replicas=[g1]), prompts,
+                SERVE_NEW, "serve_router (g) colocated")
+            rg = router(G.replicas, journal_path=str(root / "router-g.jsonl"),
+                        policy="affinity")
+            # D's intervals: from the adopted stream's first token on
+            g_streams, g = _router_mix(torch, rg, prompts, SERVE_NEW,
+                                       "serve_router (g)", sg, itl_from=1)
+            hc = _router_counts(rg, ("handoffs_total",
+                                      "requests_replayed_total",
+                                      "replay_mismatch_total"))
+            require(g_streams == colo, "serve_router (g): streams differ "
+                    "from the colocated run")
+            require(hc["handoffs_total"] == len(prompts)
+                    and hc["requests_replayed_total"] == 0
+                    and hc["replay_mismatch_total"] == 0
+                    and g["placed"] == {g1.name: len(prompts)},
+                    f"serve_router (g): counters {hc}, placed "
+                    f"{g['placed']}")
+            launches["g pool handoff (16 layers)"] = g["k4_launches"]
+            seconds["g"] = time.perf_counter() - t
+            emit({"phase": "serve_router", "drill": "g_pools",
+                  "layers": shallow.config.num_hidden_layers, **hc,
+                  "ttft_p50_ms": {"at_P": g["ttft_p50_ms"],
+                                  "colocated": colo_rep["ttft_p50_ms"]},
+                  "itl_ms": {"at_D_p50": g["itl_p50_ms"],
+                             "at_D_p99": g["itl_p99_ms"],
+                             "colocated_p50": colo_rep["itl_p50_ms"],
+                             "colocated_p99": colo_rep["itl_p99_ms"]},
+                  "wall_s": g["wall_s"],
+                  "streams_equal_colocated": True,
+                  "k4_launches": g["k4_launches"]})
+        finally:
+            for r in routers:
+                r.shutdown()
+            for f in fleets:
+                f.shutdown()
+                for r in f.replicas:
+                    require(not r.server._thread.is_alive(),
+                            f"serve_router: {r.name}'s driver still runs")
+                    _unhook(torch, r.server.engine)
+            store.close()
+    emit({"phase": "serve_router", "drill_seconds": seconds,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -4723,7 +5378,7 @@ def phase_serve(torch):
     speculation and SLO tiers; then with int8 weights (serve_int8w);
     then static KV-cache generation on the same model; then tiered KV
     and the KV fabric between two servers; then the fleet substrate
-    (serve_fleet).  serve_slo, serve_tiered and the fabric's handoff
+    (serve_fleet) and the Router over it (serve_router).  serve_slo, serve_tiered and the fabric's handoff
     run on the model's first SHALLOW_LAYERS layers (`_shallow`): each
     holds itself to its own references, and the run keeps inside its
     time budget."""
@@ -4778,15 +5433,18 @@ def phase_serve(torch):
     tiered = phase_serve_tiered(torch, shallow)
     fabric = phase_serve_fabric(torch, model, prefix_streams,
                                 pressure_streams["bfloat16"], shallow)
-    fleet = phase_serve_fleet(torch, model, streams[None],
-                              reports[None]["tokens_per_s"], int8w_streams)
+    fleet, fleet_a = phase_serve_fleet(torch, model, streams[None],
+                                       reports[None]["tokens_per_s"],
+                                       int8w_streams)
+    router = phase_serve_router(torch, model, shallow, streams[None],
+                                prefix_streams, fleet_a)
     del model, shallow
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
             "pressure": pressure, "prefix": prefix, "spec": spec,
             "slo": {"bfloat16": slo}, "int8w": int8w,
             "generate": generate, "tiered": tiered, "fabric": fabric,
-            "fleet": fleet}
+            "fleet": fleet, "router": router}
 
 
 def _debug_model():
@@ -6756,6 +7414,14 @@ def main() -> int:
                 "replicas' replays; raw_step: layers x its calls")
             require(all(n > 0 for n in serve_launches["fleet"].values()),
                     f"{e['name']}: no launch in a serve_fleet drill")
+            e["launches_serve_router"] = serve_launches["router"]
+            e["launches_path_serve_router"] = (
+                "serve_router llama3-8b, bf16 pool, replicas of one "
+                "LocalFleet store behind the Router on one card: each "
+                "drill from 0, layers x the replays of its replicas "
+                "(g: the first 16 layers)")
+            require(all(n > 0 for n in serve_launches["router"].values()),
+                    f"{e['name']}: no launch in a serve_router drill")
         if tiered:
             e["launches_serve_tiered"] = tiered
             e["launches_path_serve_tiered"] = (

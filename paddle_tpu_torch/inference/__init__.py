@@ -4,18 +4,25 @@ front), `KVPager` (the block-pool bookkeeping), `SpecConfig` (the
 speculative-decoding knobs), the SLO tiers (`SLOTier`, `SLOTargets`,
 `goodput`), the overload ladder (`OverloadConfig`,
 `OverloadController`), the KV fabric (`DiskTier`, `FabricServer`,
-`FabricError`, `SessionTicket`) and the fleet's membership
-(`LocalFleet`, `Replica`, `ReplicaLease`), under the JAX package's
-public names."""
+`FabricError`, `SessionTicket`), the fleet's membership
+(`LocalFleet`, `Replica`, `ReplicaLease`), its front door (`Router`,
+`RouterRequest`, `RoutingJournal`, `PrefixShadow`, `AutoscalePolicy`;
+`PoisonedRequest` and `StaleRouterEpoch`, raised for the router's
+poison conviction and leadership epochs) and the radix prefix cache
+(`RadixPrefixCache`), under the JAX package's public names."""
 
 from ..observability.slo import SLOTargets, SLOTier, goodput
 from .engine import (DeadlineExceeded, EngineUnhealthy, LLMEngine,
-                     Overloaded, QueueFull, Request, ResultTimeout)
+                     Overloaded, PoisonedRequest, QueueFull, Request,
+                     ResultTimeout, StaleRouterEpoch)
 from .fleet_serving import LocalFleet, Replica, ReplicaLease
 from .kv_fabric import DiskTier, FabricError, FabricServer, SessionTicket
 from .kv_pager import BlocksExhausted, KVPager
 from .ngram_draft import SpecConfig
 from .overload import OverloadConfig, OverloadController
+from .prefix_cache import RadixPrefixCache
+from .router import (AutoscalePolicy, PrefixShadow, Router, RouterRequest,
+                     RoutingJournal)
 from .serving import LLMServer
 
 __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
@@ -24,4 +31,6 @@ __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
            "SLOTargets", "goodput", "OverloadConfig",
            "OverloadController", "DiskTier", "FabricServer",
            "FabricError", "SessionTicket", "LocalFleet", "Replica",
-           "ReplicaLease"]
+           "ReplicaLease", "RadixPrefixCache", "Router", "RouterRequest",
+           "RoutingJournal", "PrefixShadow", "AutoscalePolicy",
+           "PoisonedRequest", "StaleRouterEpoch"]

@@ -188,7 +188,8 @@ from .prefix_cache import RadixPrefixCache
 from .programs import DecodeGraphs, VerifyGraphs, unpack_verify
 
 __all__ = ["Request", "LLMEngine", "DeadlineExceeded", "QueueFull",
-           "EngineUnhealthy", "ResultTimeout", "Overloaded"]
+           "EngineUnhealthy", "ResultTimeout", "Overloaded",
+           "PoisonedRequest", "StaleRouterEpoch"]
 
 _REQ_IDS = itertools.count()
 
@@ -239,6 +240,23 @@ class Overloaded(RuntimeError):
 class ResultTimeout(TimeoutError):
     """`result(timeout=)` expired before the request finished (the
     request itself keeps running)."""
+
+
+class PoisonedRequest(RuntimeError):
+    """Blast-radius containment verdict: this request was the common
+    factor in `poison_threshold` replica fence events, so the router
+    refuses to re-dispatch it (one bad input must not serially kill the
+    fleet).  A repro bundle (prompt, params, fence timeline) is dumped
+    via the flight recorder; co-batched innocents are replayed
+    normally."""
+
+
+class StaleRouterEpoch(RuntimeError):
+    """A dispatch carried a router leadership epoch below the highest
+    this replica has already served: the sender lost the `router_leader`
+    lease (a promoted standby bumped the epoch).  The dispatch is
+    rejected so a live-zombie ex-primary cannot double-dispatch work the
+    new leader already owns."""
 
 
 class Request:

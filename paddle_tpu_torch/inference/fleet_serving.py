@@ -30,9 +30,9 @@ manage:
     built by the constructor are booted before any takes traffic (a
     capture must not run beside another thread's CUDA work).
 
-The router that places requests over these replicas is queue 1 item
-6a-ii (ROADMAP); the router-endpoint helpers are here because they are
-plain store keys.
+The router that places requests over these replicas is
+`inference/router.py::Router`; the router-endpoint helpers are here
+because they are plain store keys.
 """
 
 from __future__ import annotations

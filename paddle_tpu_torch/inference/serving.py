@@ -36,10 +36,22 @@ Beside the driver, as in the JAX server:
     connection thread.  `adopt()` continues a session from the disk
     tier, a peer or a staged handoff; `pool_role` ("prefill", "decode",
     "mixed") is advertised in `health_snapshot()` (placement is a
-    router's job: the engine serves either way).
+    router's job: the engine serves either way);
+  * the surface `inference/router.py::Router` dispatches into:
+    `submit(router_epoch=)` keeps a high-water mark of the router
+    leadership epochs it has served (None until the first) and raises
+    `StaleRouterEpoch` for a lower one (a submit without an epoch is
+    always accepted); `submit(chaos_mark=)` fires the `replica.poison`
+    fault site once the request is queued, and an armed rule makes the
+    driver raise that fault at its next real step, right after the
+    `replica.crash` site, so the marked request and every co-batched one
+    fail with `EngineUnhealthy` (the poison drill).
 
-Not ported (absent): router epochs and the poison drill.
-`health_snapshot()` reports each missing feature at its "off" value.
+`health_snapshot()` reports each feature the port lacks at its "off"
+value.  A driver that dies with a decode step in flight (overlap)
+commits that step first (`_settle_inflight`), so no graph replay or
+token copy of a crashed replica still runs when its requests fail and
+its buffers are later dropped.
 
 On the card, capture every server's graphs (the engine's
 `prepare_programs()`) before any traffic reaches any of them: a CUDA
@@ -66,7 +78,7 @@ from ..observability.timeseries import TimeSeriesStore
 from ..testing import faults as _faults
 from . import kv_fabric as _kvf
 from .engine import (EngineUnhealthy, LLMEngine, QueueFull, Request,
-                     ResultTimeout)
+                     ResultTimeout, StaleRouterEpoch)
 from .kv_fabric import FabricServer
 
 __all__ = ["LLMServer"]
@@ -122,6 +134,11 @@ class LLMServer:
         self._canary_waiters = []
         self._quarantined = threading.Event()
         self.quarantine_reason = None
+        # the router leadership epoch's high-water mark (None until a
+        # dispatch carries one), and the fault a `chaos_mark` armed for
+        # the driver's next real step
+        self._router_epoch_hw = None
+        self._poison_pending = None
         self.watchdog_deadline = (None if watchdog_deadline is None
                                   else float(watchdog_deadline))
         self._stall_flagged = False
@@ -638,9 +655,21 @@ class LLMServer:
     def submit(self, prompt_ids, max_new_tokens=16, **kw):
         """Hand a request to the driver thread; `kw` are `Request`'s
         (sampling, `seed`, `deadline`, `priority`, `tier`, callbacks).
-        Raises `EngineUnhealthy` after a crash or once quarantined,
-        `QueueFull` at the queue bound and `Overloaded` for the lowest
-        tier at rung 4 (before a `Request` is built)."""
+        `router_epoch` and `chaos_mark` are the router's (see the module
+        docstring).  Raises `StaleRouterEpoch` for an epoch below one
+        already served, `EngineUnhealthy` after a crash or once
+        quarantined, `QueueFull` at the queue bound and `Overloaded` for
+        the lowest tier at rung 4 (before a `Request` is built)."""
+        epoch = kw.pop("router_epoch", None)
+        if epoch is not None:
+            epoch = int(epoch)
+            hw = self._router_epoch_hw
+            if hw is not None and epoch < hw:
+                raise StaleRouterEpoch(
+                    f"dispatch carries router epoch {epoch} but this "
+                    f"replica has served epoch {hw}")
+            self._router_epoch_hw = epoch if hw is None else max(hw, epoch)
+        mark = kw.pop("chaos_mark", None)
         if self._error is not None:
             raise EngineUnhealthy(
                 f"LLMServer driver thread crashed: {self._error!r}")
@@ -684,6 +713,13 @@ class LLMServer:
             self._events[req.rid] = done
             self._n_unfinished += 1
         self._pending.put(req)
+        if mark is not None:
+            # fired once the request is queued: the step that raises the
+            # armed fault always finds it in the engine
+            try:
+                _faults.fire("replica.poison", name=self.name, mark=mark)
+            except _faults.InjectedFault as e:
+                self._poison_pending = e
         return req
 
     def result(self, req, timeout=None):
@@ -722,6 +758,12 @@ class LLMServer:
                     # (never on idle wakeups), so count rules hit a
                     # deterministic step
                     _faults.fire("replica.crash", name=self.name)
+                    if self._poison_pending is not None:
+                        # a marked request armed the poison site at
+                        # submit: the crash lands here, at a real step,
+                        # and takes every co-batched request down
+                        e, self._poison_pending = self._poison_pending, None
+                        raise e
                     _faults.fire("engine.stall", name=self.name)
                     eng.step()
                 else:
@@ -745,7 +787,25 @@ class LLMServer:
             eng.flush()
         except BaseException as e:  # noqa: BLE001 — containment point
             self._error = e
+            self._settle_inflight()
             self._fail_all(e)
+
+    def _settle_inflight(self):
+        """The driver dies with a step in flight (overlap): commit it
+        (`flush`), so its graph replay and the copy of its tokens have
+        finished before `_fail_all` fails its requests and a later
+        `shutdown()` drops the replica's buffers.  Should the commit
+        fail in turn, wait for the step's event instead."""
+        eng = self.engine
+        inf = eng._inflight
+        if inf is None:
+            return
+        try:
+            eng.flush()
+        except BaseException:  # noqa: BLE001 — the driver is dying anyway
+            eng._inflight = None
+            if inf.event is not None:
+                inf.event.synchronize()
 
     def _fail_all(self, cause):
         """Driver crashed: fail every request still in flight."""

@@ -58,6 +58,18 @@ Sites wired in the port:
                    step (never on idle wakeups); a raise there crashes
                    the driver: every pending request fails with
                    EngineUnhealthy (ctx: name)
+  replica.poison   LLMServer.submit of a request carrying `chaos_mark`,
+                   once it is queued; a tripped rule arms the driver
+                   to raise that fault at its next real step, right
+                   after replica.crash (the poison drill: co-batched
+                   requests die with it) (ctx: name, mark)
+  router.admit     Router.submit, before the bound check and the
+                   journal write: a raise rejects the request at the
+                   door, nothing recorded (ctx: rid, client, tier)
+  router.dispatch  Router._dispatch, before each dispatch to a replica;
+                   a raise is a dispatch error: the request is requeued
+                   and the replica fenced only after three in a row
+                   (ctx: rid, replica)
   fabric.pull      client side of a fabric transfer: a prefix pull
                    (LLMEngine._pull_remote_prefix, op "pull"), a disk
                    resume's claim (LLMEngine._resume_disk, op "disk")

@@ -60,6 +60,7 @@ def test_port_files_import_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch/generation.py",
             "paddle_tpu_torch/nn/moe.py",
             "paddle_tpu_torch/inference/overload.py",
+            "paddle_tpu_torch/inference/router.py",
             "paddle_tpu_torch/observability/timeseries.py"} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
@@ -84,6 +85,7 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "paddle_tpu_torch.ops.wo_int8_matmul, "
             "paddle_tpu_torch.generation, "
             "paddle_tpu_torch.inference.overload, "
+            "paddle_tpu_torch.inference.router, "
             "paddle_tpu_torch.observability.timeseries, "
             "paddle_tpu_torch.models, chip_smoke; print('ok')")
     out = _run(["-c", code], tmp_path)
