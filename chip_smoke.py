@@ -102,11 +102,12 @@ the result line:
               tokens fully provisioned, then through 158 KV blocks (half
               the peak demand, `bench.py`'s overload rung) under the
               preempt policies "swap", "recompute" and "auto", and with
-              the int8 pool fully provisioned and under "swap": every
-              request done, >= 3 preemptions each resumed, the pager
-              consistent and empty; swap streams equal the full run's
-              and one parked slot's blocks (32 layers, K and V, int8
-              scales) come back bitwise; recompute streams equal it, or
+              the int8 pool fully provisioned and under "swap" (on the
+              first 8 layers, `_shallow`): every request done, >= 3
+              preemptions each resumed, the pager consistent and empty;
+              swap streams equal the full run's and one parked slot's
+              blocks (every layer, K and V, int8 scales) come back
+              bitwise; recompute streams equal it, or
               only parked requests differ and, rerun with their logits
               recorded, stay within the serve_parity bound up to each
               first flip (its step and top-2 margin printed);
@@ -133,7 +134,7 @@ the result line:
               limit (top-2 margin at the flip printed); then the int8
               pool with speculation on against off through per-step
               logits;
-              serve_slo (on the model's first 16 layers, `_shallow`:
+              serve_slo (on the model's first 8 layers, `_shallow`:
               each run holds itself to its own references):
               serve_pressure's 16 requests x 256 tokens
               through LLMServer (158 blocks, "swap", the overload ladder,
@@ -167,8 +168,8 @@ the result line:
               cuBLAS GEMMs / K4 / other, idle
               share, tokens/s, ITL, TTFT, peak memory) beside the
               bf16-weight row of this run; serve_pressure at 158 blocks
-              under "swap" (streams equal full provisioning, a park's
-              blocks bitwise); serve_spec (k 7, verify width 8) against
+              under "swap" on the first 8 layers (streams equal full
+              provisioning, a park's blocks bitwise); serve_spec (k 7, verify width 8) against
               speculation off through per-step logits;
               generate: `LlamaForCausalLM.generate` (the static KV
               cache) on the same llama3-8b, 4 prompts x 128 tokens x 32
@@ -178,7 +179,7 @@ the result line:
               limit); `generation.generate` beam search (4 beams x 16)
               bitwise twice, sampling (top_k 50, top_p 0.9, seed 7)
               equal twice, every id in the vocabulary;
-              serve_tiered (on the first 16 layers, as serve_slo): four
+              serve_tiered (on the first 8 layers, `_shallow`): four
               prompts of 3000 / 2400 / 1800 / 1200 tokens (256 / 64 /
               64 / 64 new; `longctx_config`'s clip, max_len 4096, 4
               slots) through the full pool (1,025
@@ -202,7 +203,8 @@ the result line:
               KV crossing a TCP socket on 127.0.0.1: (a) serve_prefix's
               16 requests on A, then on B (an empty trie) with a hint
               naming A: 24 blocks pulled, B's streams equal A's and
-              serve_prefix's, bf16 and int8 pools; (b) serve_pressure's
+              serve_prefix's, bf16 and int8 pools (int8 on the first 8
+              layers, B equal to A); (b) serve_pressure's
               traffic on A (158 blocks, swap), a parked session taken
               live by B: its stream and A's others equal full
               provisioning's; (c) the same traffic with a 24-block host
@@ -210,7 +212,7 @@ the result line:
               ("disk" mode), one adopted by B from the root exactly once
               (the source's resume sees the claim), streams equal full
               provisioning's, then a disk-warm prefix served by a fresh
-              engine; (d) on the first 16 layers, the serve mix
+              engine; (d) on the first 8 layers, the serve mix
               prefilled on P (pool_role "prefill") and handed off chunk
               by chunk to D ("decode"):
               adopted streams equal D's colocated ones, two or more
@@ -253,7 +255,7 @@ the result line:
               serve shape with the fabric's disk root in a temp dir;
               "prefix": two with the radix cache; "tight": one whose
               pool holds one max_len sequence; "pool": a "prefill" and a
-              "decode" replica on the first 16 layers): (a) the serve
+              "decode" replica on the first 8 layers): (a) the serve
               mix through Router.submit (affinity), streams equal the
               serve phase's; TTFT / ITL beside serve_fleet (a)'s direct
               submits, host ms Router.submit -> Replica.submit and a
@@ -276,9 +278,36 @@ the result line:
               (PoisonedRequest) at poison_threshold 1 with one replica
               fenced, four innocents then finish with the serve
               streams; (g) the serve mix handed off prefill -> decode by
-              the Router: streams equal the 16-layer colocated run, one
+              the Router: streams equal the 8-layer colocated run, one
               handoff a request, TTFT at P, ITL at D; K4 = layers x the
               replays of the drill's replicas;
+  4b. serve_process
+              after the serve phase frees its model: replica processes
+              (paddle_tpu_torch/inference/process_fleet.py), each child
+              building llama3-8b from the serve phase's seed and
+              capturing its own graphs, with the routers in this
+              process: (a) two children behind a Router, the serve mix:
+              streams equal the serve phase's; each child's spawn s,
+              hello boot_s and card memory; tokens/s against one
+              engine's; TTFT / ITL; host ms Router.submit ->
+              ProcessReplica.submit and a journal "tok" append; (b) one
+              child SIGKILLed mid-decode: one failover, tokens deduped,
+              no replay mismatch, streams equal, the dead lease seen
+              expired, the card memory it gave back; (c) a respawn under
+              the same slot while the survivor serves the mix round
+              after round: every round's streams equal, the respawn s,
+              then the mix over both; (d) a ProcessFleet(ha=True), a
+              primary HARouter and a StandbyRouter, the mix through
+              FleetClient: the primary crashed with every stream under
+              way, the standby promotes within 15 s, the children
+              re-hello (same pids, nobody fenced), every client stream
+              equal and exactly once; (e) QueueFull from a child's
+              admission bound over the wire, and the deposed primary's
+              epoch refused (StaleRouterEpoch); K4 in each child =
+              layers x the decode steps it reports in its metrics
+              series (the attention bytes labelled kernel=cuda); no
+              child builds a kernel library; every child stopped
+              before the phase ends;
   5. parity   debug-4l in fp32: greedy streams through the kernel and
               through the gather path (each step a graph replay) are
               token-exact, and `generate` (the contiguous cache) gives
@@ -1335,8 +1364,10 @@ def phase_serve_parity(torch, model, kv_dtype):
 # --------------------------------------------------------------------------
 
 PRESSURE_LENGTHS = SERVE_LENGTHS * 2      # 16 requests
-# the depth of the phases run on `_shallow(model, SHALLOW_LAYERS)`
-SHALLOW_LAYERS = 16
+# the depth of the phases run on `_shallow(model, SHALLOW_LAYERS)`: each
+# holds itself to references run at its own depth, and the run keeps
+# inside its time budget
+SHALLOW_LAYERS = 8
 PRESSURE_NEW = 256
 PREFIX_SYSTEM, PREFIX_SUFFIX, PREFIX_N, PREFIX_NEW = 384, 16, 16, 32
 PREFIX_KW = dict(max_prompt_len=400, prefix_cache_blocks=64,
@@ -1592,31 +1623,34 @@ def _flips(torch, model, kv_dtype, policy, prompts, ref, got, parked,
     return out
 
 
-def phase_serve_pressure(torch, model, limits):
+def phase_serve_pressure(torch, model, limits, shallow):
     """The pressure traffic (16 requests, SERVE_LENGTHS twice, 256 new
     tokens each) fully provisioned and at `pressure_blocks()` (2x
     oversubscribed) under "swap", "recompute" and "auto"; with the int8
-    pool fully provisioned and under "swap".  Swap streams equal the
-    full run's token for token and one parked slot's blocks return
-    bitwise; recompute streams equal them, or stay within the
-    serve_parity logits bound up to each flip (`limits` by pool).
-    Returns the K4 launches of each run and the full-provisioning
-    streams by pool."""
+    pool fully provisioned and under "swap", on `shallow` (the model's
+    first layers: the int8 runs hold themselves to their own full run).
+    Swap streams equal the full run's token for token and one parked
+    slot's blocks return bitwise; recompute streams equal them, or stay
+    within the serve_parity logits bound up to each flip (`limits` by
+    pool).  Returns the K4 launches of each run and the
+    full-provisioning streams by pool."""
     import numpy as np
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, model.config.vocab_size, L)
                for L in PRESSURE_LENGTHS]
     launches, full_streams = {}, {}
-    for kv, policies in ((None, ("swap", "recompute", "auto")),
-                         ("int8", ("swap",))):
+    for m, kv, policies in ((model, None, ("swap", "recompute", "auto")),
+                            (shallow, "int8", ("swap",))):
         pool = kv or "bfloat16"
-        full, ref, _ = _pressure_run(torch, model, kv, None, prompts)
+        full, ref, _ = _pressure_run(torch, m, kv, None, prompts)
         full_streams[pool] = ref
-        emit({"phase": "serve_pressure", "model": "llama3-8b", **full})
+        layers = m.config.num_hidden_layers
+        emit({"phase": "serve_pressure", "model": "llama3-8b",
+              "layers": layers, **full})
         launches[pool, "full"] = full["k4_launches"]
         for policy in policies:
             roundtrip = {} if policy == "swap" else None
-            report, got, _ = _pressure_run(torch, model, kv, policy,
+            report, got, _ = _pressure_run(torch, m, kv, policy,
                                            prompts, roundtrip)
             launches[pool, policy] = report["k4_launches"]
             if policy == "swap":
@@ -1628,10 +1662,10 @@ def phase_serve_pressure(torch, model, limits):
                 check = {"streams_equal_full": True,
                          "park_roundtrip_bitwise_blocks": roundtrip["n"]}
             else:
-                check = _flips(torch, model, kv, policy, prompts, ref, got,
+                check = _flips(torch, m, kv, policy, prompts, ref, got,
                                report["parked_requests"], limits[pool])
             emit({"phase": "serve_pressure", "model": "llama3-8b",
-                  **report, **check})
+                  "layers": layers, **report, **check})
     return launches, full_streams
 
 
@@ -3056,15 +3090,16 @@ def _int8w_parity_run(torch, model, kv_dtype, limit):
     return report, streams
 
 
-def phase_serve_int8w(torch, model, limits, bf16_streams, bf16_row):
+def phase_serve_int8w(torch, model, shallow, limits, bf16_streams,
+                      bf16_row):
     """llama3-8b served with weight_dtype="int8" (every layer product
     through Q1), graphs + overlap, the serve mix: once with the bf16
     pool and once with the int8 pool, each decode step held to the
     gather path with Q1's plain version (`_int8w_parity_run`); the
     profile row (graphs + overlap, bf16 pool) beside the bf16-weight
     row `bf16_row` of this run; one serve_pressure run at
-    `pressure_blocks()` under "swap" against full provisioning; one
-    serve_spec run (k 7: verify width 8) against speculation off, both
+    `pressure_blocks()` under "swap" against full provisioning, on
+    `shallow` (its own reference); one serve_spec run (k 7: verify width 8) against speculation off, both
     through per-step logits.  Returns the K4 and Q1 launches by run, and
     the bf16 pool's serve-mix streams ("streams")."""
     import numpy as np
@@ -3096,17 +3131,18 @@ def phase_serve_int8w(torch, model, limits, bf16_streams, bf16_row):
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, model.config.vocab_size, L)
                for L in PRESSURE_LENGTHS]
-    full, ref, _ = _pressure_run(torch, model, None, None, prompts,
+    full, ref, _ = _pressure_run(torch, shallow, None, None, prompts,
                                  weight_dtype="int8")
     roundtrip = {}
-    swap, got, _ = _pressure_run(torch, model, None, "swap", prompts,
+    swap, got, _ = _pressure_run(torch, shallow, None, "swap", prompts,
                                  roundtrip, weight_dtype="int8")
     require(got == ref, "serve_int8w pressure (swap): streams differ from "
             "full provisioning")
     require(roundtrip.get("equal") is True,
             f"serve_int8w pressure (swap): parked blocks after resume: "
             f"{roundtrip}")
-    emit({"phase": "serve_int8w", "run": "serve_pressure", **swap,
+    emit({"phase": "serve_int8w", "run": "serve_pressure",
+          "layers": shallow.config.num_hidden_layers, **swap,
           "streams_equal_full": True,
           "park_roundtrip_bitwise_blocks": roundtrip["n"],
           "full_provisioning": {k: full[k] for k in (
@@ -4245,12 +4281,13 @@ def _fabric_handoff(torch, model, kv):
 def phase_serve_fabric(torch, model, prefix_streams, pressure_streams,
                        shallow):
     """The KV fabric between two servers on one card (llama3-8b, bf16,
-    the serve shape): (a) a prefix pull, bf16 and int8 pools; (b) a live
-    session migration; (c) disk parks, a disk adoption claimed once, a
-    disk-warm prefix after a restart, all three on all 32 layers (their
-    references are the earlier phases' streams); (d) the chunk-streamed
-    prefill -> decode handoff, bf16 and int8 pools, on `shallow` (its
-    own colocated reference).  Every move must have moved blocks (a
+    the serve shape): (a) a prefix pull, bf16 and int8 pools (int8 on
+    `shallow`, against its own recompute); (b) a live session
+    migration; (c) disk parks, a disk adoption claimed once, a disk-warm
+    prefix after a restart, all on all 32 layers (their references are
+    the earlier phases' streams); (d) the chunk-streamed prefill ->
+    decode handoff, bf16 and int8 pools, on `shallow` (its own
+    colocated reference).  Every move must have moved blocks (a
     silent fallback to recompute fails the phase).  Returns K4's
     launches by (pool, move)."""
     import tempfile
@@ -4258,7 +4295,8 @@ def phase_serve_fabric(torch, model, prefix_streams, pressure_streams,
     launches = {}
     for kv in (None, "int8"):
         launches[kv or "bfloat16", "pull"] = _fabric_pull(
-            torch, model, kv, prefix_streams if kv is None else None)
+            torch, model if kv is None else shallow, kv,
+            prefix_streams if kv is None else None)
     launches["bfloat16", "migrate"] = _fabric_migrate(
         torch, model, pressure_streams)
     with tempfile.TemporaryDirectory(prefix="fabric-disk-") as d:
@@ -4801,18 +4839,19 @@ def _router_mix(torch, router, prompts, new, what, servers, itl_from=0):
 
 def _time_router(router, replicas):
     """Host-clock wrappers (instance attributes) on `router.submit`, on
-    each replica's `submit` (matched by the session id the router
-    passes: its rid) and on the journal's `record` ("tok" appends).
-    Returns (entry times by rid, dispatch times by rid, tok append ms,
-    a function that takes the wrappers off)."""
-    t_in, t_out, tok_ms = {}, {}, []
+    each replica's `submit` (matched by the trace id the router passes
+    in every request's params) and on the journal's `record` ("tok"
+    appends).  Returns (entry times by trace id, dispatch times by
+    trace id, tok append ms, each replica `submit` call's ms, a function
+    that takes the wrappers off)."""
+    t_in, t_out, tok_ms, call_ms = {}, {}, [], []
     submit, journal = router.submit, router._journal
     record = journal.record
 
     def timed_submit(*a, **k):
         t = time.perf_counter()
         rr = submit(*a, **k)
-        t_in[rr.rid] = t
+        t_in[rr.trace_id] = t
         return rr
 
     def timed_record(ev, rid, **f):
@@ -4826,8 +4865,12 @@ def _time_router(router, replicas):
 
     def replica_submit(fn):
         def timed(prompt, new=16, **k):
-            t_out.setdefault(k.get("session_id"), time.perf_counter())
-            return fn(prompt, new, **k)
+            t = time.perf_counter()
+            t_out.setdefault(k.get("trace_id"), t)
+            try:
+                return fn(prompt, new, **k)
+            finally:
+                call_ms.append(1e3 * (time.perf_counter() - t))
         return timed
 
     router.submit = timed_submit
@@ -4840,7 +4883,7 @@ def _time_router(router, replicas):
         vars(journal).pop("record", None)
         for rep in replicas:
             vars(rep).pop("submit", None)
-    return t_in, t_out, tok_ms, undo
+    return t_in, t_out, tok_ms, call_ms, undo
 
 
 def _idle(servers, what):
@@ -4912,8 +4955,8 @@ def _router_prefix(torch, fleet, prompts, ref):
     return out
 
 
-def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
-                       fleet_a):
+def phase_serve_router(torch, model, shallow, serve_streams,
+                       prefix_streams, fleet_a):
     """The Router on one card (llama3-8b, bf16, graphs + overlap, the
     serve shape): the fleets of one durable TCPStore, every replica
     booted (graphs captured) before any takes traffic, the fabric's disk
@@ -4994,13 +5037,13 @@ def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
             t = time.perf_counter()
             r1 = router(A.replicas, journal_path=j1, policy="affinity",
                         debug_port=0)
-            t_in, t_out, tok_ms, undo = _time_router(r1, A.replicas)
+            t_in, t_out, tok_ms, _, undo = _time_router(r1, A.replicas)
             a_streams, a = _router_mix(torch, r1, prompts, SERVE_NEW,
                                        "serve_router (a)", sa)
             undo()
             require(a_streams == serve_streams, "serve_router (a): streams "
                     "differ from the serve phase's single engine")
-            dispatch_ms = [1e3 * (t_out[rid] - t_in[rid]) for rid in t_in]
+            dispatch_ms = [1e3 * (t_out[tid] - t_in[tid]) for tid in t_in]
             require(len(dispatch_ms) == len(prompts)
                     and len(tok_ms) == len(prompts) * SERVE_NEW,
                     f"serve_router (a): {len(dispatch_ms)} dispatches, "
@@ -5318,7 +5361,7 @@ def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
                   "innocents_equal_single_engine": True,
                   "k4_launches": launches["f epochs and poison"]})
 
-            # (g) placement by pool and the handoff (16 layers)
+            # (g) placement by pool and the handoff (SHALLOW_LAYERS)
             t = time.perf_counter()
             g0, g1 = G.replicas
             sg = [g0.server, g1.server]
@@ -5341,7 +5384,8 @@ def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
                     and g["placed"] == {g1.name: len(prompts)},
                     f"serve_router (g): counters {hc}, placed "
                     f"{g['placed']}")
-            launches["g pool handoff (16 layers)"] = g["k4_launches"]
+            launches[f"g pool handoff ({SHALLOW_LAYERS} layers)"] = \
+                g["k4_launches"]
             seconds["g"] = time.perf_counter() - t
             emit({"phase": "serve_router", "drill": "g_pools",
                   "layers": shallow.config.num_hidden_layers, **hc,
@@ -5369,6 +5413,500 @@ def phase_serve_router(torch, model, shallow, serve_streams, prefix_streams,
     return launches
 
 
+PROC_JOB = "serve-process"
+# the children's model: phase_serve's llama3-8b from the same seed, so
+# streams equal to the serve phase's also show that every process
+# holds the same weights
+PROC_SPEC = {"preset": "llama3-8b", "seed": 0, "device": "cuda"}
+# the children's server: the serve shape, an admission bound of one
+# queue per slot pool (the serve mix never queues: (e) fills it), the
+# series sampler the K4 counts are read from (240 s of tier 0)
+PROC_KW = dict(SERVE_KW, max_queue=SERVE_KW["max_slots"],
+               watchdog_deadline=None, series_interval=FLEET_SERIES_S,
+               series_tiers=((FLEET_SERIES_S, 960), (5.0, 120)))
+PROC_TTL = 5.0                # s: replica leases (tools/ci_ha_rung.py:64)
+PROC_LEADER_TTL = 1.5         # s: the primary's lease (ci_ha_rung.py:79)
+PROC_WATCH_S = 0.2            # s: the standby's lease watch (ci_ha_rung.py)
+PROC_PROMOTE_BOUND_S = 15.0   # crash -> promoted (ci_ha_rung.py:37's bound)
+PROC_BURST = 3 * SERVE_KW["max_slots"]   # (e): slots + queue + 8 more
+PROC_WAIT_S = 300.0           # every bounded wait on a child
+
+
+def _free_gb(torch):
+    """The card's free memory (GB), as the driver reports it: the
+    children's allocations included."""
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+def _child_counts(rep, what):
+    """(decode steps, decode-attention bytes, the bytes' series key) a
+    replica process has run since it booted, read from what the child
+    reports over the control wire: its `metrics_series` tails (each
+    counter a rate per tier-0 sample; rate x the sample interval,
+    summed).  The tail must start idle (a zero rate) and the ring must
+    not have wrapped, or the sum misses steps."""
+    cap = PROC_KW["series_tiers"][0][1]
+    series = rep.metrics_series(n=cap, timeout=60)["series"]
+    attn = [k for k in series
+            if k.startswith("llm_engine_decode_attn_bytes_total{")]
+    require(len(attn) == 1, f"{what}: {rep.name}'s attention series {attn}")
+
+    def total(key):
+        pts = series[key]
+        require(1 < len(pts) < cap and pts[0][1] == 0.0,
+                f"{what}: {rep.name}'s {key} tail ({len(pts)} points) "
+                f"does not reach back to its idle boot")
+        return round(sum(v * (t - t0) for (t0, _), (t, v)
+                         in zip(pts, pts[1:])))
+    return total("llm_engine_decode_steps_total"), total(attn[0]), attn[0]
+
+
+def _series_armed(reps, what):
+    """Wait (bounded) until each replica process's series sampler holds
+    two idle points of its step counter: the rates `_child_counts` sums
+    start before the child's first step."""
+    def armed(rep):
+        pts = rep.metrics_series(n=4, timeout=60)["series"].get(
+            "llm_engine_decode_steps_total", [])
+        return len(pts) >= 2 and pts[0][1] == 0.0
+    _bounded(lambda: all(armed(r) for r in reps),
+             f"{what}: the children's series samplers", timeout=PROC_WAIT_S)
+
+
+def _k4_children(reps, layers, what):
+    """K4's launches in each replica process: layers x its decode steps
+    (every decode step on the card is a graph replay with one K4 launch
+    a layer), once every series has sampled its last step (two equal
+    reads two samples apart).  The attention bytes must carry K4's
+    label (kernel=cuda) and equal steps x one step's bytes (8 slots x
+    128 blocks x the hello's block bytes).  Returns {name: launches}."""
+    prev, deadline = None, time.monotonic() + 60
+    while True:
+        now = [_child_counts(r, what) for r in reps]
+        if now == prev:
+            break
+        require(time.monotonic() < deadline,
+                f"{what}: the children's series never settled")
+        prev = now
+        time.sleep(2 * FLEET_SERIES_S)
+    out = {}
+    for rep, (steps, nbytes, key) in zip(reps, now):
+        per_step = (SERVE_KW["max_slots"] * PROC_KW["max_len"]
+                    // PROC_KW["kv_block_tokens"]
+                    * rep.kv_block_bytes_per_chip)
+        require(steps > 0 and "kernel=cuda" in key
+                and nbytes == steps * per_step,
+                f"{what}: {rep.name}: {steps} decode steps, {nbytes} "
+                f"attention bytes ({key}), {per_step} a step")
+        out[rep.name] = layers * steps
+    return out
+
+
+def _proc_mix(router, prompts, new, what):
+    """`prompts` through `router.submit`, every result; per-token host
+    stamps.  Returns (streams, report)."""
+    stamps = {}
+    t0 = time.perf_counter()
+    reqs = [router.submit(p, new, on_token=_stamped(stamps, i))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        r.result(timeout=PROC_WAIT_S)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        require(r.done and r.error is None and len(r.tokens) == new,
+                f"{what}: request {r.rid}: {len(r.tokens)} tokens, "
+                f"{r.error!r}")
+    ttft = [stamps[i][0] - t0 for i in range(len(reqs))]
+    itl = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    return [list(r.tokens) for r in reqs], {
+        "requests": len(reqs), "t0": t0, "t1": t0 + wall, "wall_s": wall,
+        "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+        "ttft_p50_ms": 1e3 * _percentile(ttft, 50),
+        "itl_p50_ms": 1e3 * _percentile(itl, 50),
+        "itl_p99_ms": 1e3 * _percentile(itl, 99),
+        "placed": {n: sum(r.replica == n for r in reqs)
+                   for n in sorted({r.replica for r in reqs})}}
+
+
+def _mem_back(torch, floor_gb, what):
+    """Wait (bounded) until the card's free memory is back to
+    `floor_gb`: a killed or shut down process returns its memory
+    asynchronously.  Returns the seconds waited."""
+    t = time.perf_counter()
+    _bounded(lambda: _free_gb(torch) >= floor_gb,
+             f"{what}: free memory back to {floor_gb:.1f} GB",
+             timeout=PROC_WAIT_S)
+    return time.perf_counter() - t
+
+
+def phase_serve_process(torch, serve_streams, serve_tps):
+    """Replica processes on one card (llama3-8b bf16, all 32 layers, the
+    serve shape): ProcessFleet children each build the model from
+    PROC_SPEC, capture their graphs and serve; the Router and the HA
+    routers run in this process, which holds no model.  Drills (a)–(e)
+    as the module docstring lists them; every gate a `require`.  Returns
+    K4's launches inside the children by drill."""
+    import tempfile
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.inference import (FleetClient, HARouter,
+                                            ProcessFleet, QueueFull, Router,
+                                            StaleRouterEpoch, StandbyRouter)
+    from paddle_tpu_torch.inference.fleet_serving import (
+        ROUTER_LEADER, _lease_key, fenced_generation, live_replicas)
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    # the serve phase's model and engines are garbage by now; a cycle
+    # among them would keep 16 GB of weights on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    cfg = LlamaConfig.from_preset(PROC_SPEC["preset"])
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, L) for L in SERVE_LENGTHS]
+    libs = sorted(p.name for p in _build.BUILD_DIR.iterdir())
+    launches, seconds = {}, {}
+    fleets, routers, standbys = [], [], []
+    with tempfile.TemporaryDirectory(prefix="serve-process-") as d:
+        root = Path(d)
+        try:
+            # (a) two replica processes behind a Router
+            t = time.perf_counter()
+            mem = [_free_gb(torch)]
+            fleet = ProcessFleet(PROC_SPEC, n=0, job_id=PROC_JOB,
+                                 lease_ttl=PROC_TTL,
+                                 store_dir=str(root / "store"), **PROC_KW)
+            fleets.append(fleet)
+            spawn_s = []
+            for _ in range(2):
+                ts = time.perf_counter()
+                fleet.spawn()
+                spawn_s.append(time.perf_counter() - ts)
+                mem.append(_free_gb(torch))
+            p0, p1 = fleet.replicas
+            child_gb = [mem[0] - mem[1], mem[1] - mem[2]]
+            require(all(r.proc.is_alive() and r.tp == 1 and r.aot is None
+                        and r.lease.generation == 1 for r in fleet.replicas)
+                    and min(child_gb) > 16.0,
+                    f"serve_process (a): children {fleet.live()}, "
+                    f"card memory each {child_gb} GB")
+            router = Router(fleet.replicas, store=fleet.store,
+                            job_id=PROC_JOB, poll_interval=ROUTER_POLL_S,
+                            journal_path=str(root / "router.jsonl"))
+            routers.append(router)
+            _series_armed(fleet.replicas, "serve_process (a)")
+            t_in, t_out, tok_ms, call_ms, undo = _time_router(
+                router, fleet.replicas)
+            a_streams, a = _proc_mix(router, prompts, SERVE_NEW,
+                                     "serve_process (a)")
+            undo()
+            require(a_streams == serve_streams, "serve_process (a): streams "
+                    "differ from the serve phase's single engine")
+            dispatch_ms = [1e3 * (t_out[tid] - t_in[tid]) for tid in t_in]
+            require(len(dispatch_ms) == len(prompts)
+                    and len(tok_ms) == len(prompts) * SERVE_NEW,
+                    f"serve_process (a): {len(dispatch_ms)} dispatches, "
+                    f"{len(tok_ms)} tok appends timed")
+            k4_a = _k4_children(fleet.replicas, layers, "serve_process (a)")
+            launches["a two processes"] = sum(k4_a.values())
+            seconds["a"] = time.perf_counter() - t
+            emit({"phase": "serve_process", "model": PROC_SPEC["preset"],
+                  "drill": "a_two_processes", "layers": layers,
+                  "spawn_s": spawn_s,
+                  "boot_s": [r.boot_s for r in fleet.replicas],
+                  "parent_reserved_gb": parent_gb,
+                  "free_gb_before_after_each_boot": mem,
+                  "card_gb_per_child": child_gb,
+                  **{k: v for k, v in a.items() if k not in ("t0", "t1")},
+                  "one_engine_tokens_per_s": serve_tps,
+                  "tokens_per_s_vs_one_engine": a["tokens_per_s"] / serve_tps,
+                  "streams_equal_single_engine": True,
+                  "router_to_replica_submit_ms": {
+                      "p50": _percentile(dispatch_ms, 50),
+                      "p99": _percentile(dispatch_ms, 99),
+                      "n": len(dispatch_ms)},
+                  # one ProcessReplica.submit: the op out, the child's
+                  # LLMServer.submit, its ack back (the dispatcher
+                  # waits for each before the next request)
+                  "replica_submit_call_ms": {
+                      "p50": _percentile(call_ms, 50),
+                      "p99": _percentile(call_ms, 99), "n": len(call_ms)},
+                  "journal_tok_append_ms": {
+                      "p50": _percentile(tok_ms, 50),
+                      "p99": _percentile(tok_ms, 99), "n": len(tok_ms)},
+                  "k4_launches_per_child": k4_a})
+
+            # (b) SIGKILL mid-decode
+            t = time.perf_counter()
+            names = ("failovers_total", "tokens_deduped_total",
+                     "replay_mismatch_total", "requests_replayed_total")
+            before = _router_counts(router, names)
+            stamps = {}
+
+            def stamp(i):
+                def on_token(rr, tok):
+                    stamps.setdefault(i, []).append(
+                        (time.perf_counter(), rr.replica))
+                return on_token
+            reqs = [router.submit(p, SERVE_NEW, on_token=stamp(i))
+                    for i, p in enumerate(prompts)]
+            _bounded(lambda: any(r.replica == p0.name and len(r.tokens) >= 4
+                                 for r in reqs),
+                     "serve_process (b): a stream 4 tokens deep on "
+                     f"{p0.name}", timeout=PROC_WAIT_S)
+            free_b = _free_gb(torch)
+            key = _lease_key(PROC_JOB, p0.name)
+            tk, wall_k = time.perf_counter(), time.time()
+            fleet.kill(p0.name)
+            require(not p0.proc.is_alive(), "serve_process (b): the child "
+                    "survived SIGKILL")
+            b_streams = [r.result(timeout=PROC_WAIT_S) for r in reqs]
+            require(b_streams == serve_streams, "serve_process (b): streams "
+                    "differ from the serve phase's")
+            after = _router_counts(router, names)
+            bc = {k: after[k] - before[k] for k in names}
+            victims = [i for i, r in enumerate(reqs) if r.attempts > 1]
+            first_new = min(ts for i in victims for ts, rep in stamps[i]
+                            if rep == p1.name and ts > tk)
+            require(bc["failovers_total"] == 1 and victims
+                    and bc["tokens_deduped_total"] > 0
+                    and bc["replay_mismatch_total"] == 0
+                    and router.live_replica_names() == [p1.name]
+                    and fenced_generation(fleet.store, PROC_JOB, p0.name) >= 1
+                    and p0.name not in fleet.live(),
+                    f"serve_process (b): counters {bc}, victims {victims}, "
+                    f"live {router.live_replica_names()}")
+            # the lease itself runs out: its last beat older than its ttl
+            _bounded(lambda: time.time() - float(
+                fleet.store.get(key, timeout=10)[0]) > PROC_TTL,
+                "serve_process (b): the killed child's lease to expire",
+                timeout=4 * PROC_TTL)
+            expired_s = time.time() - wall_k
+            back_s = _mem_back(torch, free_b + 0.9 * child_gb[0],
+                               "serve_process (b)")
+            gave_back = _free_gb(torch) - free_b
+            seconds["b"] = time.perf_counter() - t
+            emit({"phase": "serve_process", "drill": "b_sigkill",
+                  "lease_ttl_s": PROC_TTL, **bc, "victims": len(victims),
+                  "kill_to_first_new_token_s": first_new - tk,
+                  "kill_to_lease_expiry_observed_s": expired_s,
+                  "card_gb_given_back": gave_back,
+                  "memory_back_s": back_s, "streams_equal_serve": True})
+
+            # (c) respawn while the survivor serves
+            t = time.perf_counter()
+            rounds, errors, stop = [], [], threading.Event()
+
+            def traffic():
+                try:
+                    while not stop.is_set():
+                        s, rep = _proc_mix(router, prompts, SERVE_NEW,
+                                           "serve_process (c) traffic")
+                        rounds.append((s == serve_streams, rep))
+                except BaseException as e:      # noqa: BLE001 — reported
+                    errors.append(e)
+            delivered = _rv(router, "tokens_delivered_total")
+            worker = threading.Thread(target=traffic, name="c-traffic")
+            worker.start()
+            _bounded(lambda: _rv(router, "tokens_delivered_total")
+                     >= delivered + len(prompts),
+                     "serve_process (c): traffic under way",
+                     timeout=PROC_WAIT_S)
+            free_c = _free_gb(torch)
+            ts = time.perf_counter()
+            p2 = fleet.respawn(p0.name)
+            te = time.perf_counter()
+            stop.set()
+            worker.join(PROC_WAIT_S)
+            require(not worker.is_alive() and not errors and rounds
+                    and all(eq for eq, _ in rounds),
+                    f"serve_process (c): traffic {len(rounds)} rounds, "
+                    f"equal {[eq for eq, _ in rounds]}, errors {errors!r}")
+            during = [rep for _, rep in rounds
+                      if rep["t0"] < te and rep["t1"] > ts]
+            require(rounds[0][1]["t0"] < ts and rounds[-1][1]["t1"] > te
+                    and p2.lease.generation == 2 and p2.name == p0.name,
+                    f"serve_process (c): the respawn ({ts:.2f}-{te:.2f}) "
+                    f"outside the traffic ({rounds[0][1]['t0']:.2f}-"
+                    f"{rounds[-1][1]['t1']:.2f}) or generation "
+                    f"{p2.lease.generation}")
+            _series_armed([p2], "serve_process (c)")
+            router.add_replica(p2)
+            c_streams, c = _proc_mix(router, prompts, SERVE_NEW,
+                                     "serve_process (c) both")
+            require(c_streams == serve_streams and len(c["placed"]) == 2,
+                    f"serve_process (c): the mix over both processes, "
+                    f"placed {c['placed']}")
+            k4_c = _k4_children([p2], layers, "serve_process (c)")[p2.name]
+            launches["c respawned child"] = k4_c
+            seconds["c"] = time.perf_counter() - t
+            emit({"phase": "serve_process", "drill": "c_respawn",
+                  "respawn_s": te - ts, "respawned_boot_s": p2.boot_s,
+                  "card_gb_taken": free_c - _free_gb(torch),
+                  "rounds_during_respawn": len(during),
+                  "tokens_per_s_during_respawn": [
+                      r["tokens_per_s"] for r in during],
+                  "itl_p99_ms_during_respawn": [
+                      r["itl_p99_ms"] for r in during],
+                  "streams_equal_serve": True,
+                  "after_respawn": {k: c[k] for k in (
+                      "tokens_per_s", "ttft_p50_ms", "itl_p50_ms",
+                      "itl_p99_ms", "placed")},
+                  "k4_launches_respawned_child": k4_c})
+
+            # (e, first half) QueueFull from a child over the wire
+            t = time.perf_counter()
+            handles, refused = [], 0
+            for i in range(PROC_BURST):
+                try:
+                    handles.append((i % len(prompts), p1.submit(
+                        prompts[i % len(prompts)], SERVE_NEW)))
+                except QueueFull:
+                    refused += 1
+            burst = [list(h.result(timeout=PROC_WAIT_S)) == serve_streams[i]
+                     for i, h in handles]
+            require(refused > 0 and all(burst)
+                    and len(handles) >= SERVE_KW["max_slots"],
+                    f"serve_process (e): {refused} QueueFull of "
+                    f"{PROC_BURST}, {len(handles)} accepted, equal {burst}")
+            seconds["e queue"] = time.perf_counter() - t
+            router.shutdown()
+            floor = mem[0] - 1.0
+            fleet.shutdown()
+            require(not any(r.proc.is_alive() for r in fleet.replicas),
+                    "serve_process: a child outlived its shutdown")
+            down_s = _mem_back(torch, floor, "serve_process (a)-(c) down")
+
+            # (d) promotion: ProcessFleet(ha=True), primary, standby
+            t = time.perf_counter()
+            job = PROC_JOB + "-ha"
+            hfleet = ProcessFleet(PROC_SPEC, n=2, job_id=job, ha=True,
+                                  lease_ttl=PROC_TTL,
+                                  store_dir=str(root / "ha-store"),
+                                  **PROC_KW)
+            fleets.append(hfleet)
+            primary = HARouter(store=hfleet.store, job_id=job,
+                               lease_ttl=PROC_LEADER_TTL,
+                               poll_interval=ROUTER_POLL_S,
+                               journal_path=str(root / "primary.jsonl"))
+            routers.append(primary)
+            _bounded(lambda: primary.acceptor.join_handshakes() == 2,
+                     "serve_process (d): both children at the primary",
+                     timeout=PROC_WAIT_S)
+            ha_boot_s = time.perf_counter() - t
+            pids = {r.name: r.pid for r in primary.acceptor.accepted}
+            require(pids == {n: p.pid for n, p in hfleet.procs.items()},
+                    f"serve_process (d): attached {pids}")
+            _series_armed(primary.acceptor.accepted, "serve_process (d)")
+            standby = StandbyRouter(
+                hfleet.store, job, shadow_path=str(root / "shadow.jsonl"),
+                auto_promote=True, watch_interval=PROC_WATCH_S,
+                router_kw={"poll_interval": ROUTER_POLL_S,
+                           "journal_path": str(root / "successor.jsonl")})
+            standbys.append(standby)
+            client = FleetClient(hfleet.store, job)
+            rids = [client.submit(p, SERVE_NEW) for p in prompts]
+
+            def mid_decode():
+                st = standby.shadow_state()
+                return (set(rids) <= set(st)
+                        and all(st[r]["delivered"] for r in rids))
+            _bounded(mid_decode, "serve_process (d): every stream under "
+                     "way in the standby's shadow", timeout=PROC_WAIT_S)
+            tc = time.perf_counter()
+            primary.crash()
+            shadow = standby.shadow_state()
+            require(not any(st["done"] for st in shadow.values()),
+                    "serve_process (d): a stream finished before the crash")
+            _bounded(standby.promoted.is_set, "serve_process (d): the "
+                     "standby's promotion", timeout=4 * PROC_PROMOTE_BOUND_S)
+            promoted_s = time.perf_counter() - tc
+            r2 = standby.router
+            routers.append(r2)
+            got = [client.result(rid, timeout=PROC_WAIT_S) for rid in rids]
+            done_s = time.perf_counter() - tc
+            require([toks for _, toks in got] == serve_streams,
+                    "serve_process (d): client streams differ from the "
+                    "serve phase's")
+            dc = _router_counts(r2, ("requests_resubmitted_total",
+                                     "tokens_deduped_total",
+                                     "replay_mismatch_total",
+                                     "tokens_delivered_total"))
+            _bounded(lambda: r2.acceptor.join_handshakes() == 2,
+                     "serve_process (d): both children at the successor",
+                     timeout=PROC_WAIT_S)
+            require(promoted_s <= PROC_PROMOTE_BOUND_S
+                    and r2.router_epoch > primary.router_epoch
+                    and dc["requests_resubmitted_total"] == len(rids)
+                    and dc["tokens_deduped_total"] > 0
+                    and dc["replay_mismatch_total"] == 0
+                    and {r.name: r.pid for r in r2.acceptor.accepted} == pids
+                    and all(p.is_alive() for p in hfleet.procs.values())
+                    and all(fenced_generation(hfleet.store, job, n) == 0
+                            for n in pids)
+                    and sorted(live_replicas(hfleet.store, job))
+                    == sorted([ROUTER_LEADER, *pids]),
+                    f"serve_process (d): promoted in {promoted_s:.2f} s, "
+                    f"epochs {primary.router_epoch} -> {r2.router_epoch}, "
+                    f"counters {dc}, attached "
+                    f"{[r.name for r in r2.acceptor.accepted]}")
+            k4_d = _k4_children(r2.acceptor.accepted, layers,
+                                "serve_process (d)")
+            launches["d promotion"] = sum(k4_d.values())
+
+            # (e, second half) the deposed primary's epoch refused
+            rep = r2.acceptor.accepted[0]
+            try:
+                rep.submit(prompts[0], 4, router_epoch=primary.router_epoch)
+                stale = False
+            except StaleRouterEpoch:
+                stale = True
+            require(stale, "serve_process (e): a deposed epoch accepted")
+            seconds["d"] = time.perf_counter() - t
+            emit({"phase": "serve_process", "drill": "d_promotion",
+                  "layers": layers, "leader_lease_ttl_s": PROC_LEADER_TTL,
+                  "standby_watch_s": PROC_WATCH_S, "boot_s": ha_boot_s,
+                  "crash_to_promoted_s": promoted_s,
+                  "promote_latency_s": standby.promote_latency_s,
+                  "bound_s": PROC_PROMOTE_BOUND_S,
+                  "crash_to_all_streams_s": done_s,
+                  "epochs": [primary.router_epoch, r2.router_epoch],
+                  "requests_resubmitted": dc["requests_resubmitted_total"],
+                  "tokens_deduped": dc["tokens_deduped_total"],
+                  "delivered_before_crash": sum(
+                      len(st["delivered"]) for st in shadow.values()),
+                  "replay_mismatch": dc["replay_mismatch_total"],
+                  "replicas_fenced": 0, "rehello_same_pids": True,
+                  "streams_equal_serve": True,
+                  "k4_launches_per_child": k4_d})
+            emit({"phase": "serve_process", "drill": "e_typed_errors",
+                  "queue_full": refused, "burst": PROC_BURST,
+                  "accepted_streams_equal_serve": len(handles),
+                  "stale_router_epoch": {
+                      "refused_epoch": primary.router_epoch,
+                      "replica_epoch": r2.router_epoch}})
+        finally:
+            for s in standbys:
+                s.stop()
+            for r in routers:
+                r.shutdown()
+            for f in fleets:
+                f.shutdown()
+    procs = [r.proc for f in fleets for r in f.replicas] + [
+        p for f in fleets for p in f.procs.values()]
+    require(not any(p.is_alive() for p in procs),
+            "serve_process: a child process outlived the phase")
+    down_s += _mem_back(torch, mem[0] - 1.0, "serve_process (d) down")
+    require(sorted(p.name for p in _build.BUILD_DIR.iterdir()) == libs,
+            "serve_process: a child built a kernel library")
+    emit({"phase": "serve_process", "drill_seconds": seconds,
+          "memory_back_s": down_s, "children_built_nothing": True,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_serve(torch):
     """The serve phase (graphs and the overlap driver, the defaults on
     the card) for both pools; the profile three ways; the parity and
@@ -5378,10 +5916,11 @@ def phase_serve(torch):
     speculation and SLO tiers; then with int8 weights (serve_int8w);
     then static KV-cache generation on the same model; then tiered KV
     and the KV fabric between two servers; then the fleet substrate
-    (serve_fleet) and the Router over it (serve_router).  serve_slo, serve_tiered and the fabric's handoff
-    run on the model's first SHALLOW_LAYERS layers (`_shallow`): each
-    holds itself to its own references, and the run keeps inside its
-    time budget."""
+    (serve_fleet) and the Router over it (serve_router).  serve_slo,
+    the int8 runs under pressure and the int8 pull, serve_tiered and the
+    two handoffs run on the model's first SHALLOW_LAYERS layers
+    (`_shallow`): each holds itself to its own references, and the run
+    keeps inside its time budget."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     t0 = time.perf_counter()
     model = LlamaForCausalLM(LlamaConfig.from_preset("llama3-8b"),
@@ -5421,12 +5960,13 @@ def phase_serve(torch):
               for kv in (None, "int8")}
     for kv in (None, "int8"):
         _verify_parity(torch, model, kv, limits[kv or "bfloat16"])
-    pressure, pressure_streams = phase_serve_pressure(torch, model, limits)
+    shallow = _shallow(torch, model, SHALLOW_LAYERS)
+    pressure, pressure_streams = phase_serve_pressure(torch, model, limits,
+                                                      shallow)
     prefix, prefix_streams = phase_serve_prefix(torch, model)
     spec = phase_serve_spec(torch, model, limits)
-    shallow = _shallow(torch, model, SHALLOW_LAYERS)
     slo = phase_serve_slo(torch, shallow, limits)
-    int8w = phase_serve_int8w(torch, model, limits, streams[None],
+    int8w = phase_serve_int8w(torch, model, shallow, limits, streams[None],
                               profile["graphs_overlap"])
     int8w_streams = int8w.pop("streams")
     generate = phase_generate(torch, model, limits["bfloat16"])
@@ -5444,7 +5984,8 @@ def phase_serve(torch):
             "pressure": pressure, "prefix": prefix, "spec": spec,
             "slo": {"bfloat16": slo}, "int8w": int8w,
             "generate": generate, "tiered": tiered, "fabric": fabric,
-            "fleet": fleet, "router": router}
+            "fleet": fleet, "router": router, "streams": streams[None],
+            "tokens_per_s": reports[None]["tokens_per_s"]}
 
 
 def _debug_model():
@@ -7244,6 +7785,10 @@ def main() -> int:
     train_kernels = phase_train_kernels(torch)
     q1 = phase_q1_kernels(torch)
     serve_launches = phase_serve(torch)
+    # the parent's llama3-8b is freed: the children hold their own
+    serve_launches["process"] = phase_serve_process(
+        torch, serve_launches.pop("streams"),
+        serve_launches.pop("tokens_per_s"))
     debug = _debug_model()
     tokens, parity_launches = phase_parity(torch, debug)
     phase_generate_debug(torch, debug, tokens)
@@ -7353,6 +7898,9 @@ def main() -> int:
                         f"{e['name']}: no launch in serve_int8w")
             if pool == "bfloat16":      # the pressure and spec runs' pool
                 e["launches_serve_int8w_pressure"] = int8w["pressure"]
+                e["launches_path_serve_int8w_pressure"] = (
+                    f"serve_int8w's pressure runs, first {SHALLOW_LAYERS} "
+                    f"layers, each from 0")
                 e["launches_serve_int8w_spec"] = int8w["spec"]["k4"]
         elif e["name"] in moe_generate:
             e["launches_generate"] = moe_generate[e["name"]]
@@ -7368,8 +7916,11 @@ def main() -> int:
                     serve_launches["pressure"].items() if p == pool}
         if pressure:
             e["launches_serve_pressure"] = pressure
+            depth = (f", first {SHALLOW_LAYERS} layers" if pool == "int8"
+                     else "")
             e["launches_path_serve_pressure"] = (
-                f"serve_pressure llama3-8b, {pool} pool: each run from 0 "
+                f"serve_pressure llama3-8b{depth}, {pool} pool: each run "
+                f"from 0 "
                 f"(full provisioning, then {pressure_blocks()} blocks)")
         if pool in serve_launches["spec"]:
             e["launches_serve_spec"] = serve_launches["spec"][pool]
@@ -7381,10 +7932,11 @@ def main() -> int:
                     f"{e['name']}: no launch in serve_spec")
         if pool in serve_launches["slo"]:
             e["launches_serve_slo"] = serve_launches["slo"][pool]
+            model_name = ("debug-4l" if pool == "float32" else
+                          f"llama3-8b, first {SHALLOW_LAYERS} layers")
             e["launches_path_serve_slo"] = (
-                f"serve_slo {'debug-4l' if pool == 'float32' else 'llama3-8b'}"
-                f", {pool} pool: each run from 0, layers x (decode + "
-                f"verify replays)")
+                f"serve_slo {model_name}, {pool} pool: each run from 0, "
+                f"layers x (decode + verify replays)")
             require(all(n > 0 for n in e["launches_serve_slo"].values()),
                     f"{e['name']}: no launch in a serve_slo run")
         if pool == "bfloat16":
@@ -7403,7 +7955,9 @@ def main() -> int:
             e["launches_path_serve_fabric"] = (
                 f"serve_fabric llama3-8b, {pool} pool, two servers on one "
                 f"card: each move from 0, layers x the replays of both "
-                f"servers while it ran (pull: the puller's only)")
+                f"servers while it ran (pull: the puller's only; the "
+                f"int8 pull and the handoffs: the first {SHALLOW_LAYERS} "
+                f"layers)")
             require(all(n > 0 for n in fabric.values()),
                     f"{e['name']}: no launch in a serve_fabric move")
         if pool == "bfloat16":
@@ -7419,13 +7973,22 @@ def main() -> int:
                 "serve_router llama3-8b, bf16 pool, replicas of one "
                 "LocalFleet store behind the Router on one card: each "
                 "drill from 0, layers x the replays of its replicas "
-                "(g: the first 16 layers)")
+                f"(g: the first {SHALLOW_LAYERS} layers)")
             require(all(n > 0 for n in serve_launches["router"].values()),
                     f"{e['name']}: no launch in a serve_router drill")
+            e["launches_serve_process"] = serve_launches["process"]
+            e["launches_path_serve_process"] = (
+                "serve_process llama3-8b, bf16 pool, replica processes on "
+                "one card: each drill, layers x the decode steps its "
+                "children report in their metrics series (a: both "
+                "children, c: the respawned one, d: both HA children)")
+            require(all(n > 0 for n in serve_launches["process"].values()),
+                    f"{e['name']}: no launch in a serve_process child")
         if tiered:
             e["launches_serve_tiered"] = tiered
             e["launches_path_serve_tiered"] = (
-                f"serve_tiered llama3-8b, {pool} pool: each run from 0 "
+                f"serve_tiered llama3-8b, first {SHALLOW_LAYERS} layers, "
+                f"{pool} pool: each run from 0 "
                 f"(full provisioning; {tiered_blocks()[1]} blocks tiered, "
                 f"extension rows read in place; one sequence in "
                 f"{TIERED_SOLO_BLOCKS} blocks, without and with "

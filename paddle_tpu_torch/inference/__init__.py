@@ -8,8 +8,11 @@ speculative-decoding knobs), the SLO tiers (`SLOTier`, `SLOTargets`,
 (`LocalFleet`, `Replica`, `ReplicaLease`), its front door (`Router`,
 `RouterRequest`, `RoutingJournal`, `PrefixShadow`, `AutoscalePolicy`;
 `PoisonedRequest` and `StaleRouterEpoch`, raised for the router's
-poison conviction and leadership epochs) and the radix prefix cache
-(`RadixPrefixCache`), under the JAX package's public names."""
+poison conviction and leadership epochs), the replica processes
+(`ProcessFleet`, `ProcessReplica`, `RespawnCircuitOpen`), the
+hot-standby control plane (`HARouter`, `StandbyRouter`, `FleetClient`,
+`JournalTailer`) and the radix prefix cache (`RadixPrefixCache`), under
+the JAX package's public names."""
 
 from ..observability.slo import SLOTargets, SLOTier, goodput
 from .engine import (DeadlineExceeded, EngineUnhealthy, LLMEngine,
@@ -21,8 +24,10 @@ from .kv_pager import BlocksExhausted, KVPager
 from .ngram_draft import SpecConfig
 from .overload import OverloadConfig, OverloadController
 from .prefix_cache import RadixPrefixCache
+from .process_fleet import ProcessFleet, ProcessReplica, RespawnCircuitOpen
 from .router import (AutoscalePolicy, PrefixShadow, Router, RouterRequest,
                      RoutingJournal)
+from .router_ha import FleetClient, HARouter, JournalTailer, StandbyRouter
 from .serving import LLMServer
 
 __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
@@ -33,4 +38,6 @@ __all__ = ["LLMEngine", "LLMServer", "Request", "DeadlineExceeded",
            "FabricError", "SessionTicket", "LocalFleet", "Replica",
            "ReplicaLease", "RadixPrefixCache", "Router", "RouterRequest",
            "RoutingJournal", "PrefixShadow", "AutoscalePolicy",
-           "PoisonedRequest", "StaleRouterEpoch"]
+           "PoisonedRequest", "StaleRouterEpoch", "ProcessFleet",
+           "ProcessReplica", "RespawnCircuitOpen", "HARouter",
+           "StandbyRouter", "FleetClient", "JournalTailer"]

@@ -1985,10 +1985,11 @@ class Router:
     def _ingest_series(self, name, st):
         """Fold one replica's shipped time-series tails into the fleet
         aggregator.  Prefers payloads the replica already PUSHED over
-        the ctl socket (a process replica's `pop_series`, ROADMAP item 6b);
+        the ctl socket (`process_fleet.ProcessReplica.pop_series`);
         replicas without a push channel (the in-process `Replica` of a
-        `LocalFleet`) are PULLED via `metrics_series()`.  Any failure here costs freshness only —
-        the aggregator's staleness clock does the rest."""
+        `LocalFleet`) are PULLED via `metrics_series()`.  Any failure
+        here costs freshness only — the aggregator's staleness clock
+        does the rest."""
         rep = st.replica
         try:
             pop = getattr(rep, "pop_series", None)

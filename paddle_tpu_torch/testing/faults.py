@@ -87,6 +87,14 @@ Sites wired in the port:
   handoff.adopt    LLMServer.adopt of a staged handoff ticket: raises
                    to the caller, who replays the prompt (ctx: sid,
                    name)
+  router.crash     HARouter's HA loop, every `crash_poll_s`; a raise
+                   is the primary's SIGKILL-equivalent (`HARouter.crash`:
+                   the leader lease is left to expire) (ctx: job, epoch)
+  journal.tail     JournalTailer, before applying each stream frame; a
+                   raise drops the connection and the reconnect resyncs
+                   the shadow from a fresh snapshot (ctx: job, kind)
+  metrics.ship     a ProcessFleet child's series pusher, before each
+                   push; a raise drops that push only (ctx: name)
   store.rpc        TCPStore client, before each RPC attempt; a
                    ConnectionError (`InjectedConnectionError`) is a
                    dropped socket the client reconnects and retries

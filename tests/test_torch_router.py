@@ -27,9 +27,6 @@ ROOT = Path(__file__).resolve().parents[1]
 # JAX `inference` names the port does not export yet, by the ROADMAP
 # item that ports them
 MISSING = {
-    "ProcessFleet": "6b", "ProcessReplica": "6b",
-    "RespawnCircuitOpen": "6b", "HARouter": "6b", "StandbyRouter": "6b",
-    "FleetClient": "6b", "JournalTailer": "6b",
     "Config": "7", "create_predictor": "7", "Predictor": "7",
     "PrecisionType": "7",
 }
@@ -73,7 +70,7 @@ def test_missing_exports_name_their_roadmap_item():
     for name, item in MISSING.items():
         assert not hasattr(TI, name), name
         assert name in roadmap, name
-    assert set(MISSING.values()) == {"6b", "7"}
+    assert set(MISSING.values()) == {"7"}
 
 
 # -- fair queue ----------------------------------------------------------------
