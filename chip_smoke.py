@@ -98,12 +98,13 @@ the result line:
               logits against the eager step's and each width's
               (serve_graphs: bitwise, or within the stated bound with
               the reason printed);
-              serve_pressure: 16 requests (the mix twice) x 256 new
-              tokens fully provisioned, then through 158 KV blocks (half
-              the peak demand, `bench.py`'s overload rung) under the
-              preempt policies "swap", "recompute" and "auto", and with
-              the int8 pool fully provisioned and under "swap" (on the
-              first 8 layers, `_shallow`): every request done, >= 3
+              serve_pressure (on the first 8 layers, `_shallow`): 16
+              requests (the mix twice) x 256 new tokens fully
+              provisioned, then through 158 KV blocks (half the peak
+              demand, `bench.py`'s overload rung) under the preempt
+              policies "swap", "recompute" and "auto", and with the int8
+              pool fully provisioned and under "swap": every request
+              done, >= 3
               preemptions each resumed, the pager consistent and empty;
               swap streams equal the full run's and one parked slot's
               blocks (every layer, K and V, int8 scales) come back
@@ -167,10 +168,11 @@ the result line:
               (graphs + overlap: device ms a step split into Q1 /
               cuBLAS GEMMs / K4 / other, idle
               share, tokens/s, ITL, TTFT, peak memory) beside the
-              bf16-weight row of this run; serve_pressure at 158 blocks
-              under "swap" on the first 8 layers (streams equal full
-              provisioning, a park's blocks bitwise); serve_spec (k 7, verify width 8) against
-              speculation off through per-step logits;
+              bf16-weight row of this run; on the first 8 layers,
+              serve_pressure at 158 blocks under "swap" (streams equal
+              full provisioning, a park's blocks bitwise) and serve_spec
+              (k 7, verify width 8) against speculation off through
+              per-step logits;
               generate: `LlamaForCausalLM.generate` (the static KV
               cache) on the same llama3-8b, 4 prompts x 128 tokens x 32
               new, greedy: tokens/s, ms a step, peak memory, bitwise
@@ -204,15 +206,17 @@ the result line:
               16 requests on A, then on B (an empty trie) with a hint
               naming A: 24 blocks pulled, B's streams equal A's and
               serve_prefix's, bf16 and int8 pools (int8 on the first 8
-              layers, B equal to A); (b) serve_pressure's
-              traffic on A (158 blocks, swap), a parked session taken
+              layers, B equal to A); (b) on serve_pressure's 8 layers,
+              its traffic on A (158 blocks, swap), a parked session taken
               live by B: its stream and A's others equal full
-              provisioning's; (c) the same traffic with a 24-block host
-              tier and a temporary disk root: parks spilled to disk
+              provisioning's; (c) on those 8 layers, the same traffic
+              with a 24-block host tier and a temporary disk root: parks
+              spilled to disk
               ("disk" mode), one adopted by B from the root exactly once
               (the source's resume sees the claim), streams equal full
-              provisioning's, then a disk-warm prefix served by a fresh
-              engine; (d) on the first 8 layers, the serve mix
+              provisioning's, then (all 32 layers) a disk-warm prefix
+              served by a fresh engine; (d) on the first 8 layers, the
+              serve mix
               prefilled on P (pool_role "prefill") and handed off chunk
               by chunk to D ("decode"):
               adopted streams equal D's colocated ones, two or more
@@ -236,7 +240,8 @@ the result line:
               the mix is in flight, down for a ttl + 0.5 s, restarted:
               every key recovered from the WAL, both leases graced by
               the outage, no replica fenced, the streams equal (a)'s;
-              (d) serve_slo's pressure traffic over both replicas under
+              (d) serve_slo's pressure prompts (16, half its 256 new
+              tokens each) over both replicas under
               SLO targets every request misses: both replicas'
               metrics_series() pulled into one FleetMetricsAggregator
               every 0.25 s, a BurnRateRule (1 s / 3 s windows) fires and
@@ -413,6 +418,45 @@ the result line:
               qwen2-moe-tiny (dropless, 4 / 2 heads: head_dim 16) in fp32,
               kernels against plain versions on the card: loss, every
               gradient, and the parameters after two TrainSteps;
+ 11b. ernie_kernels
+              K1 and K2 with an additive bias and Philox dropout (the fma
+              kernels built with them; `ops/flash_attention.py`'s
+              docstring has the keep-bit layout) against their plain
+              versions given the same (seed, offset): the ernie-3.0-base
+              attention (B 16, S 128, 12 heads of 64, no causal mask)
+              with a (16, 1, 1, 128) -1e9 padding bias (a quarter of the
+              keys padded on average) and p 0.1 in fp32 and bf16, a
+              causal case with a bool (1, 1, 300, 300) mask, a GQA
+              case (12 / 4 heads) and whole sequences padded with
+              finfo.min and -1e9 (uniform rows), per row within
+              FLASH_TOL, K2 reading lse's low part as flash_mha hands it
+              on; every kernel twice on the same inputs, bitwise; the
+              keep share within 0.9 +- 5 sigma; then timed in turns at
+              the fp32 ERNIE shape beside their bounds (fp32 CUDA-core
+              peak) and scaled_dot_product_attention with the same float
+              mask and dropout_p 0.1 (a yardstick the port never calls;
+              all by CUDA-graph replay, its backward as forward +
+              backward less forward);
+ 11c. ernie_train
+              `bench.py:310 bench_ernie`'s step at full width and depth:
+              ErnieForSequenceClassification(num_classes=2) at
+              ernie-3.0-base (12 layers, hidden 768, vocab 40000) in fp32,
+              random weights from a seed, AdamW lr 2e-5 on the
+              cross-entropy of 16 x 128 ids (`bench.py:326-329`'s
+              RandomState(0)) with a padding attention_mask and dropout
+              0.1: 8 steps bracketed by StepTelemetry ("data",
+              "train_step"), finite falling loss, exactly 12 K1, 12 dQ,
+              12 dK/dV and 1 U2 launches a step (no U1: bench_ernie has
+              no clip or loss scale); step ms (median of steps 2-8),
+              ernie_finetune_examples_per_sec, peak memory, the
+              telemetry snapshot, one profiled step; one forward and
+              backward with every K1 / K2 call held to its plain
+              version; an eval forward (dropout off) against the plain
+              attention on the card;
+ 11d. ernie_parity
+              ERNIE `tiny` (head_dim 16) at dropout 0 on the card
+              against the same weights on the CPU: logits with a
+              padding mask, then the parameters after one TrainStep;
  12. generate (MoE)
               the MoE Llama at moe_train's widths and depth generating
               through the naive full-forward loop (2 prompts x 64 tokens
@@ -420,7 +464,9 @@ the result line:
               the stream the same on a second run.
 
 Then one line {"kernels": [...]} (every ported kernel with its launches
-on the paths above, error, tolerance and times), the card's name and
+on the paths above, error, tolerance and times; K1 / K2's bias + dropout
+route as entries of their own, with their launches on ernie_train), the
+"done" line with each phase's host seconds, the card's name and
 power limit as nvidia-smi gives them, and last the result line
 {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
 directory without the rest of the repository, it exits non-zero and
@@ -440,6 +486,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+_T0 = time.perf_counter()
 KERNEL_SHAPE = dict(B=8, nh=32, n_kv=8, hd=128, bt=16, bmax=128)
 # ragged depths: first row, both sides of a block edge, mid-block, a
 # 1024-row edge, and one slot at the table's last row
@@ -491,7 +538,8 @@ HEALTHZ_KEYS = (
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, stamped with the run's host seconds so far."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def require(cond, msg):
@@ -1648,34 +1696,32 @@ def _flips(torch, model, kv_dtype, policy, prompts, ref, got, parked,
     return out
 
 
-def phase_serve_pressure(torch, model, limits, shallow):
+def phase_serve_pressure(torch, shallow, limits):
     """The pressure traffic (16 requests, SERVE_LENGTHS twice, 256 new
-    tokens each) fully provisioned and at `pressure_blocks()` (2x
-    oversubscribed) under "swap", "recompute" and "auto"; with the int8
-    pool fully provisioned and under "swap", on `shallow` (the model's
-    first layers: the int8 runs hold themselves to their own full run).
-    Swap streams equal the full run's token for token and one parked
-    slot's blocks return bitwise; recompute streams equal them, or stay
-    within the serve_parity logits bound up to each flip (`limits` by
-    pool).  Returns the K4 launches of each run and the
-    full-provisioning streams by pool."""
-    import numpy as np
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, model.config.vocab_size, L)
-               for L in PRESSURE_LENGTHS]
+    tokens each) on `shallow` (the model's first SHALLOW_LAYERS layers:
+    each pool holds itself to its own full run, and the run keeps inside
+    its time budget), bf16 pool fully provisioned and at
+    `pressure_blocks()` (2x oversubscribed) under "swap", "recompute"
+    and "auto"; the int8 pool fully provisioned and under "swap".  Swap
+    streams equal the full run's token for token and one parked slot's
+    blocks return bitwise; recompute streams equal them, or stay within
+    the serve_parity logits bound up to each flip (`limits` by pool).
+    Returns the K4 launches of each run and the full-provisioning
+    streams by pool."""
+    prompts = _pressure_prompts(shallow)
     launches, full_streams = {}, {}
-    for m, kv, policies in ((model, None, ("swap", "recompute", "auto")),
-                            (shallow, "int8", ("swap",))):
+    layers = shallow.config.num_hidden_layers
+    for kv, policies in ((None, ("swap", "recompute", "auto")),
+                         ("int8", ("swap",))):
         pool = kv or "bfloat16"
-        full, ref, _ = _pressure_run(torch, m, kv, None, prompts)
+        full, ref, _ = _pressure_run(torch, shallow, kv, None, prompts)
         full_streams[pool] = ref
-        layers = m.config.num_hidden_layers
         emit({"phase": "serve_pressure", "model": "llama3-8b",
               "layers": layers, **full})
         launches[pool, "full"] = full["k4_launches"]
         for policy in policies:
             roundtrip = {} if policy == "swap" else None
-            report, got, _ = _pressure_run(torch, m, kv, policy,
+            report, got, _ = _pressure_run(torch, shallow, kv, policy,
                                            prompts, roundtrip)
             launches[pool, policy] = report["k4_launches"]
             if policy == "swap":
@@ -1687,8 +1733,8 @@ def phase_serve_pressure(torch, model, limits, shallow):
                 check = {"streams_equal_full": True,
                          "park_roundtrip_bitwise_blocks": roundtrip["n"]}
             else:
-                check = _flips(torch, m, kv, policy, prompts, ref, got,
-                               report["parked_requests"], limits[pool])
+                check = _flips(torch, shallow, kv, policy, prompts, ref,
+                               got, report["parked_requests"], limits[pool])
             emit({"phase": "serve_pressure", "model": "llama3-8b",
                   "layers": layers, **report, **check})
     return launches, full_streams
@@ -3123,9 +3169,9 @@ def phase_serve_int8w(torch, model, shallow, limits, bf16_streams,
     gather path with Q1's plain version (`_int8w_parity_run`); the
     profile row (graphs + overlap, bf16 pool) beside the bf16-weight
     row `bf16_row` of this run; one serve_pressure run at
-    `pressure_blocks()` under "swap" against full provisioning, on
-    `shallow` (its own reference); one serve_spec run (k 7: verify width 8) against speculation off, both
-    through per-step logits.  Returns the K4 and Q1 launches by run, and
+    `pressure_blocks()` under "swap" against full provisioning, and one
+    serve_spec run (k 7: verify width 8) against speculation off through
+    per-step logits, both on `shallow` (each its own reference).  Returns the K4 and Q1 launches by run, and
     the bf16 pool's serve-mix streams ("streams")."""
     import numpy as np
     from paddle_tpu_torch.inference import SpecConfig
@@ -3176,18 +3222,19 @@ def phase_serve_int8w(torch, model, shallow, limits, bf16_streams,
     launches["pressure"] = {"full": full["k4_launches"],
                             "swap": swap["k4_launches"]}
 
-    sp_prompts = _spec_prompts(torch, model)[0]
+    sp_prompts = _spec_prompts(torch, shallow)[0]
     every = {i: SPEC_NEW - 1 for i in range(SPEC_N)}
-    _, off, want = _spec_run(torch, model, None, sp_prompts, rows_of=every,
-                             warm=False, weight_dtype="int8")
-    on, got, have = _spec_run(torch, model, SpecConfig(k=SPEC_K),
+    _, off, want = _spec_run(torch, shallow, None, sp_prompts,
+                             rows_of=every, warm=False, weight_dtype="int8")
+    on, got, have = _spec_run(torch, shallow, SpecConfig(k=SPEC_K),
                               sp_prompts, rows_of=every, warm=False,
                               weight_dtype="int8")
     require(on["spec_verify_steps"] > 0 and SPEC_W in on["verify_widths"],
             "serve_int8w spec: no verify step of width 8 ran")
-    check = _spec_flips(torch, model, sp_prompts, off, got,
+    check = _spec_flips(torch, shallow, sp_prompts, off, got,
                         limits["bfloat16"], rows=(want, have))
-    emit({"phase": "serve_int8w", "run": "serve_spec", **on, **check,
+    emit({"phase": "serve_int8w", "run": "serve_spec",
+          "layers": shallow.config.num_hidden_layers, **on, **check,
           "note": "one pass with logits recorded (no warm-up): times "
                   "include the recording"})
     launches["spec"] = {"k4": on["k4_launches"], "q1": on["q1_launches"]}
@@ -3961,7 +4008,8 @@ def _pressure_prompts(model):
 
 
 def _fabric_migrate(torch, model, ref):
-    """(b) serve_pressure's traffic (bf16, 158 blocks, swap) on A with a
+    """(b) serve_pressure's traffic (bf16, 158 blocks, swap, on
+    serve_pressure's `shallow` model) on A with a
     session id a request; once sessions park, A's parks freeze and B
     (full provisioning) takes one over the socket and continues it; B's
     stream of it equals serve_pressure's full-provisioning stream, as do
@@ -4045,8 +4093,9 @@ def _fabric_migrate(torch, model, ref):
         _drop_servers(torch, a, b)
 
 
-def _fabric_disk(torch, model, ref, prefix_streams, root):
-    """(c) the pressure traffic on A with a disk tier under `root` and a
+def _fabric_disk(torch, model, prefix_model, ref, prefix_streams, root):
+    """(c) the pressure traffic on A (`model`: serve_pressure's
+    `shallow` model) with a disk tier under `root` and a
     host tier of FABRIC_HOST_BLOCKS rows: the parks it cannot hold take
     the "disk" mode (their blocks in a ticket on disk, resumed from
     it); streams equal full provisioning; blocks and bytes spilled, no
@@ -4056,7 +4105,8 @@ def _fabric_disk(torch, model, ref, prefix_streams, root):
     resume then sees the claim (the request ends `migrated`).  Then a
     prefix engine writes serve_prefix's request 0 through to the disk
     tier and a fresh engine over the root serves it warm (24 blocks from
-    disk) with the same stream.  K4 = 32 x every replay."""
+    disk) with the same stream (both on `prefix_model`, serve_prefix's
+    llama3-8b).  K4 = layers x every replay."""
     from paddle_tpu_torch.ops import paged_attention as PA
     prompts = _pressure_prompts(model)
     name = "serve_fabric disk (bfloat16)"
@@ -4140,6 +4190,7 @@ def _fabric_disk(torch, model, ref, prefix_streams, root):
         _drop_servers(torch, a, b)
     # the prefix half: write through, then a fresh engine reads it warm
     import numpy as np
+    model = prefix_model
     rng = np.random.default_rng(4)
     vocab = model.config.vocab_size
     prompt = np.concatenate([rng.integers(0, vocab, PREFIX_SYSTEM),
@@ -4308,9 +4359,10 @@ def phase_serve_fabric(torch, model, prefix_streams, pressure_streams,
     """The KV fabric between two servers on one card (llama3-8b, bf16,
     the serve shape): (a) a prefix pull, bf16 and int8 pools (int8 on
     `shallow`, against its own recompute); (b) a live session
-    migration; (c) disk parks, a disk adoption claimed once, a disk-warm
-    prefix after a restart, all on all 32 layers (their references are
-    the earlier phases' streams); (d) the chunk-streamed prefill ->
+    migration and (c) disk parks and a disk adoption claimed once, on
+    `shallow` (their reference is serve_pressure's streams, at that
+    depth), then a disk-warm prefix after a restart on all 32 layers
+    (against serve_prefix's stream); (d) the chunk-streamed prefill ->
     decode handoff, bf16 and int8 pools, on `shallow` (its own
     colocated reference).  Every move must have moved blocks (a
     silent fallback to recompute fails the phase).  Returns K4's
@@ -4323,10 +4375,11 @@ def phase_serve_fabric(torch, model, prefix_streams, pressure_streams,
             torch, model if kv is None else shallow, kv,
             prefix_streams if kv is None else None)
     launches["bfloat16", "migrate"] = _fabric_migrate(
-        torch, model, pressure_streams)
+        torch, shallow, pressure_streams)
     with tempfile.TemporaryDirectory(prefix="fabric-disk-") as d:
         launches["bfloat16", "disk"] = _fabric_disk(
-            torch, model, pressure_streams, prefix_streams, Path(d))
+            torch, shallow, model, pressure_streams, prefix_streams,
+            Path(d))
     for kv in (None, "int8"):
         launches[kv or "bfloat16", "handoff"] = _fabric_handoff(
             torch, shallow, kv)
@@ -4347,6 +4400,8 @@ FLEET_RULE = dict(target=0.9, fast_window_s=1.0, slow_window_s=3.0,
                   resolve_after=2)
 FLEET_POLL_S = 0.25           # (d): the harness's ingest + evaluate cadence
 FLEET_ALERT_WAIT_S = 180.0    # (d): the traffic, the fire and the resolve
+FLEET_ALERT_NEW = PRESSURE_NEW // 2   # (d): tokens a request (half of
+#                                       serve_slo's, to fit the run's budget)
 # (d): |fleet_sum(token rate) - sum of the replicas' own rates| <= this x
 # the sum: fleet_sum is a mean of per-interval rates sampled on a host
 # thread, the reference each replica's tokens over the traffic's span
@@ -4470,7 +4525,7 @@ def _fleet_mix(torch, fleet, prompts, new, what, during=None):
 
 
 def _fleet_alerts(torch, fleet, prompts):
-    """(d) serve_slo's pressure traffic (16 x PRESSURE_NEW tokens) over
+    """(d) serve_slo's pressure prompts (16 x FLEET_ALERT_NEW tokens) over
     both replicas, every request missing FLEET_SLO: the harness pulls
     each replica's `metrics_series()` into one FleetMetricsAggregator
     and evaluates a BurnRateRule every FLEET_POLL_S, until the alert has
@@ -4496,7 +4551,7 @@ def _fleet_alerts(torch, fleet, prompts):
     since = _total_replays(*servers)
     before = made()
     t_sub = time.time()
-    reqs = [fleet.replicas[i % len(servers)].submit(p, PRESSURE_NEW)
+    reqs = [fleet.replicas[i % len(servers)].submit(p, FLEET_ALERT_NEW)
             for i, p in enumerate(prompts)]
     fired = resolved = t_done = span = None
     early = 0                   # resolutions while the traffic still ran
@@ -4527,7 +4582,7 @@ def _fleet_alerts(torch, fleet, prompts):
             fleet_rate = agg.fleet_sum(key, span, now=t_done)
     for r in reqs:
         require(r.done and r.error is None
-                and len(r.tokens) == PRESSURE_NEW,
+                and len(r.tokens) == FLEET_ALERT_NEW,
                 f"{what}: request {r.rid}: {len(r.tokens)} tokens, "
                 f"{r.error!r}")
     require(fired is not None and fired.fired_t < resolved.resolved_t,
@@ -4542,7 +4597,7 @@ def _fleet_alerts(torch, fleet, prompts):
     require(missed >= len(reqs),
             f"{what}: {missed} requests missed their SLO of {len(reqs)}")
     return {"drill": "d_series_alerts", "requests": len(reqs),
-            "new_tokens": PRESSURE_NEW, "slo_targets": FLEET_SLO,
+            "new_tokens": FLEET_ALERT_NEW, "slo_targets": FLEET_SLO,
             "rule": FLEET_RULE, "poll_s": FLEET_POLL_S,
             "series_interval_s": FLEET_SERIES_S,
             "fired_s_after_submit": fired.fired_t - t_sub,
@@ -6228,8 +6283,9 @@ def phase_serve(torch):
     then static KV-cache generation on the same model; then tiered KV
     and the KV fabric between two servers; then the fleet substrate
     (serve_fleet) and the Router over it (serve_router).  serve_slo,
-    the int8 runs under pressure and the int8 pull, serve_tiered and the
-    two handoffs run on the model's first SHALLOW_LAYERS layers
+    serve_pressure, the int8 pull, the fabric's migration and disk
+    parks, serve_tiered and the two handoffs run on the model's first
+    SHALLOW_LAYERS layers
     (`_shallow`): each holds itself to its own references, and the run
     keeps inside its time budget."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -6252,7 +6308,8 @@ def phase_serve(torch):
           same / (len(SERVE_LENGTHS) * SERVE_NEW)})
     rows, profile = {}, {}
     for mode in ("eager", "graphs", "graphs_overlap"):
-        profile[mode], rows[mode] = phase_profile(torch, model, mode)
+        profile[mode], rows[mode] = _timed(phase_profile, torch, model,
+                                           mode)
     _, sync_int8, _ = _serve_once(torch, model, "int8", "graphs")
     _, bucketed, _ = _serve_once(torch, model, None, decode_buckets=True)
     emit({"phase": "serve_graphs", "streams": {
@@ -6267,28 +6324,27 @@ def phase_serve(torch):
             "overlap on and off (int8 pool) give different streams")
     require(bucketed == streams[None],
             "decode_buckets streams differ from the full width's")
-    limits = {kv or "bfloat16": phase_serve_parity(torch, model, kv)
+    limits = {kv or "bfloat16": _timed(phase_serve_parity, torch, model, kv)
               for kv in (None, "int8")}
     for kv in (None, "int8"):
-        _verify_parity(torch, model, kv, limits[kv or "bfloat16"])
+        _timed(_verify_parity, torch, model, kv, limits[kv or "bfloat16"])
     shallow = _shallow(torch, model, SHALLOW_LAYERS)
-    pressure, pressure_streams = phase_serve_pressure(torch, model, limits,
-                                                      shallow)
-    prefix, prefix_streams = phase_serve_prefix(torch, model)
-    spec = phase_serve_spec(torch, model, limits)
-    slo = phase_serve_slo(torch, shallow, limits)
-    int8w = phase_serve_int8w(torch, model, shallow, limits, streams[None],
-                              profile["graphs_overlap"])
+    pressure, pressure_streams = _timed(phase_serve_pressure, torch,
+                                        shallow, limits)
+    prefix, prefix_streams = _timed(phase_serve_prefix, torch, model)
+    spec = _timed(phase_serve_spec, torch, model, limits)
+    slo = _timed(phase_serve_slo, torch, shallow, limits)
+    int8w = _timed(phase_serve_int8w, torch, model, shallow, limits,
+                   streams[None], profile["graphs_overlap"])
     int8w_streams = int8w.pop("streams")
-    generate = phase_generate(torch, model, limits["bfloat16"])
-    tiered = phase_serve_tiered(torch, shallow)
-    fabric = phase_serve_fabric(torch, model, prefix_streams,
-                                pressure_streams["bfloat16"], shallow)
-    fleet, fleet_a = phase_serve_fleet(torch, model, streams[None],
-                                       reports[None]["tokens_per_s"],
-                                       int8w_streams)
-    router = phase_serve_router(torch, model, shallow, streams[None],
-                                prefix_streams, fleet_a)
+    generate = _timed(phase_generate, torch, model, limits["bfloat16"])
+    tiered = _timed(phase_serve_tiered, torch, shallow)
+    fabric = _timed(phase_serve_fabric, torch, model, prefix_streams,
+                    pressure_streams["bfloat16"], shallow)
+    fleet, fleet_a = _timed(phase_serve_fleet, torch, model, streams[None],
+                            reports[None]["tokens_per_s"], int8w_streams)
+    router = _timed(phase_serve_router, torch, model, shallow, streams[None],
+                    prefix_streams, fleet_a)
     del model, shallow
     torch.cuda.empty_cache()
     return {"bfloat16": launches[None], "int8": launches["int8"],
@@ -6477,20 +6533,35 @@ def _lse_share(lse, plse):
         .max().item()
 
 
-def _flash_compare(torch, q, k, v, do, causal=True, variant=None):
+def _lse_lo_args(torch, q, extra):
+    """{"lse_lo": an empty (B, H, Sq) fp32 tensor} for a call with a bias
+    or dropout (the buffer flash_mha gives K1 and K2 there), else {}."""
+    if not extra:
+        return {}
+    B, Sq, H, _ = q.shape
+    return {"lse_lo": torch.empty(B, H, Sq, dtype=torch.float32,
+                                  device=q.device)}
+
+
+def _flash_compare(torch, q, k, v, do, causal=True, variant=None, **extra):
     """K1 and K2 (the given variant, else the one the wrapper picks)
     against their plain versions on the same inputs (K2 on the plain O
-    and lse).  Returns {output: (max abs err, worst share of its
-    limit)}."""
+    and lse), with the `bias=` / `dropout=` given (the plain versions
+    draw the same keep mask from the same (seed, offset); K2 then also
+    reads the plain lse's low part, as flash_mha hands it on).  Returns
+    {output: (max abs err, worst share of its limit)}."""
     from paddle_tpu_torch.ops import flash_attention as FA
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
-    o, lse = FA.flash_fwd(q, k, v, causal, variant=variant)
-    po, plse = FA.flash_fwd_plain(q, k, v, causal)
-    grads = (FA.flash_bwd_dq(q, k, v, po, plse, do, causal, variant=variant),
+    lo = _lse_lo_args(torch, q, extra)
+    plo = _lse_lo_args(torch, q, extra)
+    o, lse = FA.flash_fwd(q, k, v, causal, variant=variant, **extra, **lo)
+    po, plse = FA.flash_fwd_plain(q, k, v, causal, **extra, **plo)
+    grads = (FA.flash_bwd_dq(q, k, v, po, plse, do, causal, variant=variant,
+                             **extra, **plo),
              *FA.flash_bwd_dkv(q, k, v, po, plse, do, causal,
-                               variant=variant))
+                               variant=variant, **extra, **plo))
     torch.cuda.synchronize()
-    plain = FA.flash_bwd_plain(q, k, v, po, plse, do, causal)
+    plain = FA.flash_bwd_plain(q, k, v, po, plse, do, causal, **extra, **plo)
     o_s, po_s = _seen(o, po, lambda x: x.isnan())
     lse_s, plse_s = _seen(lse, plse, lambda x: x.isinf())
     out = {"o": ((o_s - po_s).abs().max().item(),
@@ -6799,9 +6870,9 @@ def _train_ids(torch, cfg, B, S, seed):
     return torch.from_numpy(ids).to("cuda")
 
 
-def _train_profile(torch, step, ids, step_ms):
-    """Device time of one training step by kernel family, from
-    torch.profiler."""
+def _train_profile(torch, step, batch, step_ms):
+    """Device time of one training step (`step(*batch)`) by kernel
+    family, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile, record_function
     update = step.optimizer.functional_update
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -6819,7 +6890,7 @@ def _train_profile(torch, step, ids, step_ms):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(ids)
+            step(*batch)
             torch.cuda.synchronize()
             prof_ms = 1e3 * (time.perf_counter() - t0)
     finally:
@@ -6862,25 +6933,30 @@ def _train_profile(torch, step, ids, step_ms):
 @contextlib.contextmanager
 def _checked_flash():
     """Every flash_fwd / flash_bwd call inside the block also runs the
-    plain version on the same inputs; yields the worst per-row share of
-    the limit (K1: O and lse; K2: dQ, dK, dV) and the calls."""
+    plain version on the same inputs (the same bias and dropout (p,
+    seed, offset) where the call has them); yields the worst per-row
+    share of the limit (K1: O and lse; K2: dQ, dK, dV) and the calls."""
     from paddle_tpu_torch.ops import flash_attention as FA
     worst = {"calls_fwd": 0, "calls_bwd": 0, "o": 0.0, "lse": 0.0,
              "dq": 0.0, "dk": 0.0, "dv": 0.0}
     fwd, bwd = FA.flash_fwd, FA.flash_bwd
 
-    def fwd_checked(q, k, v, causal=True, scale=None):
-        o, lse = fwd(q, k, v, causal, scale)
-        po, plse = FA.flash_fwd_plain(q, k, v, causal, scale)
+    def fwd_checked(q, k, v, causal=True, scale=None, **extra):
+        o, lse = fwd(q, k, v, causal, scale, **extra)
+        plain_extra = dict(extra)
+        if extra.get("lse_lo") is not None:   # the kernel's, for K2
+            plain_extra["lse_lo"] = extra["lse_lo"].clone()
+        po, plse = FA.flash_fwd_plain(q, k, v, causal, scale, **plain_extra)
         tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
         worst["o"] = max(worst["o"], _per_row_share(o, po, tol))
         worst["lse"] = max(worst["lse"], _lse_share(lse, plse))
         worst["calls_fwd"] += 1
         return o, lse
 
-    def bwd_checked(q, k, v, o, lse, do, causal=True, scale=None):
-        got = bwd(q, k, v, o, lse, do, causal, scale)
-        plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    def bwd_checked(q, k, v, o, lse, do, causal=True, scale=None, **extra):
+        got = bwd(q, k, v, o, lse, do, causal, scale, **extra)
+        plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                   **extra)
         tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
         for n, g, p in zip(("dq", "dk", "dv"), got, plain):
             worst[n] = max(worst[n], _per_row_share(g, p, tol))
@@ -6979,7 +7055,7 @@ def phase_train(torch):
               "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
               "peak_mem_gib": peak_gib, "launches": launches,
               "clocks_during_steps": clocks}
-    report.update(_train_profile(torch, step, ids, step_ms))
+    report.update(_train_profile(torch, step, (ids,), step_ms))
     emit(report)
 
     # recompute: the first step again from the initial state, without
@@ -7924,7 +8000,7 @@ def phase_moe_train(torch):
               "step_ms_each": [1e3 * s for s in secs], "step_ms": step_ms,
               "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gib": peak_gib,
               "launches": launches, "clocks_during_steps": clocks}
-    report.update(_train_profile(torch, step, ids, step_ms))
+    report.update(_train_profile(torch, step, (ids,), step_ms))
     emit(report)
 
     # recompute "full": the loss and every gradient of the current
@@ -8073,6 +8149,449 @@ def phase_moe_parity(torch):
     require(p_err <= p_limit, f"qwen2-moe-tiny params after 2 steps: {p_err}")
 
 
+# --------------------------------------------------------------------------
+# ERNIE-3.0-base fine-tuning (bench.py:310 bench_ernie): K1 / K2 with an
+# additive bias and Philox dropout
+# --------------------------------------------------------------------------
+
+ERNIE_B, ERNIE_S = 16, 128        # bench_ernie's batch on the TPU
+ERNIE_STEPS = 8
+ERNIE_LR = 2e-5                   # bench_ernie's AdamW
+ERNIE_P = 0.1                     # ernie-3.0-base's hidden / attention dropout
+ERNIE_DROP = (ERNIE_P, 0x5EED00000021, 3)     # (p, seed, offset) of the checks
+ERNIE_SHAPE = dict(H=12, Hkv=12, D=64)        # ernie-3.0-base attention
+ERNIE_ROUTE = "[bias+dropout]"    # the fma kernels built with the bias and
+#                                   dropout code
+ERNIE_REPLACES = ("{line}, with the mask and dropout of "
+                  "paddle_tpu/ops/flash_attention.py:34 "
+                  "scaled_dot_product_attention_raw (the JAX package runs "
+                  "a masked or dropped-out attention in XLA: its Pallas "
+                  "gate, :67-78, refuses both)")
+ERNIE_LOGITS_TOL = 1e-5           # eval logits: x max(1, max |plain|), fp32
+ERNIE_PARITY_LR = 1e-3
+
+
+def _ernie_mask(B, S):
+    """A 1 / 0 padding mask (B, S): row b keeps its first n_b tokens, n_b
+    drawn from [S / 2, S] (a quarter of the keys padded on average)."""
+    import numpy as np
+    n = S - np.random.RandomState(1).randint(0, S // 2 + 1, B)
+    return (np.arange(S)[None, :] < n[:, None]).astype(np.int64)
+
+
+def _ernie_bias(torch, B, S):
+    """ErnieModel's additive bias of `_ernie_mask`: (1 - mask) * -1e9,
+    (B, 1, 1, S) fp32 on the card."""
+    am = torch.from_numpy(_ernie_mask(B, S)).to("cuda", torch.float32)
+    return ((1.0 - am) * -1e9).reshape(B, 1, 1, S)
+
+
+def _same_bits(torch, a, b):
+    """Bitwise equal, NaN included (rows that see no key)."""
+    iv = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(a.contiguous().view(iv),
+                            b.contiguous().view(iv)))
+
+
+def _flash_outputs(torch, FA, q, k, v, do, causal, extra):
+    """K1's (O, lse, lse_lo) and K2's dQ, dK, dV on K1's own O and
+    lse."""
+    extra = {**extra, **_lse_lo_args(torch, q, extra)}
+    o, lse = FA.flash_fwd(q, k, v, causal, **extra)
+    return (o, lse, extra["lse_lo"],
+            FA.flash_bwd_dq(q, k, v, o, lse, do, causal, **extra),
+            *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, **extra))
+
+
+def phase_ernie_kernels(torch):
+    """K1 and K2 with a bias and dropout (the fma kernels built with
+    them) against their plain versions given the same (seed, offset):
+    the ernie-3.0-base attention (B 16, S 128, 12 heads of 64, no causal
+    mask) with a (16, 1, 1, 128) padding bias and p 0.1 in fp32 and bf16,
+    a causal case with a bool (1, 1, Sq, Sk) mask and a GQA case; each
+    kernel twice on the same inputs (bitwise); the keep share; then timed
+    in turns at the fp32 ERNIE shape beside their bounds and
+    scaled_dot_product_attention with the same float mask and dropout
+    0.1 (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as FA
+    kind = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    saved = _train_counts()
+    es = ERNIE_SHAPE
+    pad = _ernie_bias(torch, ERNIE_B, ERNIE_S)
+    cases = {}
+    for dt in ("float32", "bfloat16"):
+        cases[f"{dt} ernie-3.0-base (B 16, S 128, 12 heads, D 64), "
+              f"(16, 1, 1, 128) padding bias, p 0.1"] = (
+            *_flash_inputs(torch, ERNIE_B, ERNIE_S, es["H"], es["Hkv"],
+                           es["D"], getattr(torch, dt), gen), False,
+            dict(bias=pad, dropout=ERNIE_DROP))
+    q, k, v, do = _flash_inputs(torch, 2, 300, 12, 12, 64, torch.float32,
+                                gen)
+    keep = torch.rand(1, 1, 300, 300, device="cuda", generator=gen) < 0.7
+    keep |= torch.eye(300, dtype=torch.bool, device="cuda")   # a key a row
+    cases["float32 causal (B 2, S 300, 12 heads, D 64), bool (1, 1, 300, "
+          "300) mask, p 0.1"] = (q, k, v, do, True, dict(
+              bias=FA._as_bias(keep, q), dropout=ERNIE_DROP))
+    cases["bfloat16 GQA (B 4, S 200, 12 / 4 heads, D 64), (4, 1, 1, 200) "
+          "padding bias, p 0.1"] = (
+        *_flash_inputs(torch, 4, 200, 12, 4, 64, torch.bfloat16, gen),
+        False, dict(bias=_ernie_bias(torch, 4, 200), dropout=ERNIE_DROP))
+    # whole sequences padded: batch 0 with finfo.min, batch 1 with -1e9
+    # (every row there is the uniform softmax, as the reference gives it)
+    full = _ernie_bias(torch, 4, ERNIE_S).clone()
+    full[0] = torch.finfo(torch.float32).min
+    full[1] = -1e9
+    full[2:] = torch.where(full[2:] < 0, torch.finfo(torch.float32).min, 0.0)
+    cases["float32 (B 4, S 128, 12 heads, D 64), (4, 1, 1, 128) padding "
+          "bias with whole sequences padded (finfo.min, -1e9), p 0.1"] = (
+        *_flash_inputs(torch, 4, ERNIE_S, 12, 12, 64, torch.float32, gen),
+        False, dict(bias=full, dropout=ERNIE_DROP))
+    cmp = {}
+    for key, (q, k, v, do, causal, extra) in cases.items():
+        c = cmp[key] = _flash_compare(torch, q, k, v, do, causal, **extra)
+        first = _flash_outputs(torch, FA, q, k, v, do, causal, extra)
+        again = _flash_outputs(torch, FA, q, k, v, do, causal, extra)
+        bitwise = {n: _same_bits(torch, a, b) for n, a, b in
+                   zip(("o", "lse", "lse_lo", "dq", "dk", "dv"), first,
+                       again)}
+        emit({"phase": "ernie_kernels", "kernel": "flash_attention",
+              "case": key, "variant": FA._variant(q.dtype, q.shape[-1],
+                                                  extra=True),
+              "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL[
+                  key.split()[0]]),
+              **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+              **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()},
+              "bitwise_equal_twice": bitwise})
+        for n, (_, s) in c.items():
+            require(s <= 1.0, f"flash {key} {n}: {s} x its limit")
+        require(all(bitwise.values()), f"flash {key}: not bitwise "
+                f"repeatable {bitwise}")
+        del first, again
+
+    # the keep share of the ERNIE shape's mask: within 0.9 +- 5 sigma
+    kept = FA.dropout_keep(ERNIE_B, es["H"], ERNIE_S, ERNIE_S, *ERNIE_DROP,
+                           "cuda")
+    share, n = kept.float().mean().item(), kept.numel()
+    sigma = (ERNIE_P * (1 - ERNIE_P) / n) ** 0.5
+    emit({"phase": "ernie_kernels", "keep_share": share, "elements": n,
+          "want": 1 - ERNIE_P, "sigma": sigma})
+    require(abs(share - (1 - ERNIE_P)) <= 5 * sigma,
+            f"dropout keep share {share} off 0.9 by more than 5 sigma")
+    del kept
+
+    # times at the fp32 ERNIE shape, in turns (plain, kernel, kernel,
+    # plain).  A kernel takes ~0.1 ms behind a Python wrapper of about
+    # as long, so it is timed by CUDA-graph replay (`_graph_ms`), its
+    # eager back-to-back time beside; the plain versions (~5 ms) eagerly
+    key = next(iter(cases))
+    q, k, v, do, _, extra = cases[key]
+    o, lse = FA.flash_fwd(q, k, v, False, **extra)
+    delta = FA._delta(o, do)
+
+    def turns(plain, kern):
+        p1 = _time_ms(torch, lambda i: plain(), 1, 10)
+        k1 = _graph_ms(torch, lambda i: kern(), 1)
+        k2 = _graph_ms(torch, lambda i: kern(), 1)
+        p2 = _time_ms(torch, lambda i: plain(), 1, 10)
+        return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2], \
+            _time_ms(torch, lambda i: kern(), 1, 20)
+
+    fwd_ms, fwd_plain, fwd_turns, fwd_eager = turns(
+        lambda: FA.flash_fwd_plain(q, k, v, False, **extra),
+        lambda: FA.flash_fwd(q, k, v, False, **extra))
+    dq_ms, bwd_plain, dq_turns, dq_eager = turns(
+        lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, False, **extra),
+        lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False, delta=delta,
+                                **extra))
+    dkv_ms, bwd_plain2, dkv_turns, dkv_eager = turns(
+        lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, False, **extra),
+        lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, delta=delta,
+                                 **extra))
+    qT, kT, vT, doT = (x.transpose(1, 2) for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qT, kT, vT))
+    lib_fwd_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qT, kT, vT, attn_mask=pad, dropout_p=ERNIE_P), 1)
+
+    def lib_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=pad,
+                                             dropout_p=ERNIE_P)
+        torch.autograd.grad(out, (qg, kg, vg), doT)
+
+    # its backward alone: forward + backward by graph replay, less the
+    # forward by graph replay (the kernels' own timing)
+    lib_fwd_bwd_ms = _graph_ms(torch, lib_fwd_bwd, 1)
+    lib_bwd_ms = lib_fwd_bwd_ms - lib_fwd_ms
+    # the bf16 ERNIE case's kernels, for the table
+    qb, kb, vb, dob, _, _ = cases[list(cases)[1]]
+    ob, lseb = FA.flash_fwd(qb, kb, vb, False, **extra)
+    bf16_ms = {
+        "flash_attention_fwd": _graph_ms(torch, lambda i: FA.flash_fwd(
+            qb, kb, vb, False, **extra), 1),
+        "flash_attention_dq": _graph_ms(torch, lambda i: FA.flash_bwd_dq(
+            qb, kb, vb, ob, lseb, dob, False, **extra), 1),
+        "flash_attention_dkv": _graph_ms(torch, lambda i: FA.flash_bwd_dkv(
+            qb, kb, vb, ob, lseb, dob, False, **extra), 1)}
+    B, S, H, D = q.shape
+    mm = 2.0 * B * H * S * S * D          # one full (non-causal) product
+    io, rows, bias_b = _nbytes(q, k, v), _nbytes(lse, delta), B * S * 4
+    bounds = {"flash_attention_fwd": _bound_ms(
+                  kind, 2 * mm, io + bias_b + _nbytes(o, lse), "float32"),
+              "flash_attention_dq": _bound_ms(
+                  kind, 3 * mm, io + bias_b + _nbytes(do, q) + rows,
+                  "float32"),
+              "flash_attention_dkv": _bound_ms(
+                  kind, 4 * mm, io + bias_b + _nbytes(do, k, v) + rows,
+                  "float32")}
+    f32 = cmp[key]
+    res = {}
+    for name, ms, plain, turns_ms, eager, outs, lib in (
+            ("flash_attention_fwd", fwd_ms, fwd_plain, fwd_turns, fwd_eager,
+             ("o",), lib_fwd_ms),
+            ("flash_attention_dq", dq_ms, (bwd_plain + bwd_plain2) / 2,
+             dq_turns, dq_eager, ("dq",), lib_bwd_ms),
+            ("flash_attention_dkv", dkv_ms, (bwd_plain + bwd_plain2) / 2,
+             dkv_turns, dkv_eager, ("dk", "dv"), lib_bwd_ms)):
+        r = res[name + ERNIE_ROUTE] = {
+            "max_abs_err": max(f32[x][0] for x in outs), "ms": ms,
+            "plain_ms": plain, "turns_ms": turns_ms, "eager_ms": eager,
+            "timing": "ms, bf16_ms: CUDA-graph replay, per call; eager_ms: "
+                      "back-to-back eager calls (with the host wrapper); "
+                      "plain_ms eager; library_ms: by graph replay (the "
+                      "backward as forward + backward less forward)",
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": lib,
+            "library": ("scaled_dot_product_attention(attn_mask=the float "
+                        "bias, dropout_p=0.1)" + (
+                            "" if name.endswith("fwd") else
+                            ", its backward (dQ, dK, dV together)")),
+            "bf16_ms": bf16_ms[name], "variant": "fma (CUDA cores, fp32 "
+            "arithmetic; the only variant that takes a bias or dropout)",
+            "tolerance": FLASH_TOL_TEXT.format(tol="1e-05 (fp32)"),
+            "shape": "q / k / v (16, 128, 12, 64) fp32, (16, 1, 1, 128) "
+                     "padding bias, p 0.1, no causal mask"}
+        if not name.endswith("fwd"):
+            r["plain_computes"] = "dQ, dK and dV together"
+            r["library_fwd_bwd_ms"] = lib_fwd_bwd_ms
+        emit({"phase": "ernie_kernels", "kernel": name + ERNIE_ROUTE, **r})
+    _set_train_counts(saved)             # check and timing launches
+    del cases, q, k, v, do, o, lse, qT, kT, vT, doT, qg, kg, vg
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ernie_step(torch, model, lr):
+    """bench_ernie's TrainStep: AdamW(lr) on the cross-entropy of the
+    classifier's logits, with the padding mask as the third argument."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as NF
+    from paddle_tpu_torch.optimizer import AdamW
+    return TrainStep(model, lambda m, x, y, am: NF.cross_entropy(
+        m(x, attention_mask=am), y), AdamW(learning_rate=lr,
+                                           parameters=model.parameters()))
+
+
+def phase_ernie_train(torch):
+    """bench_ernie's step at full width and depth: ernie-3.0-base (12
+    layers, hidden 768, 12 heads of 64, FFN 3072, vocab 40,000) in fp32,
+    random weights from a seed, AdamW lr 2e-5 on the cross-entropy of
+    ErnieForSequenceClassification(num_classes=2) over 16 x 128 token ids
+    (`bench.py:326-329`'s RandomState(0)) with a padding attention_mask,
+    dropout 0.1: ERNIE_STEPS steps bracketed by StepTelemetry ("data",
+    "train_step"), exact launches, a finite and falling loss; one
+    profiled step; one more forward and backward with every K1 / K2
+    call held to its plain version on the same inputs and mask; then an
+    eval forward (dropout off) against the same forward with the plain
+    attention."""
+    import numpy as np
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.observability import MetricsRegistry, StepTelemetry
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0)
+    step = _ernie_step(torch, model, ERNIE_LR)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(0)                 # bench.py:326-329
+    host = (rng.randint(0, cfg.vocab_size, (ERNIE_B, ERNIE_S)),
+            rng.randint(0, 2, (ERNIE_B,)), _ernie_mask(ERNIE_B, ERNIE_S))
+    tel = StepTelemetry(registry=MetricsRegistry(), namespace="ernie")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    losses, secs = [], []
+    with _clock_samples() as clocks:
+        for _ in range(ERNIE_STEPS):
+            t = time.perf_counter()
+            with tel.phase("data"):
+                batch = [torch.from_numpy(x).to("cuda") for x in host]
+            with tel.phase("train_step"):
+                losses.append(step(*batch).item())   # .item() synchronises
+            secs.append(time.perf_counter() - t)
+            tel.step(n_items=ERNIE_B)
+    launches = _train_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention_fwd": L * ERNIE_STEPS,
+            "flash_attention_dq": L * ERNIE_STEPS,
+            "flash_attention_dkv": L * ERNIE_STEPS,
+            "softmax_xent_fwd": 0, "softmax_xent_bwd": 0,
+            # U1 runs only for a clip or a loss scale: bench_ernie's
+            # AdamW has neither
+            "optimizer_reduce": 0, "optimizer_update": ERNIE_STEPS}
+    require(all(math.isfinite(x) for x in losses), f"ernie losses {losses}")
+    require(losses[-1] < losses[0], f"ernie loss did not fall: {losses}")
+    require(launches == want, f"ernie launches {launches} != {want}")
+    step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    snap = tel.snapshot()
+    phases = {k.split("=", 1)[1]: {"count": v["count"], "sum_s": v["sum"]}
+              for k, v in snap["ernie_phase_seconds"]["series"].items()}
+    gauges = {name: snap[name]["series"][""]["value"] for name in (
+        "ernie_steps_total", "ernie_items_total",
+        "ernie_step_time_seconds_ema", "ernie_items_per_sec_ema")}
+    report = {"phase": "ernie_train",
+              "model": f"ernie-3.0-base ({L} layers, hidden 768, 12 heads, "
+                       f"FFN 3072, vocab 40000), classifier of 2",
+              "dtype": "float32", "params": n_params, "batch": ERNIE_B,
+              "seq": ERNIE_S, "steps": ERNIE_STEPS, "dropout": ERNIE_P,
+              "lr": ERNIE_LR, "masked_keys": int((host[2] == 0).sum()),
+              "init_s": init_s, "losses": losses,
+              "step_ms_each": [1e3 * x for x in secs], "step_ms": step_ms,
+              "ernie_finetune_examples_per_sec": ERNIE_B / (step_ms / 1e3),
+              "peak_mem_gib": peak_gib, "launches": launches,
+              "telemetry": {"phases": phases, **gauges},
+              "clocks_during_steps": clocks}
+    report.update(_train_profile(torch, step, tuple(batch), step_ms))
+    emit(report)
+
+    # one more forward and backward, every K1 / K2 call held to its
+    # plain version on the same inputs, bias and (seed, offset)
+    with _checked_flash() as worst:
+        loss = step.loss_fn(model, *batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    emit({"phase": "ernie_train", "check": "per layer: kernel vs plain on "
+          "the layer's own q, k, v, padding bias and dropout (K1) and O, "
+          "lse, dO (K2)", "tolerance": FLASH_TOL_TEXT.format(
+              tol=FLASH_TOL["float32"]),
+          "worst_err_over_limit": {k: v for k, v in worst.items()
+                                   if not k.startswith("calls")},
+          "layers_checked_fwd": worst["calls_fwd"],
+          "layers_checked_bwd": worst["calls_bwd"]})
+    require(worst["calls_fwd"] == L and worst["calls_bwd"] == L,
+            f"ernie check: {worst['calls_fwd']} / {worst['calls_bwd']} "
+            f"layers checked")
+    require(all(v <= 1.0 for k, v in worst.items()
+                if not k.startswith("calls")),
+            f"ernie check: a layer's kernel output over its limit {worst}")
+
+    # eval forward, dropout off: kernels against the plain attention
+    model.eval()
+    ids, _, am = batch
+    with torch.no_grad():
+        _zero_train_counts()
+        logits = model(ids, attention_mask=am)
+        torch.cuda.synchronize()
+        eval_launches = _train_counts()["flash_attention_fwd"]
+        with _plain_kernels():
+            plain = model(ids, attention_mask=am)
+    err = (logits - plain).abs().max().item()
+    limit = ERNIE_LOGITS_TOL * max(1.0, plain.abs().max().item())
+    emit({"phase": "ernie_train", "eval": "dropout off, kernels vs the "
+          "plain attention on the card", "logits_max_abs_err": err,
+          "logits_limit": limit, "k1_launches": eval_launches,
+          "tolerance": f"|logits - plain| <= {ERNIE_LOGITS_TOL} x "
+                       f"max(1, max |plain|)"})
+    require(eval_launches == L, f"ernie eval: {eval_launches} K1 launches")
+    require(bool(torch.isfinite(logits).all()) and err <= limit,
+            f"ernie eval logits {err} over {limit}")
+    del model, step, batch, loss, logits, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ernie_parity(torch):
+    """ERNIE `tiny` (4 heads of head_dim 16, 2 layers) at dropout 0 on
+    the card against the same model forced to the CPU with the same
+    weights: the classifier logits with a padding mask, then the
+    parameters after one TrainStep (AdamW lr 1e-3).  Tolerances: logits
+    within 1e-5 x max(1, max |cpu|); each parameter within 5e-2 x lr
+    (Adam scales every element's step to ~lr), the key biases, whose
+    gradient is 0 in exact arithmetic and rounding noise on both
+    devices, within 2 x lr."""
+    import numpy as np
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = ErnieConfig.from_preset("tiny", hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+    rng = np.random.RandomState(2)
+    host = (rng.randint(0, cfg.vocab_size, (4, 64)), rng.randint(0, 2, (4,)),
+            _ernie_mask(4, 64))
+    out = {}
+    saved = _train_counts()
+    init = ErnieForSequenceClassification(cfg, device="cpu", seed=1) \
+        .state_dict()
+    for dev in ("cpu", "cuda"):
+        model = ErnieForSequenceClassification(cfg, device=dev, seed=1)
+        model.load_state_dict(init)
+        ids, lab, am = (torch.from_numpy(x).to(dev) for x in host)
+        step = _ernie_step(torch, model, ERNIE_PARITY_LR)
+        _zero_train_counts()
+        with torch.no_grad():
+            logits = model(ids, attention_mask=am).cpu()
+        loss = step(ids, lab, am).item()
+        out[dev] = (logits, loss, {n: p.detach().cpu().clone()
+                                   for n, p in model.state_dict().items()},
+                    _train_counts())
+        del model, step
+    (lc, loss_c, pc, _), (lk, loss_k, pk, ck) = out["cpu"], out["cuda"]
+    L = cfg.num_hidden_layers
+    want = dict.fromkeys(TRAIN_KERNELS, 0)
+    want.update({"flash_attention_fwd": 2 * L, "flash_attention_dq": L,
+                 "flash_attention_dkv": L, "optimizer_update": 1})
+    err = (lk - lc).abs().max().item()
+    limit = 1e-5 * max(1.0, lc.abs().max().item())
+    p_err = {n: (pk[n] - pc[n]).abs().max().item() for n in pc}
+    p_lim = {n: (2.0 if n.endswith("k_proj.bias") else 5e-2)
+             * ERNIE_PARITY_LR for n in pc}
+    worst = max(p_err, key=lambda n: p_err[n] / p_lim[n])
+    emit({"phase": "ernie_parity", "model": "ernie tiny (4 heads of 16, "
+          "2 layers), dropout 0", "dtype": "float32",
+          "logits_max_abs_err": err, "logits_limit": limit,
+          "loss_cpu": loss_c, "loss_cuda": loss_k,
+          "param_worst": worst, "param_worst_err": p_err[worst],
+          "param_worst_limit": p_lim[worst], "launches": ck,
+          "tolerance": "logits 1e-5 x max(1, max |cpu|); params after one "
+                       "AdamW step 5e-2 x lr (key biases 2 x lr)"})
+    require(err <= limit, f"ernie tiny logits {err} over {limit}")
+    require(abs(loss_k - loss_c) <= 1e-5 * abs(loss_c),
+            f"ernie tiny loss {loss_k} vs cpu {loss_c}")
+    require(p_err[worst] <= p_lim[worst],
+            f"ernie tiny {worst} after one step: {p_err[worst]}")
+    require(ck == want, f"ernie tiny launches {ck} != {want}")
+    _set_train_counts(saved)
+
+
+PHASE_SECONDS = {}          # phase function -> host seconds in this run
+
+
+def _timed(fn, *args):
+    """fn(*args), its host seconds added to PHASE_SECONDS."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) \
+            + time.perf_counter() - t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8090,33 +8609,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    phase_env(torch)
-    phase_build()
-    kernels = phase_kernels(torch)
-    train_kernels = phase_train_kernels(torch)
-    q1 = phase_q1_kernels(torch)
-    serve_launches = phase_serve(torch)
+    _timed(phase_env, torch)
+    _timed(phase_build)
+    kernels = _timed(phase_kernels, torch)
+    train_kernels = _timed(phase_train_kernels, torch)
+    q1 = _timed(phase_q1_kernels, torch)
+    serve_launches = _timed(phase_serve, torch)
     # the parent's llama3-8b is freed: the children hold their own
-    serve_launches["process"] = phase_serve_process(
-        torch, serve_launches.pop("streams"),
+    serve_launches["process"] = _timed(
+        phase_serve_process, torch, serve_launches.pop("streams"),
         serve_launches.pop("tokens_per_s"))
-    serve_launches["chaos"] = phase_serve_chaos(torch)
+    serve_launches["chaos"] = _timed(phase_serve_chaos, torch)
     debug = _debug_model()
-    tokens, parity_launches = phase_parity(torch, debug)
-    phase_generate_debug(torch, debug, tokens)
-    phase_server(torch, debug, tokens)
+    tokens, parity_launches = _timed(phase_parity, torch, debug)
+    _timed(phase_generate_debug, torch, debug, tokens)
+    _timed(phase_server, torch, debug, tokens)
     serve_launches["spec"].update(phase_serve_spec(
         torch, debug, {"float32": DEBUG_SPEC_LIMIT}, name="debug-4l"))
-    serve_launches["slo"]["float32"] = phase_serve_slo_debug(torch, debug)
+    serve_launches["slo"]["float32"] = _timed(phase_serve_slo_debug, torch,
+                                              debug)
     del debug
-    opt_kernels = phase_optimizer_kernels(torch)
-    train_launches = phase_train(torch)
-    phase_train_parity(torch)
-    phase_loss_scale(torch)
-    moe_kernels = phase_moe_kernels(torch)
-    moe_launches = phase_moe_train(torch)
-    phase_moe_parity(torch)
-    moe_generate = phase_generate_moe(torch)
+    opt_kernels = _timed(phase_optimizer_kernels, torch)
+    train_launches = _timed(phase_train, torch)
+    _timed(phase_train_parity, torch)
+    _timed(phase_loss_scale, torch)
+    moe_kernels = _timed(phase_moe_kernels, torch)
+    moe_launches = _timed(phase_moe_train, torch)
+    _timed(phase_moe_parity, torch)
+    ernie_kernels = _timed(phase_ernie_kernels, torch)
+    ernie_launches = _timed(phase_ernie_train, torch)
+    _timed(phase_ernie_parity, torch)
+    moe_generate = _timed(phase_generate_moe, torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
                 "int8": serve_launches["int8"], "float32": parity_launches}
@@ -8170,7 +8693,19 @@ def main() -> int:
             "launches": train_launches[name],
             "launches_path": f"train llama3-8b, {TRAIN_LAYERS} layers, "
                              f"{TRAIN_STEPS} steps (one a step)",
-            "launches_moe_train": moe_launches[name], **r})
+            "launches_moe_train": moe_launches[name],
+            "launches_ernie_train": ernie_launches[name], **r})
+    for name, r in ernie_kernels.items():
+        base = name[:-len(ERNIE_ROUTE)]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_extra.cu",
+            "source_kernels": "paddle_tpu_torch/csrc/flash_attention_fma.cuh",
+            "replaces": ERNIE_REPLACES.format(line=TRAIN_KERNELS[base][1]),
+            "launches": ernie_launches[base],
+            "launches_path": f"ernie_train ernie-3.0-base fp32, "
+                             f"{ERNIE_B} x {ERNIE_S}, {ERNIE_STEPS} steps "
+                             f"(12 a step)", **r})
     for name, r in moe_kernels.items():
         entries.append({
             "name": name, "route": "cuda",
@@ -8228,10 +8763,9 @@ def main() -> int:
                     serve_launches["pressure"].items() if p == pool}
         if pressure:
             e["launches_serve_pressure"] = pressure
-            depth = (f", first {SHALLOW_LAYERS} layers" if pool == "int8"
-                     else "")
             e["launches_path_serve_pressure"] = (
-                f"serve_pressure llama3-8b{depth}, {pool} pool: each run "
+                f"serve_pressure llama3-8b, first {SHALLOW_LAYERS} layers, "
+                f"{pool} pool: each run "
                 f"from 0 "
                 f"(full provisioning, then {pressure_blocks()} blocks)")
         if pool in serve_launches["spec"]:
@@ -8268,8 +8802,8 @@ def main() -> int:
                 f"serve_fabric llama3-8b, {pool} pool, two servers on one "
                 f"card: each move from 0, layers x the replays of both "
                 f"servers while it ran (pull: the puller's only; the "
-                f"int8 pull and the handoffs: the first {SHALLOW_LAYERS} "
-                f"layers)")
+                f"int8 pull, the migration, the disk parks and the "
+                f"handoffs: the first {SHALLOW_LAYERS} layers)")
             require(all(n > 0 for n in fabric.values()),
                     f"{e['name']}: no launch in a serve_fabric move")
         if pool == "bfloat16":
@@ -8320,11 +8854,12 @@ def main() -> int:
     for e in entries:
         require(e["launches"] > 0, f"{e['name']} never launched on its path")
     emit({"kernels": entries})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": PHASE_SECONDS})
     print(nvidia_smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

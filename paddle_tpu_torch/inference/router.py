@@ -1082,16 +1082,26 @@ class Router:
         # pre-register the attempt BEFORE submit: the replica's driver
         # thread may fire callbacks before submit() even returns
         with self._lock:
-            attempt = rr.attempts + 1
-            rr.attempts = attempt
-            rr._epoch += 1
-            epoch = rr._epoch
-            rr.replica = name
-            rr._attempt_seen = 0
-            st.inflight += 1
-            st.owner_rids.add(rr.rid)
-            if rr.poison_strikes > 0:
-                st.probing_rid = rr.rid
+            # the pick released the lock: a replica fenced, drained,
+            # quarantined or taken by a suspect since then is re-picked
+            # (registered on a corpse, the request would wait on it
+            # forever or take a strike for a fence it never saw)
+            gone = (st.dead or st.draining or st.quarantined
+                    or st.probing_rid not in (None, rr.rid))
+            if not gone:
+                attempt = rr.attempts + 1
+                rr.attempts = attempt
+                rr._epoch += 1
+                epoch = rr._epoch
+                rr.replica = name
+                rr._attempt_seen = 0
+                st.inflight += 1
+                st.owner_rids.add(rr.rid)
+                if rr.poison_strikes > 0:
+                    st.probing_rid = rr.rid
+        if gone:
+            self._queue.push_front(rr, rr.client)
+            return
         kw = dict(rr.params)
         if self.router_epoch is not None:
             # leadership fencing: the replica keeps a high-water mark
@@ -1321,6 +1331,7 @@ class Router:
 
     def _on_attempt_done(self, rr, epoch, st, inner):
         failover = False
+        detached = None
         migrated = False
         ho_name = None
         handoff_to = None
@@ -1372,6 +1383,12 @@ class Router:
                         {"replica": st.replica.name, "t": time.time(),
                          "cause": type(err).__name__})
                     failover = True
+                    # mark the replica dead in this critical section:
+                    # released first, the lock would let the dispatcher
+                    # hand a waiting suspect to the corpse, and the
+                    # fence would strike it for a crash it never saw
+                    detached = self._detach_replica_locked(
+                        st.replica.name, err)
                 elif err is not None:
                     rr.error = err  # client-visible (deadline, ...)
                     rr.done = True
@@ -1389,10 +1406,10 @@ class Router:
                                  trace_id=rr.trace_id)
             _tr.point("router/failover", trace_id=rr.trace_id,
                       rid=rr.rid, replica=st.replica.name)
-            # mark the replica dead BEFORE re-queueing, so the
-            # dispatcher cannot pop the request and hand it straight
-            # back to the dying replica
-            self._fail_replica(st.replica.name, err)
+            # the replica is dead (marked above) before the request is
+            # re-queued: the dispatcher cannot hand it straight back
+            if detached is not None:
+                self._requeue_victims(st.replica.name, err, *detached)
             if self._poison_check(rr):
                 return          # convicted: failed typed, no replay
             if (rr.poison_strikes == 0
@@ -1659,49 +1676,66 @@ class Router:
         resubmit each at the front of the queue with prompt replay —
         the zero-lost-request core."""
         with self._lock:
-            st = self._replicas.get(name)
-            if st is None or st.dead:
-                return
-            st.dead = True
-            if st.shadow is not None:
-                # the replica's prefix cache died with it: drop the
-                # shadow so stale entries can't keep winning affinity
-                # picks or emitting pull hints at a corpse
-                st.shadow.clear()
-            victims = []
-            for rid in sorted(st.owner_rids):
-                rr = self._requests.get(rid)
-                if rr is not None and not rr.done:
-                    victims.append(rr)
-            st.owner_rids.clear()
-            st.inflight = 0
-            st.probing_rid = None
-            inners = [rr._inner for rr in victims if rr._inner is not None]
-            for rr in victims:
-                rr.replica = None
-                rr._inner = None
-                rr._handoff_target = None
-                # poison attribution: every request in flight at fence
-                # time collects one strike (the common factor across
-                # poison_threshold fence events is the poison)
-                rr.poison_strikes += 1
-                rr.fence_events.append(
-                    {"replica": name, "t": time.time(),
-                     "cause": type(cause).__name__})
-                # fence at detach time, not next-dispatch time: the
-                # replica may be a zombie (lease blip on a live host)
-                # whose cancelled attempt completes *cleanly* — without
-                # this bump that on_done would take the success branch
-                # and mark the request done with a truncated stream
-                rr._epoch += 1
-            # disaggregated serving: in-flight prefills that
-            # nominated the DEAD replica as their handoff target lose
-            # the nomination — their chunk streams are already failing,
-            # so each prefill replica finishes its request colocated
-            # and the router never adopts at a corpse
-            for orr in self._requests.values():
-                if orr._handoff_target == name:
-                    orr._handoff_target = None
+            detached = self._detach_replica_locked(name, cause)
+        if detached is not None:
+            self._requeue_victims(name, cause, *detached)
+
+    def _detach_replica_locked(self, name, cause):
+        """The part of `_fail_replica` done under the router lock: mark
+        `name` dead and detach, strike and fence every request it owns.
+        Returns (state, victims, their attempts), or None when `name` is
+        gone or dead already.  A caller that strikes a request under the
+        lock detaches here in the same critical section, so nothing can
+        be dispatched to the replica between its strike and its death."""
+        st = self._replicas.get(name)
+        if st is None or st.dead:
+            return None
+        st.dead = True
+        if st.shadow is not None:
+            # the replica's prefix cache died with it: drop the
+            # shadow so stale entries can't keep winning affinity
+            # picks or emitting pull hints at a corpse
+            st.shadow.clear()
+        victims = []
+        for rid in sorted(st.owner_rids):
+            rr = self._requests.get(rid)
+            if rr is not None and not rr.done:
+                victims.append(rr)
+        st.owner_rids.clear()
+        st.inflight = 0
+        st.probing_rid = None
+        inners = [rr._inner for rr in victims if rr._inner is not None]
+        for rr in victims:
+            rr.replica = None
+            rr._inner = None
+            rr._handoff_target = None
+            # poison attribution: every request in flight at fence
+            # time collects one strike (the common factor across
+            # poison_threshold fence events is the poison)
+            rr.poison_strikes += 1
+            rr.fence_events.append(
+                {"replica": name, "t": time.time(),
+                 "cause": type(cause).__name__})
+            # fence at detach time, not next-dispatch time: the
+            # replica may be a zombie (lease blip on a live host)
+            # whose cancelled attempt completes *cleanly* — without
+            # this bump that on_done would take the success branch
+            # and mark the request done with a truncated stream
+            rr._epoch += 1
+        # disaggregated serving: in-flight prefills that
+        # nominated the DEAD replica as their handoff target lose
+        # the nomination — their chunk streams are already failing,
+        # so each prefill replica finishes its request colocated
+        # and the router never adopts at a corpse
+        for orr in self._requests.values():
+            if orr._handoff_target == name:
+                orr._handoff_target = None
+        return st, victims, inners
+
+    def _requeue_victims(self, name, cause, st, victims, inners):
+        """The rest of `_fail_replica`, outside the lock: meter, cancel
+        the attempts, fence the lease in the store, and convict or
+        requeue each victim."""
         self._m_failovers.inc()
         self._update_live_gauge()
         # fleet series: mark the fenced replica's time

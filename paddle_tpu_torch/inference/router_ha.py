@@ -610,8 +610,8 @@ class HARouter(Router):
         channels: severing an `ha` replica's channel finishes its
         handles here with `EngineUnhealthy`, and what this router's
         callbacks make of that must reach neither the standby's shadow
-        nor the store (`_fail_replica` below) — a dead process writes
-        nothing."""
+        nor the store (`_detach_replica_locked` below) — a dead process
+        writes nothing."""
         if self.crashed.is_set():
             return
         self.crashed.set()
@@ -623,12 +623,12 @@ class HARouter(Router):
         self.gateway.close()
         self.acceptor.close()       # children EOF -> rediscover leader
 
-    def _fail_replica(self, name, cause):
+    def _detach_replica_locked(self, name, cause):
         """A crashed leader fences nobody: the replicas it dispatched
         to live on under its successor."""
         if self.crashed.is_set():
-            return
-        super()._fail_replica(name, cause)
+            return None
+        return super()._detach_replica_locked(name, cause)
 
     def shutdown(self, timeout=5.0):
         self._ha_stop.set()

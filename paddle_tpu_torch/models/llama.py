@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
+from ..nn.layer.common import Embedding, Linear
 from ..nn.moe import MoELayer
 from ..ops.flash_attention import flash_attention_xla
 from ..ops.softmax_xent import softmax_xent
@@ -191,33 +192,12 @@ def _checkpoint_kwargs(policy):
 # --------------------------------------------------------------------------
 
 
-def _normal(shape, cfg, device, generator):
+def _linear(in_features, out_features, cfg, device, generator):
     # drawn directly on `device` in the model dtype: the 8B model's
     # fp32 host copy alone would be 32 GB
-    w = torch.empty(shape, dtype=cfg.torch_dtype, device=device)
-    return nn.Parameter(w.normal_(0.0, cfg.initializer_range,
-                                  generator=generator))
-
-
-class Linear(nn.Module):
-    """Bias-free Linear in paddle's `[in, out]` layout (`y = x @ W`)."""
-
-    def __init__(self, in_features, out_features, cfg, device, generator):
-        super().__init__()
-        self.weight = _normal((in_features, out_features), cfg, device,
-                              generator)
-
-    def forward(self, x):
-        return x @ self.weight
-
-
-class Embedding(nn.Module):
-    def __init__(self, num, dim, cfg, device, generator):
-        super().__init__()
-        self.weight = _normal((num, dim), cfg, device, generator)
-
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
+    return Linear(in_features, out_features, bias=False,
+                  std=cfg.initializer_range, device=device,
+                  dtype=cfg.torch_dtype, generator=generator)
 
 
 class RMSNorm(nn.Module):
@@ -239,10 +219,10 @@ class LlamaAttention(nn.Module):
         self.config = cfg
         h, nh, nkv, hd = (cfg.hidden_size, cfg.num_attention_heads,
                           cfg.num_key_value_heads, cfg.head_dim)
-        self.q_proj = Linear(h, nh * hd, cfg, device, generator)
-        self.k_proj = Linear(h, nkv * hd, cfg, device, generator)
-        self.v_proj = Linear(h, nkv * hd, cfg, device, generator)
-        self.o_proj = Linear(nh * hd, h, cfg, device, generator)
+        self.q_proj = _linear(h, nh * hd, cfg, device, generator)
+        self.k_proj = _linear(h, nkv * hd, cfg, device, generator)
+        self.v_proj = _linear(h, nkv * hd, cfg, device, generator)
+        self.o_proj = _linear(nh * hd, h, cfg, device, generator)
 
     def forward(self, hidden_states, attn_mask=None):
         cfg = self.config
@@ -268,9 +248,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
         h, inter = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Linear(h, inter, cfg, device, generator)
-        self.up_proj = Linear(h, inter, cfg, device, generator)
-        self.down_proj = Linear(inter, h, cfg, device, generator)
+        self.gate_proj = _linear(h, inter, cfg, device, generator)
+        self.up_proj = _linear(h, inter, cfg, device, generator)
+        self.down_proj = _linear(inter, h, cfg, device, generator)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -316,8 +296,9 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg, device, generator):
         super().__init__()
         self.config = cfg
-        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, cfg,
-                                      device, generator)
+        self.embed_tokens = Embedding(
+            cfg.vocab_size, cfg.hidden_size, std=cfg.initializer_range,
+            device=device, dtype=cfg.torch_dtype, generator=generator)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(cfg, device, generator)
              for _ in range(cfg.num_hidden_layers)])
@@ -371,8 +352,8 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.llama = LlamaModel(config, device, generator)
         self.lm_head = (None if config.tie_word_embeddings else
-                        Linear(config.hidden_size, config.vocab_size,
-                               config, device, generator))
+                        _linear(config.hidden_size, config.vocab_size,
+                                config, device, generator))
 
     @property
     def device(self) -> torch.device:

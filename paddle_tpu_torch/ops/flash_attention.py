@@ -14,11 +14,12 @@ GQA (H a multiple of the kv heads Hkv):
 * `flash_mha` — the `torch.autograd.Function` whose forward is K1 and
   whose backward is K2.
 
-On a CUDA tensor each wrapper launches `csrc/flash_attention.cu` (built
-at first use, see `_build.py`) or raises, and adds one to its entry of
+On a CUDA tensor each wrapper launches `csrc/flash_attention.cu`, or
+with a bias or dropout `csrc/flash_attention_extra.cu` (built at first
+use, see `_build.py`), or raises, and adds one to its entry of
 `LAUNCHES`; on a CPU tensor it runs the plain version
 (`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in fp32
-einsums — q scaled before the product, masked entries -1e30, P kept in
+einsums — q scaled before the product, masked entries -inf, P kept in
 fp32) and counts nothing.  The kernels take every S (they mask the
 ragged last tile) and head_dim 16, 32, 64 or 128; anything else raises.
 
@@ -31,15 +32,58 @@ O = NaN and lse = -inf.  The backward treats such rows as contributing
 nothing (dQ = 0 there, dK / dV untouched), where the reference's
 gradient is NaN throughout.
 
-Which kernel runs is `_variant(dtype, D)`, from the dtype and head_dim
-alone:
+An additive bias and dropout (`bias=`, `dropout=`), the semantics of
+`scaled_dot_product_attention_raw` with a mask and dropout:
+
+* the bias is fp32 whatever q's dtype (the JAX package adds it to the
+  fp32 scores), any shape that broadcasts to (B, H, Sq, Sk), read
+  through its strides (0 on a broadcast axis: (B, 1, 1, Sk) is never
+  expanded); it is added to the scaled scores before the row maximum;
+  `flash_mha` turns a bool mask into 0 / -inf.  A finite bias is a
+  score like any other, however negative: a row whose every key is
+  padded with finfo.min gets the reference's uniform softmax.  A row
+  whose every score is -inf gives O = NaN and lse = -inf, and nothing
+  to the gradients, as the causal rows above.  lse goes out as hi + lo
+  (TwoSum; lo into the optional `lse_lo`, which `flash_mha` keeps for
+  the backward): where a bias puts a row's max far below 0, hi = m +
+  log l has lost log l, and the backward recomputes P = exp((s - hi) -
+  lo).  The bias takes no gradient: one that requires it raises
+  `ValueError`;
+* dropout `(p, seed, offset)` keeps the softmax's lse and row sum
+  without dropout and accumulates P * z / (1 - p) into O, z the keep
+  bit (the JAX order: softmax, then mask and rescale, then P.V); the
+  backward recomputes P from lse and the bias, regenerates z, and takes
+  dV = (P z / (1 - p))^T dO, dP = (dO V^T) z / (1 - p),
+  dS = P (dP - delta) with delta = rowsum(dO * O).
+
+The keep bits come from Philox4x32-10 (Random123), written once into
+the .cu file and once here (`philox4x32`), so that the plain versions
+draw the kernels' mask bit for bit.  For the element (b, h, i, c)
+(query head h, query row i, key column c):
+
+    key      (seed & 0xffffffff, seed >> 32)
+    counter  (16 * (c // 64) + c % 16, i, b * H + h, offset)
+    word     (c // 16) % 4 of the four the counter gives
+    kept     word >= floor(p * 2^32)
+
+so one Philox call gives one kernel thread the four columns c % 16 +
+16 j (j = 0..3) of a 64-key tile it owns (`dropout_keep`).
+`dropout_seed` draws (seed, offset) from a `torch.Generator` on the
+host, reading nothing from the card.
+
+Which kernel runs is `_variant(dtype, D, variant, extra)`, from the
+dtype and head_dim alone:
 
 * bf16 at head_dim 128 (every ported model: llama3-8b, Qwen-MoE) ->
   "wgmma": Hopper's warpgroup MMA fed by TMA, the scores in fp32, P and
   dS entering their products as two bf16 parts each (~16 mantissa bits);
 * fp32, and bf16 at head_dim 16, 32 or 64 -> "fma": the CUDA cores,
   all arithmetic in fp32.  TF32 would fail fp32's 1e-5 limit, so fp32 never
-  runs on the tensor cores.
+  runs on the tensor cores;
+* every call with a bias or dropout -> "fma", whatever the dtype and
+  head_dim, by rule: the wgmma kernels take neither, and naming
+  `variant="wgmma"` for such a call raises `ValueError`.  Calls without
+  either run the kernels built without that code.
 
 A caller may name the variant (`variant="fma"` on bf16 times the
 CUDA-core kernel against the tensor-core one); a variant that does not
@@ -65,9 +109,10 @@ from . import _build
 __all__ = ["flash_mha", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_plain",
            "flash_attention_xla", "scaled_dot_product_attention_raw",
-           "HEAD_DIMS", "NEG_INF", "LAUNCHES"]
+           "philox4x32", "dropout_keep", "dropout_seed", "HEAD_DIMS",
+           "NEG_INF", "LAUNCHES"]
 
-NEG_INF = -1e30          # the Pallas kernels' mask fill
+NEG_INF = -1e30          # the Pallas kernels' mask fill (K1/K2 without a bias)
 HEAD_DIMS = (16, 32, 64, 128)
 # launches of each kernel on CUDA tensors; CPU calls count nothing
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
@@ -76,13 +121,94 @@ LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
 # the C interface's code of each kernel: (dtype, variant) -> code
 KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
                 (torch.bfloat16, "wgmma"): 2}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint32
 _SHAPE = (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P)  # B H Hkv Sq Sk D causal scale kernel stream
+# bias, its 4 strides, seed low / high words, offset, threshold, 1 / (1 - p),
+# lse_lo
+_EXTRA = (_P, _P, _U, _U, _U, _U, _F, _P)
 _SIGNATURES = {
-    "flash_attention_fwd": (_P, _P, _P, _P, _P, _P) + _SHAPE,
-    "flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P) + _SHAPE,
-    "flash_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P) + _SHAPE,
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _P) + _SHAPE + _EXTRA,
+    "flash_attention_dq": (_P, _P, _P, _P, _P, _P, _P, _P) + _SHAPE + _EXTRA,
+    "flash_attention_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P) + _SHAPE
+    + _EXTRA,
 }
+
+# --------------------------------------------------------------------------
+# the random bits of dropout: Philox4x32-10
+# --------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit words of m * x for a 32-bit constant m and uint32
+    values x held in int64 (or Python ints): x is split in 16-bit halves
+    so no product leaves int64."""
+    pl, ph = m * (x & 0xFFFF), m * (x >> 16)
+    return (ph + (pl >> 16)) >> 16, (pl + ((ph & 0xFFFF) << 16)) & _M32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) under the key
+    (k0, k1): uint32 words as int64 tensors (broadcast together) or
+    Python ints; returns the four output words the same way."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _threshold(p):
+    """floor(p * 2^32): a word below it drops its element."""
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+    return int(p * 2.0 ** 32)
+
+
+def _keep_scale(p):
+    """1 / (1 - p) in fp32, as the kernels multiply by it."""
+    return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+
+
+def dropout_keep(B, H, Sq, Sk, p, seed, offset, device):
+    """The keep mask (B, H, Sq, Sk) bool of attention dropout at
+    probability p from (seed, offset), bit for bit the kernels' (the
+    layout in the module docstring)."""
+    thr = _threshold(p)
+    i64 = dict(dtype=torch.int64, device=device)
+    n0 = 16 * ((Sk + 63) // 64)
+    words = philox4x32(torch.arange(n0, **i64)[None, None, :],
+                       torch.arange(Sq, **i64)[None, :, None],
+                       torch.arange(B * H, **i64)[:, None, None],
+                       int(offset) & _M32, int(seed) & _M32,
+                       (int(seed) >> 32) & _M32)
+    w = torch.stack(torch.broadcast_tensors(*words), -1)   # (BH, Sq, n0, 4)
+    c = torch.arange(Sk, **i64)
+    bits = w[:, :, 16 * (c >> 6) + (c & 15), (c >> 4) & 3]
+    return (bits >= thr).reshape(B, H, Sq, Sk)
+
+
+def dropout_seed(generator):
+    """(seed, offset) of one attention-dropout draw from `generator`,
+    read and advanced on the host (nothing is read from the card).  A
+    CUDA generator gives its seed and offset = its Philox offset / 4 + 1
+    (never 0, so these counters never meet the ones torch's own kernels
+    draw from the same generator, whose fourth word is 0), and its
+    offset moves on by 4; a CPU generator draws both words with
+    `torch.randint`."""
+    if generator.device.type == "cpu":
+        lo, hi, off = torch.randint(0, 2 ** 32, (3,),
+                                    generator=generator).tolist()
+        return lo | (hi << 32), off
+    off = generator.get_offset()
+    generator.set_offset(off + 4)
+    return generator.initial_seed(), ((off >> 2) + 1) & _M32
 
 
 # --------------------------------------------------------------------------
@@ -109,56 +235,121 @@ def _grouped(x, n_kv):
     return x.to(torch.float32).reshape(B, S, n_kv, H // n_kv, D)
 
 
-def _probs(q, k, causal, scale, lse=None):
+def _bias4(bias, q, k):
+    """The fp32 bias as a (B, H, Sq, Sk) view (stride 0 on the axes it
+    broadcasts), or None."""
+    if bias is None:
+        return None
+    if bias.dtype != torch.float32:
+        raise ValueError(f"the attention bias must be fp32, got "
+                         f"{bias.dtype} (flash_mha turns a bool mask into "
+                         f"one)")
+    B, Sq, H, _ = q.shape
+    return bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape)) \
+        .expand(B, H, Sq, k.shape[1])
+
+
+def _dropout(dropout):
+    """(p, seed, offset), or None for no dropout."""
+    if dropout is None or dropout[0] == 0.0:
+        return None
+    _threshold(dropout[0])
+    return tuple(dropout)
+
+
+def _z(q, k, dropout):
+    """The keep mask grouped as (B, Hkv, rep, Sq, Sk), or None."""
+    if dropout is None:
+        return None
+    B, Sq, H, _ = q.shape
+    n_kv = k.shape[2]
+    z = dropout_keep(B, H, Sq, k.shape[1], *dropout, q.device)
+    return z.reshape(B, n_kv, H // n_kv, Sq, k.shape[1])
+
+
+def _probs(q, k, causal, scale, lse=None, bias=None, lse_lo=None):
     """Scores (B, Hkv, rep, Sq, Sk) in fp32 of the scaled q against k,
-    masked to NEG_INF, and the keep mask; with `lse` (B, H, Sq) the
-    probabilities exp(s - lse) instead (masked -> 0)."""
+    plus the bias, masked to -inf, and the keep mask; with `lse`
+    (B, H, Sq) the probabilities exp((s - lse) - lse_lo) instead
+    (masked, and rows with lse -inf, -> 0)."""
     B, Sq, H, D = q.shape
     n_kv = k.shape[2]
     qs = _grouped(q, n_kv) * scale
     s = torch.einsum("bqgrd,bkgd->bgrqk", qs, k.to(torch.float32))
+    if bias is not None:
+        s = s + _bias4(bias, q, k).reshape(B, n_kv, H // n_kv, Sq, -1)
     keep = _keep(Sq, k.shape[1], causal, q.device)
     if lse is None:
-        return torch.where(keep, s, NEG_INF), keep, qs
+        return torch.where(keep, s, -math.inf), keep, qs
     lse = lse.reshape(B, n_kv, H // n_kv, Sq, 1)
-    return torch.where(keep, torch.exp(s - lse), 0.0), keep, qs
+    live = keep & ~torch.isneginf(lse)
+    e = s - lse
+    if lse_lo is not None:
+        e = e - lse_lo.reshape(lse.shape)
+    return torch.where(live, torch.exp(e), 0.0), keep, qs
 
 
-def flash_fwd_plain(q, k, v, causal=True, scale=None):
+def flash_fwd_plain(q, k, v, causal=True, scale=None, bias=None,
+                    dropout=None, lse_lo=None):
     """K1 in plain PyTorch: (O (B, Sq, H, D) in q's dtype, lse (B, H, Sq)
-    fp32) for q (B, Sq, H, D), k / v (B, Sk, Hkv, D)."""
+    fp32) for q (B, Sq, H, D), k / v (B, Sk, Hkv, D), with an optional
+    fp32 `bias` and `dropout` (p, seed, offset); lse's low part (TwoSum)
+    goes into `lse_lo` (B, H, Sq) fp32 where one is given."""
     scale = _scale(q, scale)
+    dropout = _dropout(dropout)
     B, Sq, H, D = q.shape
-    s, keep, _ = _probs(q, k, causal, scale)
+    s, keep, _ = _probs(q, k, causal, scale, bias=bias)
     m = s.amax(-1, keepdim=True)
-    p = torch.where(keep, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    # rows that see no key (causal Sq > Sk, or every score -inf): the
+    # reference's NaN; they shift by 0
+    dead = torch.isneginf(m)
+    p = torch.where(keep, torch.exp(s - torch.where(dead, 0.0, m)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    z = _z(q, k, dropout)
+    if z is not None:
+        p = torch.where(z, p * _keep_scale(dropout[0]), 0.0)
+    lc = l.clamp_min(1e-30)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(torch.float32))
-    o = o / l.permute(0, 3, 1, 2, 4)
-    lse = (m + torch.log(l)).reshape(B, H, Sq)
-    # rows that see no key (causal, Sq > Sk): the reference's NaN
-    blind = ~keep.any(-1)
-    o = torch.where(blind[:, None, None, None], math.nan, o)
-    lse = torch.where(blind, -math.inf, lse)
-    return o.reshape(B, Sq, H, D).to(q.dtype), lse
+    o = o / lc.permute(0, 3, 1, 2, 4)
+    ll = torch.log(lc)
+    hi = m + ll
+    dead = dead.reshape(B, H, Sq)
+    o = torch.where(dead.transpose(1, 2)[..., None], math.nan,
+                    o.reshape(B, Sq, H, D))
+    lse = torch.where(dead, -math.inf, hi.reshape(B, H, Sq))
+    if lse_lo is not None:
+        bv = hi - m
+        lo = ((m - (hi - bv)) + (ll - bv)).reshape(B, H, Sq)
+        lse_lo.copy_(torch.where(dead, 0.0, lo))
+    return o.to(q.dtype), lse
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, causal=True, scale=None):
+def flash_bwd_plain(q, k, v, o, lse, do, causal=True, scale=None, bias=None,
+                    dropout=None, lse_lo=None):
     """K2 in plain PyTorch: (dQ, dK, dV) in the dtypes of q, k, v from
-    q, k, v, O, lse (B, H, Sq) and dO; dK / dV summed over each kv
-    head's query heads."""
+    q, k, v, O, lse (B, H, Sq) (plus its low part `lse_lo`, where given)
+    and dO; dK / dV summed over each kv head's query heads."""
     scale = _scale(q, scale)
+    dropout = _dropout(dropout)
     B, Sq, H, D = q.shape
     n_kv = k.shape[2]
-    p, keep, qs = _probs(q, k, causal, scale, lse)
+    p, keep, qs = _probs(q, k, causal, scale, lse, bias, lse_lo)
     dog = _grouped(do, n_kv)
     delta = (o.to(torch.float32) * do.to(torch.float32)).sum(-1)  # (B, Sq, H)
     delta = delta.reshape(B, Sq, n_kv, H // n_kv).permute(0, 2, 3, 1)
+    # a row with lse -inf sees no key: its O (NaN) adds nothing
+    delta = torch.where(torch.isneginf(lse.reshape(delta.shape)), 0.0, delta)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.to(torch.float32))
+    pz = p
+    z = _z(q, k, dropout)
+    if z is not None:
+        ks = _keep_scale(dropout[0])
+        pz = torch.where(z, p * ks, 0.0)
+        dp = torch.where(z, dp * ks, 0.0)
     ds = torch.where(keep, p * (dp - delta[..., None]), 0.0)
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.to(torch.float32)) * scale
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qs)
-    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", pz, dog)
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -196,12 +387,17 @@ def _check(q, k, v, causal, extra=()):
                              "the data 16-byte aligned")
 
 
-def _variant(dtype, D, variant=None):
+def _variant(dtype, D, variant=None, extra=False):
     """The kernel variant a CUDA call runs, from its dtype and head_dim
     D (see the module docstring), or `variant` where the caller names
-    one; raises ValueError on a variant that does not take the call."""
+    one; a call with a bias or dropout (`extra`) runs "fma".  Raises
+    ValueError on a variant that does not take the call."""
     if variant is None:
-        variant = "wgmma" if dtype == torch.bfloat16 and D == 128 else "fma"
+        variant = "wgmma" if (dtype == torch.bfloat16 and D == 128
+                              and not extra) else "fma"
+    if extra and variant != "fma":
+        raise ValueError(f"flash attention: the {variant} kernels take no "
+                         f"bias or dropout (only the fma variant does)")
     if (dtype, variant) not in KERNEL_CODES or D not in HEAD_DIMS or (
             variant == "wgmma" and D != 128):
         raise ValueError(f"flash attention: no {variant} kernel takes "
@@ -214,35 +410,71 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _call(fn, tensors, strided, q, k, causal, scale, variant):
+def _extra_args(bias, dropout, q, k, lse_lo):
+    """The C interface's trailing arguments: the bias pointer and its
+    four strides (NULL for none), the seed's two words, the offset, the
+    drop threshold (0: no dropout), 1 / (1 - p) and the lse_lo pointer
+    (NULL for none)."""
+    b4 = _bias4(bias, q, k)
+    if b4 is not None and b4.device != q.device:
+        raise ValueError("the bias must be on q's device")
+    ptr = None if b4 is None else b4.data_ptr()
+    st = (ctypes.c_longlong * 4)(*(b4.stride() if b4 is not None
+                                   else (0, 0, 0, 0)))
+    lo = None if lse_lo is None else lse_lo.data_ptr()
+    if dropout is None:
+        return ptr, st, 0, 0, 0, 0, 1.0, lo
+    p, seed, offset = dropout
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return (ptr, st, seed & _M32, seed >> 32, int(offset) & _M32,
+            _threshold(p), _keep_scale(p), lo)
+
+
+def _call(fn, tensors, strided, q, k, causal, scale, variant, bias,
+          dropout, lse_lo):
     B, Sq, H, D = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
-    code = KERNEL_CODES[(q.dtype, _variant(q.dtype, D, variant))]
-    lib = _build.load("flash_attention", _SIGNATURES)
+    extra = bias is not None or dropout is not None
+    if lse_lo is not None and (not extra or lse_lo.dtype != torch.float32
+                               or lse_lo.shape != (B, H, Sq)
+                               or not lse_lo.is_contiguous()
+                               or lse_lo.device != q.device):
+        raise ValueError("lse_lo must be a contiguous (B, H, Sq) fp32 "
+                         "tensor on q's device, given with a bias or "
+                         "dropout")
+    code = KERNEL_CODES[(q.dtype, _variant(q.dtype, D, variant, extra))]
+    # the fma kernels built with the bias / dropout code are a library of
+    # their own (csrc/flash_attention_extra.cu), built beside this one
+    lib = _build.load("flash_attention_extra" if extra else
+                      "flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             *[t.data_ptr() for t in tensors], _strides(*strided),
             B, H, k.shape[2], Sq, k.shape[1], D, int(causal), float(scale),
-            code, torch.cuda.current_stream(q.device).cuda_stream)
+            code, torch.cuda.current_stream(q.device).cuda_stream,
+            *_extra_args(bias, dropout, q, k, lse_lo))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed (cudaError {err})")
 
 
-def flash_fwd(q, k, v, causal=True, scale=None, variant=None):
-    """K1: (O, lse) as `flash_fwd_plain`.  A CUDA `q` launches the
-    Hopper kernel `_variant` picks, or the named `variant` (counted in
+def flash_fwd(q, k, v, causal=True, scale=None, variant=None, bias=None,
+              dropout=None, lse_lo=None):
+    """K1: (O, lse) as `flash_fwd_plain` (and lse's low part into
+    `lse_lo`, with a bias or dropout).  A CUDA `q` launches the Hopper
+    kernel `_variant` picks, or the named `variant` (counted in
     `LAUNCHES`); a CPU `q` runs the plain version."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale)
+        return flash_fwd_plain(q, k, v, causal, scale, bias, dropout,
+                               lse_lo)
     scale = _scale(q, scale)
     _check(q, k, v, causal)
     B, Sq, H, _ = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     _call("flash_attention_fwd", (q, k, v, o, lse), (q, k, v), q, k,
-          causal, scale, variant)
+          causal, scale, variant, bias, _dropout(dropout), lse_lo)
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
 
@@ -255,29 +487,32 @@ def _delta(o, do):
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
-                 variant=None):
+                 variant=None, bias=None, dropout=None, lse_lo=None):
     """K2, dQ.  A CUDA `q` launches the dQ kernel `_variant` picks, or
     the named `variant` (counted in `LAUNCHES`; `delta` is computed when
     not given); a CPU `q` runs the plain version."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)[0]
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale, bias,
+                               dropout, lse_lo)[0]
     scale = _scale(q, scale)
     _check(q, k, v, causal, (do,))
     delta = _delta(o, do) if delta is None else delta
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _call("flash_attention_dq", (q, k, v, do, lse.contiguous(), delta, dq),
-          (q, k, v, do), q, k, causal, scale, variant)
+          (q, k, v, do), q, k, causal, scale, variant, bias,
+          _dropout(dropout), lse_lo)
     LAUNCHES["flash_attention_dq"] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
-                  variant=None):
+                  variant=None, bias=None, dropout=None, lse_lo=None):
     """K2, (dK, dV).  A CUDA `q` launches the dK/dV kernel `_variant`
     picks, or the named `variant` (counted in `LAUNCHES`); a CPU `q` runs
     the plain version."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)[1:]
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale, bias,
+                               dropout, lse_lo)[1:]
     scale = _scale(q, scale)
     _check(q, k, v, causal, (do,))
     delta = _delta(o, do) if delta is None else delta
@@ -285,65 +520,94 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _call("flash_attention_dkv",
           (q, k, v, do, lse.contiguous(), delta, dk, dv), (q, k, v, do),
-          q, k, causal, scale, variant)
+          q, k, causal, scale, variant, bias, _dropout(dropout), lse_lo)
     LAUNCHES["flash_attention_dkv"] += 1
     return dk, dv
 
 
-def flash_bwd(q, k, v, o, lse, do, causal=True, scale=None):
+def flash_bwd(q, k, v, o, lse, do, causal=True, scale=None, bias=None,
+              dropout=None, lse_lo=None):
     """K2: (dQ, dK, dV) — the dQ and the dK/dV kernel on a CUDA `q`, one
     plain backward on a CPU `q`."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale)
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale, bias,
+                               dropout, lse_lo)
     do = do.contiguous()
     delta = _delta(o, do)
-    dq = flash_bwd_dq(q, k, v, o, lse, do, causal, scale, delta)
-    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, causal, scale, delta)
+    dq = flash_bwd_dq(q, k, v, o, lse, do, causal, scale, delta,
+                      bias=bias, dropout=dropout, lse_lo=lse_lo)
+    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, causal, scale, delta,
+                           bias=bias, dropout=dropout, lse_lo=lse_lo)
     return dq, dk, dv
 
 
 class _FlashMHA(torch.autograd.Function):
     """Forward K1, backward K2; saves q, k, v (unexpanded), O and lse —
-    the residuals of the JAX package's custom VJP."""
+    the residuals of the JAX package's custom VJP — and, with a bias or
+    dropout, lse's low part, the bias and the dropout's (p, seed,
+    offset), from which K2 regenerates the forward's keep mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+    def forward(ctx, q, k, v, causal, scale, bias, dropout):
+        extra = {}
+        if bias is not None or dropout is not None:
+            B, Sq, H, _ = q.shape
+            extra = {"bias": bias, "dropout": dropout,
+                     "lse_lo": torch.empty(B, H, Sq, dtype=torch.float32,
+                                           device=q.device)}
+        o, lse = flash_fwd(q, k, v, causal, scale, **extra)
+        ctx.save_for_backward(q, k, v, o, lse, bias, extra.get("lse_lo"))
+        ctx.causal, ctx.scale, ctx.dropout = causal, scale, dropout
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, o, lse, bias, lse_lo = ctx.saved_tensors
+        extra = ({} if lse_lo is None else
+                 {"bias": bias, "dropout": ctx.dropout, "lse_lo": lse_lo})
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                               **extra)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_mha(q, k, v, causal=True, scale=None):
+def _as_bias(attn_mask, q):
+    """An attention mask as the kernels' additive fp32 bias: a bool mask
+    (True: attend) -> 0 / -inf, any other dtype cast to fp32."""
+    if attn_mask.requires_grad:
+        raise ValueError("the attention bias takes no gradient: K1/K2 "
+                         "give none; pass a mask that does not require "
+                         "grad")
+    if attn_mask.dtype == torch.bool:
+        return torch.zeros(attn_mask.shape, dtype=torch.float32,
+                           device=q.device).masked_fill(~attn_mask,
+                                                        -math.inf)
+    return attn_mask.to(device=q.device, dtype=torch.float32)
+
+
+def flash_mha(q, k, v, causal=True, scale=None, bias=None, dropout=None):
     """Flash attention on (B, S, H, D) with GQA: K1 forward, K2
-    backward on the card, their plain versions on the CPU."""
-    return _FlashMHA.apply(q, k, v, causal, scale)
+    backward on the card, their plain versions on the CPU.  `bias`: an
+    attention mask (bool: True attends) or an additive bias that
+    broadcasts to (B, H, Sq, Sk); `dropout`: (p, seed, offset)."""
+    if bias is not None:
+        bias = _as_bias(bias, q)
+    return _FlashMHA.apply(q, k, v, causal, scale, bias, _dropout(dropout))
 
 
 # --------------------------------------------------------------------------
 # dispatch (ops/flash_attention.py of the JAX package)
 # --------------------------------------------------------------------------
 
-_DROPOUT = ("attention dropout is not ported yet (ROADMAP: queue 2, flash "
-            "attention with mask and dropout)")
-
 
 def scaled_dot_product_attention_raw(q, k, v, attn_mask=None,
                                      dropout_p=0.0, is_causal=False,
-                                     scale=None):
+                                     dropout_key=None, scale=None):
     """Attention on (B, S, H, D) in plain PyTorch, as the JAX package
     writes it: fp32 logits and softmax, a bool mask selects and any
-    other mask adds, the causal mask is aligned bottom-right.
-    Probabilities are cast to v's dtype before P.V.  Dropout raises:
-    the port has no RNG key to draw its mask from."""
-    if dropout_p > 0.0:
-        raise NotImplementedError(_DROPOUT)
+    other mask adds, the causal mask is aligned bottom-right; dropout,
+    when `dropout_key` = (seed, offset) is given, keeps the kernels'
+    Philox mask (`dropout_keep`) and divides by 1 - p.  Probabilities
+    are cast to v's dtype before P.V."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = _scale(q, scale)
@@ -363,25 +627,28 @@ def scaled_dot_product_attention_raw(q, k, v, attn_mask=None,
         else:
             logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0 and dropout_key is not None:
+        keep = dropout_keep(B, H, Sq, Sk, dropout_p, *dropout_key, q.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(vT.dtype), vT)
     return out.transpose(1, 2)
 
 
 def flash_attention_xla(query, key, value, attn_mask=None, dropout_p=0.0,
-                        is_causal=False, training=True, scale=None):
-    """The JAX package's attention dispatch: without a mask or dropout,
-    `flash_mha` (K1/K2 on the card, their plain versions on the CPU);
-    a mask runs `scaled_dot_product_attention_raw` on the CPU and raises
-    on any other device, since K1/K2 take no mask; dropout in training
-    raises, since the port has no global RNG to draw its key from."""
+                        is_causal=False, training=True, scale=None,
+                        generator=None):
+    """The JAX package's attention dispatch, every call through
+    `flash_mha` (K1/K2 on the card, their plain versions on the CPU),
+    with the mask as an additive bias.  Dropout runs in training only
+    (`training=False` drops nothing, as in the JAX dispatch) and draws
+    its (seed, offset) from `generator` on the host (`dropout_seed`): the
+    port keeps no global RNG, so dropout in training without one
+    raises."""
+    dropout = None
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(_DROPOUT)
-    if attn_mask is None:
-        return flash_mha(query, key, value, is_causal, scale)
-    if query.device.type != "cpu":
-        raise NotImplementedError(
-            "attention with a mask runs only on the CPU: the flash kernels "
-            "K1/K2 take no mask yet (ROADMAP: queue 2, flash attention "
-            "with mask and dropout)")
-    return scaled_dot_product_attention_raw(query, key, value, attn_mask,
-                                            is_causal=is_causal, scale=scale)
+        if generator is None:
+            raise ValueError("attention dropout in training needs a "
+                             "generator=: the port keeps no global RNG")
+        dropout = (float(dropout_p), *dropout_seed(generator))
+    return flash_mha(query, key, value, is_causal, scale, bias=attn_mask,
+                     dropout=dropout)

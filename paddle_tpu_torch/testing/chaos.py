@@ -503,7 +503,13 @@ def _drill_poison(*, fleet, router, events, expected, job_id, log,
             "poison request completed instead of failing typed")
     except PoisonedRequest:
         pass
-    assert _metric(router, "poisoned_total") == base_poisoned + 1
+    convicted = _metric(router, "poisoned_total") - base_poisoned
+    innocents = [(rr.rid, rr.fence_events) for rr in rrs
+                 if rr.done and isinstance(rr.error, PoisonedRequest)]
+    assert convicted == 1, (
+        f"{convicted} requests convicted, want the poison alone: the "
+        f"poison's fence events {poison.fence_events}; innocents failed "
+        f"typed: {innocents}")
     log("[chaos] replica.poison: convicted after "
         f"{poison.poison_strikes} strikes; respawning victims")
     # at most poison_threshold replicas were fenced for it; SIGKILL

@@ -206,8 +206,9 @@ def test_head_dim_16_tiny_attention_matches_jax():
 
 
 def test_masked_attention_runs_raw_on_cpu():
-    """A mask takes `scaled_dot_product_attention_raw` on the CPU, as in
-    the JAX package (bool masks select, float masks add)."""
+    """A mask on the CPU gives the JAX package's
+    `scaled_dot_product_attention_raw` (bool masks select, float masks
+    add); it runs K1/K2's plain versions with the mask as a bias."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from paddle_tpu.ops.flash_attention import \
@@ -375,20 +376,263 @@ def test_wrapper_takes_causal_unequal_lengths_and_head_dim_16(Sk, D):
     FA._check(q, k, k, True)
 
 
-def test_mask_and_dropout_raise_off_the_cpu():
-    """Off the CPU (a meta tensor stands in for the card here) a mask
-    raises: K1/K2 take none; dropout in training raises everywhere, and
-    so does dropout in `scaled_dot_product_attention_raw`."""
-    q = torch.zeros(1, 8, 2, 32, device="meta")
-    mask = torch.ones(8, 8, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.flash_attention_xla(q, q, q, attn_mask=mask, is_causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.flash_attention_xla(*_t(*_qkvd(1, 8, 2, 2, 32)[:3]),
-                               dropout_p=0.1, training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.scaled_dot_product_attention_raw(*_t(*_qkvd(1, 8, 2, 2, 32)[:3]),
-                                            dropout_p=0.1)
+def test_bias_or_dropout_routes_to_fma_and_wgmma_refuses_them():
+    """A call with a bias or dropout runs the fma variant whatever its
+    dtype and head_dim; naming wgmma for one raises ValueError (the
+    tensor-core kernels take neither), as does a bias that requires a
+    gradient (K1/K2 give it none) and dropout in training without a
+    generator (the port keeps no global RNG)."""
+    assert FA._variant(torch.bfloat16, 128, extra=True) == "fma"
+    assert FA._variant(torch.float32, 64, extra=True) == "fma"
+    assert FA._variant(torch.bfloat16, 128) == "wgmma"
+    with pytest.raises(ValueError, match="bias or dropout"):
+        FA._variant(torch.bfloat16, 128, "wgmma", extra=True)
+    q, k, v, _ = _t(*_qkvd(1, 8, 2, 2, 32))
+    bias = torch.zeros(1, 1, 1, 8, requires_grad=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        FA.flash_attention_xla(q, k, v, attn_mask=bias)
+    with pytest.raises(ValueError, match="generator"):
+        FA.flash_attention_xla(q, k, v, dropout_p=0.1, training=True)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        FA.flash_mha(q, k, v, dropout=(1.0, 0, 0))
+
+
+def test_dropout_outside_training_is_a_no_op():
+    """training=False drops nothing (the JAX dispatch sets p to 0), and
+    `scaled_dot_product_attention_raw` without a key ignores dropout as
+    the JAX function does."""
+    q, k, v, _ = _t(*_qkvd(1, 16, 2, 2, 32, seed=3))
+    g = torch.Generator().manual_seed(0)
+    want = FA.flash_attention_xla(q, k, v)
+    got = FA.flash_attention_xla(q, k, v, dropout_p=0.5, training=False,
+                                 generator=g)
+    assert torch.equal(got, want)
+    assert torch.equal(FA.scaled_dot_product_attention_raw(
+        q, k, v, dropout_p=0.5), FA.scaled_dot_product_attention_raw(q, k, v))
+
+
+def _bias_case(kind, B, S, H, rng):
+    """An attention mask of each kind the JAX package takes: float
+    biases of the three broadcast shapes (one a -1e9 padding bias, as
+    ERNIE's), bool masks (True attends; key 0 always kept, so every
+    row sees a key)."""
+    if kind == "pad":                        # (B, 1, 1, Sk), -1e9
+        keep = np.ones((B, S), np.float32)
+        keep[-1, S - S // 4:] = 0
+        return ((1.0 - keep) * -1e9).reshape(B, 1, 1, S)
+    if kind == "float_qk":                   # (1, 1, Sq, Sk)
+        return rng.normal(size=(1, 1, S, S)).astype(np.float32)
+    if kind == "float_full":                 # (B, H, Sq, Sk)
+        return rng.normal(size=(B, H, S, S)).astype(np.float32)
+    shape = (1, 1, S, S) if kind == "bool_qk" else (B, H, S, S)
+    m = rng.random(shape) < 0.7
+    m[..., 0] = True
+    return m
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("kind", ["pad", "float_qk", "float_full",
+                                  "bool_qk", "bool_full"])
+def test_bias_matches_jax_raw_forward_and_grads(kind, H, Hkv, causal):
+    """flash_attention_xla with a mask (the plain K1/K2 on the CPU):
+    O within 1e-5 of each row's max |reference| and dQ, dK, dV within
+    1e-5 of max |reference|, against the JAX package's
+    scaled_dot_product_attention_raw and jax.grad of it."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.ops.flash_attention import \
+        scaled_dot_product_attention_raw as jsdpa
+    B, S, D = 2, 40, 16
+    q, k, v, do = _qkvd(B, S, H, Hkv, D, seed=11)
+    mask = _bias_case(kind, B, S, H, np.random.default_rng(12))
+
+    def f(q_, k_, v_):
+        return jsdpa(q_, k_, v_, attn_mask=jnp.asarray(mask),
+                     is_causal=causal)
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = vjp(jnp.asarray(do))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    got = FA.flash_attention_xla(tq, tk, tv, attn_mask=torch.from_numpy(
+        mask), is_causal=causal)
+    got.backward(torch.from_numpy(do))
+    want = np.asarray(want)
+    err = np.abs(got.detach().numpy() - want).max(-1)
+    assert (err <= 1e-5 * np.maximum(np.abs(want).max(-1), 1e-30)).all()
+    for g, ref in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(g.numpy(), np.asarray(ref))
+
+
+def test_a_row_that_sees_no_key_is_nan_as_in_jax():
+    """A bool mask that hides every key from one query row: O NaN there
+    (the JAX function's softmax over nothing), lse -inf, the other rows
+    as the JAX function gives them, and the backward finite, the dead
+    row adding nothing."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from paddle_tpu.ops.flash_attention import \
+        scaled_dot_product_attention_raw as jsdpa
+    q, k, v, do = _qkvd(1, 16, 2, 2, 32, seed=13)
+    m = np.ones((1, 1, 16, 16), bool)
+    m[..., 5, :] = False
+    want = np.asarray(jsdpa(*(jnp.asarray(x) for x in (q, k, v)),
+                            attn_mask=jnp.asarray(m)))
+    bias = FA._as_bias(torch.from_numpy(m), torch.zeros(1))
+    o, lse = FA.flash_fwd_plain(*_t(q, k, v), False, bias=bias)
+    assert np.isnan(want[:, 5]).all() and o[:, 5].isnan().all()
+    assert torch.isneginf(lse[:, :, 5]).all()
+    _close(np.delete(o.numpy(), 5, 1), np.delete(want, 5, 1))
+    grads = FA.flash_bwd_plain(*_t(q, k, v), o, lse, torch.from_numpy(do),
+                               False, bias=bias)
+    assert all(g.isfinite().all() for g in grads)
+    assert (grads[0][:, 5] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("pad", [float(np.finfo(np.float32).min), -1e9])
+def test_fully_padded_rows_get_the_uniform_softmax_as_in_jax(pad, causal):
+    """A (B, 1, 1, Sk) padding bias that pads every key of batch 1 (a
+    finite bias, so no row is dead): the JAX function adds it to the
+    scores and its softmax is uniform over the padded keys.  The port
+    through flash_attention_xla matches it: O within 1e-5 of each row's
+    max |reference|, dQ, dK, dV within 1e-5 of max |reference|.  (With
+    a max started at -1e30, finfo.min rows came out NaN; with lse kept
+    as one fp32 number, the -1e9 rows' gradients came out Sk times too
+    large.)"""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.ops.flash_attention import \
+        scaled_dot_product_attention_raw as jsdpa
+    B, S, H, Hkv, D = 2, 40, 4, 2, 16
+    q, k, v, do = _qkvd(B, S, H, Hkv, D, seed=17)
+    keep = np.ones((B, S), np.float32)
+    keep[0, S - S // 4:] = 0
+    keep[1] = 0
+    mask = np.where(keep > 0, 0.0, pad).astype(np.float32) \
+        .reshape(B, 1, 1, S)
+
+    def f(q_, k_, v_):
+        return jsdpa(q_, k_, v_, attn_mask=jnp.asarray(mask),
+                     is_causal=causal)
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    jg = vjp(jnp.asarray(do))
+    want = np.asarray(want)
+    assert np.isfinite(want).all()
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    got = FA.flash_attention_xla(tq, tk, tv, attn_mask=torch.from_numpy(
+        mask), is_causal=causal)
+    got.backward(torch.from_numpy(do))
+    err = np.abs(got.detach().numpy() - want).max(-1)
+    assert (err <= 1e-5 * np.maximum(np.abs(want).max(-1), 1e-30)).all()
+    for g, ref in zip((tq.grad, tk.grad, tv.grad), jg):
+        _close(g.numpy(), np.asarray(ref))
+
+
+# ------------------------------------------------------ dropout and Philox
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_matches_random123_known_answers(counter, key, want):
+    """philox4x32-10 against Random123's published known-answer vectors,
+    on Python ints and on int64 tensors."""
+    assert FA.philox4x32(*counter, *key) == want
+    got = FA.philox4x32(*(torch.tensor([c]) for c in counter), *key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_dropout_keep_share_and_repeatability():
+    """The keep mask at p 0.1 over 2 x 3 x 128 x 200 elements: the kept
+    share within 5 sigma of 0.9; the same (seed, offset) twice gives the
+    same bits, another offset or seed another mask; the layout's word
+    (c // 16) % 4 of counter (16 (c // 64) + c % 16, i, b H + h, offset)."""
+    B, H, Sq, Sk, p = 2, 3, 128, 200, 0.1
+    keep = FA.dropout_keep(B, H, Sq, Sk, p, 2 ** 40 + 17, 5, "cpu")
+    n = keep.numel()
+    assert abs(keep.float().mean().item() - (1 - p)) \
+        <= 5 * (p * (1 - p) / n) ** 0.5
+    assert torch.equal(keep, FA.dropout_keep(B, H, Sq, Sk, p, 2 ** 40 + 17,
+                                             5, "cpu"))
+    assert not torch.equal(keep, FA.dropout_keep(B, H, Sq, Sk, p,
+                                                 2 ** 40 + 17, 6, "cpu"))
+    assert not torch.equal(keep, FA.dropout_keep(B, H, Sq, Sk, p, 17, 5,
+                                                 "cpu"))
+    seed, b, h, i, c = 2 ** 40 + 17, 1, 2, 77, 150
+    words = FA.philox4x32(16 * (c // 64) + c % 16, i, b * H + h, 5,
+                          seed & 0xFFFFFFFF, seed >> 32)
+    assert bool(keep[b, h, i, c]) == (words[(c // 16) % 4]
+                                      >= int(p * 2 ** 32))
+
+
+def test_dropout_seed_is_drawn_on_the_host_and_advances():
+    g = torch.Generator().manual_seed(3)
+    first, second = FA.dropout_seed(g), FA.dropout_seed(g)
+    assert first != second
+    g.manual_seed(3)
+    assert FA.dropout_seed(g) == first
+    assert 0 <= first[0] < 2 ** 64 and 0 <= first[1] < 2 ** 32
+
+
+def _dropout_reference(q, k, v, keep, p, causal, bias):
+    """O from an einsum written out with the given keep mask: softmax of
+    the scaled scores plus the bias, then P * keep / (1 - p), then P.V
+    (GQA by repeating the kv heads)."""
+    B, Sq, H, D = q.shape
+    rep = H // k.shape[2]
+    kk, vv = (x.repeat_interleave(rep, 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / math.sqrt(D)
+    if bias is not None:
+        s = s + bias
+    if causal:
+        s = s.masked_fill(~torch.ones(Sq, k.shape[1], dtype=torch.bool)
+                          .tril(k.shape[1] - Sq), -math.inf)
+    pr = torch.where(keep, torch.softmax(s, -1) / (1 - p), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", pr, vv)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,Hkv,masked", [(4, 4, False), (4, 2, True),
+                                          (4, 4, True)])
+def test_plain_dropout_matches_an_einsum_from_the_same_mask(H, Hkv, masked,
+                                                            causal):
+    """The plain K1/K2 with dropout (p 0.2) and a padding bias: O within
+    1e-5 of max |reference| of an einsum written from `dropout_keep`'s
+    mask, and dQ, dK, dV within 1e-5 of max |reference| of
+    torch.autograd through that einsum; `flash_mha` on the CPU and the
+    JAX-semantics function (`scaled_dot_product_attention_raw` with the
+    same key) give the same O."""
+    B, S, D, p = 2, 70, 32, 0.2
+    q, k, v, do = _t(*_qkvd(B, S, H, Hkv, D, seed=21))
+    bias = (torch.from_numpy(_bias_case("pad", B, S, H, None)) if masked
+            else None)
+    drop = (p, 987654321987, 42)
+    keep = FA.dropout_keep(B, H, S, S, p, 987654321987, 42, "cpu")
+    rq, rk, rv = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = _dropout_reference(rq, rk, rv, keep, p, causal, bias)
+    ref.backward(do)
+    o, lse = FA.flash_fwd_plain(q, k, v, causal, bias=bias, dropout=drop)
+    _close(o.numpy(), ref.detach().numpy())
+    grads = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, bias=bias,
+                               dropout=drop)
+    for g, r in zip(grads, (rq.grad, rk.grad, rv.grad)):
+        _close(g.numpy(), r.numpy())
+    _close(FA.flash_mha(q, k, v, causal, bias=bias, dropout=drop).numpy(),
+           ref.detach().numpy())
+    raw = FA.scaled_dot_product_attention_raw(
+        q, k, v, attn_mask=bias, dropout_p=p, is_causal=causal,
+        dropout_key=drop[1:])
+    _close(raw.numpy(), ref.detach().numpy())
 
 
 def _per_row_share(got, want, tol):
@@ -502,3 +746,86 @@ def test_cuda_bwd_kernels_are_bitwise_repeatable_on_card():
                                    variant=variant))
         for a, b in zip(first, again):
             assert torch.equal(a, b), variant
+
+
+def _same_bits(a, b):
+    """Bitwise equal, NaN included (the rows that see no key)."""
+    return torch.equal(a.view(torch.int16 if a.element_size() == 2
+                              else torch.int32),
+                       b.view(torch.int16 if b.element_size() == 2
+                              else torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_bias_and_dropout_kernels_match_plain_on_card():
+    """K1 and K2 with a bias and dropout (the fma kernels built with
+    them) against the plain versions given the same (seed, offset): the
+    ERNIE-base attention (16 x 128, 12 heads of 64) with a -1e9 padding
+    bias and p 0.1 in fp32 and bf16, a causal GQA case with a bool
+    (1, 1, Sq, Sk) mask, head_dim 16; each kernel bitwise twice; one
+    launch counted each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1/K2 have no CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [  # B, S, H, Hkv, D, causal, dtype, mask kind
+        (16, 128, 12, 12, 64, False, torch.float32, "pad"),
+        (16, 128, 12, 12, 64, False, torch.bfloat16, "pad"),
+        (2, 200, 8, 2, 64, True, torch.float32, "bool_qk"),
+        (2, 130, 4, 2, 16, False, torch.float32, "float_full")]
+    for B, S, H, Hkv, D, causal, dt, kind in cases:
+        q, k, v, do = (torch.from_numpy(a).to("cuda", dt)
+                       for a in _qkvd(B, S, H, Hkv, D, seed=S))
+        mask = torch.from_numpy(_bias_case(kind, B, S, H,
+                                           np.random.default_rng(S)))
+        bias = FA._as_bias(mask.cuda(), q)
+        drop = (0.1, 2 ** 33 + 5, 7)
+        before = dict(FA.LAUNCHES)
+        o, lse = FA.flash_fwd(q, k, v, causal, bias=bias, dropout=drop)
+        grads = (FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
+                                 dropout=drop),
+                 *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, bias=bias,
+                                   dropout=drop))
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == {n: before[n] + 1 for n in before}
+        po, plse = FA.flash_fwd_plain(q, k, v, causal, bias=bias,
+                                      dropout=drop)
+        assert _per_row_share(o, po, _card_tol(dt)) <= 1.0, (S, D, dt)
+        assert _lse_ok(lse, plse), (S, D, dt)
+        plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, bias=bias,
+                                   dropout=drop)
+        for got, want in zip(grads, plain):
+            assert _per_row_share(got, want, _card_tol(dt)) <= 1.0, \
+                (S, D, dt)
+        o2, _ = FA.flash_fwd(q, k, v, causal, bias=bias, dropout=drop)
+        dq2 = FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
+                              dropout=drop)
+        assert _same_bits(o, o2) and _same_bits(grads[0], dq2)
+
+
+@pytest.mark.gpu
+def test_mask_on_the_card_launches_k1_k2_and_wgmma_refuses_a_bias():
+    """On CUDA tensors a mask goes through K1/K2 (the counters rise, the
+    plain attention is not called); wgmma named with a bias raises, and
+    so does a bias that requires a gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1/K2 have no CPU or interpret mode")
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   .requires_grad_() for a in _qkvd(1, 256, 8, 2, 128))
+    mask = torch.ones(1, 1, 256, 256, dtype=torch.bool, device="cuda")
+    raw = FA.scaled_dot_product_attention_raw
+    FA.scaled_dot_product_attention_raw = None       # must not be called
+    try:
+        before = dict(FA.LAUNCHES)
+        FA.flash_attention_xla(q, k, v, attn_mask=mask,
+                               is_causal=True).backward(do.detach())
+        torch.cuda.synchronize()
+    finally:
+        FA.scaled_dot_product_attention_raw = raw
+    assert FA.LAUNCHES == {n: before[n] + 1 for n in before}
+    bias = FA._as_bias(mask, q)
+    with pytest.raises(ValueError, match="bias or dropout"):
+        FA.flash_fwd(q.detach(), k.detach(), v.detach(), True,
+                     variant="wgmma", bias=bias)
+    with pytest.raises(ValueError, match="no gradient"):
+        FA.flash_attention_xla(q, k, v, attn_mask=torch.zeros(
+            1, 1, 1, 256, device="cuda", requires_grad=True))

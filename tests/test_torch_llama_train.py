@@ -333,6 +333,25 @@ def test_state_dict_roundtrip_replays_a_step():
 def test_unported_knobs_raise_naming_roadmap(knob):
     import paddle_tpu_torch.ops.flash_attention as FA
     cfg = TConfig.from_preset("tiny")
+    if knob in ("dropout", "sdpa_dropout"):
+        # ported since attention dropout draws from an explicit generator
+        # (the kernels' Philox bits): what stays refused is dropout in
+        # training without one
+        q = torch.randn(1, 8, 4, 16, generator=torch.Generator()
+                        .manual_seed(0))
+        if knob == "dropout":
+            with pytest.raises(ValueError, match="generator"):
+                FA.flash_attention_xla(q, q, q, dropout_p=0.1,
+                                       training=True)
+            out = FA.flash_attention_xla(
+                q, q, q, dropout_p=0.1, training=True,
+                generator=torch.Generator().manual_seed(1))
+        else:
+            out = FA.scaled_dot_product_attention_raw(
+                q, q, q, dropout_p=0.1, dropout_key=(1, 2))
+        assert out.shape == q.shape and not torch.equal(
+            out, FA.scaled_dot_product_attention_raw(q, q, q))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         if knob == "sequence_parallel":
             tm = TModel(TConfig.from_preset("tiny", sequence_parallel=True),
@@ -342,12 +361,6 @@ def test_unported_knobs_raise_naming_roadmap(knob):
             tm = TModel(cfg, device="cpu")
             TrainStep(tm, lambda m, x: m(x).sum(), AdamW(),
                       **{knob: object()})
-        elif knob == "dropout":
-            q = torch.zeros(1, 8, 4, 16)
-            FA.flash_attention_xla(q, q, q, dropout_p=0.1, training=True)
-        elif knob == "sdpa_dropout":
-            q = torch.zeros(1, 8, 4, 16)
-            FA.scaled_dot_product_attention_raw(q, q, q, dropout_p=0.1)
         elif knob == "lr_ratio":
             AdamW(lr_ratio=lambda p: 1.0)
         elif knob == "apply_decay_param_fun":

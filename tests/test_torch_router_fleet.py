@@ -534,6 +534,71 @@ def test_replay_mismatch_is_counted_not_delivered():
         router.shutdown()
 
 
+def test_a_waiting_suspect_takes_no_strike_for_a_crash_it_never_saw():
+    """Two requests in flight on stub0 when it is fenced: one strike
+    each.  The first to replay goes alone to stub1 (probation) while the
+    other waits at the front of the queue; the first crashes stub1 too
+    (its second strike: convicted).  The router marks stub1 dead in the
+    same critical section as that strike, so the waiting suspect is
+    never handed the corpse and keeps one strike: one conviction.  (With
+    stub1 marked dead only after the lock was released, the dispatcher
+    gave it the waiting suspect within the window held open below, and
+    the fence convicted an innocent request as well.)"""
+    s0, s1, s2 = (_StubReplica(n) for n in ("stub0", "stub1", "stub2"))
+    router = Router([s0], poll_interval=0.05, policy="least_loaded",
+                    poison_threshold=2)
+    try:
+        reqs = [router.submit([1, 2], max_new_tokens=2),
+                router.submit([3, 4], max_new_tokens=2)]
+        _wait(lambda: len(s0.inners) == 2, "both dispatches to stub0")
+        router._fail_replica("stub0", ConnectionError("dead"))
+        assert [r.poison_strikes for r in reqs] == [1, 1]
+        router.add_replica(s1)
+        _wait(lambda: len(s1.inners) == 1, "one suspect on stub1")
+        on_s1 = router._replicas["stub1"].probing_rid
+        first, waiting = sorted(reqs, key=lambda r: r.rid != on_s1)
+        assert first.rid == on_s1 and not waiting.done
+
+        # hold the window between the crash's strike and the fence open:
+        # the failover record waits (at most 1 s) for a second dispatch
+        # to stub1
+        second_on_s1 = threading.Event()
+        submit = s1.submit
+
+        def s1_submit(*a, **kw):
+            inner = submit(*a, **kw)
+            second_on_s1.set()
+            return inner
+        s1.submit = s1_submit
+        record = router._journal.record
+
+        def held_record(ev, rid, **fields):
+            if (ev == "failover" and rid == first.rid
+                    and fields.get("replica") == "stub1"):
+                second_on_s1.wait(1.0)
+            return record(ev, rid, **fields)
+        router._journal.record = held_record
+
+        crashed = s1.inners[0]
+        crashed.error = EngineUnhealthy("stub1's driver died")
+        crashed.on_done(crashed)
+        assert first.done and first.poison_strikes == 2
+        assert _rv(router, "poisoned_total") == 1
+        assert not second_on_s1.is_set() and len(s1.inners) == 1
+        assert waiting.poison_strikes == 1 and not waiting.done
+        # the waiting request still completes, on the next replica
+        router.add_replica(s2)
+        _wait(lambda: s2.inners, "the waiting suspect's replay")
+        a = s2.inners[0]
+        for t in (7, 8):
+            a.on_token(a, t)
+        a.on_done(a)
+        assert waiting.result(timeout=30) == [7, 8]
+        assert _rv(router, "poisoned_total") == 1
+    finally:
+        router.shutdown()
+
+
 def test_fail_replica_evicts_its_prefix_shadow():
     stub = _StubReplica("stub0")
     stub.block_tokens = 4
