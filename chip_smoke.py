@@ -419,23 +419,30 @@ the result line:
               kernels against plain versions on the card: loss, every
               gradient, and the parameters after two TrainSteps;
  11b. ernie_kernels
-              K1 and K2 with an additive bias and Philox dropout (the fma
-              kernels built with them; `ops/flash_attention.py`'s
-              docstring has the keep-bit layout) against their plain
-              versions given the same (seed, offset): the ernie-3.0-base
-              attention (B 16, S 128, 12 heads of 64, no causal mask)
-              with a (16, 1, 1, 128) -1e9 padding bias (a quarter of the
-              keys padded on average) and p 0.1 in fp32 and bf16, a
-              causal case with a bool (1, 1, 300, 300) mask, a GQA
-              case (12 / 4 heads) and whole sequences padded with
-              finfo.min and -1e9 (uniform rows), per row within
-              FLASH_TOL, K2 reading lse's low part as flash_mha hands it
-              on; every kernel twice on the same inputs, bitwise; the
-              keep share within 0.9 +- 5 sigma; then timed in turns at
-              the fp32 ERNIE shape beside their bounds (fp32 CUDA-core
-              peak) and scaled_dot_product_attention with the same float
-              mask and dropout_p 0.1 (a yardstick the port never calls;
-              all by CUDA-graph replay, its backward as forward +
+              K1 and K2 with an additive bias and Philox dropout, on
+              the mma kernels (the route: `mma.sync`, fp32 as three
+              TF32 products, bf16 with P and dS in two parts) and on the
+              fma kernels built with them (the CUDA cores, the
+              yardstick; `ops/flash_attention.py`'s docstring has the
+              keep-bit layout), against their plain versions given the
+              same (seed, offset): the ernie-3.0-base attention (B 16,
+              S 128, 12 heads of 64, no causal mask) with a (16, 1, 1,
+              128) -1e9 padding bias (a quarter of the keys padded on
+              average) and p 0.1 in fp32 and bf16, a causal case with a
+              bool (1, 1, 300, 300) mask and two rows all masked, a GQA
+              case (12 / 4 heads), whole sequences padded with
+              finfo.min and -1e9 (uniform rows), head_dim 16 (causal,
+              Sq 300 > Sk 200) and 128 in fp32, and the Llama trainer's
+              attention in bf16 with a (2, 1, 1, 2048) padding bias, per
+              row within FLASH_TOL, K2 reading lse's low part as
+              flash_mha hands it on; every kernel twice on the same
+              inputs, bitwise; the keep share within 0.9 +- 5 sigma;
+              then timed in turns (mma, fma, fma, mma) at five of those
+              shapes beside their bounds (bytes vs the three-TF32 rate
+              for mma in fp32, the CUDA-core peak for fma), the plain
+              versions and scaled_dot_product_attention with the same
+              float mask and dropout_p (a yardstick the port never
+              calls; all by CUDA-graph replay, its backward as forward +
               backward less forward);
  11c. ernie_train
               `bench.py:310 bench_ernie`'s step at full width and depth:
@@ -623,6 +630,10 @@ def phase_build():
           "flash_tensor_core_kernels": _ptxas_report(
               libs["flash_attention"].with_suffix(".log").read_text(),
               "wgmma"),
+          "flash_mma_kernels": [
+              r for lib in ("flash_attention_mma", "flash_attention_mma_bf16")
+              for r in _ptxas_report(
+                  libs[lib].with_suffix(".log").read_text(), "mma")],
           "q1_kernels": _ptxas_report(
               libs["wo_int8_matmul"].with_suffix(".log").read_text(),
               "q1"),
@@ -914,9 +925,24 @@ def _k4_ext_case(torch, mode, gen, depths, hot=8):
     x2 = _graph_ms(torch, kern_ext, copies)
     d2 = _graph_ms(torch, kern_dev, copies)
     PA.LAUNCHES["paged_attention"] = launches
-    ext_bytes = len(cold) * tiers[0].flat.shape[1]
+    from paddle_tpu_torch.observability import roofline
+    kind = torch.cuda.get_device_name(0)
+    block_bytes = tiers[0].flat.shape[1]
+    ext_bytes = len(cold) * block_bytes
+    dev_bytes = (sum(p // bt + 1 for p in depths) - len(cold)) \
+        * block_bytes + 2 * _nbytes(q)
+    # the host link and HBM move their bytes at once: the least time is
+    # the slower of the two
+    t_host = ext_bytes / roofline.peak_host_link_bw(kind)
+    t_dev = dev_bytes / roofline.peak_hbm_bw(kind)
     res = {"depths": list(depths), "hot_blocks": hot,
            "ext_blocks": len(cold), "ext_bytes_per_call": ext_bytes,
+           "device_bytes_per_call": dev_bytes,
+           "bound_ms": 1e3 * max(t_host, t_dev),
+           "bound_by": "host link bytes" if t_host >= t_dev else "bytes",
+           "library_ms": None,
+           "library": "none: no PyTorch call reads pinned host rows in "
+                      "place (the gather path copies them first)",
            "max_abs_err": err_b.max().item(),
            "worst_err_over_limit": share,
            "bitwise_vs_device_pool_and_twice": True,
@@ -6902,9 +6928,11 @@ def _train_profile(torch, step, batch, step_ms):
     # stream around functional_update (the profiler does not tie the
     # ctypes launches to the record_function range)
     range_ms = marks[0].elapsed_time(marks[1])
-    families = {"k1_flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma"),
+    families = {"k1_flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma",
+                                 "flash_fwd_mma"),
                 "k2_flash_bwd": ("flash_dq_kernel", "flash_dkv_kernel",
-                                 "flash_dq_wgmma", "flash_dkv_wgmma"),
+                                 "flash_dq_wgmma", "flash_dkv_wgmma",
+                                 "flash_dq_mma", "flash_dkv_mma"),
                 "k3_softmax_xent": ("xent_fwd_kernel", "xent_bwd_kernel"),
                 "k5_gmm": ("gmm_fwd", "gmm_drhs"),
                 "optimizer_update": ("optim_u1", "optim_u2"),
@@ -8160,8 +8188,8 @@ ERNIE_LR = 2e-5                   # bench_ernie's AdamW
 ERNIE_P = 0.1                     # ernie-3.0-base's hidden / attention dropout
 ERNIE_DROP = (ERNIE_P, 0x5EED00000021, 3)     # (p, seed, offset) of the checks
 ERNIE_SHAPE = dict(H=12, Hkv=12, D=64)        # ernie-3.0-base attention
-ERNIE_ROUTE = "[bias+dropout]"    # the fma kernels built with the bias and
-#                                   dropout code
+ERNIE_ROUTE = "[bias+dropout]"    # the calls with a bias or dropout: the
+#                                   mma kernels
 ERNIE_REPLACES = ("{line}, with the mask and dropout of "
                   "paddle_tpu/ops/flash_attention.py:34 "
                   "scaled_dot_product_attention_raw (the JAX package runs "
@@ -8193,27 +8221,122 @@ def _same_bits(torch, a, b):
                             b.contiguous().view(iv)))
 
 
-def _flash_outputs(torch, FA, q, k, v, do, causal, extra):
+def _flash_outputs(torch, FA, q, k, v, do, causal, extra, variant=None):
     """K1's (O, lse, lse_lo) and K2's dQ, dK, dV on K1's own O and
-    lse."""
-    extra = {**extra, **_lse_lo_args(torch, q, extra)}
+    lse, of `variant` (else the one the wrapper picks)."""
+    extra = {**extra, **_lse_lo_args(torch, q, extra), "variant": variant}
     o, lse = FA.flash_fwd(q, k, v, causal, **extra)
     return (o, lse, extra["lse_lo"],
             FA.flash_bwd_dq(q, k, v, o, lse, do, causal, **extra),
             *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, **extra))
 
 
-def phase_ernie_kernels(torch):
-    """K1 and K2 with a bias and dropout (the fma kernels built with
-    them) against their plain versions given the same (seed, offset):
-    the ernie-3.0-base attention (B 16, S 128, 12 heads of 64, no causal
-    mask) with a (16, 1, 1, 128) padding bias and p 0.1 in fp32 and bf16,
-    a causal case with a bool (1, 1, Sq, Sk) mask and a GQA case; each
-    kernel twice on the same inputs (bitwise); the keep share; then timed
-    in turns at the fp32 ERNIE shape beside their bounds and
-    scaled_dot_product_attention with the same float mask and dropout
-    0.1 (a yardstick the port never calls)."""
+def _causal_pairs(Sq, Sk):
+    """(query, key) pairs a bottom-right causal mask keeps."""
+    off = Sk - Sq
+    return sum(max(0, min(Sk, r + off + 1)) for r in range(Sq))
+
+
+def _flash_bounds(kind, q, k, causal, bias, flops_dtype):
+    """{kernel: (bound ms, by)} of K1, dQ and dK/dV on these inputs:
+    q, k, v (and dO, lse, lse_lo, delta) and the bias as given read
+    once, O, lse, lse_lo (or dQ, or dK and dV) written once, against 2,
+    3 and 4 products over the pairs the mask keeps, at the peak of
+    `flops_dtype`."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = _causal_pairs(Sq, Sk) if causal else Sq * Sk
+    mm = 2.0 * B * H * pairs * D
+    tq, tkv = _nbytes(q), _nbytes(k)
+    rows, bias_b = B * H * Sq * 4, 0 if bias is None else _nbytes(bias)
+    return {"flash_attention_fwd": _bound_ms(
+                kind, 2 * mm, 2 * tq + 2 * tkv + bias_b + 2 * rows,
+                flops_dtype),
+            "flash_attention_dq": _bound_ms(
+                kind, 3 * mm, 3 * tq + 2 * tkv + bias_b + 3 * rows,
+                flops_dtype),
+            "flash_attention_dkv": _bound_ms(
+                kind, 4 * mm, 2 * tq + 4 * tkv + bias_b + 3 * rows,
+                flops_dtype)}
+
+
+def _flash_ms(torch, FA, q, k, v, do, causal, extra, variant, reps=20):
+    """{kernel: ms} of K1, dQ and dK/dV of `variant`, each by CUDA-graph
+    replay (`reps` calls in the graph, replayed `reps` times), the
+    backward on K1's own O, lse and lse_lo."""
+    kw = {"variant": variant, **extra, **_lse_lo_args(torch, q, extra)}
+    o, lse = FA.flash_fwd(q, k, v, causal, **kw)
+    delta = FA._delta(o, do)
+    return {"flash_attention_fwd": _graph_ms(
+                torch, lambda i: FA.flash_fwd(q, k, v, causal, **kw), 1,
+                reps, reps),
+            "flash_attention_dq": _graph_ms(
+                torch, lambda i: FA.flash_bwd_dq(q, k, v, o, lse, do, causal,
+                                                 delta=delta, **kw), 1,
+                reps, reps),
+            "flash_attention_dkv": _graph_ms(
+                torch, lambda i: FA.flash_bwd_dkv(q, k, v, o, lse, do,
+                                                  causal, delta=delta, **kw),
+                1, reps, reps)}
+
+
+def _plain_ms(torch, FA, q, k, v, do, causal, extra):
+    """(K1's plain version, the plain backward) eager ms: the plain
+    backward computes dQ, dK and dV together."""
+    o, lse = FA.flash_fwd_plain(q, k, v, causal, **extra)
+    return (_time_ms(torch, lambda i: FA.flash_fwd_plain(
+                q, k, v, causal, **extra), 1, 5),
+            _time_ms(torch, lambda i: FA.flash_bwd_plain(
+                q, k, v, o, lse, do, causal, **extra), 1, 5))
+
+
+def _sdpa_ms(torch, q, k, v, do, causal, extra):
+    """scaled_dot_product_attention (a yardstick the port never calls) on
+    the same inputs in its layout, kv heads repeated outside the timed
+    calls, with the bias (plus the causal mask) as a float attn_mask in
+    q's dtype and the same dropout_p: (forward ms, backward ms), by
+    graph replay, the backward as forward + backward less forward."""
     import torch.nn.functional as F
+    B, Sq, H, _ = q.shape
+    Sk, rep = k.shape[1], H // k.shape[2]
+    mask = extra.get("bias")
+    if causal:
+        tri = torch.zeros(Sq, Sk, device="cuda").masked_fill(
+            ~torch.ones(Sq, Sk, dtype=torch.bool, device="cuda").tril(
+                Sk - Sq), -math.inf)
+        mask = tri if mask is None else mask + tri
+    mask = None if mask is None else mask.to(q.dtype)
+    p = extra["dropout"][0] if "dropout" in extra else 0.0
+    qT, kT, vT, doT = (x.transpose(1, 2) for x in (
+        q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), do))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qT, kT, vT))
+    fwd = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qT, kT, vT, attn_mask=mask, dropout_p=p), 1)
+
+    def fwd_bwd(i):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                             dropout_p=p)
+        torch.autograd.grad(out, (qg, kg, vg), doT)
+    return fwd, _graph_ms(torch, fwd_bwd, 1) - fwd
+
+
+def phase_ernie_kernels(torch):
+    """K1 and K2 with a bias and dropout (the mma kernels: the tensor
+    cores, fp32 as three TF32 products, bf16 with P and dS in two parts)
+    against their plain versions given the same (seed, offset): the
+    ernie-3.0-base attention (B 16, S 128, 12 heads of 64, no causal
+    mask) with a (16, 1, 1, 128) padding bias and p 0.1 in fp32 and bf16,
+    a causal case with a bool (1, 1, Sq, Sk) mask and two rows whose every
+    key is masked, a GQA case, whole sequences padded, head_dim 16
+    (causal Sq > Sk) and 128 in fp32, and the Llama trainer's attention
+    in bf16 with a (2, 1, 1, 2048) padding bias; every case also through
+    the CUDA-core kernels built with the bias and dropout code (variant
+    "fma", the earlier route, the same limits); each kernel twice on the
+    same inputs (bitwise); the keep share; then timed in turns at five of
+    those shapes, the fma kernels beside the mma ones, against their
+    bounds, their plain versions and scaled_dot_product_attention with
+    the same float mask and dropout (a yardstick the port never calls),
+    all by graph replay."""
     from paddle_tpu_torch.ops import flash_attention as FA
     kind = torch.cuda.get_device_name(0)
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -8231,9 +8354,11 @@ def phase_ernie_kernels(torch):
                                 gen)
     keep = torch.rand(1, 1, 300, 300, device="cuda", generator=gen) < 0.7
     keep |= torch.eye(300, dtype=torch.bool, device="cuda")   # a key a row
+    keep[..., (7, 150), :] = False         # rows whose every score is -inf
     cases["float32 causal (B 2, S 300, 12 heads, D 64), bool (1, 1, 300, "
-          "300) mask, p 0.1"] = (q, k, v, do, True, dict(
-              bias=FA._as_bias(keep, q), dropout=ERNIE_DROP))
+          "300) mask, rows 7 and 150 all masked, p 0.1"] = (
+        q, k, v, do, True, dict(bias=FA._as_bias(keep, q),
+                                dropout=ERNIE_DROP))
     cases["bfloat16 GQA (B 4, S 200, 12 / 4 heads, D 64), (4, 1, 1, 200) "
           "padding bias, p 0.1"] = (
         *_flash_inputs(torch, 4, 200, 12, 4, 64, torch.bfloat16, gen),
@@ -8248,27 +8373,52 @@ def phase_ernie_kernels(torch):
           "bias with whole sequences padded (finfo.min, -1e9), p 0.1"] = (
         *_flash_inputs(torch, 4, ERNIE_S, 12, 12, 64, torch.float32, gen),
         False, dict(bias=full, dropout=ERNIE_DROP))
-    cmp = {}
+    # head_dim 16 (causal, Sq > Sk: the first 100 rows see no key) and 128
+    cases["float32 D 16 causal (B 4, Sq 300, Sk 200, 4 / 2 heads), (4, 1, "
+          "1, 200) padding bias, p 0.1"] = (
+        *_flash_inputs(torch, 4, 300, 4, 2, 16, torch.float32, gen, 200),
+        True, dict(bias=_ernie_bias(torch, 4, 200), dropout=ERNIE_DROP))
+    cases["float32 D 128 (B 4, S 256, 8 heads), (4, 1, 1, 256) padding "
+          "bias, p 0.1"] = (
+        *_flash_inputs(torch, 4, 256, 8, 8, 128, torch.float32, gen),
+        False, dict(bias=_ernie_bias(torch, 4, 256), dropout=ERNIE_DROP))
+    fs = FLASH_SHAPE
+    cases[f"bfloat16 trainer (B {TRAIN_B}, S {TRAIN_S}, {fs['H']} / "
+          f"{fs['Hkv']} heads, D {fs['D']}, causal), ({TRAIN_B}, 1, 1, "
+          f"{TRAIN_S}) padding bias"] = (
+        *_flash_inputs(torch, TRAIN_B, TRAIN_S, fs["H"], fs["Hkv"], fs["D"],
+                       torch.bfloat16, gen), True,
+        dict(bias=_ernie_bias(torch, TRAIN_B, TRAIN_S)))
+    # every case through the mma kernels (the route) and the fma kernels
+    # built with the bias and dropout code (the yardstick timed below)
+    route = FA._variant(torch.float32, es["D"], extra=True)
+    cmp = {"mma": {}, "fma": {}}
     for key, (q, k, v, do, causal, extra) in cases.items():
-        c = cmp[key] = _flash_compare(torch, q, k, v, do, causal, **extra)
-        first = _flash_outputs(torch, FA, q, k, v, do, causal, extra)
-        again = _flash_outputs(torch, FA, q, k, v, do, causal, extra)
-        bitwise = {n: _same_bits(torch, a, b) for n, a, b in
-                   zip(("o", "lse", "lse_lo", "dq", "dk", "dv"), first,
-                       again)}
-        emit({"phase": "ernie_kernels", "kernel": "flash_attention",
-              "case": key, "variant": FA._variant(q.dtype, q.shape[-1],
-                                                  extra=True),
-              "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL[
-                  key.split()[0]]),
-              **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
-              **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()},
-              "bitwise_equal_twice": bitwise})
-        for n, (_, s) in c.items():
-            require(s <= 1.0, f"flash {key} {n}: {s} x its limit")
-        require(all(bitwise.values()), f"flash {key}: not bitwise "
-                f"repeatable {bitwise}")
-        del first, again
+        for variant in cmp:
+            c = cmp[variant][key] = _flash_compare(
+                torch, q, k, v, do, causal, variant=variant, **extra)
+            first = _flash_outputs(torch, FA, q, k, v, do, causal, extra,
+                                   variant)
+            again = _flash_outputs(torch, FA, q, k, v, do, causal, extra,
+                                   variant)
+            bitwise = {n: _same_bits(torch, a, b) for n, a, b in
+                       zip(("o", "lse", "lse_lo", "dq", "dk", "dv"), first,
+                           again)}
+            emit({"phase": "ernie_kernels", "kernel": "flash_attention",
+                  "case": key, "variant": variant,
+                  "route": variant == route,
+                  "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL[
+                      key.split()[0]]),
+                  **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+                  **{f"{n}_worst_err_over_limit": s
+                     for n, (_, s) in c.items()},
+                  "bitwise_equal_twice": bitwise})
+            for n, (_, s) in c.items():
+                require(s <= 1.0, f"flash {variant} {key} {n}: {s} x its "
+                        "limit")
+            require(all(bitwise.values()), f"flash {variant} {key}: not "
+                    f"bitwise repeatable {bitwise}")
+            del first, again
 
     # the keep share of the ERNIE shape's mask: within 0.9 +- 5 sigma
     kept = FA.dropout_keep(ERNIE_B, es["H"], ERNIE_S, ERNIE_S, *ERNIE_DROP,
@@ -8281,104 +8431,98 @@ def phase_ernie_kernels(torch):
             f"dropout keep share {share} off 0.9 by more than 5 sigma")
     del kept
 
-    # times at the fp32 ERNIE shape, in turns (plain, kernel, kernel,
-    # plain).  A kernel takes ~0.1 ms behind a Python wrapper of about
-    # as long, so it is timed by CUDA-graph replay (`_graph_ms`), its
-    # eager back-to-back time beside; the plain versions (~5 ms) eagerly
-    key = next(iter(cases))
-    q, k, v, do, _, extra = cases[key]
-    o, lse = FA.flash_fwd(q, k, v, False, **extra)
-    delta = FA._delta(o, do)
+    # times, in turns (plain, mma, fma, fma, mma, plain): the kernels by
+    # CUDA-graph replay (a kernel takes ~0.05 ms behind a Python wrapper
+    # of about as long), the plain versions eagerly
+    keys = list(cases)
+    timed = {"ernie fp32": keys[0], "ernie bf16": keys[1],
+             "trainer bf16": keys[-1], "D16 fp32": keys[-3],
+             "D128 fp32": keys[-2]}
+    shapes = {}
+    for label, key in timed.items():
+        q, k, v, do, causal, extra = cases[key]
+        args = (torch, FA, q, k, v, do, causal, extra)
+        # the trainer shape's fma calls take ~16 ms a set: fewer of them
+        reps = 5 if label.startswith("trainer") else 20
+        p1 = _plain_ms(*args)
+        m1, f1 = _flash_ms(*args, "mma", reps), _flash_ms(*args, "fma", reps)
+        f2, m2 = _flash_ms(*args, "fma", reps), _flash_ms(*args, "mma", reps)
+        p2 = _plain_ms(*args)
+        lib_fwd, lib_bwd = _sdpa_ms(torch, q, k, v, do, causal, extra)
+        dt = str(q.dtype).split(".")[-1]
+        bounds = _flash_bounds(kind, q, k, causal, extra.get("bias"),
+                               "float32_3xtf32" if dt == "float32"
+                               else "bfloat16")
+        fma_bounds = _flash_bounds(kind, q, k, causal, extra.get("bias"),
+                                   "float32")
+        shapes[label] = {}
+        for name in bounds:
+            fwd = name.endswith("fwd")
+            shapes[label][name] = {
+                "case": key, "ms": (m1[name] + m2[name]) / 2,
+                "fma_ms": (f1[name] + f2[name]) / 2,
+                "turns_ms": [m1[name], f1[name], f2[name], m2[name]],
+                "plain_ms": ((p1[0] + p2[0]) if fwd else (p1[1] + p2[1])) / 2,
+                "library_ms": lib_fwd if fwd else lib_bwd,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "fma_bound_ms": fma_bounds[name][0],
+                "fma_bound_by": fma_bounds[name][1]}
+        emit({"phase": "ernie_kernels", "timed": label, "case": key,
+              **shapes[label]})
 
-    def turns(plain, kern):
-        p1 = _time_ms(torch, lambda i: plain(), 1, 10)
-        k1 = _graph_ms(torch, lambda i: kern(), 1)
-        k2 = _graph_ms(torch, lambda i: kern(), 1)
-        p2 = _time_ms(torch, lambda i: plain(), 1, 10)
-        return (k1 + k2) / 2, (p1 + p2) / 2, [p1, k1, k2, p2], \
-            _time_ms(torch, lambda i: kern(), 1, 20)
-
-    fwd_ms, fwd_plain, fwd_turns, fwd_eager = turns(
-        lambda: FA.flash_fwd_plain(q, k, v, False, **extra),
-        lambda: FA.flash_fwd(q, k, v, False, **extra))
-    dq_ms, bwd_plain, dq_turns, dq_eager = turns(
-        lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, False, **extra),
-        lambda: FA.flash_bwd_dq(q, k, v, o, lse, do, False, delta=delta,
-                                **extra))
-    dkv_ms, bwd_plain2, dkv_turns, dkv_eager = turns(
-        lambda: FA.flash_bwd_plain(q, k, v, o, lse, do, False, **extra),
-        lambda: FA.flash_bwd_dkv(q, k, v, o, lse, do, False, delta=delta,
-                                 **extra))
-    qT, kT, vT, doT = (x.transpose(1, 2) for x in (q, k, v, do))
-    qg, kg, vg = (x.detach().requires_grad_() for x in (qT, kT, vT))
-    lib_fwd_ms = _graph_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qT, kT, vT, attn_mask=pad, dropout_p=ERNIE_P), 1)
-
-    def lib_fwd_bwd(i):
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=pad,
-                                             dropout_p=ERNIE_P)
-        torch.autograd.grad(out, (qg, kg, vg), doT)
-
-    # its backward alone: forward + backward by graph replay, less the
-    # forward by graph replay (the kernels' own timing)
-    lib_fwd_bwd_ms = _graph_ms(torch, lib_fwd_bwd, 1)
-    lib_bwd_ms = lib_fwd_bwd_ms - lib_fwd_ms
-    # the bf16 ERNIE case's kernels, for the table
-    qb, kb, vb, dob, _, _ = cases[list(cases)[1]]
-    ob, lseb = FA.flash_fwd(qb, kb, vb, False, **extra)
-    bf16_ms = {
-        "flash_attention_fwd": _graph_ms(torch, lambda i: FA.flash_fwd(
-            qb, kb, vb, False, **extra), 1),
-        "flash_attention_dq": _graph_ms(torch, lambda i: FA.flash_bwd_dq(
-            qb, kb, vb, ob, lseb, dob, False, **extra), 1),
-        "flash_attention_dkv": _graph_ms(torch, lambda i: FA.flash_bwd_dkv(
-            qb, kb, vb, ob, lseb, dob, False, **extra), 1)}
-    B, S, H, D = q.shape
-    mm = 2.0 * B * H * S * S * D          # one full (non-causal) product
-    io, rows, bias_b = _nbytes(q, k, v), _nbytes(lse, delta), B * S * 4
-    bounds = {"flash_attention_fwd": _bound_ms(
-                  kind, 2 * mm, io + bias_b + _nbytes(o, lse), "float32"),
-              "flash_attention_dq": _bound_ms(
-                  kind, 3 * mm, io + bias_b + _nbytes(do, q) + rows,
-                  "float32"),
-              "flash_attention_dkv": _bound_ms(
-                  kind, 4 * mm, io + bias_b + _nbytes(do, k, v) + rows,
-                  "float32")}
-    f32 = cmp[key]
+    f32, f32_fma = cmp[route][keys[0]], cmp["fma"][keys[0]]
+    q, k, v, do, causal, extra = cases[keys[0]]
+    eager = {"flash_attention_fwd": _time_ms(torch, lambda i: FA.flash_fwd(
+                 q, k, v, False, **extra), 1, 20)}
     res = {}
-    for name, ms, plain, turns_ms, eager, outs, lib in (
-            ("flash_attention_fwd", fwd_ms, fwd_plain, fwd_turns, fwd_eager,
-             ("o",), lib_fwd_ms),
-            ("flash_attention_dq", dq_ms, (bwd_plain + bwd_plain2) / 2,
-             dq_turns, dq_eager, ("dq",), lib_bwd_ms),
-            ("flash_attention_dkv", dkv_ms, (bwd_plain + bwd_plain2) / 2,
-             dkv_turns, dkv_eager, ("dk", "dv"), lib_bwd_ms)):
+    for name, outs in (("flash_attention_fwd", ("o",)),
+                       ("flash_attention_dq", ("dq",)),
+                       ("flash_attention_dkv", ("dk", "dv"))):
+        e = shapes["ernie fp32"][name]
         r = res[name + ERNIE_ROUTE] = {
-            "max_abs_err": max(f32[x][0] for x in outs), "ms": ms,
-            "plain_ms": plain, "turns_ms": turns_ms, "eager_ms": eager,
-            "timing": "ms, bf16_ms: CUDA-graph replay, per call; eager_ms: "
-                      "back-to-back eager calls (with the host wrapper); "
-                      "plain_ms eager; library_ms: by graph replay (the "
+            "max_abs_err": max(f32[x][0] for x in outs),
+            "fma_max_abs_err": max(f32_fma[x][0] for x in outs),
+            **{x: e[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "fma_ms", "fma_bound_ms",
+                                 "fma_bound_by", "turns_ms")},
+            "timing": "ms (mma), fma_ms: CUDA-graph replay, per call, in "
+                      "turns mma, fma, fma, mma; plain_ms eager, before "
+                      "and after; library_ms by graph replay (the "
                       "backward as forward + backward less forward)",
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": lib,
+            "bound": "bytes at the HBM rate vs the products at 495 / 3 "
+                     "TFLOP/s (three TF32 products) for mma, at the fp32 "
+                     "CUDA-core rate for fma",
             "library": ("scaled_dot_product_attention(attn_mask=the float "
                         "bias, dropout_p=0.1)" + (
                             "" if name.endswith("fwd") else
                             ", its backward (dQ, dK, dV together)")),
-            "bf16_ms": bf16_ms[name], "variant": "fma (CUDA cores, fp32 "
-            "arithmetic; the only variant that takes a bias or dropout)",
+            "bf16_ms": shapes["ernie bf16"][name]["ms"],
+            "fma_bf16_ms": shapes["ernie bf16"][name]["fma_ms"],
+            "library_bf16_ms": shapes["ernie bf16"][name]["library_ms"],
+            "variant": "mma (tensor cores, mma.sync: fp32 as three TF32 "
+                       "products, bf16 with P and dS in two parts); fma_ms "
+                       "is the CUDA-core kernel built with the bias and "
+                       "dropout code (flash_attention_extra.cu)",
             "tolerance": FLASH_TOL_TEXT.format(tol="1e-05 (fp32)"),
             "shape": "q / k / v (16, 128, 12, 64) fp32, (16, 1, 1, 128) "
-                     "padding bias, p 0.1, no causal mask"}
+                     "padding bias, p 0.1, no causal mask",
+            "shapes": {label: sh[name] for label, sh in shapes.items()}}
+        if name in eager:
+            r["eager_ms"] = eager[name]
         if not name.endswith("fwd"):
             r["plain_computes"] = "dQ, dK and dV together"
-            r["library_fwd_bwd_ms"] = lib_fwd_bwd_ms
-        emit({"phase": "ernie_kernels", "kernel": name + ERNIE_ROUTE, **r})
+        emit({"phase": "ernie_kernels", "kernel": name + ERNIE_ROUTE,
+              **{x: r[x] for x in r if x != "shapes"}})
     _set_train_counts(saved)             # check and timing launches
-    del cases, q, k, v, do, o, lse, qT, kT, vT, doT, qg, kg, vg
+    del cases, q, k, v, do
     torch.cuda.empty_cache()
     return res
+
+
+def _zero_variant_counts(FA):
+    for counts in FA.VARIANT_LAUNCHES.values():
+        for name in counts:
+            counts[name] = 0
 
 
 def _ernie_step(torch, model, lr):
@@ -8408,6 +8552,7 @@ def phase_ernie_train(torch):
     from paddle_tpu_torch.models import (ErnieConfig,
                                          ErnieForSequenceClassification)
     from paddle_tpu_torch.observability import MetricsRegistry, StepTelemetry
+    from paddle_tpu_torch.ops import flash_attention as FA
     cfg = ErnieConfig.from_preset("ernie-3.0-base")
     L = cfg.num_hidden_layers
     t0 = time.perf_counter()
@@ -8425,6 +8570,7 @@ def phase_ernie_train(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_train_counts()
+    _zero_variant_counts(FA)
     losses, secs = [], []
     with _clock_samples() as clocks:
         for _ in range(ERNIE_STEPS):
@@ -8436,7 +8582,14 @@ def phase_ernie_train(torch):
             secs.append(time.perf_counter() - t)
             tel.step(n_items=ERNIE_B)
     launches = _train_counts()
+    by_variant = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # every K1 / K2 launch of the step on the mma kernels, none elsewhere
+    want_variant = {n: dict.fromkeys(FA.LAUNCHES, L * ERNIE_STEPS
+                                     if n == "mma" else 0)
+                    for n in FA.VARIANT_LAUNCHES}
+    require(by_variant == want_variant,
+            f"ernie launches by variant {by_variant} != {want_variant}")
     want = {"flash_attention_fwd": L * ERNIE_STEPS,
             "flash_attention_dq": L * ERNIE_STEPS,
             "flash_attention_dkv": L * ERNIE_STEPS,
@@ -8464,9 +8617,13 @@ def phase_ernie_train(torch):
               "step_ms_each": [1e3 * x for x in secs], "step_ms": step_ms,
               "ernie_finetune_examples_per_sec": ERNIE_B / (step_ms / 1e3),
               "peak_mem_gib": peak_gib, "launches": launches,
+              "launches_by_variant": by_variant,
               "telemetry": {"phases": phases, **gauges},
               "clocks_during_steps": clocks}
     report.update(_train_profile(torch, step, tuple(batch), step_ms))
+    if "k1_flash_fwd_ms" in report:
+        report["k1_k2_device_ms"] = report["k1_flash_fwd_ms"] \
+            + report["k2_flash_bwd_ms"]
     emit(report)
 
     # one more forward and backward, every K1 / K2 call held to its
@@ -8529,6 +8686,7 @@ def phase_ernie_parity(torch):
     import numpy as np
     from paddle_tpu_torch.models import (ErnieConfig,
                                          ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import flash_attention as FA
     cfg = ErnieConfig.from_preset("tiny", hidden_dropout_prob=0.0,
                                   attention_probs_dropout_prob=0.0)
     rng = np.random.RandomState(2)
@@ -8544,12 +8702,14 @@ def phase_ernie_parity(torch):
         ids, lab, am = (torch.from_numpy(x).to(dev) for x in host)
         step = _ernie_step(torch, model, ERNIE_PARITY_LR)
         _zero_train_counts()
+        _zero_variant_counts(FA)
         with torch.no_grad():
             logits = model(ids, attention_mask=am).cpu()
         loss = step(ids, lab, am).item()
         out[dev] = (logits, loss, {n: p.detach().cpu().clone()
                                    for n, p in model.state_dict().items()},
                     _train_counts())
+        mma_counts = dict(FA.VARIANT_LAUNCHES["mma"])
         del model, step
     (lc, loss_c, pc, _), (lk, loss_k, pk, ck) = out["cpu"], out["cuda"]
     L = cfg.num_hidden_layers
@@ -8568,6 +8728,7 @@ def phase_ernie_parity(torch):
           "loss_cpu": loss_c, "loss_cuda": loss_k,
           "param_worst": worst, "param_worst_err": p_err[worst],
           "param_worst_limit": p_lim[worst], "launches": ck,
+          "mma_launches": mma_counts,
           "tolerance": "logits 1e-5 x max(1, max |cpu|); params after one "
                        "AdamW step 5e-2 x lr (key biases 2 x lr)"})
     require(err <= limit, f"ernie tiny logits {err} over {limit}")
@@ -8576,6 +8737,9 @@ def phase_ernie_parity(torch):
     require(p_err[worst] <= p_lim[worst],
             f"ernie tiny {worst} after one step: {p_err[worst]}")
     require(ck == want, f"ernie tiny launches {ck} != {want}")
+    # the padding mask is a bias: every K1 / K2 launch on the mma kernels
+    require(mma_counts == {n: want[n] for n in FA.LAUNCHES},
+            f"ernie tiny mma launches {mma_counts}")
     _set_train_counts(saved)
 
 
@@ -8699,8 +8863,11 @@ def main() -> int:
         base = name[:-len(ERNIE_ROUTE)]
         entries.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_extra.cu",
-            "source_kernels": "paddle_tpu_torch/csrc/flash_attention_fma.cuh",
+            "source": "paddle_tpu_torch/csrc/flash_attention_mma.cu",
+            "source_bf16": "paddle_tpu_torch/csrc/flash_attention_mma_bf16.cu",
+            "source_kernels": "paddle_tpu_torch/csrc/flash_attention_mma.cuh",
+            "fma_source": "paddle_tpu_torch/csrc/flash_attention_extra.cu "
+                          "(kernels in flash_attention_fma.cuh)",
             "replaces": ERNIE_REPLACES.format(line=TRAIN_KERNELS[base][1]),
             "launches": ernie_launches[base],
             "launches_path": f"ernie_train ernie-3.0-base fp32, "

@@ -75,13 +75,16 @@
 //          tile and a 4 x D/16 block of the output; P stays fp32.  The
 //          16 threads that share a score row reduce over its 64 columns,
 //          whatever D is, so D 16 (one output column a thread) takes the
-//          same layout.  fp32 stays off the
-//          tensor cores: TF32 keeps ~10 mantissa bits and fails fp32's
-//          1e-5 limit.
+//          same layout.  Without a bias or dropout fp32 stays off the
+//          tensor cores here: one TF32 product keeps ~10 mantissa bits
+//          and fails fp32's 1e-5 limit.  With either, fp32 runs on the
+//          tensor cores as three TF32 products (flash_attention_mma.cu).
 //
-// Bias and dropout (the fma variant only; built as a second instance of
-// each fma kernel, kExtra = true, in flash_attention_extra.cu, so calls
-// without them run the code they ran before):
+// Bias and dropout (not in this file's kernels: a call with either runs
+// flash_attention_mma.cu's tensor-core kernels, or with variant "fma"
+// the fma kernels built with that code, kExtra = true, in
+// flash_attention_extra.cu; calls without them run the code they ran
+// before):
 //   bias     an fp32 tensor read through four element strides (b, h, q,
 //            k), any of them 0 (a (B, 1, 1, Sk) padding bias is read in
 //            place), added to the scaled scores before the row maximum.
@@ -126,12 +129,15 @@
 // Files: the fma kernels and the C interface live in
 // flash_attention_fma.cuh; this file builds them without the bias and
 // dropout code and adds the wgmma kernels; flash_attention_extra.cu
-// builds the same fma kernels with it (two libraries nvcc builds side by
-// side, `ops/flash_attention.py::_call` picks one per call).
+// builds the same fma kernels with it; flash_attention_mma.cu holds the
+// tensor-core kernels of a call with a bias or dropout (three libraries
+// nvcc builds side by side, `ops/flash_attention.py::_call` picks one
+// per call).
 //
 // C interface (ctypes, see ops/flash_attention.py): kernel 0 = fma in
 // fp32, 1 = fma in bf16, 2 = wgmma in bf16 (head_dim 128; strides and
-// pointers 16-byte aligned, as TMA reads them); `strides` holds (batch,
+// pointers 16-byte aligned, as TMA reads them); 3 = mma in fp32 and 4 =
+// mma in bf16 are flash_attention_mma.cu's; `strides` holds (batch,
 // seq, head) element strides of q, k, v and (backward) dO, head_dim
 // contiguous; O / dQ / dK / dV are written contiguous (B, S, H, D), lse
 // is (B, H, Sq) fp32, delta (B, H, Sq) fp32.  The trailing arguments

@@ -1,13 +1,16 @@
 // The CUDA-core ("fma") flash attention kernels K1 / K2 and the C
-// interface, shared by the two libraries built from them:
+// interface, shared by the three libraries built from this header:
 //   flash_attention.cu        the kernels without a bias or dropout
 //                             (kExtra false) and the bf16 tensor-core
 //                             (wgmma) kernels;
 //   flash_attention_extra.cu  the same fma kernels built with the bias
-//                             and dropout code (kExtra true).
-// Two translation units, so that nvcc builds the two instances of the
-// fma kernels side by side (the kernels build at every run of
-// chip_smoke.py, inside its time budget).  What the kernels compute, the
+//                             and dropout code (kExtra true);
+//   flash_attention_mma.cu    the tensor-core (mma.sync) kernels of a
+//                             call with a bias or dropout, which use
+//                             only the C interface, Philox and the mask
+//                             helpers here.
+// Three translation units, so that nvcc builds them side by side (the
+// kernels build at every run of chip_smoke.py, inside its time budget).  What the kernels compute, the
 // bias and the Philox keep-bit layout: flash_attention.cu's header
 // comment.
 //
@@ -584,7 +587,13 @@ flash_dkv_kernel(const Args a) {
 // ------------------------------------------------------------ host side
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
-enum Kernel { kFmaF32 = 0, kFmaBf16 = 1, kWgmmaBf16 = 2 };
+enum Kernel {
+  kFmaF32 = 0,
+  kFmaBf16 = 1,
+  kWgmmaBf16 = 2,
+  kMmaF32 = 3,    // flash_attention_mma.cu
+  kMmaBf16 = 4
+};
 const int kBadArg = static_cast<int>(cudaErrorInvalidValue);
 
 template <typename T, int D, bool kExtra>

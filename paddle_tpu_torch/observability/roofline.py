@@ -9,8 +9,9 @@ some other card's rates would misstate how far a kernel is from it.
 
 from __future__ import annotations
 
-__all__ = ["PEAK_FLOPS", "PEAK_FP32_FLOPS", "PEAK_HBM_BW", "peak_flops",
-           "peak_hbm_bw"]
+__all__ = ["PEAK_FLOPS", "PEAK_FP32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_HBM_BW",
+           "PEAK_HOST_LINK_BW", "peak_flops", "peak_hbm_bw",
+           "peak_host_link_bw"]
 
 # dense bf16 tensor-core FLOP/s per card (NVIDIA data sheets)
 PEAK_FLOPS = {
@@ -25,12 +26,30 @@ PEAK_FP32_FLOPS = {
     "h100 pcie": 51e12,
 }
 
+# dense TF32 tensor-core FLOP/s per card (NVIDIA data sheets).  An
+# fp32-accurate product taken as three TF32 products (dtype
+# "float32_3xtf32": x = big + small, big.small + small.big + big.big)
+# runs at a third of it, the fastest way to fp32-accurate products on
+# the card
+PEAK_TF32_FLOPS = {
+    "h100": 495e12,
+    "h100 pcie": 378e12,
+}
+
 # device-memory bandwidth per card (NVIDIA data sheets): the decode
 # step is bandwidth-bound (reads all params + the KV pool per token),
 # so its roofline is bytes/s, not FLOP/s
 PEAK_HBM_BW = {
     "h100": 3.35e12,
     "h100 pcie": 2.0e12,
+}
+
+# host link per card, one direction (NVIDIA data sheets: PCIe Gen5 x16,
+# 128 GB/s both ways): the rate of a kernel that reads pinned host
+# memory in place
+PEAK_HOST_LINK_BW = {
+    "h100": 64e9,
+    "h100 pcie": 64e9,
 }
 
 
@@ -45,7 +64,10 @@ def _peak_lookup(table, kind) -> float:
 
 def peak_flops(kind, dtype="bfloat16") -> float:
     """Peak FLOP/s of card `kind` for work in `dtype` ("bfloat16" on
-    the tensor cores, "float32" on the CUDA cores)."""
+    the tensor cores, "float32" on the CUDA cores, "float32_3xtf32" as
+    three TF32 tensor-core products)."""
+    if str(dtype) == "float32_3xtf32":
+        return _peak_lookup(PEAK_TF32_FLOPS, kind) / 3
     table = PEAK_FP32_FLOPS if str(dtype) in ("float32", "torch.float32") \
         else PEAK_FLOPS
     return _peak_lookup(table, kind)
@@ -53,3 +75,7 @@ def peak_flops(kind, dtype="bfloat16") -> float:
 
 def peak_hbm_bw(kind) -> float:
     return _peak_lookup(PEAK_HBM_BW, kind)
+
+
+def peak_host_link_bw(kind) -> float:
+    return _peak_lookup(PEAK_HOST_LINK_BW, kind)

@@ -15,9 +15,11 @@ GQA (H a multiple of the kv heads Hkv):
   whose backward is K2.
 
 On a CUDA tensor each wrapper launches `csrc/flash_attention.cu`, or
-with a bias or dropout `csrc/flash_attention_extra.cu` (built at first
-use, see `_build.py`), or raises, and adds one to its entry of
-`LAUNCHES`; on a CPU tensor it runs the plain version
+with a bias or dropout `csrc/flash_attention_mma.cu` (bf16:
+`flash_attention_mma_bf16.cu`; the kernels in `flash_attention_mma.cuh`;
+`variant="fma"` there: `csrc/flash_attention_extra.cu`; each built at
+first use, see `_build.py`), or raises, and adds one to its entry of `LAUNCHES` and of
+`VARIANT_LAUNCHES[variant]`; on a CPU tensor it runs the plain version
 (`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in fp32
 einsums — q scaled before the product, masked entries -inf, P kept in
 fp32) and counts nothing.  The kernels take every S (they mask the
@@ -72,18 +74,24 @@ so one Philox call gives one kernel thread the four columns c % 16 +
 host, reading nothing from the card.
 
 Which kernel runs is `_variant(dtype, D, variant, extra)`, from the
-dtype and head_dim alone:
+dtype, the head_dim and whether the call has a bias or dropout:
 
-* bf16 at head_dim 128 (every ported model: llama3-8b, Qwen-MoE) ->
-  "wgmma": Hopper's warpgroup MMA fed by TMA, the scores in fp32, P and
-  dS entering their products as two bf16 parts each (~16 mantissa bits);
-* fp32, and bf16 at head_dim 16, 32 or 64 -> "fma": the CUDA cores,
-  all arithmetic in fp32.  TF32 would fail fp32's 1e-5 limit, so fp32 never
-  runs on the tensor cores;
-* every call with a bias or dropout -> "fma", whatever the dtype and
-  head_dim, by rule: the wgmma kernels take neither, and naming
-  `variant="wgmma"` for such a call raises `ValueError`.  Calls without
-  either run the kernels built without that code.
+* every call with a bias or dropout -> "mma", whatever the dtype and
+  head_dim: `mma.sync` on the tensor cores, fp32 as three TF32 products
+  (x = big + small, a.b = big.small + small.big + big.big, where one
+  TF32 product would fail fp32's 1e-5 limit; dP summed on the CUDA cores
+  in the plain version's order), bf16 with P and dS as two bf16 parts;
+  naming `variant="wgmma"` for such a call raises `ValueError`, and
+  `variant="fma"` runs the CUDA-core kernels built with the bias /
+  dropout code (the earlier route, kept as a yardstick);
+* without either, bf16 at head_dim 128 (every ported model: llama3-8b,
+  Qwen-MoE) -> "wgmma": Hopper's warpgroup MMA fed by TMA, the scores in
+  fp32, P and dS entering their products as two bf16 parts each (~16
+  mantissa bits);
+* without either, fp32, and bf16 at head_dim 16, 32 or 64 -> "fma": the
+  CUDA cores, all arithmetic in fp32.  Naming "mma" for such a call
+  raises `ValueError`: those calls keep the kernels built without the
+  bias / dropout code.
 
 A caller may name the variant (`variant="fma"` on bf16 times the
 CUDA-core kernel against the tensor-core one); a variant that does not
@@ -110,17 +118,21 @@ __all__ = ["flash_mha", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_plain",
            "flash_attention_xla", "scaled_dot_product_attention_raw",
            "philox4x32", "dropout_keep", "dropout_seed", "HEAD_DIMS",
-           "NEG_INF", "LAUNCHES"]
+           "NEG_INF", "LAUNCHES", "VARIANT_LAUNCHES"]
 
 NEG_INF = -1e30          # the Pallas kernels' mask fill (K1/K2 without a bias)
 HEAD_DIMS = (16, 32, 64, 128)
 # launches of each kernel on CUDA tensors; CPU calls count nothing
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
+# the same launches by the variant that ran them
+VARIANT_LAUNCHES = {variant: dict.fromkeys(LAUNCHES, 0)
+                    for variant in ("wgmma", "fma", "mma")}
 
 # the C interface's code of each kernel: (dtype, variant) -> code
 KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
-                (torch.bfloat16, "wgmma"): 2}
+                (torch.bfloat16, "wgmma"): 2, (torch.float32, "mma"): 3,
+                (torch.bfloat16, "mma"): 4}
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 _SHAPE = (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P)  # B H Hkv Sq Sk D causal scale kernel stream
@@ -390,18 +402,25 @@ def _check(q, k, v, causal, extra=()):
 def _variant(dtype, D, variant=None, extra=False):
     """The kernel variant a CUDA call runs, from its dtype and head_dim
     D (see the module docstring), or `variant` where the caller names
-    one; a call with a bias or dropout (`extra`) runs "fma".  Raises
-    ValueError on a variant that does not take the call."""
+    one; a call with a bias or dropout (`extra`) runs "mma", at every
+    head_dim, also where the fma kernels with that code time faster
+    (fp32 K1 and dK/dV at head_dim 16 and 128, shapes no main path
+    runs: PERF.md section 6); those stay the yardstick a caller names.
+    Raises ValueError on a variant that does not take the call."""
     if variant is None:
-        variant = "wgmma" if (dtype == torch.bfloat16 and D == 128
-                              and not extra) else "fma"
-    if extra and variant != "fma":
-        raise ValueError(f"flash attention: the {variant} kernels take no "
-                         f"bias or dropout (only the fma variant does)")
+        variant = "mma" if extra else (
+            "wgmma" if dtype == torch.bfloat16 and D == 128 else "fma")
+    if extra and variant == "wgmma":
+        raise ValueError("flash attention: the wgmma kernels take no bias "
+                         "or dropout (the mma and fma variants do)")
     if (dtype, variant) not in KERNEL_CODES or D not in HEAD_DIMS or (
             variant == "wgmma" and D != 128):
         raise ValueError(f"flash attention: no {variant} kernel takes "
                          f"{dtype} at head_dim {D}")
+    if variant == "mma" and not extra:
+        raise ValueError("flash attention: no mma kernel takes a call "
+                         "without a bias or dropout (those run the "
+                         "wgmma or fma kernels)")
     return variant
 
 
@@ -430,8 +449,21 @@ def _extra_args(bias, dropout, q, k, lse_lo):
             _threshold(p), _keep_scale(p), lo)
 
 
+def _library(variant, extra, dtype):
+    """The library that holds the kernels of `variant` for a call without
+    or with (`extra`) a bias or dropout: the fma kernels built with that
+    code are a library of their own, and so are the mma kernels of each
+    dtype, all built side by side (`_build.build`)."""
+    if variant == "mma":
+        return "flash_attention_mma" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+    return "flash_attention_extra" if extra else "flash_attention"
+
+
 def _call(fn, tensors, strided, q, k, causal, scale, variant, bias,
           dropout, lse_lo):
+    """Launch kernel `fn` of the variant that takes the call; returns
+    the variant."""
     B, Sq, H, D = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
@@ -444,11 +476,9 @@ def _call(fn, tensors, strided, q, k, causal, scale, variant, bias,
         raise ValueError("lse_lo must be a contiguous (B, H, Sq) fp32 "
                          "tensor on q's device, given with a bias or "
                          "dropout")
-    code = KERNEL_CODES[(q.dtype, _variant(q.dtype, D, variant, extra))]
-    # the fma kernels built with the bias / dropout code are a library of
-    # their own (csrc/flash_attention_extra.cu), built beside this one
-    lib = _build.load("flash_attention_extra" if extra else
-                      "flash_attention", _SIGNATURES)
+    variant = _variant(q.dtype, D, variant, extra)
+    code = KERNEL_CODES[(q.dtype, variant)]
+    lib = _build.load(_library(variant, extra, q.dtype), _SIGNATURES)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             *[t.data_ptr() for t in tensors], _strides(*strided),
@@ -457,6 +487,12 @@ def _call(fn, tensors, strided, q, k, causal, scale, variant, bias,
             *_extra_args(bias, dropout, q, k, lse_lo))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed (cudaError {err})")
+    return variant
+
+
+def _count(fn, variant):
+    LAUNCHES[fn] += 1
+    VARIANT_LAUNCHES[variant][fn] += 1
 
 
 def flash_fwd(q, k, v, causal=True, scale=None, variant=None, bias=None,
@@ -473,9 +509,9 @@ def flash_fwd(q, k, v, causal=True, scale=None, variant=None, bias=None,
     B, Sq, H, _ = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    _call("flash_attention_fwd", (q, k, v, o, lse), (q, k, v), q, k,
-          causal, scale, variant, bias, _dropout(dropout), lse_lo)
-    LAUNCHES["flash_attention_fwd"] += 1
+    _count("flash_attention_fwd", _call(
+        "flash_attention_fwd", (q, k, v, o, lse), (q, k, v), q, k, causal,
+        scale, variant, bias, _dropout(dropout), lse_lo))
     return o, lse
 
 
@@ -498,10 +534,10 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
     _check(q, k, v, causal, (do,))
     delta = _delta(o, do) if delta is None else delta
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _call("flash_attention_dq", (q, k, v, do, lse.contiguous(), delta, dq),
-          (q, k, v, do), q, k, causal, scale, variant, bias,
-          _dropout(dropout), lse_lo)
-    LAUNCHES["flash_attention_dq"] += 1
+    _count("flash_attention_dq", _call(
+        "flash_attention_dq", (q, k, v, do, lse.contiguous(), delta, dq),
+        (q, k, v, do), q, k, causal, scale, variant, bias, _dropout(dropout),
+        lse_lo))
     return dq
 
 
@@ -518,10 +554,10 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal=True, scale=None, delta=None,
     delta = _delta(o, do) if delta is None else delta
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _call("flash_attention_dkv",
-          (q, k, v, do, lse.contiguous(), delta, dk, dv), (q, k, v, do),
-          q, k, causal, scale, variant, bias, _dropout(dropout), lse_lo)
-    LAUNCHES["flash_attention_dkv"] += 1
+    _count("flash_attention_dkv", _call(
+        "flash_attention_dkv", (q, k, v, do, lse.contiguous(), delta, dk, dv),
+        (q, k, v, do), q, k, causal, scale, variant, bias, _dropout(dropout),
+        lse_lo))
     return dk, dv
 
 

@@ -14,6 +14,7 @@ head)) relative to that row's max |plain|, fp32 1e-5 and bf16 2^-7 (both
 round an fp32 result to bf16 once: at most one ulp apart), and lse per
 element within 1e-5 x max(1, |lse|)."""
 
+import itertools
 import math
 
 import numpy as np
@@ -247,9 +248,8 @@ def test_cpu_calls_run_plain_and_count_no_launch():
     (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
     (torch.bfloat16, 16, "fma"), (torch.float32, 16, "fma")])
 def test_variant_maps_bf16_d128_to_tensor_cores(dtype, D, want):
-    """bf16 at head_dim 128 runs the wgmma kernels; fp32 (TF32 would
-    fail its 1e-5 limit) and head_dim 16 / 32 / 64 the CUDA-core
-    kernels."""
+    """Without a bias or dropout, bf16 at head_dim 128 runs the wgmma
+    kernels; fp32 and head_dim 16 / 32 / 64 the CUDA-core kernels."""
     assert FA._variant(dtype, D) == want
     assert FA._variant(dtype, D, want) == want
 
@@ -340,6 +340,162 @@ def test_tensor_core_rounding_stays_within_the_card_limits(seed):
         assert _per_row_share(got, want, 2 ** -7) <= 1.0
 
 
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest on
+    the 13 low mantissa bits, ties away from zero (the bits are sign and
+    magnitude, so adding half the dropped range rounds the magnitude)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as the fp32 mma kernels take it: x = big + small with big =
+    tf32(x) and small = tf32(x - big), then big.small + small.big +
+    big.big summed in fp32 (a product of two TF32 values is exact in
+    fp32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    return (ab @ _tf32(b - bb) + _tf32(a - ab) @ bb) + ab @ bb
+
+
+def _one_tf32(a, b):
+    """a @ b as one TF32 product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _bf16_two_parts(a, b):
+    """a @ b with a as two bf16 parts, hi = bf16(a) and lo = bf16(a -
+    hi), and b as it is (bf16 inputs pass exactly)."""
+    hi = a.to(torch.bfloat16).float()
+    return (hi + (a - hi).to(torch.bfloat16).float()) @ b.float()
+
+
+def _emulate_mma(q, k, v, do, causal, bias, dropout, mm, tile=64):
+    """The mma kernels' arithmetic (csrc/flash_attention_mma.cuh) in plain
+    PyTorch, every product taken by `mm`: scores q . k in fp32 scaled
+    after the product, plus the bias, masked to -inf; an online softmax
+    over `tile`-key tiles from a row max of -inf whose P z / (1 - p)
+    enters P.V while l sums P; lse as hi + lo (TwoSum).  The backward
+    from the emulated O, lse and lo: P = exp((s - hi) - lo),
+    dS = P (dP z / (1 - p) - delta), dQ = dS K scale, dK = dS^T Q scale,
+    dV = (P z / (1 - p))^T dO, where the fp32 kernels sum dP on the CUDA
+    cores as the plain version does (dP by `mm` in bf16).  Returns (O,
+    lse, lse_lo, dQ, dK, dV),
+    O and the gradients rounded once to the inputs' dtype."""
+    B, S, H, D = q.shape
+    Sk, n_kv = k.shape[1], k.shape[2]
+    rep = H // n_kv
+    scale = 1.0 / math.sqrt(D)
+    qf, dof = (x.float().transpose(1, 2) for x in (q, do))
+    kf, vf = (x.float().repeat_interleave(rep, 2).transpose(1, 2)
+              for x in (k, v))
+    keep = FA._keep(S, Sk, causal, q.device)
+    s = mm(qf, kf.transpose(-1, -2)) * scale + bias.expand(B, H, S, Sk)
+    s = torch.where(keep, s, -math.inf)
+    z = FA.dropout_keep(B, H, S, Sk, *dropout, q.device)
+    ks = FA._keep_scale(dropout[0])
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    for k0 in range(0, Sk, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_use = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(st - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pz = torch.where(z[..., k0:k0 + tile], p * ks, 0.0)
+        acc = acc * alpha + mm(pz, vf[:, :, k0:k0 + tile])
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    dead = torch.isneginf(m)
+    ll = torch.log(lc)
+    hi = m + ll
+    bv = hi - m
+    lse = torch.where(dead, -math.inf, hi)
+    lo = torch.where(dead, 0.0, (m - (hi - bv)) + (ll - bv))
+    o = torch.where(dead, math.nan, acc / lc).to(q.dtype)
+
+    p = torch.where(keep & ~dead, torch.exp((s - torch.where(
+        dead, math.inf, lse)) - lo), 0.0)
+    delta = torch.where(dead, 0.0, (o.float() * dof).sum(-1, keepdim=True))
+    if q.dtype == torch.float32:
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", FA._grouped(do, n_kv),
+                          v.float()).reshape(B, H, S, Sk)
+    else:
+        dp = mm(dof, vf.transpose(-1, -2))
+    ds = p * (torch.where(z, dp * ks, 0.0) - delta)
+    pz = torch.where(z, p * ks, 0.0)
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.transpose(-1, -2), qf) * scale
+    dv = mm(pz.transpose(-1, -2), dof)
+
+    def kv_grad(x):                  # (B, H, Sk, D) -> (B, Sk, Hkv, D)
+        x = x.reshape(B, n_kv, rep, -1, D).sum(2)
+        return x.transpose(1, 2).to(k.dtype)
+    return (o.transpose(1, 2), lse[..., 0], lo[..., 0],
+            dq.transpose(1, 2).to(q.dtype), kv_grad(dk), kv_grad(dv))
+
+
+def _mma_case(B, S, H, Hkv, D, dtype, seed):
+    """Inputs, a (B, 1, 1, S) -1e9 padding bias (the last sequence's
+    last quarter padded, as ERNIE's) and dropout 0.1."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _qkvd(B, S, H, Hkv, D, seed=seed))
+    bias = torch.from_numpy(_bias_case("pad", B, S, H, None))
+    return q, k, v, do, bias, (0.1, 2 ** 33 + seed, 5)
+
+
+def _mma_shares(q, k, v, do, causal, bias, drop, mm, tol):
+    """The worst per-row share of `tol` of the emulated O, dQ, dK, dV
+    against the plain versions (the backward on the emulated O, lse and
+    lo, as K2 gets them), and whether lse is within 1e-5 relative."""
+    o, lse, lo, dq, dk, dv = _emulate_mma(q, k, v, do, causal, bias, drop,
+                                          mm)
+    po, plse = FA.flash_fwd_plain(q, k, v, causal, bias=bias, dropout=drop)
+    plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, bias=bias,
+                               dropout=drop, lse_lo=lo)
+    shares = {"o": _per_row_share(o, po, tol)}
+    for n, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        shares[n] = _per_row_share(got, want, tol)
+    return shares, _lse_ok(lse, plse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_three_tf32_products_stay_within_the_fp32_limit(D, causal):
+    """The fp32 mma kernels' numeric design, emulated on the CPU with
+    TF32 rounding done on the bits (`_emulate_mma` with `_three_tf32`;
+    dP summed as the plain version sums it), at the ERNIE case's
+    (B, 1, 1, S) padding bias and dropout 0.1, GQA 4 / 2: O, dQ, dK and
+    dV within chip_smoke.py's per-row fp32 limit (1e-5 of the row's max
+    |plain|) of the plain versions and lse within 1e-5 relative.  One
+    TF32 product alone misses that limit, which is why the kernels take
+    three."""
+    case = _mma_case(2, 128, 4, 2, D, torch.float32, seed=D + causal)
+    shares, lse_ok = _mma_shares(*case[:4], causal, *case[4:], _three_tf32,
+                                 1e-5)
+    assert max(shares.values()) <= 1.0, shares
+    assert lse_ok
+    one, _ = _mma_shares(*case[:4], causal, *case[4:], _one_tf32, 1e-5)
+    assert max(one.values()) > 1.0, one
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_two_part_products_with_bias_and_dropout_stay_within_limits(
+        D, causal):
+    """The bf16 mma kernels' numeric design (`_emulate_mma` with P and
+    dS as two bf16 parts, q, k, v and dO exact) with the padding bias and
+    dropout 0.1: O, dQ, dK and dV within one bf16 ulp (2^-7 of the row's
+    max |plain|) of the plain versions and lse within 1e-5 relative."""
+    case = _mma_case(2, 192, 4, 2, D, torch.bfloat16, seed=D + 2 + causal)
+    shares, lse_ok = _mma_shares(*case[:4], causal, *case[4:],
+                                 _bf16_two_parts, 2 ** -7)
+    assert max(shares.values()) <= 1.0, shares
+    assert lse_ok
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "batch",
                                  "dtype", "stride", "align", "shape"])
 def test_wrapper_checks_raise(bad):
@@ -377,13 +533,20 @@ def test_wrapper_takes_causal_unequal_lengths_and_head_dim_16(Sk, D):
 
 
 def test_bias_or_dropout_routes_to_fma_and_wgmma_refuses_them():
-    """A call with a bias or dropout runs the fma variant whatever its
-    dtype and head_dim; naming wgmma for one raises ValueError (the
-    tensor-core kernels take neither), as does a bias that requires a
-    gradient (K1/K2 give it none) and dropout in training without a
-    generator (the port keeps no global RNG)."""
-    assert FA._variant(torch.bfloat16, 128, extra=True) == "fma"
-    assert FA._variant(torch.float32, 64, extra=True) == "fma"
+    """A call with a bias or dropout runs the mma variant (the tensor
+    cores, fp32 as three TF32 products) whatever its dtype and head_dim,
+    and still takes the fma variant where a caller names it; naming
+    wgmma for one raises ValueError (those kernels take neither), and so
+    does naming mma for a call without either, as does a bias that
+    requires a gradient (K1/K2 give it none) and dropout in training
+    without a generator (the port keeps no global RNG)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in FA.HEAD_DIMS:
+            assert FA._variant(dtype, D, extra=True) == "mma"
+            assert FA._variant(dtype, D, "mma", extra=True) == "mma"
+            assert FA._variant(dtype, D, "fma", extra=True) == "fma"
+            with pytest.raises(ValueError, match="no mma kernel takes"):
+                FA._variant(dtype, D, "mma")
     assert FA._variant(torch.bfloat16, 128) == "wgmma"
     with pytest.raises(ValueError, match="bias or dropout"):
         FA._variant(torch.bfloat16, 128, "wgmma", extra=True)
@@ -758,12 +921,13 @@ def _same_bits(a, b):
 
 @pytest.mark.gpu
 def test_cuda_bias_and_dropout_kernels_match_plain_on_card():
-    """K1 and K2 with a bias and dropout (the fma kernels built with
-    them) against the plain versions given the same (seed, offset): the
-    ERNIE-base attention (16 x 128, 12 heads of 64) with a -1e9 padding
-    bias and p 0.1 in fp32 and bf16, a causal GQA case with a bool
-    (1, 1, Sq, Sk) mask, head_dim 16; each kernel bitwise twice; one
-    launch counted each."""
+    """K1 and K2 with a bias and dropout, on the mma kernels (the route:
+    the tensor cores, fp32 as three TF32 products) and on the fma kernels
+    (the CUDA cores, named), against the plain versions given the same
+    (seed, offset): the ERNIE-base attention (16 x 128, 12 heads of 64)
+    with a -1e9 padding bias and p 0.1 in fp32 and bf16, a causal GQA
+    case with a bool (1, 1, Sq, Sk) mask, head_dim 16; each kernel
+    bitwise twice; one launch counted each, on its variant's count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1/K2 have no CPU or interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -772,41 +936,43 @@ def test_cuda_bias_and_dropout_kernels_match_plain_on_card():
         (16, 128, 12, 12, 64, False, torch.bfloat16, "pad"),
         (2, 200, 8, 2, 64, True, torch.float32, "bool_qk"),
         (2, 130, 4, 2, 16, False, torch.float32, "float_full")]
-    for B, S, H, Hkv, D, causal, dt, kind in cases:
+    for (B, S, H, Hkv, D, causal, dt, kind), variant in itertools.product(
+            cases, ("mma", "fma")):
         q, k, v, do = (torch.from_numpy(a).to("cuda", dt)
                        for a in _qkvd(B, S, H, Hkv, D, seed=S))
         mask = torch.from_numpy(_bias_case(kind, B, S, H,
                                            np.random.default_rng(S)))
         bias = FA._as_bias(mask.cuda(), q)
         drop = (0.1, 2 ** 33 + 5, 7)
-        before = dict(FA.LAUNCHES)
-        o, lse = FA.flash_fwd(q, k, v, causal, bias=bias, dropout=drop)
-        grads = (FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
-                                 dropout=drop),
-                 *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, bias=bias,
-                                   dropout=drop))
+        kw = dict(bias=bias, dropout=drop, variant=variant)
+        before = dict(FA.VARIANT_LAUNCHES[variant])
+        o, lse = FA.flash_fwd(q, k, v, causal, **kw)
+        grads = (FA.flash_bwd_dq(q, k, v, o, lse, do, causal, **kw),
+                 *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, **kw))
         torch.cuda.synchronize()
-        assert FA.LAUNCHES == {n: before[n] + 1 for n in before}
+        assert FA.VARIANT_LAUNCHES[variant] == {n: before[n] + 1
+                                                for n in before}
         po, plse = FA.flash_fwd_plain(q, k, v, causal, bias=bias,
                                       dropout=drop)
-        assert _per_row_share(o, po, _card_tol(dt)) <= 1.0, (S, D, dt)
-        assert _lse_ok(lse, plse), (S, D, dt)
+        assert _per_row_share(o, po, _card_tol(dt)) <= 1.0, \
+            (S, D, dt, variant)
+        assert _lse_ok(lse, plse), (S, D, dt, variant)
         plain = FA.flash_bwd_plain(q, k, v, o, lse, do, causal, bias=bias,
                                    dropout=drop)
         for got, want in zip(grads, plain):
             assert _per_row_share(got, want, _card_tol(dt)) <= 1.0, \
-                (S, D, dt)
-        o2, _ = FA.flash_fwd(q, k, v, causal, bias=bias, dropout=drop)
-        dq2 = FA.flash_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
-                              dropout=drop)
+                (S, D, dt, variant)
+        o2, _ = FA.flash_fwd(q, k, v, causal, **kw)
+        dq2 = FA.flash_bwd_dq(q, k, v, o, lse, do, causal, **kw)
         assert _same_bits(o, o2) and _same_bits(grads[0], dq2)
 
 
 @pytest.mark.gpu
 def test_mask_on_the_card_launches_k1_k2_and_wgmma_refuses_a_bias():
-    """On CUDA tensors a mask goes through K1/K2 (the counters rise, the
-    plain attention is not called); wgmma named with a bias raises, and
-    so does a bias that requires a gradient."""
+    """On CUDA tensors a mask goes through K1/K2 on the mma kernels (the
+    counters rise, each launch on the mma variant's count; the plain
+    attention is not called); wgmma named with a bias raises, and so
+    does a bias that requires a gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1/K2 have no CPU or interpret mode")
     q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
@@ -816,12 +982,16 @@ def test_mask_on_the_card_launches_k1_k2_and_wgmma_refuses_a_bias():
     FA.scaled_dot_product_attention_raw = None       # must not be called
     try:
         before = dict(FA.LAUNCHES)
+        by_variant = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
         FA.flash_attention_xla(q, k, v, attn_mask=mask,
                                is_causal=True).backward(do.detach())
         torch.cuda.synchronize()
     finally:
         FA.scaled_dot_product_attention_raw = raw
     assert FA.LAUNCHES == {n: before[n] + 1 for n in before}
+    assert FA.VARIANT_LAUNCHES == {
+        variant: {n: c + (variant == "mma") for n, c in counts.items()}
+        for variant, counts in by_variant.items()}
     bias = FA._as_bias(mask, q)
     with pytest.raises(ValueError, match="bias or dropout"):
         FA.flash_fwd(q.detach(), k.detach(), v.detach(), True,

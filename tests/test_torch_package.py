@@ -121,7 +121,11 @@ def test_roofline_peaks_are_the_cards_own():
     assert roofline.peak_hbm_bw("NVIDIA H100 PCIe") == 2.0e12
     assert roofline.peak_flops("NVIDIA H100 80GB HBM3") == 989e12
     assert roofline.peak_flops("NVIDIA H100 PCIe", "float32") == 51e12
-    for fn in (roofline.peak_hbm_bw, roofline.peak_flops):
+    assert roofline.peak_flops("NVIDIA H100 80GB HBM3",
+                               "float32_3xtf32") == 495e12 / 3
+    assert roofline.peak_host_link_bw("NVIDIA H100 80GB HBM3") == 64e9
+    for fn in (roofline.peak_hbm_bw, roofline.peak_flops,
+               roofline.peak_host_link_bw):
         with pytest.raises(KeyError):
             fn("NVIDIA A100-SXM4-80GB")
         with pytest.raises(KeyError):

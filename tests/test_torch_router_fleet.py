@@ -392,9 +392,14 @@ def test_dispatch_fault_is_retried_not_fenced(models, harness):
                        times=3)
         doomed = router.submit(ps[1], max_new_tokens=6)
         _wait(lambda: _rv(router, "failovers_total") == 1,
-              "the third dispatch error fences the replica")
+              "the third dispatch error fails the replica over")
+        # the router meters the failover before it writes the fence to
+        # the store (both packages): wait for the fence itself
+        _wait(lambda: fenced_generation(fleet.store, fleet.job_id,
+                                        "replica0") == 1,
+              "the third dispatch error fences the replica in the store")
         assert router.live_replica_names() == []
-        assert fenced_generation(fleet.store, fleet.job_id, "replica0") == 1
+        assert _rv(router, "failovers_total") == 1
         assert not doomed.done          # accepted work waits, never dropped
     finally:
         router.shutdown()
