@@ -464,6 +464,20 @@ the result line:
               ERNIE `tiny` (head_dim 16) at dropout 0 on the card
               against the same weights on the CPU: logits with a
               padding mask, then the parameters after one TrainStep;
+ 11e. predict
+              the deployment path on ernie-3.0-base (fp32, a classifier
+              of 2, eval) wrapped as forward(input_ids, attention_mask):
+              jit.save with InputSpec([None, 128], "int64") x 2 on the
+              card (a .pt2 program, K1 one node a layer); the predictor
+              (create_predictor(Config(path))) at ernie_train's batch
+              and batches of 1 and 5, each against the eager model on
+              the card, exactly 12 K1 launches on mma and no K2; a
+              child interpreter whose ERNIE constructors raise runs
+              standalone_load's program, equal to the predictor; a
+              PredictorPool of 2 on two threads, 8 runs each, equal to
+              the single predictor, 12 x 16 K1; run ms against the eager
+              forward in turns, examples/s, one profiled run (GEMMs /
+              K1 / other, idle share), export / save / load s, MB;
  12. generate (MoE)
               the MoE Llama at moe_train's widths and depth generating
               through the naive full-forward loop (2 prompts x 64 tokens
@@ -472,7 +486,8 @@ the result line:
 
 Then one line {"kernels": [...]} (every ported kernel with its launches
 on the paths above, error, tolerance and times; K1 / K2's bias + dropout
-route as entries of their own, with their launches on ernie_train), the
+route as entries of their own, with their launches on ernie_train and
+K1's on predict), the
 "done" line with each phase's host seconds, the card's name and
 power limit as nvidia-smi gives them, and last the result line
 {"ok": true, "device": {...}}.  Without a CUDA card, or run from a
@@ -6578,9 +6593,8 @@ def _flash_compare(torch, q, k, v, do, causal=True, variant=None, **extra):
     {output: (max abs err, worst share of its limit)}."""
     from paddle_tpu_torch.ops import flash_attention as FA
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
-    lo = _lse_lo_args(torch, q, extra)
     plo = _lse_lo_args(torch, q, extra)
-    o, lse = FA.flash_fwd(q, k, v, causal, variant=variant, **extra, **lo)
+    o, lse = FA.flash_fwd(q, k, v, causal, variant=variant, **extra)
     po, plse = FA.flash_fwd_plain(q, k, v, causal, **extra, **plo)
     grads = (FA.flash_bwd_dq(q, k, v, po, plse, do, causal, variant=variant,
                              **extra, **plo),
@@ -6970,16 +6984,15 @@ def _checked_flash():
     fwd, bwd = FA.flash_fwd, FA.flash_bwd
 
     def fwd_checked(q, k, v, causal=True, scale=None, **extra):
-        o, lse = fwd(q, k, v, causal, scale, **extra)
-        plain_extra = dict(extra)
-        if extra.get("lse_lo") is not None:   # the kernel's, for K2
-            plain_extra["lse_lo"] = extra["lse_lo"].clone()
-        po, plse = FA.flash_fwd_plain(q, k, v, causal, scale, **plain_extra)
+        got = fwd(q, k, v, causal, scale, **extra)
+        extra.pop("return_lo", None)
+        po, plse = FA.flash_fwd_plain(q, k, v, causal, scale, **extra)
+        o, lse = got[:2]
         tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
         worst["o"] = max(worst["o"], _per_row_share(o, po, tol))
         worst["lse"] = max(worst["lse"], _lse_share(lse, plse))
         worst["calls_fwd"] += 1
-        return o, lse
+        return got
 
     def bwd_checked(q, k, v, o, lse, do, causal=True, scale=None, **extra):
         got = bwd(q, k, v, o, lse, do, causal, scale, **extra)
@@ -7165,13 +7178,28 @@ def _plain_kernels():
     """The flash, cross-entropy, grouped-matmul and optimizer-update
     wrappers run their plain PyTorch versions on the card inside the
     block."""
+    import torch
+
     from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops import fused_update as FU
     from paddle_tpu_torch.ops import gmm as G
     from paddle_tpu_torch.ops import softmax_xent as SX
+
+    def plain_fwd(q, k, v, causal=True, scale=None, variant=None,
+                  bias=None, dropout=None, return_lo=False):
+        """`flash_fwd`'s signature over the plain version: lse's low
+        part third with `return_lo`, as the operator gives it."""
+        B, Sq, H, _ = q.shape
+        extra = bias is not None or dropout is not None
+        lo = torch.zeros((B, H, Sq) if extra else (0,),
+                         dtype=torch.float32, device=q.device)
+        o, lse = FA.flash_fwd_plain(q, k, v, causal, scale, bias, dropout,
+                                    lse_lo=lo if extra else None)
+        return (o, lse, lo) if return_lo else (o, lse)
+
     saved = (FA.flash_fwd, FA.flash_bwd, SX.softmax_xent_fwd,
              SX.softmax_xent_bwd, G.gmm_fwd, G.gmm_drhs, FU.fused_update)
-    FA.flash_fwd, FA.flash_bwd = FA.flash_fwd_plain, FA.flash_bwd_plain
+    FA.flash_fwd, FA.flash_bwd = plain_fwd, FA.flash_bwd_plain
     SX.softmax_xent_fwd = SX.softmax_xent_plain
     SX.softmax_xent_bwd = SX.softmax_xent_bwd_plain
     G.gmm_fwd, G.gmm_drhs = G.gmm_plain, G.gmm_drhs_plain
@@ -8224,9 +8252,10 @@ def _same_bits(torch, a, b):
 def _flash_outputs(torch, FA, q, k, v, do, causal, extra, variant=None):
     """K1's (O, lse, lse_lo) and K2's dQ, dK, dV on K1's own O and
     lse, of `variant` (else the one the wrapper picks)."""
-    extra = {**extra, **_lse_lo_args(torch, q, extra), "variant": variant}
-    o, lse = FA.flash_fwd(q, k, v, causal, **extra)
-    return (o, lse, extra["lse_lo"],
+    o, lse, lo = FA.flash_fwd(q, k, v, causal, variant=variant,
+                              return_lo=True, **extra)
+    extra = {**extra, "variant": variant, **({"lse_lo": lo} if extra else {})}
+    return (o, lse, lo,
             FA.flash_bwd_dq(q, k, v, o, lse, do, causal, **extra),
             *FA.flash_bwd_dkv(q, k, v, o, lse, do, causal, **extra))
 
@@ -8264,11 +8293,13 @@ def _flash_ms(torch, FA, q, k, v, do, causal, extra, variant, reps=20):
     """{kernel: ms} of K1, dQ and dK/dV of `variant`, each by CUDA-graph
     replay (`reps` calls in the graph, replayed `reps` times), the
     backward on K1's own O, lse and lse_lo."""
-    kw = {"variant": variant, **extra, **_lse_lo_args(torch, q, extra)}
-    o, lse = FA.flash_fwd(q, k, v, causal, **kw)
+    o, lse, lo = FA.flash_fwd(q, k, v, causal, variant=variant,
+                              return_lo=True, **extra)
+    kw = {"variant": variant, **extra, **({"lse_lo": lo} if extra else {})}
     delta = FA._delta(o, do)
     return {"flash_attention_fwd": _graph_ms(
-                torch, lambda i: FA.flash_fwd(q, k, v, causal, **kw), 1,
+                torch, lambda i: FA.flash_fwd(q, k, v, causal,
+                                              variant=variant, **extra), 1,
                 reps, reps),
             "flash_attention_dq": _graph_ms(
                 torch, lambda i: FA.flash_bwd_dq(q, k, v, o, lse, do, causal,
@@ -8743,6 +8774,389 @@ def phase_ernie_parity(torch):
     _set_train_counts(saved)
 
 
+# --------------------------------------------------------------------------
+# the deployment path: jit.save -> the predictor, K1 inside the program
+# --------------------------------------------------------------------------
+
+PREDICT_BATCHES = (1, 5)          # besides ERNIE_B, through the dynamic batch
+PREDICT_WARM, PREDICT_RUNS = 3, 20
+PREDICT_POOL, PREDICT_POOL_RUNS = 2, 8    # predictors (= threads), runs each
+PREDICT_CHILD_S = 300.0
+PREDICT_TOL = 1e-5                # logits per row: x max(1, max |eager row|)
+
+# the standalone child: ERNIE's constructors raise, so the program must
+# run without a model being built
+_PREDICT_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from paddle_tpu_torch.models import ernie as E
+
+def _refuse(*args, **kw):
+    raise RuntimeError("standalone_load built an ERNIE module")
+
+for cls in list(vars(E).values()):
+    if isinstance(cls, type) and issubclass(cls, torch.nn.Module) \
+            and cls.__module__ == E.__name__:
+        cls.__init__ = _refuse
+from paddle_tpu_torch.inference.serving import standalone_load
+from paddle_tpu_torch.ops import flash_attention as FA
+t = time.perf_counter()
+pred = standalone_load(sys.argv[2])
+load_s = time.perf_counter() - t
+batch = np.load(sys.argv[3])
+t = time.perf_counter()
+logits = pred.run(batch["ids"], batch["mask"])
+run_s = time.perf_counter() - t
+np.save(sys.argv[4], logits)
+print(json.dumps({"load_s": load_s, "first_run_s": run_s,
+                  "device": str(pred.device),
+                  "launches_by_variant": FA.VARIANT_LAUNCHES}))
+"""
+
+
+def _positional(torch, model):
+    """`model` as forward(input_ids, attention_mask): the mask positional,
+    as `jit.save`'s input_spec lists the inputs."""
+
+    class Positional(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, input_ids, attention_mask):
+            return self.m(input_ids, attention_mask=attention_mask)
+
+    return Positional(model)
+
+
+def _predict_batch(b, seed):
+    """(ids, mask) numpy: `b` rows of ERNIE_S ids from RandomState(seed)
+    (seed 0 at ERNIE_B: ernie_train's batch) with `_ernie_mask`'s
+    padding."""
+    import numpy as np
+    from paddle_tpu_torch.models import ErnieConfig
+    vocab = ErnieConfig.from_preset("ernie-3.0-base").vocab_size
+    ids = np.random.RandomState(seed).randint(0, vocab, (b, ERNIE_S))
+    return ids, _ernie_mask(b, ERNIE_S)
+
+
+def _logits_rule(got, want):
+    """("bitwise" | "per row", worst share of the per-row limit) of
+    logits `got` against `want` (numpy (B, classes))."""
+    import numpy as np
+    if np.array_equal(got, want):
+        return "bitwise", 0.0
+    lim = PREDICT_TOL * np.maximum(1.0, np.abs(want).max(-1))
+    return "per row", float((np.abs(got - want).max(-1) / lim).max())
+
+
+def _k1_only(FA, n):
+    """K1's launches by variant: exactly `n` on mma, nothing else."""
+    return {v: {name: (n if v == "mma" and name == "flash_attention_fwd"
+                       else 0) for name in FA.LAUNCHES}
+            for v in FA.VARIANT_LAUNCHES}
+
+
+def _predict_profile(torch, run, run_ms):
+    """Device ms of one predictor run by kind (GEMMs, K1, other) and the
+    card's idle share, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    dev = _device_times(prof)
+    if dev is None:
+        return {"device_time": "not measured (no device events)"}
+    kinds = {"k1": ("flash_fwd",),
+             "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
+    split = dict.fromkeys(kinds, 0.0)
+    split["other"] = 0.0
+    for key, us in dev.items():
+        low = key.lower()
+        kind = next((k for k, words in kinds.items()
+                     if any(w in low for w in words)), "other")
+        split[kind] += us / 1e3
+    busy = sum(split.values())
+    require(busy <= prof_ms, f"predict profile: device busy {busy} ms "
+            f"exceeds the profiled run's {prof_ms} ms")
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_run_ms": prof_ms, "device_busy_ms": busy,
+            **{f"{k}_ms": v for k, v in split.items()},
+            "device_idle_share": 1 - busy / run_ms,
+            "device_idle_share_of_profiled_run": 1 - busy / prof_ms,
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+def _predict_save(torch, wrapper, path):
+    """`jit.save` of `wrapper` with InputSpec([None, ERNIE_S], "int64") x
+    2: export and save seconds, the files' MB, K1's program nodes and its
+    launches while tracing."""
+    import os
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.jit import api as JA
+    spec = [jit.InputSpec([None, ERNIE_S], "int64")] * 2
+    exported, export = {}, JA.export
+
+    def timed_export(*args):
+        t = time.perf_counter()
+        exported["program"] = export(*args)
+        exported["s"] = time.perf_counter() - t
+        return exported["program"]
+
+    _zero_train_counts()
+    JA.export = timed_export
+    try:
+        t = time.perf_counter()
+        jit.save(wrapper, path, input_spec=spec)
+        save_s = time.perf_counter() - t
+    finally:
+        JA.export = export
+    nodes = sum(1 for n in exported["program"].graph.nodes
+                if "flash_fwd" in str(n.target))
+    return {"export_s": exported["s"], "save_s": save_s,
+            "artifact_mb": {ext: os.path.getsize(path + ext) / 1e6
+                            for ext in (".pt2", ".pdparams", ".pdmeta")},
+            "k1_program_nodes": nodes,
+            "k1_launches_while_tracing":
+                _train_counts()["flash_attention_fwd"]}
+
+
+def _predict_checks(torch, FA, pred, eager, L):
+    """The predictor at ernie_train's batch and PREDICT_BATCHES, each
+    against `eager` and counted from 0: ({batch: check}, the logits of
+    ernie_train's batch)."""
+    import numpy as np
+    checks, main = {}, None
+    for b, seed in ((ERNIE_B, 0),) + tuple((b, b) for b in PREDICT_BATCHES):
+        ids, mask = _predict_batch(b, seed)
+        _zero_train_counts()
+        _zero_variant_counts(FA)
+        got = pred.run([ids, mask])[0]
+        by_variant = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
+        launches = _train_counts()
+        rule, share = _logits_rule(got, eager(ids, mask))
+        checks[b] = {"rule": rule, "worst_share_of_limit": share,
+                     "launches_by_variant": by_variant}
+        require(pred.get_output_names() == ["out0"]
+                and got.shape == (b, 2) and np.isfinite(got).all(),
+                f"predict batch {b}: logits {got.shape}")
+        require(share <= 1.0, f"predict batch {b}: logits {share} of the "
+                f"per-row limit from the eager forward")
+        require(by_variant == _k1_only(FA, L)
+                and launches == {**dict.fromkeys(launches, 0),
+                                 "flash_attention_fwd": L},
+                f"predict batch {b}: launches {by_variant} {launches}")
+        if b == ERNIE_B:
+            main = got
+    return checks, main
+
+
+def _predict_pool(torch, FA, path, pred, L):
+    """PredictorPool(path, PREDICT_POOL) on as many threads, each
+    PREDICT_POOL_RUNS runs over batches of its own, every result held to
+    `pred`'s on the same batch, K1 counted from 0."""
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.inference import PredictorPool
+    pool = PredictorPool(path, size=PREDICT_POOL)
+    n_runs = PREDICT_POOL * PREDICT_POOL_RUNS
+    batches = [_predict_batch(ERNIE_B, 100 + i) for i in range(n_runs)]
+    single = [pred.run(list(bt))[0] for bt in batches]
+    results, errors = {}, []
+
+    def worker(t):
+        try:
+            for j in range(PREDICT_POOL_RUNS):
+                i = j * PREDICT_POOL + t
+                results[i] = pool.retrieve().run(*batches[i])
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+
+    _zero_train_counts()
+    _zero_variant_counts(FA)
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(PREDICT_POOL)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall_s = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    counts = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
+    equal = sum(bool(np.array_equal(results[i], single[i]))
+                for i in range(n_runs))
+    require(equal == n_runs, f"predict pool: {equal} of {n_runs} results "
+            f"equal the single predictor's")
+    require(counts == _k1_only(FA, L * n_runs),
+            f"predict pool: launches {counts}")
+    return {"size": len(pool), "threads": PREDICT_POOL, "runs": n_runs,
+            "equal_to_single": equal, "wall_s": wall_s,
+            "launches_by_variant": counts}
+
+
+def _predict_child(child, t0, out_path, main, FA, L):
+    """The standalone child's report, once it has ended: its logits must
+    equal the in-process predictor's (`main`), its K1 launches 12."""
+    import numpy as np
+    stdout, stderr = child.communicate(timeout=PREDICT_CHILD_S)
+    wall_s = time.perf_counter() - t0
+    require(child.returncode == 0, f"predict child failed "
+            f"({child.returncode}): {stderr[-2000:]}")
+    info = json.loads(stdout.strip().splitlines()[-1])
+    equal = bool(np.array_equal(np.load(out_path), main))
+    require(equal, "predict: the standalone child's logits differ from "
+            "the in-process predictor's")
+    require(info["launches_by_variant"] == _k1_only(FA, L),
+            f"predict child: launches {info['launches_by_variant']}")
+    return {**info, "wall_s": wall_s, "equal": equal}
+
+
+def _predict_timing(torch, pred, wrapper, ids, mask):
+    """The predictor's run (numpy in and out) and the eager wrapper's
+    forward (tensors on the card, a synchronize) in turns, host clock,
+    median of PREDICT_RUNS after PREDICT_WARM; peak memory; one profiled
+    run."""
+    ids_t = torch.from_numpy(ids).cuda()
+    mask_t = torch.from_numpy(mask).cuda()
+
+    def run_pred():
+        pred.run([ids, mask])
+
+    def run_eager():
+        with torch.no_grad():
+            wrapper(ids_t, mask_t)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"predictor": [], "eager": []}
+    order = (("predictor", run_pred), ("eager", run_eager))
+    for i in range(PREDICT_WARM + PREDICT_RUNS):
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            t = time.perf_counter()
+            fn()
+            times[name].append(1e3 * (time.perf_counter() - t))
+    ms = {k: sorted(v[PREDICT_WARM:])[PREDICT_RUNS // 2]
+          for k, v in times.items()}
+    return {"run_ms": ms["predictor"], "eager_forward_ms": ms["eager"],
+            "run_over_eager": ms["predictor"] / ms["eager"],
+            "examples_per_sec": ERNIE_B / (ms["predictor"] / 1e3),
+            "eager_examples_per_sec": ERNIE_B / (ms["eager"] / 1e3),
+            "run_ms_each": times["predictor"],
+            "eager_ms_each": times["eager"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "timing": "host clock, numpy in and out (the predictor) or "
+                      "tensors on the card and a synchronize (eager, "
+                      f"no_grad), in turns, median of {PREDICT_RUNS} "
+                      f"after {PREDICT_WARM}",
+            **_predict_profile(torch, run_pred, ms["predictor"])}
+
+
+def phase_predict(torch):
+    """The deployment path on ernie-3.0-base (12 layers, hidden 768, fp32,
+    a classifier of 2, random weights from a seed, eval mode), wrapped as
+    forward(input_ids, attention_mask): `jit.save` with InputSpec([None,
+    ERNIE_S], "int64") x 2 on the card (K1 one program node a layer, no
+    launch while tracing); `create_predictor(Config(path))` on
+    ernie_train's batch and batches of 1 and 5 through the dynamic batch,
+    each held to the eager wrapper on the card (bitwise, else per row
+    within PREDICT_TOL) with exactly 12 K1 launches on mma and no K2; a
+    PredictorPool of 2 on two threads, 8 runs each over different
+    batches, each equal to the single predictor's, K1 exactly 12 x 16;
+    meanwhile a child interpreter whose ERNIE constructors raise runs
+    the program through `standalone_load`, equal to the in-process
+    predictor; then the predictor's run and the eager forward in turns
+    (median of 20 after 3 warm-ups), one profiled run, peak memory.
+    Returns K1's launches of each counted run."""
+    import os
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import flash_attention as FA
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0).eval()
+    wrapper = _positional(torch, model)
+
+    def eager(ids, mask):
+        with torch.no_grad():
+            out = wrapper(torch.from_numpy(ids).cuda(),
+                          torch.from_numpy(mask).cuda())
+        return out.cpu().numpy()
+
+    report = {"phase": "predict",
+              "model": f"ernie-3.0-base ({L} layers, hidden 768, 12 heads, "
+                       f"FFN 3072, vocab 40000), classifier of 2, eval",
+              "dtype": "float32", "input_spec": [[None, ERNIE_S], "int64"],
+              "tolerance": f"logits vs the eager wrapper on the card: "
+                           f"bitwise, else per row |err| <= {PREDICT_TOL} "
+                           f"x max(1, max |eager row|)"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ernie")
+        report.update(_predict_save(torch, wrapper, path))
+        require(report["k1_program_nodes"] == L,
+                f"predict: {report['k1_program_nodes']} flash_fwd nodes in "
+                f"the program, not one a layer ({L})")
+        require(report["k1_launches_while_tracing"] == 0,
+                "predict: K1 launched while tracing")
+        # a fresh interpreter, no model built: it loads while this
+        # process checks its own predictor and the pool
+        ids, mask = _predict_batch(ERNIE_B, 0)
+        batch_path = os.path.join(tmp, "batch.npz")
+        out_path = os.path.join(tmp, "child.npy")
+        np.savez(batch_path, ids=ids, mask=mask)
+        t_child = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", _PREDICT_CHILD, str(ROOT), path,
+             batch_path, out_path], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            pred = create_predictor(Config(path))
+            torch.cuda.synchronize()
+            report["predictor_load_s"] = time.perf_counter() - t
+            report["predictor_weights_gib"] = \
+                (torch.cuda.memory_allocated() - before) / 2**30
+            require(pred.get_input_names() == ["x0", "x1"],
+                    f"predict: inputs {pred.get_input_names()}")
+            report["checks"], main = _predict_checks(torch, FA, pred, eager,
+                                                     L)
+            report["pool"] = _predict_pool(torch, FA, path, pred, L)
+            report["standalone_child"] = _predict_child(
+                child, t_child, out_path, main, FA, L)
+        finally:
+            if child.poll() is None:        # a check failed, or timed out
+                child.kill()
+                child.wait()
+        report.update(_predict_timing(torch, pred, wrapper, ids, mask))
+        del pred
+    emit(report)
+    del model, wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def k1(counts):
+        return counts["mma"]["flash_attention_fwd"]
+
+    return {**{f"batch {b}": k1(c["launches_by_variant"])
+               for b, c in report["checks"].items()},
+            "standalone child": k1(report["standalone_child"][
+                "launches_by_variant"]),
+            "pool": k1(report["pool"]["launches_by_variant"])}
+
+
 PHASE_SECONDS = {}          # phase function -> host seconds in this run
 
 
@@ -8803,6 +9217,7 @@ def main() -> int:
     ernie_kernels = _timed(phase_ernie_kernels, torch)
     ernie_launches = _timed(phase_ernie_train, torch)
     _timed(phase_ernie_parity, torch)
+    predict_launches = _timed(phase_predict, torch)
     moe_generate = _timed(phase_generate_moe, torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
@@ -8873,6 +9288,15 @@ def main() -> int:
             "launches_path": f"ernie_train ernie-3.0-base fp32, "
                              f"{ERNIE_B} x {ERNIE_S}, {ERNIE_STEPS} steps "
                              f"(12 a step)", **r})
+        if base == "flash_attention_fwd":
+            entries[-1]["launches_predict"] = predict_launches
+            entries[-1]["launches_path_predict"] = (
+                "predict: ernie-3.0-base fp32 through jit.save's program, "
+                "12 a run, each counted from 0 (the predictor at batches "
+                f"{ERNIE_B}, {', '.join(map(str, PREDICT_BATCHES))}; the "
+                "standalone child; the pool's "
+                f"{PREDICT_POOL * PREDICT_POOL_RUNS} runs on "
+                f"{PREDICT_POOL} threads)")
     for name, r in moe_kernels.items():
         entries.append({
             "name": name, "route": "cuda",

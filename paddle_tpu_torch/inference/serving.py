@@ -1,5 +1,21 @@
-"""Thread-safe serving front over the port's `LLMEngine` — the port of
-`paddle_tpu/inference/serving.py::LLMServer`.
+"""Serving: the deployed-program loader and pool, and the thread-safe
+front over the port's `LLMEngine` — the port of
+`paddle_tpu/inference/serving.py`.
+
+`standalone_load(path, device=None)` runs a `jit.save` program
+(`path.pt2`) alone, on the card unless `device` names another (without
+a card it raises), whatever device it was saved on: the archive holds
+the graph, its weights and the names of its operators, so no model
+class is built or unpickled (the JAX loader's "no paddle_tpu model
+classes"; loading needs only the port's operator modules, which
+register `paddle_tpu_torch::flash_fwd`).  The
+`StandalonePredictor` it gives takes and returns numpy at `run(*inputs)`
+and may be called from several threads at once.  `PredictorPool` holds
+`size` predictors handed out round robin or by index.  The JAX
+`ShardedPredictor` needs a mesh and waits for multi-GPU (ROADMAP
+queue 1 item 5).
+
+`LLMServer`:
 
 Any thread `submit()`s; one driver thread runs the engine's
 iteration-level scheduler, so requests batch onto the same vectorised
@@ -64,12 +80,14 @@ from __future__ import annotations
 
 import http.server
 import json
+import os
 import queue as _queue
 import threading
 import time
 import urllib.parse
 
 import numpy as np
+import torch
 
 from ..observability import get_registry
 from ..observability import tracing as _tr
@@ -81,7 +99,92 @@ from .engine import (EngineUnhealthy, LLMEngine, QueueFull, Request,
                      ResultTimeout, StaleRouterEpoch)
 from .kv_fabric import FabricServer
 
-__all__ = ["LLMServer"]
+__all__ = ["standalone_load", "StandalonePredictor", "PredictorPool",
+           "LLMServer"]
+
+
+class StandalonePredictor:
+    """Callable over a loaded `torch.export` program, its weights inside.
+    `run(*inputs)` takes numpy arrays (or tensors) and returns numpy:
+    one array, or a list for several outputs.  `forward(*tensors)` runs
+    on tensors already on `device`.  Thread-safe: a program keeps no
+    state between calls, and K1's launch counts are locked."""
+
+    def __init__(self, program, device):
+        self.device = device
+        self._program = program
+        self._module = program.module()
+
+    @property
+    def input_avals(self):
+        """Each input as "dtype[dims]", a dynamic dim by its symbol."""
+        specs = self._program.graph_signature.input_specs
+        users = {s.arg.name for s in specs if s.kind.name == "USER_INPUT"}
+        return [f"{str(n.meta['val'].dtype).split('.')[-1]}"
+                f"[{','.join(str(d) for d in n.meta['val'].shape)}]"
+                for n in self._program.graph.nodes
+                if n.op == "placeholder" and n.name in users]
+
+    def forward(self, *tensors):
+        with torch.no_grad():
+            return self._module(*tensors)
+
+    def run(self, *inputs):
+        out = self.forward(*(torch.as_tensor(a, device=self.device)
+                             for a in inputs))
+        if isinstance(out, (list, tuple)):
+            return [o.cpu().numpy() for o in out]
+        return out.cpu().numpy()
+
+    __call__ = run
+
+
+def standalone_load(path, device=None):
+    """Load a `paddle_tpu_torch.jit.save` program (`path` with or without
+    `.pt2`) without any model class, and move it to `device`: the card
+    unless the caller names another (`default_device()`, which raises
+    where there is no card), whatever device it was saved on."""
+    from torch.export.passes import move_to_device_pass
+
+    from .. import resolve_device
+    from ..ops import flash_attention  # noqa: F401  (registers K1's op)
+    device = resolve_device(device)
+    if path.endswith(".pt2"):
+        path = path[:-len(".pt2")]
+    file = path + ".pt2"
+    if not os.path.exists(file):
+        raise FileNotFoundError(
+            f"{file}: not a jit.save artifact (jit.save with input_spec "
+            f"writes it)")
+    return StandalonePredictor(
+        move_to_device_pass(torch.export.load(file), device), device)
+
+
+class PredictorPool:
+    """ref: paddle_infer::services::PredictorPool — a fixed set of
+    predictors (`standalone_load` for a path, on `device`: the card
+    unless named; `create_predictor` for a `Config`, on its device) for
+    concurrent request threads."""
+
+    def __init__(self, config_or_path, size=1, device=None):
+        from . import create_predictor
+        self._preds = [standalone_load(config_or_path, device)
+                       if isinstance(config_or_path, str)
+                       else create_predictor(config_or_path)
+                       for _ in range(max(1, size))]
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    def retrieve(self, idx=None):
+        if idx is not None:
+            return self._preds[idx]
+        with self._lock:
+            p = self._preds[self._rr % len(self._preds)]
+            self._rr += 1
+            return p
+
+    def __len__(self):
+        return len(self._preds)
 
 
 class LLMServer:

@@ -18,12 +18,23 @@ On a CUDA tensor each wrapper launches `csrc/flash_attention.cu`, or
 with a bias or dropout `csrc/flash_attention_mma.cu` (bf16:
 `flash_attention_mma_bf16.cu`; the kernels in `flash_attention_mma.cuh`;
 `variant="fma"` there: `csrc/flash_attention_extra.cu`; each built at
-first use, see `_build.py`), or raises, and adds one to its entry of `LAUNCHES` and of
-`VARIANT_LAUNCHES[variant]`; on a CPU tensor it runs the plain version
-(`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in fp32
-einsums — q scaled before the product, masked entries -inf, P kept in
-fp32) and counts nothing.  The kernels take every S (they mask the
+first use, see `_build.py`), or raises, and adds one to its entry of
+`LAUNCHES` and of `VARIANT_LAUNCHES[variant]` (under a lock: predictors
+on several threads launch K1 at once); on a CPU tensor it runs the plain
+version (`flash_fwd_plain`, `flash_bwd_plain`: the same arithmetic in
+fp32 einsums — q scaled before the product, masked entries -inf, P kept
+in fp32) and counts nothing.  The kernels take every S (they mask the
 ragged last tile) and head_dim 16, 32, 64 or 128; anything else raises.
+
+K1 is the operator `paddle_tpu_torch::flash_fwd` (`torch.library`):
+its CUDA kernel is the launch above, its CPU kernel the plain version,
+and a fake kernel gives the shapes, so that `torch.export` (the port's
+`jit.save`) keeps K1 as one node of the program and eager training,
+prefill and a saved program run the same path.  The operator returns
+O, lse and lse's low part (empty without a bias or dropout), and takes
+dropout's 64-bit seed as two 32-bit words (an operator's int is a signed
+int64).  K2 stays a direct launch: a saved inference program has no
+backward.
 
 The causal mask is aligned bottom-right, as the JAX package's
 `scaled_dot_product_attention_raw` aligns it (`tril(k = Sk - Sq)`):
@@ -46,11 +57,11 @@ An additive bias and dropout (`bias=`, `dropout=`), the semantics of
   padded with finfo.min gets the reference's uniform softmax.  A row
   whose every score is -inf gives O = NaN and lse = -inf, and nothing
   to the gradients, as the causal rows above.  lse goes out as hi + lo
-  (TwoSum; lo into the optional `lse_lo`, which `flash_mha` keeps for
-  the backward): where a bias puts a row's max far below 0, hi = m +
-  log l has lost log l, and the backward recomputes P = exp((s - hi) -
-  lo).  The bias takes no gradient: one that requires it raises
-  `ValueError`;
+  (TwoSum; lo comes back third from `flash_fwd(..., return_lo=True)`,
+  and `flash_mha` keeps it for the backward's `lse_lo`): where a bias
+  puts a row's max far below 0, hi = m + log l has lost log l, and the
+  backward recomputes P = exp((s - hi) - lo).  The bias takes no
+  gradient: one that requires it raises `ValueError`;
 * dropout `(p, seed, offset)` keeps the softmax's lse and row sum
   without dropout and accumulates P * z / (1 - p) into O, z the keep
   bit (the JAX order: softmax, then mask and rescale, then P.V); the
@@ -109,6 +120,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -128,6 +140,8 @@ LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
 # the same launches by the variant that ran them
 VARIANT_LAUNCHES = {variant: dict.fromkeys(LAUNCHES, 0)
                     for variant in ("wgmma", "fma", "mma")}
+# guards both counts: predictors on several threads launch K1 at once
+_COUNT_LOCK = threading.Lock()
 
 # the C interface's code of each kernel: (dtype, variant) -> code
 KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
@@ -491,28 +505,110 @@ def _call(fn, tensors, strided, q, k, causal, scale, variant, bias,
 
 
 def _count(fn, variant):
-    LAUNCHES[fn] += 1
-    VARIANT_LAUNCHES[variant][fn] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[fn] += 1
+        VARIANT_LAUNCHES[variant][fn] += 1
 
 
-def flash_fwd(q, k, v, causal=True, scale=None, variant=None, bias=None,
-              dropout=None, lse_lo=None):
-    """K1: (O, lse) as `flash_fwd_plain` (and lse's low part into
-    `lse_lo`, with a bias or dropout).  A CUDA `q` launches the Hopper
-    kernel `_variant` picks, or the named `variant` (counted in
-    `LAUNCHES`); a CPU `q` runs the plain version."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale, bias, dropout,
-                               lse_lo)
-    scale = _scale(q, scale)
+def _lo_out(q, extra):
+    """lse's low part as K1 gives it: (B, H, Sq) fp32 for a call with a
+    bias or dropout, else an empty tensor."""
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, H, Sq) if extra else (0,), dtype=torch.float32)
+
+
+def _seed_words(dropout):
+    """Dropout (p, seed, offset) as the operator's arguments: p (0.0
+    for none), the 64-bit seed's low and high 32-bit words (an op's int
+    is a signed int64, and a CPU generator's seed takes all 64 bits) and
+    the offset."""
+    if dropout is None:
+        return 0.0, 0, 0, 0
+    p, seed, offset = dropout
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return float(p), seed & _M32, seed >> 32, int(offset) & _M32
+
+
+def _op_dropout(p, seed_lo, seed_hi, offset):
+    return None if p == 0.0 else (p, seed_lo | (seed_hi << 32), offset)
+
+
+# K1 as the operator paddle_tpu_torch::flash_fwd, registered through
+# torch.library's low-level API: torch.library.custom_op adds a Python
+# autograd kernel to every call (on an H100's host, 49-77 us a K1 call
+# over the direct launch against 16-31 here: tools/op_cost_ab.py)
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale, str? variant, Tensor? bias, float p, "
+            "int seed_lo, int seed_hi, int offset) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _flash_fwd_cpu(q, k, v, causal, scale, variant, bias, p, seed_lo,
+                   seed_hi, offset):
+    """The CPU kernel: the plain version, in fresh tensors (an operator
+    returns no view of an input)."""
+    extra = bias is not None or p != 0.0
+    lo = _lo_out(q, extra)
+    o, lse = flash_fwd_plain(q, k, v, causal, scale, bias,
+                             _op_dropout(p, seed_lo, seed_hi, offset),
+                             lse_lo=lo if extra else None)
+    return o.contiguous(), lse, lo
+
+
+def _flash_fwd_cuda(q, k, v, causal, scale, variant, bias, p, seed_lo,
+                    seed_hi, offset):
+    """The CUDA kernel: the launch, counted in `LAUNCHES` and
+    `VARIANT_LAUNCHES`."""
+    dropout = _op_dropout(p, seed_lo, seed_hi, offset)
     _check(q, k, v, causal)
     B, Sq, H, _ = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    extra = bias is not None or dropout is not None
+    lo = _lo_out(q, extra)
     _count("flash_attention_fwd", _call(
         "flash_attention_fwd", (q, k, v, o, lse), (q, k, v), q, k, causal,
-        scale, variant, bias, _dropout(dropout), lse_lo))
-    return o, lse
+        scale, variant, bias, dropout, lo if extra else None))
+    return o, lse, lo
+
+
+def _flash_fwd_fake(q, k, v, causal, scale, variant, bias, p, seed_lo,
+                    seed_hi, offset):
+    """The shapes, for `torch.export`; a variant the card refuses is
+    refused here, before the program is traced."""
+    extra = bias is not None or p != 0.0
+    if q.device.type == "cuda":
+        _variant(q.dtype, q.shape[-1], variant, extra)
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, Sq), dtype=torch.float32),
+            _lo_out(q, extra))
+
+
+_LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+torch.library.register_fake("paddle_tpu_torch::flash_fwd", _flash_fwd_fake,
+                            lib=_LIB)
+_FLASH_FWD_OP = torch.ops.paddle_tpu_torch.flash_fwd.default
+
+
+def flash_fwd(q, k, v, causal=True, scale=None, variant=None, bias=None,
+              dropout=None, return_lo=False):
+    """K1: (O, lse) as `flash_fwd_plain`, and with `return_lo` lse's low
+    part third ((B, H, Sq) fp32 with a bias or dropout, else empty), all
+    from the operator `paddle_tpu_torch::flash_fwd`.  A CUDA `q`
+    launches the Hopper kernel `_variant` picks, or the named `variant`
+    (counted in `LAUNCHES`); a CPU `q` runs the plain version.  The
+    operator takes no gradient (`flash_mha` does): inputs that require
+    one under grad mode raise."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError("flash_fwd takes no gradient: call flash_mha, "
+                         "or detach the inputs")
+    out = _FLASH_FWD_OP(q, k, v, bool(causal), float(_scale(q, scale)),
+                        variant, bias, *_seed_words(_dropout(dropout)))
+    return out if return_lo else out[:2]
 
 
 def _delta(o, do):
@@ -585,14 +681,10 @@ class _FlashMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, bias, dropout):
-        extra = {}
-        if bias is not None or dropout is not None:
-            B, Sq, H, _ = q.shape
-            extra = {"bias": bias, "dropout": dropout,
-                     "lse_lo": torch.empty(B, H, Sq, dtype=torch.float32,
-                                           device=q.device)}
-        o, lse = flash_fwd(q, k, v, causal, scale, **extra)
-        ctx.save_for_backward(q, k, v, o, lse, bias, extra.get("lse_lo"))
+        extra = bias is not None or dropout is not None
+        o, lse, lo = flash_fwd(q, k, v, causal, scale, bias=bias,
+                               dropout=dropout, return_lo=True)
+        ctx.save_for_backward(q, k, v, o, lse, bias, lo if extra else None)
         ctx.causal, ctx.scale, ctx.dropout = causal, scale, dropout
         return o
 

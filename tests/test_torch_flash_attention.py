@@ -747,6 +747,55 @@ def test_dropout_seed_is_drawn_on_the_host_and_advances():
     assert 0 <= first[0] < 2 ** 64 and 0 <= first[1] < 2 ** 32
 
 
+@pytest.mark.parametrize("case", ["plain", "bias", "dropout",
+                                  "seed_2_63"])
+def test_flash_fwd_custom_op_passes_opcheck(case):
+    """K1 is the operator `paddle_tpu_torch::flash_fwd` (one node of an
+    exported program): `torch.library.opcheck` on the CPU (schema, fake
+    kernel, autograd registration, AOT dispatch with dynamic shapes)
+    without a bias or dropout, with a padding bias, with dropout, and
+    with a 64-bit seed at or above 2^63, which crosses the operator's
+    signed int64 arguments as two 32-bit words and keeps every bit: the
+    operator's O and lse equal the plain version's with that seed, and
+    lse's low part comes back (B, H, Sq) with a bias or dropout, empty
+    without."""
+    q, k, v, _ = _t(*_qkvd(2, 24, 4, 2, 16, seed=11))
+    bias, drop = None, None
+    if case == "bias":
+        bias = torch.from_numpy(_bias_case("pad", 2, 24, 4, None))
+    elif case == "dropout":
+        drop = (0.2, 2 ** 33 + 9, 4)
+    elif case == "seed_2_63":
+        drop = (0.2, 2 ** 63 + 2 ** 40 + 3, 5)
+    args = (q, k, v, False, 0.25, None, bias, *FA._seed_words(drop))
+    torch.library.opcheck(torch.ops.paddle_tpu_torch.flash_fwd.default,
+                          args)
+    o, lse, lo = torch.ops.paddle_tpu_torch.flash_fwd(*args)
+    po, plse = FA.flash_fwd_plain(q, k, v, False, 0.25, bias=bias,
+                                  dropout=drop)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    assert lo.shape == ((0,) if case == "plain" else (2, 4, 24))
+    if drop is not None:
+        other = (drop[0], drop[1] ^ (1 << 63), drop[2])
+        assert not torch.equal(o, FA.flash_fwd_plain(
+            q, k, v, False, 0.25, dropout=other)[0])
+
+
+def test_flash_fwd_takes_no_gradient():
+    """`flash_fwd` (the operator, which has no autograd formula) refuses
+    inputs that require a gradient under grad mode, where `flash_mha`
+    takes them; with grad mode off, or detached, it runs."""
+    q, k, v, _ = _t(*_qkvd(1, 8, 2, 2, 16, seed=12))
+    qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="flash_mha"):
+        FA.flash_fwd(qg, k, v)
+    with torch.no_grad():
+        o, _ = FA.flash_fwd(qg, k, v)
+    assert not o.requires_grad and torch.equal(o, FA.flash_fwd(q, k, v)[0])
+    FA.flash_mha(qg, k, v).sum().backward()
+    assert qg.grad is not None
+
+
 def _dropout_reference(q, k, v, keep, p, causal, bias):
     """O from an einsum written out with the given keep mask: softmax of
     the scaled scores plus the bias, then P * keep / (1 - p), then P.V
@@ -999,3 +1048,78 @@ def test_mask_on_the_card_launches_k1_k2_and_wgmma_refuses_a_bias():
     with pytest.raises(ValueError, match="no gradient"):
         FA.flash_attention_xla(q, k, v, attn_mask=torch.zeros(
             1, 1, 1, 256, device="cuda", requires_grad=True))
+
+
+@pytest.mark.gpu
+def test_exported_ernie_runs_k1_on_the_card(tmp_path):
+    """The tiny ERNIE (2 layers, head_dim 16) saved by `jit.save` on the
+    card and run by the predictor there: K1 is one `flash_fwd` node a
+    layer, tracing launches nothing, a run with a padding mask launches
+    K1 once a layer on the mma kernels (no K2), and the logits equal the
+    eager model's on the card (per row within 1e-5 x max(1, max |row|));
+    the same weights saved on the CPU run on the card through the
+    predictor (the program moved), K1 launching there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU or interpret mode")
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ErnieConfig.from_preset("tiny")
+    model = ErnieForSequenceClassification(cfg, device="cuda", seed=0).eval()
+
+    class Positional(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = model
+
+        def forward(self, ids, mask):
+            return self.m(ids, attention_mask=mask)
+
+    path = str(tmp_path / "ernie")
+    before = dict(FA.LAUNCHES)
+    program = jit.api.export(Positional(), [jit.InputSpec([None, 32],
+                                                          "int64")] * 2)
+    assert sum("flash_fwd" in str(n.target)
+               for n in program.graph.nodes) == cfg.num_hidden_layers
+    jit.save(Positional(), path, input_spec=[jit.InputSpec([None, 32],
+                                                           "int64")] * 2)
+    assert FA.LAUNCHES == before
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, cfg.vocab_size, (3, 32))
+    mask = np.ones((3, 32), np.int64)
+    mask[1, 20:] = 0
+    pred = create_predictor(Config(path))
+    mma = dict(FA.VARIANT_LAUNCHES["mma"])
+    got = pred.run([ids, mask])[0]
+    assert FA.VARIANT_LAUNCHES["mma"] == {
+        **mma, "flash_attention_fwd": mma["flash_attention_fwd"]
+        + cfg.num_hidden_layers}
+    with torch.no_grad():
+        want = Positional()(torch.from_numpy(ids).cuda(),
+                            torch.from_numpy(mask).cuda()).cpu().numpy()
+    lim = 1e-5 * np.maximum(1.0, np.abs(want).max(-1))
+    assert (np.abs(got - want).max(-1) <= lim).all()
+    # the same weights saved on the CPU: the predictor moves the program
+    # to the card, where K1 launches
+    host = ErnieForSequenceClassification(cfg, device="cpu").eval()
+    host.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    model = host
+    jit.save(Positional(), str(tmp_path / "host"),
+             input_spec=[jit.InputSpec([None, 32], "int64")] * 2)
+    moved = create_predictor(Config(str(tmp_path / "host")))
+    mma = dict(FA.VARIANT_LAUNCHES["mma"])
+    got = moved.run([ids, mask])[0]
+    assert FA.VARIANT_LAUNCHES["mma"]["flash_attention_fwd"] \
+        == mma["flash_attention_fwd"] + cfg.num_hidden_layers
+    assert (np.abs(got - want).max(-1) <= lim).all()
+    # loaded by path alone, the CPU-saved program runs on the card too
+    from paddle_tpu_torch.inference.serving import standalone_load
+    alone = standalone_load(str(tmp_path / "host"))
+    assert alone.device.type == "cuda"
+    mma = dict(FA.VARIANT_LAUNCHES["mma"])
+    got = alone.run(ids, mask)
+    assert FA.VARIANT_LAUNCHES["mma"]["flash_attention_fwd"] \
+        == mma["flash_attention_fwd"] + cfg.num_hidden_layers
+    assert (np.abs(got - want).max(-1) <= lim).all()

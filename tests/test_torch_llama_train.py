@@ -267,7 +267,9 @@ def test_dots_recompute_gives_bitwise_the_same_loss_and_grads(preset):
     crossing the checkpoint as an output) and every gradient bitwise.
     Its backward recomputes no dense product (as many aten.mm as without
     recompute, fewer than "full") and recomputes the batched ones (more
-    aten.bmm)."""
+    batched products: aten.bmm, and K1's operator
+    `paddle_tpu_torch::flash_fwd`, whose plain version's two batched
+    einsums run inside it, re-run once a layer as under "full")."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from paddle_tpu_torch.models.llama import llama_loss_fn
 
@@ -290,15 +292,18 @@ def test_dots_recompute_gives_bitwise_the_same_loss_and_grads(preset):
         loss = llama_loss_fn(tm, ids)
         with Count() as c:
             loss.backward()
+        k1 = c.n.get(torch.ops.paddle_tpu_torch.flash_fwd.default, 0)
         out[policy] = (loss.item(), {n: p.grad.clone()
                                      for n, p in tm.named_parameters()},
                        c.n.get(torch.ops.aten.mm.default, 0),
-                       c.n.get(torch.ops.aten.bmm.default, 0))
-    (l0, g0, mm0, bmm0), (l1, g1, mm1, bmm1) = out[None], out["dots"]
+                       c.n.get(torch.ops.aten.bmm.default, 0) + 2 * k1, k1)
+    (l0, g0, mm0, bmm0, k10), (l1, g1, mm1, bmm1, k11) = out[None], \
+        out["dots"]
     assert l1 == l0
     for n, g in g0.items():
         assert torch.equal(g, g1[n]), n
     assert mm1 == mm0 < out["full"][2]
+    assert k10 == 0 and k11 == out["full"][4] == tm.config.num_hidden_layers
     assert bmm1 > bmm0
 
 

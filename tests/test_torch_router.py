@@ -5,8 +5,8 @@ routing journal's JSONL records, which cross both ways (a journal
 written by either package's `RoutingJournal` replays in the other's
 with equal `replay()` / `incomplete()`, torn tail and compacted file
 included).  Then the `inference` exports: the port's `__all__` holds
-every name of the JAX package's but those a ROADMAP item still owns,
-read from the JAX `__init__` with `ast` (no JAX import)."""
+every name of the JAX package's `__all__` (none is left to a ROADMAP
+item), read from the JAX `__init__` with `ast` (no JAX import)."""
 
 import ast
 import json
@@ -25,11 +25,8 @@ from paddle_tpu_torch.inference.router import _FairQueue
 ROOT = Path(__file__).resolve().parents[1]
 
 # JAX `inference` names the port does not export yet, by the ROADMAP
-# item that ports them
-MISSING = {
-    "Config": "7", "create_predictor": "7", "Predictor": "7",
-    "PrecisionType": "7",
-}
+# item that ports them: none since the predictor exports
+MISSING = {}
 TIERS = ("interactive", "standard", "batch")
 
 
@@ -64,13 +61,19 @@ def test_inference_exports_cover_jax():
 
 
 def test_missing_exports_name_their_roadmap_item():
-    """Each name still missing is named in ROADMAP.md beside its item;
-    none of them is importable from the port."""
+    """Each name still missing is named in ROADMAP.md beside its item
+    and is not importable from the port; since the predictor exports
+    (`Config`, `create_predictor`, `Predictor`, `PrecisionType`) none is
+    missing, and each of those four is the port's own."""
     roadmap = (ROOT / "ROADMAP.md").read_text()
     for name, item in MISSING.items():
         assert not hasattr(TI, name), name
         assert name in roadmap, name
-    assert set(MISSING.values()) == {"7"}
+    assert MISSING == {}
+    for name in ("Config", "create_predictor", "Predictor",
+                 "PrecisionType"):
+        assert name in TI.__all__ and name in roadmap
+        assert getattr(TI, name).__module__ == "paddle_tpu_torch.inference"
 
 
 # -- fair queue ----------------------------------------------------------------

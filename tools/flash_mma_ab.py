@@ -3,9 +3,10 @@
 card: chip_smoke.py's ernie_kernels phase (every case on the mma and the
 fma kernels against the plain versions, bitwise twice; then the mma and
 fma kernels timed in turns by CUDA-graph replay at five shapes) run in
-each checkout, one process a run, in the order A, B, B, A.
+each checkout, one process a run, in the order A, B, B, A
+(`--rounds N` times over).
 
-    python3 tools/flash_mma_ab.py OTHER [OTHER ...]
+    python3 tools/flash_mma_ab.py [--rounds N] OTHER [OTHER ...]
 
 A is each OTHER checkout (for example a `git archive` of the parent
 commit unpacked into `build/`), B this one.  Each run builds its own
@@ -17,11 +18,9 @@ ms]}), then the card's name and power limit.
 
 import json
 import re
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+import _ab
 
 
 def one_run(root: str) -> int:
@@ -64,24 +63,5 @@ def one_run(root: str) -> int:
     return 0 if ok else 1
 
 
-def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        return one_run(sys.argv[2])
-    import torch
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
-        print("flash_mma_ab: needs a CUDA device and one or more other "
-              "checkouts", file=sys.stderr)
-        return 2
-    rc = 0
-    for other in sys.argv[1:]:
-        for root in (other, str(ROOT), str(ROOT), other):
-            rc |= subprocess.call([sys.executable, __file__, "--one",
-                                   str(Path(root).resolve())])
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_ab.main(__file__, one_run))
