@@ -6324,9 +6324,9 @@ def phase_serve(torch):
     then static KV-cache generation on the same model; then tiered KV
     and the KV fabric between two servers; then the fleet substrate
     (serve_fleet) and the Router over it (serve_router).  serve_slo,
-    serve_pressure, the int8 pull, the fabric's migration and disk
-    parks, serve_tiered and the two handoffs run on the model's first
-    SHALLOW_LAYERS layers
+    serve_pressure, serve_spec, the int8 pull, the fabric's migration
+    and disk parks, serve_tiered and the two handoffs run on the model's
+    first SHALLOW_LAYERS layers
     (`_shallow`): each holds itself to its own references, and the run
     keeps inside its time budget."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -6373,7 +6373,7 @@ def phase_serve(torch):
     pressure, pressure_streams = _timed(phase_serve_pressure, torch,
                                         shallow, limits)
     prefix, prefix_streams = _timed(phase_serve_prefix, torch, model)
-    spec = _timed(phase_serve_spec, torch, model, limits)
+    spec = _timed(phase_serve_spec, torch, shallow, limits)
     slo = _timed(phase_serve_slo, torch, shallow, limits)
     int8w = _timed(phase_serve_int8w, torch, model, shallow, limits,
                    streams[None], profile["graphs_overlap"])
@@ -9157,6 +9157,553 @@ def phase_predict(torch):
             "pool": k1(report["pool"]["launches_by_variant"])}
 
 
+# --------------------------------------------------------------------------
+# Staged forwards (jit.to_static) and the optimizers beyond Adam, both on
+# ernie-3.0-base at full width and depth
+# --------------------------------------------------------------------------
+
+TO_STATIC_BATCHES = (ERNIE_B, 1, 5)     # three signatures, three programs
+TO_STATIC_WARM, TO_STATIC_RUNS = 3, 20
+GATE_ROWS = 2                     # the control-flow wrapper's batches
+GATE_CANDIDATES = 8               # seeds whose logits' means set the split
+
+
+def _gated(torch, model, center):
+    """`model` as forward(input_ids, attention_mask) with a tensor-valued
+    `if` on the logits (their mean against `center`) and a tensor-valued
+    `while` (three halvings, counted by a tensor)."""
+
+    class Gated(torch.nn.Module):
+        def __init__(self, m, c):
+            super().__init__()
+            self.m = m
+            self.center = c
+
+        def forward(self, input_ids, attention_mask):
+            logits = self.m(input_ids, attention_mask=attention_mask)
+            if logits.mean() > self.center:
+                out = logits * 2.0
+            else:
+                out = logits - 1.0
+            n = logits.abs().sum() * 0
+            while n < 3:
+                out = out * 0.5 + 0.25
+                n = n + 1
+            return out
+
+    return Gated(model, center)
+
+
+def _hop_nodes(program, name):
+    """Top-graph nodes of the higher-order op `name` in a program."""
+    return sum(1 for n in program.graph.nodes
+               if n.op == "call_function" and str(n.target) == name)
+
+
+def _counted(torch, FA, fn):
+    """fn() with K1 / K2 counted from 0: (its result, launches by
+    variant, launches by kernel)."""
+    _zero_train_counts()
+    _zero_variant_counts(FA)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()},
+            _train_counts())
+
+
+def _k1_exact(FA, by_variant, launches, n, what):
+    require(by_variant == _k1_only(FA, n)
+            and launches == {**dict.fromkeys(launches, 0),
+                             "flash_attention_fwd": n},
+            f"{what}: launches {by_variant} {launches}, want {n} K1 on mma")
+
+
+def _gate_batches(torch, gated):
+    """Two (ids, mask) batches of GATE_ROWS rows on the card whose eager
+    logits' means fall on each side of the wrapper's `center` (the median
+    of GATE_CANDIDATES seeds' means), with the branch each takes."""
+    import numpy as np
+    cands = []
+    for seed in range(GATE_CANDIDATES):
+        ids, mask = _predict_batch(GATE_ROWS, 200 + seed)
+        t = (torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+        with torch.no_grad():
+            cands.append((float(gated.m(t[0], attention_mask=t[1]).mean()),
+                          t))
+    gated.center = float(np.median([m for m, _ in cands]))
+    hi = max(cands, key=lambda c: c[0])
+    lo = min(cands, key=lambda c: c[0])
+    require(hi[0] > gated.center >= lo[0],
+            f"to_static: no batch on each side of {gated.center}")
+    return {"true": hi[1], "false": lo[1]}
+
+
+def phase_to_static(torch):
+    """`jit.to_static` on ernie-3.0-base (12 layers, hidden 768, fp32, a
+    classifier of 2, random weights from a seed, eval) as forward(
+    input_ids, attention_mask): calls at ernie_train's batch and at 1 and
+    5 rows, three signatures and so three programs (a repeat makes
+    none), each bitwise the eager forward (else per row within
+    PREDICT_TOL) with exactly 12 K1 launches on mma; a wrapper with a
+    tensor-valued `if` on the logits and a tensor-valued `while`, its
+    program holding one `cond` and one `while_loop` node, equal to its
+    eager forward on a batch down each branch, and through jit.save /
+    jit.load; enable_to_static(False) runs eagerly (no new program);
+    export seconds a signature, host ms a call against the eager forward
+    in turns (median of 20 after 3), one profiled call, peak memory.
+    Returns K1's launches of each counted call."""
+    import os
+    import tempfile
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import flash_attention as FA
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0).eval()
+    wrapper = _positional(torch, model)
+    traced = jit.to_static(wrapper)
+    report = {"phase": "to_static",
+              "model": f"ernie-3.0-base ({L} layers, hidden 768, 12 heads, "
+                       f"FFN 3072, vocab 40000), classifier of 2, eval",
+              "dtype": "float32",
+              "tolerance": f"logits vs the eager forward on the card: "
+                           f"bitwise, else per row |err| <= {PREDICT_TOL} "
+                           f"x max(1, max |eager row|)",
+              "signatures": {}}
+    launches = {}
+    main = None
+    for b in TO_STATIC_BATCHES + (ERNIE_B,):
+        ids, mask = _predict_batch(b, 0 if b == ERNIE_B else b)
+        ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        sig = report["signatures"].setdefault(str(b), {})
+        if "export_s" not in sig:
+            _zero_train_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            program = traced.lower(ids, mask)
+            sig["export_s"] = time.perf_counter() - t
+            sig["k1_program_nodes"] = sum(
+                1 for n in program.graph.nodes if "flash_fwd" in str(n.target))
+            sig["k1_launches_while_tracing"] = \
+                _train_counts()["flash_attention_fwd"]
+            require(sig["k1_program_nodes"] == L
+                    and sig["k1_launches_while_tracing"] == 0,
+                    f"to_static batch {b}: {sig}")
+        got, by_variant, counts = _counted(
+            torch, FA, lambda: traced(ids, mask))
+        with torch.no_grad():
+            want = wrapper(ids, mask)
+        rule, share = _logits_rule(got.cpu().numpy(), want.cpu().numpy())
+        sig.setdefault("calls", []).append(
+            {"rule": rule, "worst_share_of_limit": share,
+             "launches_by_variant": by_variant})
+        require(tuple(got.shape) == (b, 2) and got.device.type == "cuda"
+                and bool(torch.isfinite(got).all()),
+                f"to_static batch {b}: logits {tuple(got.shape)}")
+        require(share <= 1.0, f"to_static batch {b}: logits {share} of the "
+                f"per-row limit from the eager forward")
+        _k1_exact(FA, by_variant, counts, L, f"to_static batch {b}")
+        launches[f"batch {b}" + (" again" if f"batch {b}" in launches
+                                 else "")] = counts["flash_attention_fwd"]
+        if b == ERNIE_B:
+            main = (ids, mask)
+    report["programs"] = len(traced.programs)
+    require(report["programs"] == len(TO_STATIC_BATCHES),
+            f"to_static: {report['programs']} programs for "
+            f"{len(TO_STATIC_BATCHES)} signatures")
+
+    # the control-flow wrapper: cond and while_loop nodes, both branches
+    gated = _gated(torch, model, 0.0)
+    sides = _gate_batches(torch, gated)
+    gtraced = jit.to_static(gated)
+    program = gtraced.lower(*sides["true"])
+    gate = {"center": gated.center, "cond_nodes": _hop_nodes(program, "cond"),
+            "while_loop_nodes": _hop_nodes(program, "while_loop"),
+            "k1_program_nodes": sum(1 for n in program.graph.nodes
+                                    if "flash_fwd" in str(n.target)),
+            "branches": {}}
+    require(gate["cond_nodes"] == 1 and gate["while_loop_nodes"] == 1
+            and gate["k1_program_nodes"] == L,
+            f"to_static gate program: {gate}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gated")
+        t = time.perf_counter()
+        jit.save(gated, path, input_spec=[
+            jit.InputSpec([None, ERNIE_S], "int64")] * 2)
+        gate["save_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = jit.load(path)
+        gate["load_s"] = time.perf_counter() - t
+        for side, (ids, mask) in sides.items():
+            with torch.no_grad():
+                want = gated(ids, mask).cpu().numpy()
+            got, by_variant, counts = _counted(
+                torch, FA, lambda: gtraced(ids, mask))
+            _k1_exact(FA, by_variant, counts, L, f"to_static gate {side}")
+            rule, share = _logits_rule(got.cpu().numpy(), want)
+            lrule, lshare = _logits_rule(loaded(ids, mask).cpu().numpy(),
+                                         want)
+            gate["branches"][side] = {
+                "rule": rule, "worst_share_of_limit": share,
+                "loaded_rule": lrule, "loaded_worst_share": lshare,
+                "k1_launches": counts["flash_attention_fwd"]}
+            require(share <= 1.0 and lshare <= 1.0,
+                    f"to_static gate {side}: {gate['branches'][side]}")
+            launches[f"gate {side}"] = counts["flash_attention_fwd"]
+        del loaded
+    report["control_flow_wrapper"] = gate
+
+    # the switch, read on every call: a new signature runs eagerly
+    ids, mask = (torch.from_numpy(a).cuda() for a in _predict_batch(3, 3))
+    jit.enable_to_static(False)
+    try:
+        got, _, counts = _counted(torch, FA, lambda: traced(ids, mask))
+    finally:
+        jit.enable_to_static(True)
+    with torch.no_grad():
+        want = wrapper(ids, mask)
+    report["disabled"] = {"programs_after": len(traced.programs),
+                          "equal_to_eager": bool(torch.equal(got, want)),
+                          "k1_launches": counts["flash_attention_fwd"]}
+    require(report["disabled"]["programs_after"] == len(TO_STATIC_BATCHES)
+            and report["disabled"]["equal_to_eager"]
+            and got.requires_grad,
+            f"to_static disabled: {report['disabled']}")
+
+    # host ms a call against the eager forward, in turns; one profile
+    ids, mask = main
+
+    def run_static():
+        traced(ids, mask)
+        torch.cuda.synchronize()
+
+    def run_eager():
+        with torch.no_grad():
+            wrapper(ids, mask)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"to_static": [], "eager": []}
+    order = (("to_static", run_static), ("eager", run_eager))
+    for i in range(TO_STATIC_WARM + TO_STATIC_RUNS):
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            t = time.perf_counter()
+            fn()
+            times[name].append(1e3 * (time.perf_counter() - t))
+    ms = {k: sorted(v[TO_STATIC_WARM:])[TO_STATIC_RUNS // 2]
+          for k, v in times.items()}
+    report.update({
+        "call_ms": ms["to_static"], "eager_forward_ms": ms["eager"],
+        "call_over_eager": ms["to_static"] / ms["eager"],
+        "examples_per_sec": ERNIE_B / (ms["to_static"] / 1e3),
+        "call_ms_each": times["to_static"], "eager_ms_each": times["eager"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "timing": f"host clock to a synchronize, tensors on the card, in "
+                  f"turns, median of {TO_STATIC_RUNS} after "
+                  f"{TO_STATIC_WARM}",
+        **_predict_profile(torch, run_static, ms["to_static"])})
+    emit(report)
+    del model, wrapper, traced, gated, gtraced, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# name -> (optimizer class, keywords): each runs OPT_STEPS TrainStep steps
+ERNIE_OPTIMIZERS = {
+    "SGD": ("SGD", {"learning_rate": 1e-2}),
+    "Momentum": ("Momentum", {"learning_rate": 1e-2, "momentum": 0.9}),
+    "Momentum(nesterov, L2Decay 0.01)": (
+        "Momentum", {"learning_rate": 1e-2, "momentum": 0.9,
+                     "use_nesterov": True, "weight_decay": "L2Decay"}),
+    "Adagrad": ("Adagrad", {"learning_rate": 1e-3}),
+    "Adadelta": ("Adadelta", {"learning_rate": 1.0}),
+    "Adamax": ("Adamax", {"learning_rate": 2e-3}),
+    "RMSProp": ("RMSProp", {"learning_rate": 1e-4}),
+    "RMSProp(centered, momentum 0.9)": (
+        "RMSProp", {"learning_rate": 1e-4, "centered": True,
+                    "momentum": 0.9}),
+    "Lamb": ("Lamb", {"learning_rate": 1e-3}),
+}
+OPT_STEPS = 3
+OPT_RULE_TOL = 1e-6    # per tensor: |card - CPU rule| <= tol x max|CPU rule|
+LOOKAHEAD_K = 2
+LBFGS_ITERS = 3
+
+
+def _build_opt(name, params):
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.regularizer import L2Decay
+    cls, kw = ERNIE_OPTIMIZERS[name]
+    kw = dict(kw)
+    if kw.get("weight_decay") == "L2Decay":
+        kw["weight_decay"] = L2Decay(0.01)
+    return getattr(O, cls)(parameters=params, **kw)
+
+
+def _ernie_loss(m, ids, labels, mask):
+    from paddle_tpu_torch.nn import functional as NF
+    return NF.cross_entropy(m(ids, attention_mask=mask), labels)
+
+
+def _rule_check(torch, opt, report):
+    """Wrap `opt.functional_update`: at step 1 the update on the card is
+    held against `per_param_update` on CPU copies of the same parameters,
+    gradients and state; the worst share of OPT_RULE_TOL goes to
+    `report`."""
+    update = opt.functional_update
+
+    def checked(params, grads, state, lr, step, scale=None):
+        if step != 1:
+            return update(params, grads, state, lr, step, scale=scale)
+        def host(t):
+            return None if t is None else t.detach().to("cpu", copy=True)
+
+        cpu = {"p": {n: host(p) for n, p in params.items()},
+               "g": {n: host(g) for n, g in grads.items()},
+               "s": {n: {k: host(v) for k, v in st.items()}
+                     for n, st in state.items()}}
+        out = update(params, grads, state, lr, step, scale=scale)
+        opt.per_param_update(cpu["p"], cpu["g"], cpu["s"], lr, step)
+        worst, where = 0.0, None
+        pairs = [(n, params[n], cpu["p"][n]) for n in params] + [
+            (f"{n}.{k}", state[n][k], cpu["s"][n][k])
+            for n in state for k in state[n]]
+        for name, dev, ref in pairs:
+            require(dev.dtype == ref.dtype, f"{name}: {dev.dtype} on the "
+                    f"card, {ref.dtype} from the CPU rule")
+            top = float(ref.abs().max())
+            err = float((dev.detach().cpu() - ref).abs().max())
+            share = err / (OPT_RULE_TOL * top) if top > 0 else \
+                (0.0 if err == 0 else math.inf)
+            if share >= worst:
+                worst, where = share, name
+        report["rule_vs_cpu_worst_share"] = worst
+        report["rule_vs_cpu_worst_tensor"] = where
+        report["rule_vs_cpu_tensors"] = len(pairs)
+        return out
+
+    opt.functional_update = checked
+
+
+def _not_moved(torch, model, init):
+    """Names of the parameters still equal to their initial values."""
+    return [n for n, p in model.named_parameters()
+            if torch.equal(p.detach(), init[n])]
+
+
+def phase_ernie_optimizers(torch):
+    """The optimizers beyond Adam on ernie-3.0-base (full width and
+    depth, fp32, dropout 0.1, random weights from a seed) at ernie_train's
+    batch (16 x 128 ids from RandomState(0), its padding mask): for each
+    of ERNIE_OPTIMIZERS OPT_STEPS TrainStep steps from the same initial
+    weights (a finite loss, every parameter moved, K1 / dQ / dK/dV
+    exactly 12 a step, all on mma), the first step's new parameters and
+    state held against the same rule on CPU copies of the same
+    parameters, gradients and state (OPT_RULE_TOL); then eagerly
+    (`loss.backward(); opt.step(); opt.clear_grad()`) Lookahead(SGD) over
+    k + 1 steps, ModelAverage with apply() and a bitwise restore(), and
+    LBFGS at the JAX defaults (history 10) for LBFGS_ITERS iterations in
+    eval mode (a deterministic objective for its line search).  Step ms
+    and peak memory of each.  Returns {run: K1 launches}."""
+    import numpy as np
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import flash_attention as FA
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.RandomState(0)                 # bench.py:326-329
+    host = (rng.randint(0, cfg.vocab_size, (ERNIE_B, ERNIE_S)),
+            rng.randint(0, 2, (ERNIE_B,)), _ernie_mask(ERNIE_B, ERNIE_S))
+    batch = [torch.from_numpy(x).to("cuda") for x in host]
+
+    def reset():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+                p.grad = None
+        model.train()
+
+    def want_launches(steps):
+        return {n: dict.fromkeys(FA.LAUNCHES, L * steps if n == "mma"
+                                 else 0) for n in FA.VARIANT_LAUNCHES}
+
+    report = {"phase": "ernie_optimizers",
+              "model": f"ernie-3.0-base ({L} layers, hidden 768, 12 heads, "
+                       f"FFN 3072, vocab 40000), classifier of 2",
+              "dtype": "float32", "batch": ERNIE_B, "seq": ERNIE_S,
+              "dropout": ERNIE_P, "steps": OPT_STEPS,
+              "rule_tolerance": f"step 1, per parameter and state tensor: "
+                                f"|card - CPU rule| <= {OPT_RULE_TOL} x "
+                                f"max |CPU rule|",
+              "optimizers": {}}
+    launches = {}
+    for name in ERNIE_OPTIMIZERS:
+        reset()
+        opt = _build_opt(name, list(model.parameters()))
+        step = TrainStep(model, _ernie_loss, opt)
+        rec = {"class": type(opt).__name__}
+        _rule_check(torch, opt, rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_counts()
+        _zero_variant_counts(FA)
+        losses, secs = [], []
+        for _ in range(OPT_STEPS):
+            t = time.perf_counter()
+            losses.append(step(*batch).item())     # .item() synchronises
+            secs.append(time.perf_counter() - t)
+        by_variant = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
+        counts = _train_counts()
+        stuck = _not_moved(torch, model, init)
+        rec.update({"losses": losses, "step_ms_each": [1e3 * s for s in secs],
+                    "step_ms": 1e3 * sorted(secs[1:])[len(secs[1:]) // 2],
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "params_not_moved": stuck, "launches": counts,
+                    "launches_by_variant": by_variant})
+        report["optimizers"][name] = rec
+        require(all(math.isfinite(x) for x in losses),
+                f"{name}: losses {losses}")
+        require(not stuck, f"{name}: parameters not moved: {stuck}")
+        require(by_variant == want_launches(OPT_STEPS)
+                and counts == {**dict.fromkeys(counts, 0),
+                               **dict.fromkeys(("flash_attention_fwd",
+                                                "flash_attention_dq",
+                                                "flash_attention_dkv"),
+                                               L * OPT_STEPS)},
+                f"{name}: launches {by_variant} {counts}")
+        require(rec["rule_vs_cpu_worst_share"] <= 1.0,
+                f"{name}: the card's first update is "
+                f"{rec['rule_vs_cpu_worst_share']} of the limit from the "
+                f"CPU rule at {rec['rule_vs_cpu_worst_tensor']}")
+        launches[name] = counts["flash_attention_fwd"]
+        del step, opt
+
+    def eager_steps(opt, n, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_counts()
+        _zero_variant_counts(FA)
+        losses, secs = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            loss = _ernie_loss(model, *batch)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+            secs.append(time.perf_counter() - t)
+        by_variant = {k: dict(c) for k, c in FA.VARIANT_LAUNCHES.items()}
+        require(all(math.isfinite(x) for x in losses)
+                and by_variant == want_launches(n),
+                f"{what}: losses {losses}, launches {by_variant}")
+        launches[what] = by_variant["mma"]["flash_attention_fwd"]
+        return {"losses": losses, "step_ms_each": [1e3 * s for s in secs],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # Lookahead(SGD): at step k the fast weights become the slow ones
+    reset()
+    la = O.Lookahead(O.SGD(learning_rate=1e-2,
+                           parameters=list(model.parameters())),
+                     alpha=0.5, k=LOOKAHEAD_K)
+    first = eager_steps(la, LOOKAHEAD_K, "Lookahead(SGD)")
+    synced = all(torch.equal(p, s) for p, s in
+                 zip(model.parameters(), la._slow))
+    more = eager_steps(la, 1, "Lookahead(SGD), step k + 1")
+    rec = {"k": LOOKAHEAD_K, "alpha": la.alpha, "steps": la._step_count,
+           "losses": first["losses"] + more["losses"],
+           "step_ms_each": first["step_ms_each"] + more["step_ms_each"],
+           "peak_mem_gib": max(first["peak_mem_gib"], more["peak_mem_gib"]),
+           "fast_equal_slow_at_k": synced}
+    require(synced and la._step_count == LOOKAHEAD_K + 1
+            and not _not_moved(torch, model, init),
+            f"Lookahead: synced {synced}, steps {la._step_count}")
+    report["Lookahead(SGD)"] = rec
+
+    # ModelAverage beside SGD: apply() swaps the average in, restore()
+    # gives the live weights back bitwise
+    reset()
+    sgd = O.SGD(learning_rate=1e-2, parameters=list(model.parameters()))
+    ma = O.ModelAverage(0.5, parameters=list(model.parameters()),
+                        min_average_window=2, max_average_window=10)
+
+    class Both:
+        def step(self):
+            sgd.step()
+            ma.step()
+
+        def clear_grad(self):
+            sgd.clear_grad()
+
+    rec = eager_steps(Both(), OPT_STEPS, "SGD + ModelAverage")
+    live = [p.detach().clone() for p in model.parameters()]
+    t = time.perf_counter()
+    ma.apply()
+    torch.cuda.synchronize()
+    rec["apply_ms"] = 1e3 * (time.perf_counter() - t)
+    rec["params_changed_by_apply"] = sum(
+        not torch.equal(p, q) for p, q in zip(model.parameters(), live))
+    ma.restore()
+    rec["restore_bitwise"] = all(torch.equal(p, q) for p, q in
+                                 zip(model.parameters(), live))
+    rec.update({k: v for k, v in ma.state_dict().items()
+                if k.startswith("num")})
+    require(rec["params_changed_by_apply"] > 0 and rec["restore_bitwise"],
+            f"ModelAverage: {rec}")
+    report["ModelAverage"] = rec
+    del live, ma, sgd
+
+    # LBFGS at the JAX defaults (history 10), eval mode
+    reset()
+    model.eval()
+    lb = O.LBFGS(learning_rate=1.0, max_iter=LBFGS_ITERS,
+                 parameters=list(model.parameters()))
+    closures = []
+
+    def closure():
+        lb.clear_grad()
+        loss = _ernie_loss(model, *batch)
+        loss.backward()
+        closures.append(loss.item())
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_counts()
+    _zero_variant_counts(FA)
+    t = time.perf_counter()
+    final = float(lb.step(closure))
+    lbfgs_s = time.perf_counter() - t
+    by_variant = {k: dict(c) for k, c in FA.VARIANT_LAUNCHES.items()}
+    rec = {"history_size": lb.m, "max_iter": lb.max_iter,
+           "pairs_held": len(lb._s),
+           "history_gb": sum(2 * s.numel() * 4 for s in lb._s) / 1e9,
+           "flat_elements": sum(p.numel() for p in model.parameters()),
+           "closures": len(closures), "first_loss": closures[0],
+           "final_loss": final, "seconds": lbfgs_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_by_variant": by_variant}
+    report["LBFGS"] = rec
+    require(math.isfinite(final) and final <= closures[0]
+            and by_variant == want_launches(len(closures))
+            and not _not_moved(torch, model, init),
+            f"LBFGS: {rec}")
+    launches["LBFGS"] = by_variant["mma"]["flash_attention_fwd"]
+    emit(report)
+    del model, init, lb, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASE_SECONDS = {}          # phase function -> host seconds in this run
 
 
@@ -9218,6 +9765,8 @@ def main() -> int:
     ernie_launches = _timed(phase_ernie_train, torch)
     _timed(phase_ernie_parity, torch)
     predict_launches = _timed(phase_predict, torch)
+    to_static_launches = _timed(phase_to_static, torch)
+    optimizer_launches = _timed(phase_ernie_optimizers, torch)
     moe_generate = _timed(phase_generate_moe, torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
@@ -9288,7 +9837,22 @@ def main() -> int:
             "launches_path": f"ernie_train ernie-3.0-base fp32, "
                              f"{ERNIE_B} x {ERNIE_S}, {ERNIE_STEPS} steps "
                              f"(12 a step)", **r})
+        entries[-1]["launches_ernie_optimizers"] = optimizer_launches
+        entries[-1]["launches_path_ernie_optimizers"] = (
+            "ernie_optimizers: ernie-3.0-base fp32 training, 12 a step "
+            "(each of K1, dQ, dK/dV), each run counted from 0: "
+            f"{OPT_STEPS} TrainStep steps an optimizer; Lookahead(SGD) "
+            f"{LOOKAHEAD_K} + 1 eager steps, SGD + ModelAverage "
+            f"{OPT_STEPS}, LBFGS one step(closure) of its closure calls "
+            "(eval mode: the mask, no dropout)")
         if base == "flash_attention_fwd":
+            entries[-1]["launches_to_static"] = to_static_launches
+            entries[-1]["launches_path_to_static"] = (
+                "to_static: ernie-3.0-base fp32 through jit.to_static's "
+                "programs, 12 a call, each counted from 0 (batches "
+                f"{', '.join(map(str, TO_STATIC_BATCHES))} and "
+                f"{ERNIE_B} again; the control-flow wrapper down each "
+                "branch)")
             entries[-1]["launches_predict"] = predict_launches
             entries[-1]["launches_path_predict"] = (
                 "predict: ernie-3.0-base fp32 through jit.save's program, "
@@ -9362,7 +9926,7 @@ def main() -> int:
         if pool in serve_launches["spec"]:
             e["launches_serve_spec"] = serve_launches["spec"][pool]
             e["launches_path_serve_spec"] = (
-                f"serve_spec {'debug-4l' if pool == 'float32' else 'llama3-8b'}"
+                f"serve_spec {'debug-4l' if pool == 'float32' else f'llama3-8b, first {SHALLOW_LAYERS} layers'}"
                 f", {pool} pool, speculation on: layers x (decode + verify "
                 f"replays), counted from 0")
             require(e["launches_serve_spec"] > 0,

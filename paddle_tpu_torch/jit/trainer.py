@@ -4,30 +4,63 @@ on one device.
 Where the JAX package traces (model, loss_fn, optimizer) into one jitted
 step that donates the parameter and optimizer buffers, the port runs the
 same step eagerly: the forward and the loss, `loss.backward()`, then the
-global-norm clip and the optimizer rule as one fused update
-(`optimizer.functional_update`: on the card two multi-tensor kernels),
-which writes the new values into the model's own parameters and the
-moments in place (the counterpart of donation: no second copy of the
-model is held).  The step counter is incremented before the update (bias
+clip and the optimizer rule (`optimizer.functional_update`: for Adam and
+AdamW with no clip or a global-norm one, one fused update, on the card
+two multi-tensor kernels; for every other rule or clip `update_rule`
+parameter by parameter, op by op), which writes
+the new values into the model's own parameters and the optimizer state
+in place (the counterpart of donation: no second copy of the model is
+held).  The step counter is incremented before the update (bias
 correction starts at 1) and lr is read from `optimizer.get_lr()` on the
 host before each step, as in the JAX step.
 
 fp16-style loss scaling (`loss_scale=`) follows the JAX step
 (`paddle_tpu/jit/trainer.py:163-182`, `:278-309`): the fp32 loss is
-scaled before `backward()`; the fused update unscales the gradients,
+scaled before `backward()`; the update unscales the gradients,
 reduces `found_inf` over all of them and, when it is set, leaves params
-and moments as they were; then `scaler_state` ({"scale": fp32, "good",
+and state as they were; then `scaler_state` ({"scale": fp32, "good",
 "bad": int32}, 0-dim tensors on the device) is updated by the JAX
 formulas.  Nothing in the step reads a value back to the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "collect_state", "bind_state"]
+
+
+def collect_state(layer):
+    """-> (trainable, frozen, buffers): the layer's parameters that take
+    a gradient, those that do not (JAX: `stop_gradient`), and its
+    buffers, each {name: tensor}."""
+    params = {name: p for name, p in layer.named_parameters()
+              if p.requires_grad}
+    frozen = {name: p for name, p in layer.named_parameters()
+              if not p.requires_grad}
+    buffers = {name: b for name, b in layer.named_buffers()}
+    return params, frozen, buffers
+
+
+@contextlib.contextmanager
+def bind_state(tensors: dict, arrays: dict):
+    """Swap the values of `arrays` (by name; a non-tensor is made one on
+    the tensor's device) into the named `tensors` for the block, and
+    restore them after, also on an exception."""
+    saved = {k: t.data for k, t in tensors.items()}
+    try:
+        for k, t in tensors.items():
+            if k in arrays:
+                a = arrays[k]
+                t.data = a if isinstance(a, torch.Tensor) else \
+                    torch.as_tensor(a, device=t.device)
+        yield
+    finally:
+        for k, t in tensors.items():
+            t.data = saved[k]
 
 
 class TrainStep:

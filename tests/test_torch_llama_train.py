@@ -371,7 +371,10 @@ def test_unported_knobs_raise_naming_roadmap(knob):
         elif knob == "apply_decay_param_fun":
             AdamW(apply_decay_param_fun=lambda name: True)
         elif knob == "weight_decay_object":
-            AdamW(weight_decay=type("L2Decay", (), {"_coeff": 0.01})())
+            # an L2Decay is ported; an L1Decay stays refused (the JAX
+            # optimizer would decay it as L2)
+            from paddle_tpu_torch.regularizer import L1Decay
+            AdamW(weight_decay=L1Decay(0.01))
     with pytest.raises(ValueError):
         TModel(TConfig.from_preset("tiny", recompute=True,
                                    recompute_policy="some"), device="cpu")
