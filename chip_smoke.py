@@ -478,6 +478,32 @@ the result line:
               the single predictor, 12 x 16 K1; run ms against the eager
               forward in turns, examples/s, one profiled run (GEMMs /
               K1 / other, idle share), export / save / load s, MB;
+ 11f. quant_kernels
+              Q2 (the W8A8 linear, csrc/int8_linear.cu: x quantized as
+              it loads, int8 x int8 into int32 on the tensor cores with
+              mma.sync, scale and bias in the epilogue) against its
+              plain version at ERNIE-3.0-base's products, the pooler and
+              the classifier at 16 / 1 / 5 rows and a conv im2col, x in
+              fp32 / bf16 / fp16: bitwise, twice; timed by graph replay
+              against its bound, the plain version, torch._int_mm in the
+              same chain and the fp32 matmul; K1 / dQ / dK/dV in fp16
+              (csrc/flash_attention_mma_fp16.cu) at ERNIE's attention
+              with the fp16 padding bias (-inf) and p 0.1 within
+              FLASH_TOL, bitwise twice, timed against SDPA in fp16;
+ 11g. quant   ernie-3.0-base through quantize_for_inference (4 calibration
+              batches): the eager int8 forward vs Q2's plain version and
+              vs fp32; jit.save (74 int8_linear + 12 flash_fwd nodes);
+              the predictor at 16 / 1 / 5 rows bitwise the eager int8
+              model, 74 Q2 + 12 K1 launches a run; int8 vs fp32
+              predictor in turns, one profiled run, MB; a conv net at
+              ImageNet's input through Int8Conv2D; QAT on the
+              fine-tuning model (4 steps, convert bitwise);
+ 11h. amp     ernie_train's model and batch, 8 TrainSteps each under (a)
+              O1 fp16 with GradScaler (every K1 / K2 on the fp16 mma
+              kernels, U1 / U2 with found_inf, the scale trajectory by
+              the JAX formulas), (b) O1 bf16, (c) O2 bf16 (decorate):
+              step ms, examples/s, peak memory, idle share; O1 fp16
+              eval logits vs fp32;
  12. generate (MoE)
               the MoE Llama at moe_train's widths and depth generating
               through the naive full-forward loop (2 prompts x 64 tokens
@@ -501,9 +527,11 @@ import contextlib
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -6488,8 +6516,9 @@ XENT_FP32_ROWS = (2, 256)
 # keys and are ~100x smaller than the first rows, so a limit per head
 # or per tensor would not see them.  bf16: both round an fp32 result
 # whose sums run in another order to bf16 once, so they are at most
-# one bf16 ulp (<= 2^-7 x the value) apart.
-FLASH_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+# one bf16 ulp (<= 2^-7 x the value) apart; fp16 likewise one fp16 ulp
+# (2^-10), P and dS entering the products in two fp16 parts.
+FLASH_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5, "float16": 2 ** -10}
 LSE_TOL = 1e-5            # per element, x max(1, |lse|), fp32 in both
 # dlogits per element: |err| <= tol x |plain| (a typical non-label
 # entry is ~1e-5 of its row's max, so a per-row limit would not see it)
@@ -8859,9 +8888,14 @@ def _k1_only(FA, n):
             for v in FA.VARIANT_LAUNCHES}
 
 
-def _predict_profile(torch, run, run_ms):
-    """Device ms of one predictor run by kind (GEMMs, K1, other) and the
-    card's idle share, from torch.profiler."""
+PREDICT_KINDS = {"k1": ("flash_fwd",),
+                 "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
+
+
+def _predict_profile(torch, run, run_ms, kinds=PREDICT_KINDS):
+    """Device ms of one predictor run by kind (`kinds`: name -> words of
+    its kernels' names; the rest "other") and the card's idle share,
+    from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -8872,8 +8906,6 @@ def _predict_profile(torch, run, run_ms):
     dev = _device_times(prof)
     if dev is None:
         return {"device_time": "not measured (no device events)"}
-    kinds = {"k1": ("flash_fwd",),
-             "gemm": ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")}
     split = dict.fromkeys(kinds, 0.0)
     split["other"] = 0.0
     for key, us in dev.items():
@@ -9059,7 +9091,7 @@ def _predict_timing(torch, pred, wrapper, ids, mask):
             **_predict_profile(torch, run_pred, ms["predictor"])}
 
 
-def phase_predict(torch):
+def phase_predict(torch, tmp):
     """The deployment path on ernie-3.0-base (12 layers, hidden 768, fp32,
     a classifier of 2, random weights from a seed, eval mode), wrapped as
     forward(input_ids, attention_mask): `jit.save` with InputSpec([None,
@@ -9073,10 +9105,11 @@ def phase_predict(torch):
     meanwhile a child interpreter whose ERNIE constructors raise runs
     the program through `standalone_load`, equal to the in-process
     predictor; then the predictor's run and the eager forward in turns
-    (median of 20 after 3 warm-ups), one profiled run, peak memory.
-    Returns K1's launches of each counted run."""
+    (median of 20 after 3 warm-ups), one profiled run, peak memory.  The
+    program is saved in `tmp` as `ernie`, where the quant phase loads it
+    again (the fp32 predictor it times the int8 one against).  Returns
+    K1's launches of each counted run."""
     import os
-    import tempfile
     import numpy as np
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.models import (ErnieConfig,
@@ -9101,47 +9134,45 @@ def phase_predict(torch):
               "tolerance": f"logits vs the eager wrapper on the card: "
                            f"bitwise, else per row |err| <= {PREDICT_TOL} "
                            f"x max(1, max |eager row|)"}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "ernie")
-        report.update(_predict_save(torch, wrapper, path))
-        require(report["k1_program_nodes"] == L,
-                f"predict: {report['k1_program_nodes']} flash_fwd nodes in "
-                f"the program, not one a layer ({L})")
-        require(report["k1_launches_while_tracing"] == 0,
-                "predict: K1 launched while tracing")
-        # a fresh interpreter, no model built: it loads while this
-        # process checks its own predictor and the pool
-        ids, mask = _predict_batch(ERNIE_B, 0)
-        batch_path = os.path.join(tmp, "batch.npz")
-        out_path = os.path.join(tmp, "child.npy")
-        np.savez(batch_path, ids=ids, mask=mask)
-        t_child = time.perf_counter()
-        child = subprocess.Popen(
-            [sys.executable, "-c", _PREDICT_CHILD, str(ROOT), path,
-             batch_path, out_path], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        try:
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            t = time.perf_counter()
-            pred = create_predictor(Config(path))
-            torch.cuda.synchronize()
-            report["predictor_load_s"] = time.perf_counter() - t
-            report["predictor_weights_gib"] = \
-                (torch.cuda.memory_allocated() - before) / 2**30
-            require(pred.get_input_names() == ["x0", "x1"],
-                    f"predict: inputs {pred.get_input_names()}")
-            report["checks"], main = _predict_checks(torch, FA, pred, eager,
-                                                     L)
-            report["pool"] = _predict_pool(torch, FA, path, pred, L)
-            report["standalone_child"] = _predict_child(
-                child, t_child, out_path, main, FA, L)
-        finally:
-            if child.poll() is None:        # a check failed, or timed out
-                child.kill()
-                child.wait()
-        report.update(_predict_timing(torch, pred, wrapper, ids, mask))
-        del pred
+    path = os.path.join(tmp, "ernie")
+    report.update(_predict_save(torch, wrapper, path))
+    require(report["k1_program_nodes"] == L,
+            f"predict: {report['k1_program_nodes']} flash_fwd nodes in "
+            f"the program, not one a layer ({L})")
+    require(report["k1_launches_while_tracing"] == 0,
+            "predict: K1 launched while tracing")
+    # a fresh interpreter, no model built: it loads while this
+    # process checks its own predictor and the pool
+    ids, mask = _predict_batch(ERNIE_B, 0)
+    batch_path = os.path.join(tmp, "batch.npz")
+    out_path = os.path.join(tmp, "child.npy")
+    np.savez(batch_path, ids=ids, mask=mask)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _PREDICT_CHILD, str(ROOT), path,
+         batch_path, out_path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        pred = create_predictor(Config(path))
+        torch.cuda.synchronize()
+        report["predictor_load_s"] = time.perf_counter() - t
+        report["predictor_weights_gib"] = \
+            (torch.cuda.memory_allocated() - before) / 2**30
+        require(pred.get_input_names() == ["x0", "x1"],
+                f"predict: inputs {pred.get_input_names()}")
+        report["checks"], main = _predict_checks(torch, FA, pred, eager, L)
+        report["pool"] = _predict_pool(torch, FA, path, pred, L)
+        report["standalone_child"] = _predict_child(
+            child, t_child, out_path, main, FA, L)
+    finally:
+        if child.poll() is None:        # a check failed, or timed out
+            child.kill()
+            child.wait()
+    report.update(_predict_timing(torch, pred, wrapper, ids, mask))
+    del pred
     emit(report)
     del model, wrapper
     gc.collect()
@@ -9166,6 +9197,10 @@ TO_STATIC_BATCHES = (ERNIE_B, 1, 5)     # three signatures, three programs
 TO_STATIC_WARM, TO_STATIC_RUNS = 3, 20
 GATE_ROWS = 2                     # the control-flow wrapper's batches
 GATE_CANDIDATES = 8               # seeds whose logits' means set the split
+# the wrapper's ERNIE: ernie-3.0-base's width, its first GATE_LAYERS
+# layers (the wrapper checks the staged control flow and its save and
+# load, which depth does not change; 12 layers took 10 s of save / load)
+GATE_LAYERS = 2
 
 
 def _gated(torch, model, center):
@@ -9244,8 +9279,9 @@ def phase_to_static(torch):
     input_ids, attention_mask): calls at ernie_train's batch and at 1 and
     5 rows, three signatures and so three programs (a repeat makes
     none), each bitwise the eager forward (else per row within
-    PREDICT_TOL) with exactly 12 K1 launches on mma; a wrapper with a
-    tensor-valued `if` on the logits and a tensor-valued `while`, its
+    PREDICT_TOL) with exactly 12 K1 launches on mma; a wrapper (over the
+    same width at GATE_LAYERS layers) with a tensor-valued `if` on the
+    logits and a tensor-valued `while`, its
     program holding one `cond` and one `while_loop` node, equal to its
     eager forward on a batch down each branch, and through jit.save /
     jit.load; enable_to_static(False) runs eagerly (no new program);
@@ -9315,7 +9351,11 @@ def phase_to_static(torch):
             f"{len(TO_STATIC_BATCHES)} signatures")
 
     # the control-flow wrapper: cond and while_loop nodes, both branches
-    gated = _gated(torch, model, 0.0)
+    gate_model = ErnieForSequenceClassification(
+        ErnieConfig.from_preset("ernie-3.0-base",
+                                num_hidden_layers=GATE_LAYERS),
+        num_classes=2, device="cuda", seed=0).eval()
+    gated = _gated(torch, gate_model, 0.0)
     sides = _gate_batches(torch, gated)
     gtraced = jit.to_static(gated)
     program = gtraced.lower(*sides["true"])
@@ -9325,7 +9365,7 @@ def phase_to_static(torch):
                                     if "flash_fwd" in str(n.target)),
             "branches": {}}
     require(gate["cond_nodes"] == 1 and gate["while_loop_nodes"] == 1
-            and gate["k1_program_nodes"] == L,
+            and gate["k1_program_nodes"] == GATE_LAYERS,
             f"to_static gate program: {gate}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gated")
@@ -9341,7 +9381,8 @@ def phase_to_static(torch):
                 want = gated(ids, mask).cpu().numpy()
             got, by_variant, counts = _counted(
                 torch, FA, lambda: gtraced(ids, mask))
-            _k1_exact(FA, by_variant, counts, L, f"to_static gate {side}")
+            _k1_exact(FA, by_variant, counts, GATE_LAYERS,
+                      f"to_static gate {side}")
             rule, share = _logits_rule(got.cpu().numpy(), want)
             lrule, lshare = _logits_rule(loaded(ids, mask).cpu().numpy(),
                                          want)
@@ -9406,7 +9447,7 @@ def phase_to_static(torch):
                   f"{TO_STATIC_WARM}",
         **_predict_profile(torch, run_static, ms["to_static"])})
     emit(report)
-    del model, wrapper, traced, gated, gtraced, program
+    del model, wrapper, traced, gate_model, gated, gtraced, program
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -9430,6 +9471,16 @@ ERNIE_OPTIMIZERS = {
 }
 OPT_STEPS = 3
 OPT_RULE_TOL = 1e-6    # per tensor: |card - CPU rule| <= tol x max|CPU rule|
+# the tensors held to the CPU rule: every parameter outside the encoder
+# and the first encoder layer's (every kind of tensor the rules see; the
+# other eleven layers repeat the first's shapes and code, and the CPU
+# rule over all 117.9 M elements took 1.6-4.6 s a rule)
+OPT_RULE_LAYERS = ("ernie.encoder.0.",)
+
+
+def _rule_checked(name):
+    return not name.startswith("ernie.encoder.") \
+        or name.startswith(OPT_RULE_LAYERS)
 LOOKAHEAD_K = 2
 LBFGS_ITERS = 3
 
@@ -9452,8 +9503,9 @@ def _ernie_loss(m, ids, labels, mask):
 def _rule_check(torch, opt, report):
     """Wrap `opt.functional_update`: at step 1 the update on the card is
     held against `per_param_update` on CPU copies of the same parameters,
-    gradients and state; the worst share of OPT_RULE_TOL goes to
-    `report`."""
+    gradients and state (the tensors `_rule_checked` names: no rule here
+    has a clip, which alone would read every gradient); the worst share
+    of OPT_RULE_TOL goes to `report`."""
     update = opt.functional_update
 
     def checked(params, grads, state, lr, step, scale=None):
@@ -9462,16 +9514,17 @@ def _rule_check(torch, opt, report):
         def host(t):
             return None if t is None else t.detach().to("cpu", copy=True)
 
-        cpu = {"p": {n: host(p) for n, p in params.items()},
-               "g": {n: host(g) for n, g in grads.items()},
-               "s": {n: {k: host(v) for k, v in st.items()}
-                     for n, st in state.items()}}
+        names = [n for n in params if _rule_checked(n)]
+        cpu = {"p": {n: host(params[n]) for n in names},
+               "g": {n: host(grads.get(n)) for n in names},
+               "s": {n: {k: host(v) for k, v in state[n].items()}
+                     for n in names}}
         out = update(params, grads, state, lr, step, scale=scale)
         opt.per_param_update(cpu["p"], cpu["g"], cpu["s"], lr, step)
         worst, where = 0.0, None
-        pairs = [(n, params[n], cpu["p"][n]) for n in params] + [
+        pairs = [(n, params[n], cpu["p"][n]) for n in names] + [
             (f"{n}.{k}", state[n][k], cpu["s"][n][k])
-            for n in state for k in state[n]]
+            for n in names for k in state[n]]
         for name, dev, ref in pairs:
             require(dev.dtype == ref.dtype, f"{name}: {dev.dtype} on the "
                     f"card, {ref.dtype} from the CPU rule")
@@ -9503,7 +9556,8 @@ def phase_ernie_optimizers(torch):
     weights (a finite loss, every parameter moved, K1 / dQ / dK/dV
     exactly 12 a step, all on mma), the first step's new parameters and
     state held against the same rule on CPU copies of the same
-    parameters, gradients and state (OPT_RULE_TOL); then eagerly
+    parameters, gradients and state (OPT_RULE_TOL; the first encoder
+    layer and every parameter outside the encoder); then eagerly
     (`loss.backward(); opt.step(); opt.clear_grad()`) Lookahead(SGD) over
     k + 1 steps, ModelAverage with apply() and a bitwise restore(), and
     LBFGS at the JAX defaults (history 10) for LBFGS_ITERS iterations in
@@ -9704,6 +9758,710 @@ def phase_ernie_optimizers(torch):
     return launches
 
 
+# --------------------------------------------------------------------------
+# int8 serving (quantization/: PTQ, Q2, Int8Conv2D, QAT) and mixed
+# precision (amp/: O1 fp16 / bf16 with the fp16 mma K1/K2, O2 bf16), on
+# ernie-3.0-base at full width and depth
+# --------------------------------------------------------------------------
+
+Q2_REPLACES = ("paddle_tpu/quantization/int8.py:99 _int8_linear_raw (no "
+               "Pallas kernel: XLA's lax.dot_general of int8 operands into "
+               "int32, the MXU's int8 path)")
+Q2_TOL_TEXT = ("bitwise: the same fp32 division by x_scale, round half to "
+               "even, exact int32 sum, fp32 scale product and bias add, "
+               "each rounded on its own")
+# (label, M, K, N): ERNIE's products at 16 x 128 tokens, the pooler and
+# the classifier at the predictor's batches, and the conv net's im2col
+Q2_SHAPES = [("ffn in", 2048, 768, 3072), ("ffn out", 2048, 3072, 768),
+             ("q / k / v / out", 2048, 768, 768),
+             ("pooler M 16", 16, 768, 768), ("pooler M 1", 1, 768, 768),
+             ("pooler M 5", 5, 768, 768), ("classifier M 16", 16, 768, 2),
+             ("classifier M 1", 1, 768, 2), ("classifier M 5", 5, 768, 2),
+             ("conv1 im2col", 32 * 112 * 112, 3 * 7 * 7, 64)]
+Q2_MAIN = "ffn in"                # the kernels line's shape (fp32 x)
+QUANT_CALIB = 4                   # calibration batches of ERNIE_B x ERNIE_S
+QUANT_LINEARS = 6 * 12 + 2        # ERNIE's Linears: 6 a layer, the pooler,
+#                                   the classifier
+QUANT_CONV_B = 32                 # the conv net's batch of 3 x 224 x 224
+QAT_STEPS = 4
+AMP_STEPS = 8
+AMP_FORCED = 2                    # (a): then steps whose loss is inf
+AMP_RUNS = (("a O1 fp16, GradScaler", "O1", "float16", True),
+            ("b O1 bf16", "O1", "bfloat16", False),
+            ("c O2 bf16, decorate", "O2", "bfloat16", False))
+# eval logits of O1 fp16 against the fp32 model on the card: 12 post-LN
+# layers, each rounding every Linear's output and the attention to fp16
+# (2^-11 of a value), carry tens of ulps to the classifier's logits
+AMP_EVAL_TOL = 5e-2
+FP16_ROUTE = "[bias+dropout,fp16]"
+
+
+@contextlib.contextmanager
+def _plain_q2():
+    """Every int8 layer runs Q2's plain version on the card inside the
+    block (the name `quantization.int8` calls)."""
+    from paddle_tpu_torch.ops import int8_linear as Q2
+    from paddle_tpu_torch.quantization import int8 as TI
+    saved = TI.int8_linear
+
+    def plain(x, wq, w_scale, bias, x_scale, wt=None):
+        return Q2.int8_linear_plain(x, wq, w_scale, bias, x_scale)
+
+    TI.int8_linear = plain
+    try:
+        yield
+    finally:
+        TI.int8_linear = saved
+
+
+def _q2_case(torch, Q2, TI, M, K, N, dtype, gen):
+    """Q2 on x (M, K) ~ N(0, 1) in `dtype`, a per-channel int8 weight of
+    N(0, 0.02) and a bias, x_scale 0.9 x absmax / 127 (the largest values
+    clip): (inputs, kernel, kernel again, plain)."""
+    x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+    w = 0.02 * torch.randn(K, N, device="cuda", generator=gen)
+    wq, ws = TI.quantize_weight(w, 1)
+    b = 0.1 * torch.randn(N, device="cuda", generator=gen)
+    xs = float(x.float().abs().max()) / 127.0 * 0.9
+    args = (x, wq, ws, b, xs, Q2.pack_weight(wq))
+    got = Q2.int8_linear(*args)
+    again = Q2.int8_linear(*args)
+    want = Q2.int8_linear_plain(*args[:5])
+    torch.cuda.synchronize()
+    return args, got, again, want, w
+
+
+def _q2_times(torch, Q2, kind, args, w):
+    """Q2 by graph replay, its plain version eagerly, and two yardsticks
+    the port never calls: torch._int_mm inside the same quantize /
+    rescale chain in eager ops (where its shapes allow: M > 16, K and N
+    multiples of 8), and the fp32 torch.matmul it replaces."""
+    x, wq, ws, b, xs, wt = args
+    M, K = x.shape
+    N = wq.shape[1]
+    out = {"ms": _graph_ms(torch, lambda i: Q2.int8_linear(*args), 1),
+           "plain_ms": _time_ms(torch, lambda i: Q2.int8_linear_plain(
+               *args[:5]), 1, 5)}
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        wcol = wq.t().contiguous().t()
+        xs_t = torch.tensor(xs, dtype=torch.float32, device="cuda")
+        scale = ws * xs_t
+
+        def chain(i):
+            xq = torch.clamp(torch.round(x.float() / xs_t), -127, 127) \
+                .to(torch.int8)
+            return (torch._int_mm(xq, wcol).float() * scale + b).to(x.dtype)
+
+        out["int_mm_chain_ms"] = _graph_ms(torch, chain, 1)
+    else:
+        out["int_mm_chain_ms"] = None
+    x32 = x.float()
+    out["fp32_matmul_ms"] = _graph_ms(torch, lambda i: torch.matmul(x32, w), 1)
+    flops = 2.0 * M * N * K
+    nbytes = _nbytes(x, wq, ws, b) + M * N * x.element_size()
+    out["bound_ms"], out["bound_by"] = _bound_ms(kind, flops, nbytes, "int8")
+    return out
+
+
+def phase_quant_kernels(torch):
+    """Q2 (the W8A8 linear, csrc/int8_linear.cu) against its plain version
+    at ERNIE-3.0-base's products (16 x 128 tokens: 768 -> 768 / 3072,
+    3072 -> 768; the pooler and the classifier at 16, 1 and 5 rows, N 2)
+    and the conv net's im2col (401,408 x 147 -> 64), x in fp32, bf16 and
+    fp16: bitwise, twice bitwise; timed (fp32 x at every shape, bf16 /
+    fp16 at the FFN's first product) by graph replay against its bound
+    (int8 operations at 1,979 TOP/s vs bytes), its plain version,
+    torch._int_mm in the same quantize / rescale chain and the fp32
+    matmul it replaces.  Then K1 / dQ / dK/dV in fp16 (the mma kernels,
+    csrc/flash_attention_mma_fp16.cu) at ERNIE's attention (16, 128, 12,
+    64) with the padding bias as O1 hands it (fp16: -1e9 is -inf) and p
+    0.1, within FLASH_TOL of their plain versions from the same (seed,
+    offset), bitwise twice, timed in turns against their bounds, the
+    plain versions and scaled_dot_product_attention in fp16 with the
+    same mask and dropout_p.  Returns the kernels line's entries."""
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import int8_linear as Q2
+    from paddle_tpu_torch.quantization import int8 as TI
+    kind = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    saved = (dict(Q2.LAUNCHES), _train_counts())
+    cases, worst = {}, 0.0
+    for label, M, K, N in Q2_SHAPES:
+        for dt in ("float32", "bfloat16", "float16"):
+            args, got, again, want, w = _q2_case(
+                torch, Q2, TI, M, K, N, getattr(torch, dt), gen)
+            err = (got.float() - want.float()).abs().max().item()
+            bitwise = _same_bits(torch, got, want)
+            twice = _same_bits(torch, got, again)
+            row = {"shape": [M, K, N], "dtype": dt, "max_abs_err": err,
+                   "bitwise": bitwise, "bitwise_twice": twice}
+            if dt == "float32" or label == Q2_MAIN:
+                row.update(_q2_times(torch, Q2, kind, args, w))
+            cases[f"{label} {dt}"] = row
+            emit({"phase": "quant_kernels", "kernel": "int8_linear",
+                  "case": label, **row, "tolerance": Q2_TOL_TEXT})
+            require(bitwise and twice, f"Q2 {label} {dt}: not bitwise "
+                    f"(err {err}, twice {twice})")
+            worst = max(worst, err)
+            del args, got, again, want, w
+    main = cases[f"{Q2_MAIN} float32"]
+    q2 = {"max_abs_err": worst, "tolerance": Q2_TOL_TEXT,
+          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "int_mm_chain_ms", "fp32_matmul_ms")},
+          "library_ms": None,
+          "library": "none: no one PyTorch call quantizes x, multiplies "
+                     "int8 x int8 and rescales; int_mm_chain_ms is "
+                     "torch._int_mm inside the same chain in eager ops, "
+                     "fp32_matmul_ms the fp32 product Q2 replaces",
+          "shape": "x (2048, 768) fp32 -> 3072, per-channel int8 weight, "
+                   "bias",
+          "timing": "CUDA-graph replay, per call; plain_ms eager",
+          "bf16_ms": cases[f"{Q2_MAIN} bfloat16"]["ms"],
+          "fp16_ms": cases[f"{Q2_MAIN} float16"]["ms"],
+          "shapes": {k: {x: v[x] for x in ("shape", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "int_mm_chain_ms",
+                                           "fp32_matmul_ms") if x in v}
+                     for k, v in cases.items() if "ms" in v}}
+
+    # fp16 K1 / K2 at the ERNIE attention, the bias as O1 casts it
+    es = ERNIE_SHAPE
+    pad = _ernie_bias(torch, ERNIE_B, ERNIE_S).half().float()
+    require(bool(torch.isneginf(pad).any()), "fp16 bias: no -inf")
+    q, k, v, do = _flash_inputs(torch, ERNIE_B, ERNIE_S, es["H"], es["Hkv"],
+                                es["D"], torch.float16, gen)
+    extra = dict(bias=pad, dropout=ERNIE_DROP)
+    require(FA._variant(torch.float16, es["D"], extra=True) == "mma",
+            "fp16 with a bias: not the mma route")
+    c = _flash_compare(torch, q, k, v, do, False, **extra)
+    first = _flash_outputs(torch, FA, q, k, v, do, False, extra)
+    again = _flash_outputs(torch, FA, q, k, v, do, False, extra)
+    bitwise = {n: _same_bits(torch, a, b) for n, a, b in
+               zip(("o", "lse", "lse_lo", "dq", "dk", "dv"), first, again)}
+    emit({"phase": "quant_kernels", "kernel": "flash_attention",
+          "case": "float16 ernie-3.0-base (16, 128, 12, 64), (16, 1, 1, "
+                  "128) padding bias cast to fp16 (-inf), p 0.1",
+          "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL["float16"]),
+          **{f"{n}_max_abs_err": e for n, (e, _) in c.items()},
+          **{f"{n}_worst_err_over_limit": s for n, (_, s) in c.items()},
+          "bitwise_equal_twice": bitwise})
+    for n, (_, s) in c.items():
+        require(s <= 1.0, f"fp16 flash {n}: {s} x its limit")
+    require(all(bitwise.values()), f"fp16 flash: not bitwise {bitwise}")
+    del first, again
+    args = (torch, FA, q, k, v, do, False, extra)
+    p1 = _plain_ms(*args)
+    m1, m2 = _flash_ms(*args, "mma"), _flash_ms(*args, "mma")
+    p2 = _plain_ms(*args)
+    lib_fwd, lib_bwd = _sdpa_ms(torch, q, k, v, do, False, extra)
+    bounds = _flash_bounds(kind, q, k, False, pad, "float16")
+    fp16 = {}
+    for name, outs in (("flash_attention_fwd", ("o",)),
+                       ("flash_attention_dq", ("dq",)),
+                       ("flash_attention_dkv", ("dk", "dv"))):
+        fwd = name.endswith("fwd")
+        fp16[name + FP16_ROUTE] = r = {
+            "max_abs_err": max(c[x][0] for x in outs),
+            "ms": (m1[name] + m2[name]) / 2,
+            "turns_ms": [m1[name], m2[name]],
+            "plain_ms": ((p1[0] + p2[0]) if fwd else (p1[1] + p2[1])) / 2,
+            "library_ms": lib_fwd if fwd else lib_bwd,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "tolerance": FLASH_TOL_TEXT.format(tol=FLASH_TOL["float16"]),
+            "variant": "mma (mma.sync m16n8k16 .f16, P and dS in two fp16 "
+                       "parts)",
+            "library": "scaled_dot_product_attention(attn_mask=the bias "
+                       "in fp16, dropout_p=0.1)" + (
+                           "" if fwd else ", its backward"),
+            "shape": "q / k / v (16, 128, 12, 64) fp16, (16, 1, 1, 128) "
+                     "padding bias with -inf, p 0.1, no causal mask",
+            "timing": "CUDA-graph replay, per call, two turns; plain_ms "
+                      "eager, before and after; library_ms by graph "
+                      "replay (the backward as forward + backward less "
+                      "forward)"}
+        emit({"phase": "quant_kernels", "kernel": name + FP16_ROUTE, **r})
+    Q2.LAUNCHES.update(saved[0])
+    _set_train_counts(saved[1])
+    del q, k, v, do, args
+    torch.cuda.empty_cache()
+    return {"int8_linear": q2, **fp16}
+
+
+def _program_nodes(program, word):
+    return sum(1 for n in program.graph.nodes if n.op == "call_function"
+               and word in str(n.target))
+
+
+def _quant_counts(FA, Q2):
+    return {"q2": Q2.LAUNCHES["int8_linear"],
+            "by_variant": {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}}
+
+
+def _zero_quant_counts(FA, Q2):
+    Q2.LAUNCHES["int8_linear"] = 0
+    _zero_train_counts()
+    _zero_variant_counts(FA)
+
+
+def _quant_conv(torch, TI, Q2):
+    """A conv net at ImageNet's input (32 x 3 x 224 x 224: a 7 x 7 / 2
+    stem to 64 channels, a grouped (2) 3 x 3 / 2 "SAME" conv to 128, a
+    global mean, a Linear to 10) through quantize_for_inference on two
+    calibration batches: the int8 forward against Q2's plain version on
+    the card, and Q2's launches (1 + 2 groups + 1)."""
+    from paddle_tpu_torch.nn.layer import Conv2D, Linear
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device="cuda", generator=g)
+            self.conv1 = Conv2D(3, 64, 7, stride=2, padding=3, **kw)
+            self.conv2 = Conv2D(64, 128, 3, stride=2, padding="SAME",
+                                groups=2, **kw)
+            self.fc = Linear(128, 10, **kw)
+
+        def forward(self, x):
+            x = torch.relu(self.conv1(x))
+            x = torch.relu(self.conv2(x))
+            return self.fc(x.mean((2, 3)))
+
+    net = Net().eval()
+    calib = [torch.rand(QUANT_CONV_B, 3, 224, 224, device="cuda",
+                        generator=g) for _ in range(2)]
+    with torch.no_grad():
+        ref = net(calib[0])
+    TI.quantize_for_inference(net, calib)
+    Q2.LAUNCHES["int8_linear"] = 0
+    with torch.no_grad():
+        t = time.perf_counter()
+        got = net(calib[0])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        launches = Q2.LAUNCHES["int8_linear"]
+        with _plain_q2():
+            plain = net(calib[0])
+    require(type(net.conv2).__name__ == "Int8Conv2D"
+            and launches == 4 and _same_bits(torch, got, plain),
+            f"quant conv: launches {launches}, bitwise "
+            f"{_same_bits(torch, got, plain)}")
+    out = {"input": [QUANT_CONV_B, 3, 224, 224], "q2_launches": launches,
+           "bitwise_plain": True, "first_forward_ms": ms,
+           "max_abs_vs_fp32": (got - ref).abs().max().item(),
+           "fp32_logit_max": ref.abs().max().item()}
+    del net, calib
+    return out
+
+
+def _quant_qat(torch, FA):
+    """QAT().quantize of the fine-tuning model (dropout 0.1, train mode):
+    QAT_STEPS AdamW TrainSteps on ernie_train's batch (K1 / dQ / dK/dV on
+    the fp32 mma kernels, 12 a step), a finite loss, every parameter
+    moved; `convert` then equals the fake-quantized trained weights,
+    bitwise."""
+    import numpy as np
+    from paddle_tpu_torch import quantization as TQ
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0)
+    TQ.QAT().quantize(model)
+    wrapped = [m for m in model.modules()
+               if type(m).__name__ == "_QuantedLayer"]
+    step = _ernie_step(torch, model, ERNIE_LR)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.RandomState(0)
+    batch = [torch.from_numpy(x).cuda() for x in (
+        rng.randint(0, cfg.vocab_size, (ERNIE_B, ERNIE_S)),
+        rng.randint(0, 2, (ERNIE_B,)), _ernie_mask(ERNIE_B, ERNIE_S))]
+    _zero_train_counts()
+    _zero_variant_counts(FA)
+    losses, secs = [], []
+    for _ in range(QAT_STEPS):
+        t = time.perf_counter()
+        losses.append(step(*batch).item())
+        secs.append(time.perf_counter() - t)
+    by_variant = {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}
+    want = {n: dict.fromkeys(FA.LAUNCHES, L * QAT_STEPS if n == "mma" else 0)
+            for n in FA.VARIANT_LAUNCHES}
+    moved = sum(not torch.equal(p, init[n])
+                for n, p in model.named_parameters())
+    n_params = len(init)
+    expect = [TQ.fake_quantize_abs_max(m.inner.weight.detach(), m.w_bits,
+                                       channel_axis=m.channel_axis)
+              for m in wrapped]
+    inners = [m.inner for m in wrapped]
+    TQ.QAT().convert(model)
+    baked = sum(torch.equal(i.weight, e) for i, e in zip(inners, expect))
+    left = sum(type(m).__name__ == "_QuantedLayer" for m in model.modules())
+    require(all(math.isfinite(x) for x in losses) and moved == n_params
+            and by_variant == want,
+            f"quant qat: losses {losses}, moved {moved} / {n_params}, "
+            f"launches {by_variant}")
+    require(baked == len(wrapped) == QUANT_LINEARS and left == 0,
+            f"quant qat convert: {baked} of {len(wrapped)} baked, {left} "
+            f"wrappers left")
+    out = {"wrapped_layers": len(wrapped), "steps": QAT_STEPS,
+           "losses": losses, "step_ms": 1e3 * sorted(secs[1:])[
+               len(secs[1:]) // 2],
+           "params_moved": moved, "params": n_params,
+           "launches_by_variant": by_variant, "convert_bitwise": baked}
+    del model, step, init, expect, inners, batch
+    return out
+
+
+def phase_quant(torch, fp32_path):
+    """The int8 deployment path on ernie-3.0-base (12 layers, hidden 768,
+    fp32, a classifier of 2, random weights from a seed, eval), wrapped
+    as forward(input_ids, attention_mask): the predict phase's fp32
+    program at `fp32_path` (the same weights), then
+    `quantize_for_inference` with QUANT_CALIB
+    calibration batches of 16 x 128 ids from RandomState(0) (74 Linears
+    -> Int8Linear on Q2); the eager int8 forward against Q2's plain
+    version on the card, and against the fp32 model (max |d logit|,
+    argmax agreement); `jit.save` with InputSpec([None, 128], "int64") x
+    2 (74 int8_linear and 12 flash_fwd program nodes); the predictor at
+    16, 1 and 5 rows, each bitwise the eager int8 model with exactly 74
+    Q2 and 12 K1 (mma) launches and nothing else; the int8 and the fp32
+    predictor in turns (median of PREDICT_RUNS after PREDICT_WARM),
+    examples/s, one profiled int8 run (Q2 / GEMMs / K1 / other, idle
+    share), artifact MB; a conv net at ImageNet's input through
+    Int8Conv2D; QAT on the fine-tuning model.  Returns Q2 / K1 launches
+    by run."""
+    import numpy as np
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.jit import api as JA
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.ops import int8_linear as Q2
+    from paddle_tpu_torch.quantization import int8 as TI
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0).eval()
+    wrapper = _positional(torch, model)
+    spec = [jit.InputSpec([None, ERNIE_S], "int64")] * 2
+    ids, mask = _predict_batch(ERNIE_B, 0)
+    ids_t, mask_t = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+
+    def eager(i, m):
+        with torch.no_grad():
+            return wrapper(torch.from_numpy(i).cuda(),
+                           torch.from_numpy(m).cuda()).cpu().numpy()
+
+    fp32_logits = eager(ids, mask)
+    report = {"phase": "quant",
+              "model": f"ernie-3.0-base ({L} layers, hidden 768, 12 heads, "
+                       f"FFN 3072, vocab 40000), classifier of 2, eval",
+              "calibration": f"{QUANT_CALIB} batches of {ERNIE_B} x "
+                             f"{ERNIE_S} ids, RandomState(0)"}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(0)
+        calib = [rng.randint(0, cfg.vocab_size, (ERNIE_B, ERNIE_S))
+                 for _ in range(QUANT_CALIB)]
+        t = time.perf_counter()
+        TI.quantize_for_inference(model, calib)
+        torch.cuda.synchronize()
+        report["quantize_s"] = time.perf_counter() - t
+        q_layers = [m for m in model.modules()
+                    if isinstance(m, TI.Int8Linear)]
+        require(len(q_layers) == QUANT_LINEARS and not model.training,
+                f"quant: {len(q_layers)} Int8Linear layers")
+        report["x_scale_range"] = [min(m.x_scale for m in q_layers),
+                                   max(m.x_scale for m in q_layers)]
+        int8_logits = eager(ids, mask)
+        with _plain_q2():
+            plain_logits = eager(ids, mask)
+        rule, share = _logits_rule(int8_logits, plain_logits)
+        require(share <= 1.0, f"quant: eager int8 vs Q2's plain version "
+                f"{share} of the per-row limit")
+        report["eager_vs_plain_q2"] = {"rule": rule, "share": share}
+        report["vs_fp32"] = {
+            "max_abs_logit_delta": float(np.abs(int8_logits
+                                                - fp32_logits).max()),
+            "fp32_logit_max": float(np.abs(fp32_logits).max()),
+            "argmax_agreement": float((int8_logits.argmax(-1)
+                                       == fp32_logits.argmax(-1)).mean())}
+        int8_path = os.path.join(tmp, "int8")
+        exported, export = {}, JA.export
+
+        def keep(*args):
+            exported["program"] = export(*args)
+            return exported["program"]
+
+        JA.export = keep
+        try:
+            t = time.perf_counter()
+            jit.save(wrapper, int8_path, input_spec=spec)
+            report["save_s"] = time.perf_counter() - t
+        finally:
+            JA.export = export
+        nodes = {"int8_linear": _program_nodes(exported["program"],
+                                               "int8_linear"),
+                 "flash_fwd": _program_nodes(exported["program"],
+                                             "flash_fwd")}
+        report["program_nodes"] = nodes
+        require(nodes == {"int8_linear": QUANT_LINEARS, "flash_fwd": L},
+                f"quant: program nodes {nodes}")
+        report["artifact_mb"] = {
+            name: {ext: os.path.getsize(p + ext) / 1e6
+                   for ext in (".pt2", ".pdparams")}
+            for name, p in (("int8", int8_path), ("fp32", fp32_path))}
+        pred = create_predictor(Config(int8_path))
+        pred32 = create_predictor(Config(fp32_path))
+        checks = {}
+        batches = ((ERNIE_B, 0),) + tuple((b, b) for b in PREDICT_BATCHES)
+        for b, seed in batches:
+            bi, bm = _predict_batch(b, seed)
+            _zero_quant_counts(FA, Q2)
+            got = pred.run([bi, bm])[0]
+            counts = _quant_counts(FA, Q2)
+            equal = bool(np.array_equal(got, eager(bi, bm)))
+            checks[b] = {"bitwise_eager_int8": equal, **counts}
+            launches[f"predictor batch {b}"] = counts["q2"]
+            require(equal and got.shape == (b, 2),
+                    f"quant predictor batch {b}: not the eager int8 model")
+            require(counts["q2"] == QUANT_LINEARS
+                    and counts["by_variant"] == _k1_only(FA, L),
+                    f"quant predictor batch {b}: launches {counts}")
+        report["predictor_checks"] = checks
+
+        def run8():
+            pred.run([ids, mask])
+
+        def run32():
+            pred32.run([ids, mask])
+
+        times = {"int8": [], "fp32": []}
+        order = (("int8", run8), ("fp32", run32))
+        for i in range(PREDICT_WARM + PREDICT_RUNS):
+            for name, fn in (order if i % 2 == 0 else order[::-1]):
+                t = time.perf_counter()
+                fn()
+                times[name].append(1e3 * (time.perf_counter() - t))
+        ms = {k: sorted(v[PREDICT_WARM:])[PREDICT_RUNS // 2]
+              for k, v in times.items()}
+        report["timing"] = {
+            "int8_run_ms": ms["int8"], "fp32_run_ms": ms["fp32"],
+            "int8_over_fp32": ms["int8"] / ms["fp32"],
+            "int8_examples_per_sec": ERNIE_B / (ms["int8"] / 1e3),
+            "fp32_examples_per_sec": ERNIE_B / (ms["fp32"] / 1e3),
+            "how": "host clock, numpy in and out, the two predictors in "
+                   f"turns, median of {PREDICT_RUNS} after {PREDICT_WARM}"}
+        report["profile_int8_run"] = _predict_profile(
+            torch, run8, ms["int8"],
+            {"q2": ("int8_linear",), **PREDICT_KINDS})
+        del pred, pred32
+    report["conv"] = _quant_conv(torch, TI, Q2)
+    report["qat"] = _quant_qat(torch, FA)
+    emit(report)
+    del model, wrapper, ids_t, mask_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _expected_scaler(found, init=2.0 ** 15, incr_every=1000, decr_every=2):
+    """The JAX step's scaler states after each step, given each step's
+    found_inf (GradScaler's defaults)."""
+    scale, good, bad, out = init, 0, 0, []
+    for f in found:
+        if f:
+            good, bad = 0, bad + 1
+            if bad >= decr_every:
+                scale, bad = max(scale * 0.5, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * 2.0, 0
+        out.append({"scale": scale, "good": good, "bad": bad})
+    return out
+
+
+def phase_amp(torch):
+    """ernie_train's model and batch (ernie-3.0-base, 16 x 128, dropout
+    0.1, AdamW lr 2e-5) under amp, AMP_STEPS TrainSteps each: (a) O1 fp16
+    with `GradScaler()` (2^15) in TrainStep: every K1 / dQ / dK/dV launch
+    on the fp16 mma kernels (12 a step each, counted by dtype and
+    variant), U1 a step giving found_inf and U2 writing nothing on a
+    found step (checked on two parameters), the scale trajectory the JAX
+    formulas over the steps' found_inf flags, a finite loss at the end,
+    then AMP_FORCED steps whose loss is inf: found, nothing written,
+    the scale halved as the JAX formulas say;
+    (b) O1 bf16 (the bf16 mma kernels); (c) O2 bf16 through `decorate`
+    (bf16 parameters, fp32 moments).  Each: step ms (median of steps
+    2..8), examples/s, peak memory, one profiled step (idle share).
+    Then in eval, O1 fp16 logits against the fp32 model on the card
+    within AMP_EVAL_TOL.  Returns K1 / K2 launches by run."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.nn import functional as NF
+    from paddle_tpu_torch.ops import flash_attention as FA
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ErnieConfig.from_preset("ernie-3.0-base")
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(0)                 # bench.py:326-329
+    host = (rng.randint(0, cfg.vocab_size, (ERNIE_B, ERNIE_S)),
+            rng.randint(0, 2, (ERNIE_B,)), _ernie_mask(ERNIE_B, ERNIE_S))
+    batch = [torch.from_numpy(x).to("cuda") for x in host]
+    results = {}
+    for label, level, dtype, scaled in AMP_RUNS:
+        model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                               device="cuda", seed=0)
+        opt = AdamW(learning_rate=ERNIE_LR, parameters=model.parameters())
+        if level == "O2":
+            amp.decorate(model, opt, level="O2", dtype=dtype)
+        poison = {"on": False}
+
+        def loss_fn(m, x, y, am, poison=poison):
+            loss = NF.cross_entropy(m(x, attention_mask=am), y)
+            return loss * float("inf") if poison["on"] else loss
+
+        step = TrainStep(model, loss_fn, opt,
+                         loss_scale=amp.GradScaler() if scaled else None)
+        found, states = [], []
+        update = step._update_scaler
+
+        def record(found_inf, update=update, step=step):
+            found.append(bool(found_inf.item()))
+            update(found_inf)
+            states.append({k: v.item() for k, v in
+                           step.scaler_state.items()})
+
+        step._update_scaler = record
+        calls, call = {}, FA._call
+
+        def tally(fn, tensors, strided, q, *rest):
+            v = call(fn, tensors, strided, q, *rest)
+            key = f"{fn} {str(q.dtype).split('.')[-1]} {v}"
+            calls[key] = calls.get(key, 0) + 1
+            return v
+
+        watch = (model.classifier.weight, model.ernie.encoder[0].norm1.weight)
+        skips = {"found_steps_unchanged": 0, "good_steps_moved": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_train_counts()
+        _zero_variant_counts(FA)
+        losses, secs = [], []
+        FA._call = tally
+        try:
+            with amp.auto_cast(level=level, dtype=dtype):
+                for _ in range(AMP_STEPS):
+                    before = [w.detach().clone() for w in watch]
+                    t = time.perf_counter()
+                    losses.append(step(*batch).item())
+                    secs.append(time.perf_counter() - t)
+                    same = all(torch.equal(a, w) for a, w in
+                               zip(before, watch))
+                    if scaled and found[-1]:
+                        skips["found_steps_unchanged"] += same
+                    else:
+                        skips["good_steps_moved"] += not same
+                launches = _train_counts()
+                by_variant = {n: dict(c) for n, c in
+                              FA.VARIANT_LAUNCHES.items()}
+                # the profiled step below records into calls / found /
+                # states too: the run's own are these copies
+                run_calls, run_found, run_states = dict(calls), \
+                    list(found), list(states)
+                forced = []
+                if scaled:
+                    # two steps whose loss is inf: U1 must find it, U2
+                    # write nothing, the scale halve after the second
+                    poison["on"] = True
+                    for _ in range(AMP_FORCED):
+                        before = [w.detach().clone() for w in watch]
+                        step(*batch)
+                        forced.append(all(torch.equal(a, w) for a, w in
+                                          zip(before, watch)))
+                    poison["on"] = False
+                    forced_found, forced_states = \
+                        found[AMP_STEPS:], states[AMP_STEPS:]
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+                prof = _train_profile(torch, step, tuple(batch), step_ms)
+        finally:
+            FA._call = call
+            del step._update_scaler
+        n = L * AMP_STEPS
+        want_calls = {f"{fn} {dtype} mma": n for fn in FA.LAUNCHES}
+        require(run_calls == want_calls, f"amp {label}: K1 / K2 calls "
+                f"{run_calls} != {want_calls}")
+        require(launches["optimizer_update"] == AMP_STEPS
+                and launches["optimizer_reduce"] == (AMP_STEPS if scaled
+                                                     else 0),
+                f"amp {label}: U1 / U2 launches {launches}")
+        require(math.isfinite(losses[-1]), f"amp {label}: losses {losses}")
+        n_found = sum(run_found)
+        # bf16 parameters (O2) keep no fp32 master copy (the JAX
+        # decorate's): a step of ~lr may round back to the same bf16
+        # value, so only fp32 parameters must move on a good step
+        require(skips["found_steps_unchanged"] == n_found
+                and (level == "O2"
+                     or skips["good_steps_moved"] == AMP_STEPS - n_found),
+                f"amp {label}: skips {skips} with {n_found} found steps")
+        if scaled:
+            want_states = _expected_scaler(run_found + forced_found)
+            require(run_states + forced_states == want_states,
+                    f"amp {label}: scaler states {run_states} then "
+                    f"{forced_states} != {want_states}")
+            require(forced_found == [True] * AMP_FORCED and all(forced),
+                    f"amp {label}: forced inf steps found {forced_found}, "
+                    f"parameters unchanged {forced}")
+        results[label] = {
+            "level": level, "dtype": dtype, "loss_scale": scaled,
+            "losses": losses, "step_ms_each": [1e3 * x for x in secs],
+            "step_ms": step_ms, "examples_per_sec": ERNIE_B / (step_ms / 1e3),
+            "peak_mem_gib": peak, "launches": launches,
+            "flash_calls_by_dtype_variant": run_calls,
+            "launches_by_variant": by_variant, "found_inf": run_found,
+            "scaler_states": run_states, **skips,
+            **({"forced_inf_steps": {"found_inf": forced_found,
+                                     "scaler_states": forced_states,
+                                     "parameters_unchanged": forced}}
+               if scaled else {}),
+            "param_dtypes": sorted({str(p.dtype).split(".")[-1]
+                                    for p in model.parameters()}),
+            **{k: v for k, v in prof.items() if k != "top_kernels_ms"},
+            "top_kernels_ms": prof.get("top_kernels_ms")}
+        emit({"phase": "amp", "run": label, **results[label]})
+        del model, opt, step, watch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model = ErnieForSequenceClassification(cfg, num_classes=2,
+                                           device="cuda", seed=0).eval()
+    ids, _, am = batch
+    with torch.no_grad():
+        ref = model(ids, attention_mask=am)
+        with amp.auto_cast(dtype="float16"):
+            half = model(ids, attention_mask=am)
+    err = (half.float() - ref).abs().max().item()
+    limit = AMP_EVAL_TOL * max(1.0, ref.abs().max().item())
+    ev = {"logits_dtype": str(half.dtype).split(".")[-1],
+          "max_abs_err_vs_fp32": err, "limit": limit,
+          "tolerance": f"|O1 fp16 - fp32| <= {AMP_EVAL_TOL} x max(1, max "
+                       f"|fp32|)",
+          "argmax_agreement": float((half.argmax(-1) == ref.argmax(-1))
+                                    .float().mean())}
+    emit({"phase": "amp", "eval": "O1 fp16 vs the fp32 model", **ev})
+    require(ev["logits_dtype"] == "float16" and err <= limit,
+            f"amp eval: {ev}")
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {label: r["launches"] for label, r in results.items()}
+
+
 PHASE_SECONDS = {}          # phase function -> host seconds in this run
 
 
@@ -9764,9 +10522,15 @@ def main() -> int:
     ernie_kernels = _timed(phase_ernie_kernels, torch)
     ernie_launches = _timed(phase_ernie_train, torch)
     _timed(phase_ernie_parity, torch)
-    predict_launches = _timed(phase_predict, torch)
+    quant_kernels = _timed(phase_quant_kernels, torch)
+    # the quant phase times its int8 predictor against predict's fp32 one
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-predict-") as tmp:
+        predict_launches = _timed(phase_predict, torch, tmp)
+        quant_launches = _timed(phase_quant, torch,
+                                os.path.join(tmp, "ernie"))
     to_static_launches = _timed(phase_to_static, torch)
     optimizer_launches = _timed(phase_ernie_optimizers, torch)
+    amp_launches = _timed(phase_amp, torch)
     moe_generate = _timed(phase_generate_moe, torch)
 
     launches = {"bfloat16": serve_launches["bfloat16"],
@@ -9852,7 +10616,7 @@ def main() -> int:
                 "programs, 12 a call, each counted from 0 (batches "
                 f"{', '.join(map(str, TO_STATIC_BATCHES))} and "
                 f"{ERNIE_B} again; the control-flow wrapper down each "
-                "branch)")
+                f"branch, {GATE_LAYERS} layers: {GATE_LAYERS} a call)")
             entries[-1]["launches_predict"] = predict_launches
             entries[-1]["launches_path_predict"] = (
                 "predict: ernie-3.0-base fp32 through jit.save's program, "
@@ -9861,6 +10625,29 @@ def main() -> int:
                 "standalone child; the pool's "
                 f"{PREDICT_POOL * PREDICT_POOL_RUNS} runs on "
                 f"{PREDICT_POOL} threads)")
+    q2 = quant_kernels.pop("int8_linear")
+    entries.append({
+        "name": "int8_linear", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_linear.cu",
+        "replaces": Q2_REPLACES,
+        "launches": quant_launches[f"predictor batch {ERNIE_B}"],
+        "launches_path": f"quant: ernie-3.0-base int8 through jit.save's "
+                         f"program, the predictor at batch {ERNIE_B}: "
+                         f"{QUANT_LINEARS} a run (12 layers x 6 Linears, "
+                         f"the pooler, the classifier), counted from 0",
+        "launches_quant": quant_launches, **q2})
+    fp16_run = AMP_RUNS[0][0]
+    for name, r in quant_kernels.items():
+        base = name[:-len(FP16_ROUTE)]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_mma_fp16.cu",
+            "source_kernels": "paddle_tpu_torch/csrc/flash_attention_mma.cuh",
+            "replaces": ERNIE_REPLACES.format(line=TRAIN_KERNELS[base][1]),
+            "launches": amp_launches[fp16_run][base],
+            "launches_path": f"amp (a): ernie-3.0-base under auto_cast O1 "
+                             f"fp16 with GradScaler, {ERNIE_B} x {ERNIE_S}, "
+                             f"{AMP_STEPS} TrainSteps (12 a step)", **r})
     for name, r in moe_kernels.items():
         entries.append({
             "name": name, "route": "cuda",

@@ -20,7 +20,8 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["seed", "default_device", "resolve_device", "__version__"]
+__all__ = ["seed", "default_device", "resolve_device", "__version__", "amp",
+           "quantization"]
 
 
 def default_device() -> torch.device:
@@ -46,3 +47,6 @@ def seed(value: int, device=None) -> torch.Generator:
     g = torch.Generator(device=resolve_device(device))
     g.manual_seed(int(value))
     return g
+
+
+from . import amp, quantization  # noqa: E402  (they use the above)

@@ -19,6 +19,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +96,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -592,7 +594,8 @@ enum Kernel {
   kFmaBf16 = 1,
   kWgmmaBf16 = 2,
   kMmaF32 = 3,    // flash_attention_mma.cu
-  kMmaBf16 = 4
+  kMmaBf16 = 4,   // flash_attention_mma_bf16.cu
+  kMmaF16 = 5     // flash_attention_mma_fp16.cu
 };
 const int kBadArg = static_cast<int>(cudaErrorInvalidValue);
 

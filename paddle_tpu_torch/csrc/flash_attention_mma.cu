@@ -9,7 +9,7 @@ namespace {
 int dispatch(int kind, const Args& a, int D, int kernel,
              cudaStream_t stream) {
   if (kernel == kMmaF32) return launch_mma_d<float>(kind, D, a, stream);
-  return kBadArg;                // bf16: flash_attention_mma_bf16.cu
+  return kBadArg;                // bf16 / fp16: their own libraries
 }
 
 }  // namespace

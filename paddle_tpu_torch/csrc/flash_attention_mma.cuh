@@ -1,8 +1,8 @@
 // Flash attention K1 / K2 with an additive bias and Philox dropout on
-// the tensor cores ("mma" variant), in fp32 and bf16 at head_dim 16, 32,
-// 64 and 128: the kernels.  ops/flash_attention.py sends every call with
-// a bias or dropout here (`_variant`); calls with neither keep the
-// kernels of flash_attention.cu.
+// the tensor cores ("mma" variant), in fp32, bf16 and fp16 at head_dim
+// 16, 32, 64 and 128: the kernels.  ops/flash_attention.py sends every
+// call with a bias or dropout here (`_variant`); calls with neither keep
+// the kernels of flash_attention.cu.
 //
 // Replaces the TPU kernels in paddle_tpu/ops/pallas_attention.py
 //   K1  `_flash_fwd` (:104) -> `_fwd_kernel`
@@ -39,6 +39,19 @@
 //         products as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi)
 //         (~16 mantissa bits), as the wgmma kernels of
 //         flash_attention.cu do.
+//   fp16  the bf16 route with fp16 operands (m16n8k16 .f16, the same
+//         fragments): P and dS as two fp16 parts too (~22 bits).  The
+//         limit is one fp16 ulp of the row's max (2^-10), which the two
+//         fp16 roundings of an output alone come close to; an fp32
+//         emulation of the roundings (tests/test_torch_flash_attention.py,
+//         `test_fp16_two_part_products_...`) holds two parts within it
+//         and shows one part (11 bits) no closer; on the card, at the
+//         ERNIE shape with p 0.1, two parts reach 0.875 / 0.993 / 0.890 /
+//         0.976 of it in O / dQ / dK / dV (chip_smoke.py's
+//         quant_kernels).  One part would leave no room, so fp16 takes
+//         two.  Under O1 the model's mask arrives as fp16, where -1e9 is
+//         -inf: those keys get P = exp(-inf) = 0 (the row maximum starts
+//         from -inf, below), never NaN.
 // Scores are scaled in fp32 after the product (a bf16 copy of q * scale
 // would move every score by ~2^-9); dQ and dK take the scale at the end.
 //
@@ -114,13 +127,16 @@
 // (2 x 2048, 32 / 8 heads of 128, causal) is bound by operations.
 //
 // Files: the kernels live in this header; flash_attention_mma.cu builds
-// the fp32 ones and flash_attention_mma_bf16.cu the bf16 ones, two
-// libraries nvcc builds side by side with the others (one library of
-// both took twice as long as any other to build).  C interface:
-// flash_attention_fma.cuh's (the same functions, arguments and `_EXTRA`
-// trailing arguments), kernel codes 3 (fp32) and 4 (bf16).
+// the fp32 ones, flash_attention_mma_bf16.cu the bf16 ones and
+// flash_attention_mma_fp16.cu the fp16 ones, libraries nvcc builds side
+// by side with the others (one library of both fp32 and bf16 took twice
+// as long as any other to build).  C interface: flash_attention_fma.cuh's
+// (the same functions, arguments and `_EXTRA` trailing arguments),
+// kernel codes 3 (fp32), 4 (bf16) and 5 (fp16).
 
 #pragma once
+
+#include <type_traits>
 
 #include "flash_attention_fma.cuh"
 
@@ -139,6 +155,26 @@ template <>
 struct Pad<__nv_bfloat16> {
   static constexpr int v = 8;           // 16 bytes
 };
+template <>
+struct Pad<__half> {
+  static constexpr int v = 8;
+};
+
+// the 16-bit operand types (bf16, fp16): one code path, `Is16`
+template <typename H>
+struct Is16 {
+  static constexpr bool v = false;
+};
+template <>
+struct Is16<__nv_bfloat16> {
+  static constexpr bool v = true;
+};
+template <>
+struct Is16<__half> {
+  static constexpr bool v = true;
+};
+template <typename H>
+using If16 = typename std::enable_if<Is16<H>::v, int>::type;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -318,35 +354,65 @@ __device__ __forceinline__ void pm(float (&acc)[D / 8][4],
   }
 }
 
-// ------------------------------------------------------------- bf16 route
+// ------------------------------------------------- bf16 and fp16 route
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+template <typename H>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<__nv_bfloat16>(float (&d)[4],
+                                                     const uint32_t (&a)[4],
+                                                     uint32_t b0,
+                                                     uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16<__half>(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename H, If16<H> = 0>
+__device__ __forceinline__ uint32_t ld32(const H* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// hi = bf16(x0, x1), lo = bf16(x - hi), x0 in the low half
+// hi = H(x0, x1), lo = H(x - hi), x0 in the low half
+template <typename H>
 __device__ __forceinline__ void two_parts(float x0, float x1, uint32_t& hi,
-                                          uint32_t& lo) {
+                                          uint32_t& lo);
+template <>
+__device__ __forceinline__ void two_parts<__nv_bfloat16>(float x0, float x1,
+                                                         uint32_t& hi,
+                                                         uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+template <>
+__device__ __forceinline__ void two_parts<__half>(float x0, float x1,
+                                                  uint32_t& hi,
+                                                  uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
-template <int D, int N>
-__device__ __forceinline__ void abt(float (&acc)[N / 8][4],
-                                    const __nv_bfloat16* A,
-                                    const __nv_bfloat16* B) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::v;
+template <int D, int N, typename H, If16<H> = 0>
+__device__ __forceinline__ void abt(float (&acc)[N / 8][4], const H* A,
+                                    const H* B) {
+  constexpr int LD = D + Pad<H>::v;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
@@ -357,32 +423,32 @@ __device__ __forceinline__ void abt(float (&acc)[N / 8][4],
     a[3] = ld32(A + (g + 8) * LD + kk + 8 + 2 * t);
 #pragma unroll
     for (int n = 0; n < N / 8; ++n) {
-      const __nv_bfloat16* b = B + (8 * n + g) * LD + kk + 2 * t;
-      mma_bf16(acc[n], a, ld32(b), ld32(b + 8));
+      const H* b = B + (8 * n + g) * LD + kk + 2 * t;
+      mma16<H>(acc[n], a, ld32(b), ld32(b + 8));
     }
   }
 }
 
-// acc[m] += P . M with P as two bf16 parts (see the fp32 `pm`; kSplit
+// acc[m] += P . M with P as two 16-bit parts (see the fp32 `pm`; kSplit
 // has no meaning here); a k16 step takes P's n8 tiles 2s and 2s + 1 in
 // order and M's rows 16s .. 16s + 15 transposed by ldmatrix
-template <int D, int NK, bool kSplit = false>
+template <int D, int NK, bool kSplit = false, typename H, If16<H> = 0>
 __device__ __forceinline__ void pm(float (&acc)[D / 8][4],
                                    const float (&p)[NK / 8][4],
-                                   const __nv_bfloat16* M) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::v;
+                                   const H* M) {
+  constexpr int LD = D + Pad<H>::v;
   const int lane = threadIdx.x & 31;
   // ldmatrix x4: lanes 8i .. 8i + 7 address matrix i's rows: matrices 0
   // / 1 are rows +0 / +8 of columns 8m, matrices 2 / 3 of columns 8m + 8
-  const __nv_bfloat16* m_lane =
+  const H* m_lane =
       M + ((lane & 8) + (lane & 7)) * LD + ((lane >> 4) << 3);
 #pragma unroll
   for (int s = 0; s < NK / 16; ++s) {
     uint32_t hi[4], lo[4];
-    two_parts(p[2 * s][0], p[2 * s][1], hi[0], lo[0]);
-    two_parts(p[2 * s][2], p[2 * s][3], hi[1], lo[1]);
-    two_parts(p[2 * s + 1][0], p[2 * s + 1][1], hi[2], lo[2]);
-    two_parts(p[2 * s + 1][2], p[2 * s + 1][3], hi[3], lo[3]);
+    two_parts<H>(p[2 * s][0], p[2 * s][1], hi[0], lo[0]);
+    two_parts<H>(p[2 * s][2], p[2 * s][3], hi[1], lo[1]);
+    two_parts<H>(p[2 * s + 1][0], p[2 * s + 1][1], hi[2], lo[2]);
+    two_parts<H>(p[2 * s + 1][2], p[2 * s + 1][3], hi[3], lo[3]);
 #pragma unroll
     for (int m = 0; m < D / 8; m += 2) {
       uint32_t b0, b1, b2, b3;
@@ -391,18 +457,18 @@ __device__ __forceinline__ void pm(float (&acc)[D / 8][4],
           "[%4];\n"
           : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
           : "r"(smem_addr(m_lane + 16 * s * LD + 8 * m)));
-      mma_bf16(acc[m], lo, b0, b1);
-      mma_bf16(acc[m], hi, b0, b1);
-      mma_bf16(acc[m + 1], lo, b2, b3);
-      mma_bf16(acc[m + 1], hi, b2, b3);
+      mma16<H>(acc[m], lo, b0, b1);
+      mma16<H>(acc[m], hi, b0, b1);
+      mma16<H>(acc[m + 1], lo, b2, b3);
+      mma16<H>(acc[m + 1], hi, b2, b3);
     }
   }
 }
 
 // dP = dO . V^T (V . dO^T in dK / dV), laid out as abt's acc: fp32 on
 // the CUDA cores, each element summed in order over head_dim by fmaf as
-// the plain version sums it (see the header comment); bf16 on the
-// tensor cores
+// the plain version sums it (see the header comment); bf16 and fp16 on
+// the tensor cores
 template <int D, int N>
 __device__ __forceinline__ void dp_product(float (&acc)[N / 8][4],
                                            const float* A, const float* B) {
@@ -434,26 +500,25 @@ __device__ __forceinline__ void dp_product(float (&acc)[N / 8][4],
       }
   }
 }
-template <int D, int N>
+template <int D, int N, typename H, If16<H> = 0>
 __device__ __forceinline__ void dp_product(float (&acc)[N / 8][4],
-                                           const __nv_bfloat16* A,
-                                           const __nv_bfloat16* B) {
+                                           const H* A, const H* B) {
   abt<D, N>(acc, A, B);
 }
 
-// dP of one element in bf16 as the plain version sums it: the dP of a key
-// that holds more than half its query row's P (see the header comment)
-template <int D>
-__device__ __forceinline__ float dp_in_order(const __nv_bfloat16* x,
-                                             const __nv_bfloat16* y) {
+// dP of one element in bf16 / fp16 as the plain version sums it: the dP
+// of a key that holds more than half its query row's P (see the header
+// comment)
+template <int D, typename H>
+__device__ __forceinline__ float dp_in_order(const H* x, const H* y) {
   float acc = 0.f;
 #pragma unroll 1
   for (int d = 0; d < D; ++d) acc = fmaf(to_f(x[d]), to_f(y[d]), acc);
   return acc;
 }
 
-// dP z / (1 - p) of an element: in bf16 a key with P > 1/2 takes its dP
-// in order from the rows x (dO) and y (V) in shared memory
+// dP z / (1 - p) of an element: in bf16 / fp16 a key with P > 1/2 takes
+// its dP in order from the rows x (dO) and y (V) in shared memory
 template <typename T, int D>
 __device__ __forceinline__ float dp_kept(float dp, float p, bool kept,
                                          const T* x, const T* y,
@@ -522,8 +587,13 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
                                                       float x0, float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
+template <>
+__device__ __forceinline__ void store2<__half>(__half* p, float x0,
+                                               float x1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x0, x1);
+}
 
-// ring stages: two in bf16; one in fp32, where the tiles are twice the
+// ring stages: two in bf16 / fp16; one in fp32, where the tiles are twice the
 // bytes and the registers of the three-product chains are many: three
 // blocks of an SM (at head_dim <= 64) hide each other's loads better
 // than a second stage of one block does (measured at the ERNIE shape)
@@ -532,14 +602,14 @@ __host__ __device__ constexpr int ring() {
   return sizeof(T) == 4 ? 1 : 2;
 }
 
-// tiles of a K1 V stage: two in fp32 (a split tile), one in bf16
+// tiles of a K1 V stage: two in fp32 (a split tile), one in bf16 / fp16
 template <typename T>
 __host__ __device__ constexpr int planes() {
   return sizeof(T) == 4 ? 2 : 1;
 }
 
-// split the fp32 tile that just landed (see `split_stage`); bf16 tiles
-// are used as they come
+// split the fp32 tile that just landed (see `split_stage`); bf16 / fp16
+// tiles are used as they come
 template <typename T, int D>
 __device__ __forceinline__ void split_if_fp32(T* tile) {
   if constexpr (sizeof(T) == 4) split_stage<D>(tile);

@@ -10,7 +10,7 @@ int dispatch(int kind, const Args& a, int D, int kernel,
              cudaStream_t stream) {
   if (kernel == kMmaBf16)
     return launch_mma_d<__nv_bfloat16>(kind, D, a, stream);
-  return kBadArg;                // fp32: flash_attention_mma.cu
+  return kBadArg;                // fp32 / fp16: their own libraries
 }
 
 }  // namespace

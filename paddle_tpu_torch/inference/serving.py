@@ -148,6 +148,7 @@ def standalone_load(path, device=None):
 
     from .. import resolve_device
     from ..ops import flash_attention  # noqa: F401  (registers K1's op)
+    from ..ops import int8_linear  # noqa: F401  (registers Q2's op)
     device = resolve_device(device)
     if path.endswith(".pt2"):
         path = path[:-len(".pt2")]

@@ -14,8 +14,11 @@ held).  The step counter is incremented before the update (bias
 correction starts at 1) and lr is read from `optimizer.get_lr()` on the
 host before each step, as in the JAX step.
 
-fp16-style loss scaling (`loss_scale=`) follows the JAX step
-(`paddle_tpu/jit/trainer.py:163-182`, `:278-309`): the fp32 loss is
+fp16 parameters (O2 at fp16) raise `NotImplementedError`: the fused
+update has no fp16 build yet.  fp16-style loss scaling (`loss_scale=`:
+a float, "dynamic", or an `amp.GradScaler` whose knobs it copies)
+follows the JAX step (`paddle_tpu/jit/trainer.py:163-182`,
+`:278-309`): the fp32 loss is
 scaled before `backward()`; the update unscales the gradients,
 reduces `found_inf` over all of them and, when it is set, leaves params
 and state as they were; then `scaler_state` ({"scale": fp32, "good",
@@ -78,6 +81,12 @@ class TrainStep:
                 "sharded training (mesh, shard_rules, batch_spec, "
                 "opt_shard_rules) is not ported yet (ROADMAP: queue 1 "
                 "item 5, multi-GPU)")
+        if any(p.dtype == torch.float16 for p in model.parameters()):
+            raise NotImplementedError(
+                "a TrainStep over fp16 parameters (amp.decorate(level="
+                "'O2', dtype='float16')) is not ported yet (ROADMAP: queue "
+                "1 item 7 (amp: fp16 U1/U2)); the eager optimizer.step() "
+                "runs it op by op")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

@@ -7,13 +7,18 @@ by name and value without a transpose.
 Weights are drawn from Normal(0, std) with an explicit generator on the
 layer's device (the models pass `initializer_range`); biases start at
 0.  `Dropout` keeps a reference to the generator its model owns and
-draws its masks from it."""
+draws its masks from it.
+
+`Linear` is the JAX op "linear_op" for the O1 policy of
+`paddle_tpu_torch.amp`: under O1 x, weight and bias enter in the amp
+dtype and `x @ W + b` runs there, as the one JAX op does."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...amp import autocast_args
 from .. import functional as F
 
 __all__ = ["Linear", "Embedding", "Dropout", "normal_parameter"]
@@ -40,8 +45,9 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        x, w, b = autocast_args("linear_op", x, self.weight, self.bias)
+        y = x @ w
+        return y if b is None else y + b
 
 
 class Embedding(nn.Module):

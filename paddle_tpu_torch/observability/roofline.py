@@ -9,7 +9,8 @@ some other card's rates would misstate how far a kernel is from it.
 
 from __future__ import annotations
 
-__all__ = ["PEAK_FLOPS", "PEAK_FP32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_HBM_BW",
+__all__ = ["PEAK_FLOPS", "PEAK_FP32_FLOPS", "PEAK_TF32_FLOPS",
+           "PEAK_INT8_OPS", "PEAK_HBM_BW",
            "PEAK_HOST_LINK_BW", "peak_flops", "peak_hbm_bw",
            "peak_host_link_bw"]
 
@@ -34,6 +35,13 @@ PEAK_FP32_FLOPS = {
 PEAK_TF32_FLOPS = {
     "h100": 495e12,
     "h100 pcie": 378e12,
+}
+
+# dense int8 tensor-core OP/s per card (NVIDIA data sheets): the rate
+# of int8 x int8 products accumulated in int32
+PEAK_INT8_OPS = {
+    "h100": 1979e12,
+    "h100 pcie": 1513e12,
 }
 
 # device-memory bandwidth per card (NVIDIA data sheets): the decode
@@ -65,9 +73,12 @@ def _peak_lookup(table, kind) -> float:
 def peak_flops(kind, dtype="bfloat16") -> float:
     """Peak FLOP/s of card `kind` for work in `dtype` ("bfloat16" on
     the tensor cores, "float32" on the CUDA cores, "float32_3xtf32" as
-    three TF32 tensor-core products)."""
+    three TF32 tensor-core products, "int8" int8 products into int32
+    on the tensor cores; "float16" is bf16's rate)."""
     if str(dtype) == "float32_3xtf32":
         return _peak_lookup(PEAK_TF32_FLOPS, kind) / 3
+    if str(dtype) in ("int8", "torch.int8"):
+        return _peak_lookup(PEAK_INT8_OPS, kind)
     table = PEAK_FP32_FLOPS if str(dtype) in ("float32", "torch.float32") \
         else PEAK_FLOPS
     return _peak_lookup(table, kind)

@@ -16,7 +16,8 @@ GQA (H a multiple of the kv heads Hkv):
 
 On a CUDA tensor each wrapper launches `csrc/flash_attention.cu`, or
 with a bias or dropout `csrc/flash_attention_mma.cu` (bf16:
-`flash_attention_mma_bf16.cu`; the kernels in `flash_attention_mma.cuh`;
+`flash_attention_mma_bf16.cu`, fp16: `flash_attention_mma_fp16.cu`; the
+kernels in `flash_attention_mma.cuh`;
 `variant="fma"` there: `csrc/flash_attention_extra.cu`; each built at
 first use, see `_build.py`), or raises, and adds one to its entry of
 `LAUNCHES` and of `VARIANT_LAUNCHES[variant]` (under a lock: predictors
@@ -91,7 +92,9 @@ dtype, the head_dim and whether the call has a bias or dropout:
   head_dim: `mma.sync` on the tensor cores, fp32 as three TF32 products
   (x = big + small, a.b = big.small + small.big + big.big, where one
   TF32 product would fail fp32's 1e-5 limit; dP summed on the CUDA cores
-  in the plain version's order), bf16 with P and dS as two bf16 parts;
+  in the plain version's order), bf16 with P and dS as two bf16 parts,
+  fp16 likewise with two fp16 parts (fp16 exists only here: an fp16 call
+  without a bias or dropout raises, as no other variant takes it);
   naming `variant="wgmma"` for such a call raises `ValueError`, and
   `variant="fma"` runs the CUDA-core kernels built with the bias /
   dropout code (the earlier route, kept as a yardstick);
@@ -112,8 +115,8 @@ Tolerances (kernel vs plain, on the card): O and dQ per (b, query row,
 head), dK and dV per (b, key row, kv head), max|err| over head_dim
 within tol x that row's max |plain|, with tol 2^-7 in bf16 (both round
 an fp32 result, whose sums run in another order, to bf16 once: at most
-one bf16 ulp apart) and 1e-5 in fp32; lse per element within 1e-5 x
-max(1, |lse|) (fp32 in both).
+one bf16 ulp apart), 2^-10 in fp16 (one fp16 ulp) and 1e-5 in fp32;
+lse per element within 1e-5 x max(1, |lse|) (fp32 in both).
 """
 
 from __future__ import annotations
@@ -124,6 +127,7 @@ import threading
 
 import torch
 
+from ..amp import autocast_args
 from . import _build
 
 __all__ = ["flash_mha", "flash_fwd", "flash_bwd", "flash_bwd_dq",
@@ -146,7 +150,7 @@ _COUNT_LOCK = threading.Lock()
 # the C interface's code of each kernel: (dtype, variant) -> code
 KERNEL_CODES = {(torch.float32, "fma"): 0, (torch.bfloat16, "fma"): 1,
                 (torch.bfloat16, "wgmma"): 2, (torch.float32, "mma"): 3,
-                (torch.bfloat16, "mma"): 4}
+                (torch.bfloat16, "mma"): 4, (torch.float16, "mma"): 5}
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 _SHAPE = (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P)  # B H Hkv Sq Sk D causal scale kernel stream
@@ -399,7 +403,7 @@ def _check(q, k, v, causal, extra=()):
     if H % k.shape[2]:
         raise ValueError(f"{H} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"unsupported dtype {q.dtype}")
     vec = 16 // q.element_size()
     for t in (q, k, v) + tuple(extra):
@@ -469,8 +473,8 @@ def _library(variant, extra, dtype):
     code are a library of their own, and so are the mma kernels of each
     dtype, all built side by side (`_build.build`)."""
     if variant == "mma":
-        return "flash_attention_mma" + (
-            "_bf16" if dtype == torch.bfloat16 else "")
+        return "flash_attention_mma" + {torch.bfloat16: "_bf16",
+                                        torch.float16: "_fp16"}.get(dtype, "")
     return "flash_attention_extra" if extra else "flash_attention"
 
 
@@ -771,7 +775,12 @@ def flash_attention_xla(query, key, value, attn_mask=None, dropout_p=0.0,
     (`training=False` drops nothing, as in the JAX dispatch) and draws
     its (seed, offset) from `generator` on the host (`dropout_seed`): the
     port keeps no global RNG, so dropout in training without one
-    raises."""
+    raises.  It is the JAX op "flash_attention_op" for the O1 policy of
+    `paddle_tpu_torch.amp`: under O1 q, k, v and the mask enter in the
+    amp dtype (an fp16 mask turns -1e9 into -inf, as in the JAX
+    package; the kernels give those keys weight 0)."""
+    query, key, value, attn_mask = autocast_args(
+        "flash_attention_op", query, key, value, attn_mask)
     dropout = None
     if dropout_p > 0.0 and training:
         if generator is None:

@@ -1,6 +1,9 @@
-"""Int8 serving arithmetic — the port of `quantize_weight`,
-`weight_only_int8`, `matmul_wo_int8`, `quantize_kv_rows` and
-`dequantize_kv` from `paddle_tpu/quantization/int8.py`.
+"""Int8 serving arithmetic and int8 inference — the port of
+`paddle_tpu/quantization/int8.py`: `quantize_weight`,
+`weight_only_int8`, `matmul_wo_int8`, `quantize_kv_rows`,
+`dequantize_kv`, and the W8A8 layers `Int8Linear` / `Int8Conv2D` with
+`quantize_for_inference` (PTQ calibration -> int8 weights -> int8 x
+int8 products into int32).
 
 Weights: symmetric per-channel int8 (`quantize_weight`), per output
 channel for an `[in, out]` matrix (`weight_only_int8`), computed in
@@ -22,15 +25,35 @@ Both functions use the JAX package's expressions: the same fp32
 arithmetic, and `torch.round`, like `jnp.round`, rounds half to even.
 `dequantize_kv` is also what the CUDA decode kernel computes in-kernel
 (`int8 * scale` in fp32, then the working dtype).
+
+W8A8: `Int8Linear` quantizes x with a calibrated per-tensor scale
+(x_scale = max(absmax, 1e-12) / 127, a Python float) and multiplies
+int8 x int8 into int32 (kernel Q2, `ops/int8_linear.py`: the operator
+`paddle_tpu_torch::int8_linear`, one node a layer in a `jit.save`d
+program).  `Int8Conv2D` pads the float input (the resolved padding by
+`F.pad`, so asymmetric "SAME" pads stay exact), takes its im2col and
+runs Q2 a group at a time: Q2 quantizes in its prologue and zero
+padding quantizes to 0, so the int32 sums are the JAX int8
+convolution's.  The layers keep the JAX names `wq`, `w_scale` and
+`bias` in their state dict (the JAX layer holds `wq` and `w_scale` as
+plain attributes, outside its state dict: its `.pdparams` carries the
+bias); Q2's K-contiguous weight copy `wt` is a buffer outside the state
+dict, rebuilt when one is loaded.  `quantize_for_inference` calibrates
+on the model's own device (forward pre-hooks reading `float(x.abs()
+.max())`), swaps in place and returns the model in eval mode.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
+from ..nn import functional as F
+from ..ops.int8_linear import int8_linear, pack_weight
 from ..ops.wo_int8_matmul import wo_int8_matmul, wo_int8_matmul_many
 
-__all__ = ["quantize_weight", "weight_only_int8", "matmul_wo_int8",
+__all__ = ["quantize_for_inference", "Int8Linear", "Int8Conv2D",
+           "quantize_weight", "weight_only_int8", "matmul_wo_int8",
            "matmul_wo_int8_many", "quantize_kv_rows", "dequantize_kv"]
 
 
@@ -91,3 +114,157 @@ def dequantize_kv(data, scale, dtype):
     scale (..., n_kv) -> `dtype`."""
     return (data.to(torch.float32)
             * scale.to(torch.float32)[..., None]).to(dtype)
+
+
+def _f32(t):
+    return t if t is None or t.dtype == torch.float32 else t.to(torch.float32)
+
+
+class _Int8Layer(nn.Module):
+    """The shared part of `Int8Linear` / `Int8Conv2D`: the int8 weight
+    and its scales as buffers (`wq`, `w_scale`), the original bias
+    parameter, x_scale, and Q2's packed weight `wt` (rebuilt by
+    `_pack` after a state dict is loaded)."""
+
+    def __init__(self, weight, channel_axis, bias, x_absmax):
+        super().__init__()
+        wq, w_scale = quantize_weight(weight.detach(), channel_axis)
+        self.register_buffer("wq", wq)
+        self.register_buffer("w_scale", w_scale)
+        self.bias = bias
+        self.x_scale = float(max(x_absmax, 1e-12)) / 127.0
+        self.register_buffer("wt", self._pack(), persistent=False)
+        self.register_load_state_dict_post_hook(
+            lambda module, _: module._repack())
+
+    @torch.no_grad()
+    def _repack(self):
+        self.wt = self._pack()
+
+
+class Int8Linear(_Int8Layer):
+    """Serving replacement for `nn.layer.Linear`: int8 weight + int8
+    activation product (Q2).  `x_scale` comes from PTQ calibration
+    (absmax / 127)."""
+
+    def __init__(self, linear, x_absmax):
+        super().__init__(linear.weight, 1, linear.bias, x_absmax)
+
+    def _pack(self):
+        return pack_weight(self.wq)
+
+    def forward(self, x):
+        return int8_linear(x, self.wq, self.w_scale, _f32(self.bias),
+                           self.x_scale, self.wt)
+
+
+class Int8Conv2D(_Int8Layer):
+    """Serving replacement for `nn.layer.Conv2D` (NCHW, as the JAX
+    layer): im2col of the padded float input, then Q2 per group."""
+
+    def __init__(self, conv, x_absmax):
+        self._groups = conv.groups
+        super().__init__(conv.weight, 0, conv.bias, x_absmax)
+        p = conv.padding
+        self._padding = p.upper() if isinstance(p, str) else p
+        self._stride = F._pair(conv.stride)
+        self._dilation = F._pair(conv.dilation)
+
+    def _group_weights(self):
+        """Per group: wq as `[K, out / groups]`, K = (in / groups) kh
+        kw in im2col's order."""
+        out = self.wq.shape[0]
+        og = out // self._groups
+        return [self.wq[g * og:(g + 1) * og].reshape(og, -1).t()
+                for g in range(self._groups)]
+
+    def _pack(self):
+        return torch.cat([pack_weight(w) for w in self._group_weights()])
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        kh, kw = self.wq.shape[2:]
+        pairs = F._conv_padding(self._padding, (h, w), (kh, kw),
+                                self._stride, self._dilation)
+        xp = F._pad_nchw(x, pairs)
+        ho = (xp.shape[2] - self._dilation[0] * (kh - 1) - 1) \
+            // self._stride[0] + 1
+        wo = (xp.shape[3] - self._dilation[1] * (kw - 1) - 1) \
+            // self._stride[1] + 1
+        cols = torch.nn.functional.unfold(xp, (kh, kw),
+                                          dilation=self._dilation,
+                                          stride=self._stride)
+        G = self._groups
+        k = cols.shape[1] // G
+        cols = cols.reshape(n, G, k, ho * wo).permute(1, 0, 3, 2) \
+            .reshape(G, n * ho * wo, k)
+        out = self.wq.shape[0]
+        og = out // G
+        bias = _f32(self.bias)
+        ys = [int8_linear(cols[g], wg, self.w_scale[g * og:(g + 1) * og],
+                          None if bias is None else
+                          bias[g * og:(g + 1) * og], self.x_scale,
+                          self.wt[g * og:(g + 1) * og])
+              for g, wg in enumerate(self._group_weights())]
+        y = ys[0] if G == 1 else torch.cat(ys, -1)
+        return y.reshape(n, ho * wo, out).permute(0, 2, 1) \
+            .reshape(n, out, ho, wo)
+
+
+def _model_device(model):
+    for t in list(model.parameters()) + list(model.buffers()):
+        return t.device
+    return torch.device("cpu")
+
+
+def _collect_absmax(model, calib_batches, targets):
+    """Run the calibration batches on the model's own device, recording
+    each target layer's input absmax (the mkldnn_quantizer warm-up
+    pass)."""
+    stats = {id(layer): 0.0 for layer in targets}
+
+    def mk_hook(lid):
+        def hook(layer, inputs):
+            stats[lid] = max(stats[lid], float(inputs[0].abs().max()))
+        return hook
+
+    hooks = [layer.register_forward_pre_hook(mk_hook(id(layer)))
+             for layer in targets]
+    device = _model_device(model)
+    try:
+        with torch.no_grad():
+            for batch in calib_batches:
+                model(torch.as_tensor(batch, device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return stats
+
+
+def quantize_for_inference(model, calib_batches=None, layers=None):
+    """PTQ: calibrate activation ranges on `calib_batches`, then swap
+    every Linear / Conv2D (restrictable with `layers`, a list of those
+    classes) for its int8 twin IN PLACE — `model` itself is changed and
+    returned, in eval mode.  Without `calib_batches` every absmax is
+    8.0 (the JAX package's conservative default)."""
+    from ..nn.layer import Conv2D, Linear
+    kinds = (Linear, Conv2D) if layers is None else tuple(layers)
+    targets = [sub for sub in model.modules()
+               if sub is not model and type(sub) in kinds]
+    if calib_batches is not None:
+        stats = _collect_absmax(model, calib_batches, targets)
+    else:
+        stats = {id(layer): 8.0 for layer in targets}
+
+    def swap(parent):
+        for name, sub in list(parent._modules.items()):
+            if type(sub) is Linear and Linear in kinds:
+                parent._modules[name] = Int8Linear(sub, stats[id(sub)])
+            elif type(sub) is Conv2D and Conv2D in kinds:
+                parent._modules[name] = Int8Conv2D(sub, stats[id(sub)])
+            elif sub is not None:
+                swap(sub)
+
+    swap(model)
+    model.eval()
+    return model

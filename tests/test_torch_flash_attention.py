@@ -496,6 +496,39 @@ def test_bf16_two_part_products_with_bias_and_dropout_stay_within_limits(
     assert lse_ok
 
 
+def _fp16_parts(n):
+    """a @ b with a as `n` fp16 parts (hi = fp16(a), lo = fp16(a - hi))
+    and b as it is (fp16 inputs pass exactly)."""
+    def mm(a, b):
+        hi = a.to(torch.float16).float()
+        parts = hi if n == 1 else hi + (a - hi).to(torch.float16).float()
+        return parts @ b.float()
+    return mm
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_fp16_two_part_products_with_bias_and_dropout_stay_within_limits(
+        D, causal):
+    """The fp16 mma kernels' numeric design (`_emulate_mma` with P and
+    dS as two fp16 parts) with the padding bias as amp's O1 hands it
+    (cast to fp16: -1e9 is -inf) and dropout 0.1: O, dQ, dK and dV within
+    one fp16 ulp (2^-10 of the row's max |plain|) of the plain versions,
+    lse within 1e-5 relative, and never further from them than one fp16
+    part, the design the kernels do not take."""
+    q, k, v, do, bias, drop = _mma_case(2, 192, 4, 2, D, torch.float16,
+                                        seed=D + 4 + causal)
+    bias = bias.half().float()
+    assert torch.isneginf(bias).any()
+    shares, lse_ok = _mma_shares(q, k, v, do, causal, bias, drop,
+                                 _fp16_parts(2), 2 ** -10)
+    assert max(shares.values()) <= 1.0, shares
+    assert lse_ok
+    one, _ = _mma_shares(q, k, v, do, causal, bias, drop, _fp16_parts(1),
+                         2 ** -10)
+    assert max(one.values()) >= max(shares.values()), (one, shares)
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "batch",
                                  "dtype", "stride", "align", "shape"])
 def test_wrapper_checks_raise(bad):
@@ -511,8 +544,8 @@ def test_wrapper_checks_raise(bad):
         q = torch.zeros(1, 64, 3, 32)
     elif bad == "batch":
         k = v = torch.zeros(2, 64, 2, 32)
-    elif bad == "dtype":
-        q, k, v = (x.half() for x in (q, k, v))
+    elif bad == "dtype":        # fp16 is taken (the mma kernels): fp64
+        q, k, v = (x.double() for x in (q, k, v))
     elif bad == "stride":
         q = torch.zeros(1, 64, 4, 64)[..., ::2]
     elif bad == "align":

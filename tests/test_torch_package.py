@@ -61,7 +61,12 @@ def test_port_files_import_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch/nn/moe.py",
             "paddle_tpu_torch/inference/overload.py",
             "paddle_tpu_torch/inference/router.py",
-            "paddle_tpu_torch/observability/timeseries.py"} <= names
+            "paddle_tpu_torch/observability/timeseries.py",
+            "paddle_tpu_torch/amp/__init__.py",
+            "paddle_tpu_torch/quantization/__init__.py",
+            "paddle_tpu_torch/quantization/int8.py",
+            "paddle_tpu_torch/nn/layer/conv.py",
+            "paddle_tpu_torch/ops/int8_linear.py"} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
     assert not bad, bad
@@ -87,6 +92,9 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "paddle_tpu_torch.inference.overload, "
             "paddle_tpu_torch.inference.router, "
             "paddle_tpu_torch.observability.timeseries, "
+            "paddle_tpu_torch.amp, paddle_tpu_torch.quantization, "
+            "paddle_tpu_torch.nn.layer.conv, "
+            "paddle_tpu_torch.ops.int8_linear, "
             "paddle_tpu_torch.models, chip_smoke; print('ok')")
     out = _run(["-c", code], tmp_path)
     assert out.returncode == 0, out.stderr
@@ -123,6 +131,9 @@ def test_roofline_peaks_are_the_cards_own():
     assert roofline.peak_flops("NVIDIA H100 PCIe", "float32") == 51e12
     assert roofline.peak_flops("NVIDIA H100 80GB HBM3",
                                "float32_3xtf32") == 495e12 / 3
+    assert roofline.peak_flops("NVIDIA H100 80GB HBM3", "int8") == 1979e12
+    assert roofline.peak_flops("NVIDIA H100 PCIe", "int8") == 1513e12
+    assert roofline.peak_flops("NVIDIA H100 80GB HBM3", "float16") == 989e12
     assert roofline.peak_host_link_bw("NVIDIA H100 80GB HBM3") == 64e9
     for fn in (roofline.peak_hbm_bw, roofline.peak_flops,
                roofline.peak_host_link_bw):
@@ -130,3 +141,31 @@ def test_roofline_peaks_are_the_cards_own():
             fn("NVIDIA A100-SXM4-80GB")
         with pytest.raises(KeyError):
             fn("cpu")
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.amp", "paddle_tpu_torch.quantization",
+    "paddle_tpu_torch.quantization.int8", "paddle_tpu_torch.nn.layer.conv",
+    "paddle_tpu_torch.ops.int8_linear"])
+def test_new_modules_export_what_they_list(module):
+    """Every name in the module's `__all__` exists; `quantization`
+    exports every name of the JAX package's and `amp` the JAX module's
+    public surface (read from the JAX sources as text: nothing of
+    `paddle_tpu` is imported here)."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.__all__ and all(hasattr(mod, n) for n in mod.__all__)
+    if module == "paddle_tpu_torch.quantization":
+        src = (ROOT / "paddle_tpu" / "quantization" / "__init__.py")
+        tree = ast.parse(src.read_text())
+        jax_all = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Assign, ast.AugAssign)):
+                target = node.targets[0] if isinstance(node, ast.Assign) \
+                    else node.target
+                if getattr(target, "id", None) == "__all__":
+                    jax_all |= set(ast.literal_eval(node.value))
+        assert len(jax_all) == 11 and jax_all <= set(mod.__all__)
+    if module == "paddle_tpu_torch.amp":
+        assert {"auto_cast", "amp_guard", "decorate", "GradScaler",
+                "WHITE_LIST", "BLACK_LIST", "amp_state"} <= set(mod.__all__)
