@@ -479,14 +479,18 @@ the result line:
               forward in turns, examples/s, one profiled run (GEMMs /
               K1 / other, idle share), export / save / load s, MB;
  11f. quant_kernels
-              Q2 (the W8A8 linear, csrc/int8_linear.cu: x quantized as
-              it loads, int8 x int8 into int32 on the tensor cores with
-              mma.sync, scale and bias in the epilogue) against its
-              plain version at ERNIE-3.0-base's products, the pooler and
-              the classifier at 16 / 1 / 5 rows and a conv im2col, x in
-              fp32 / bf16 / fp16: bitwise, twice; timed by graph replay
-              against its bound, the plain version, torch._int_mm in the
-              same chain and the fp32 matmul; K1 / dQ / dK/dV in fp16
+              Q2 (the W8A8 linear, csrc/int8_linear.cu: above 64 rows x
+              quantized once, then wgmma s8 over a TMA ring; at 64 and
+              fewer split over K with an exact int32 reduction; scale
+              and bias in the epilogue) against its plain version at
+              ERNIE-3.0-base's products at 16 x 128 tokens and at M 128
+              / 640, the pooler and the classifier at 16 / 1 / 5 rows
+              and a conv im2col, x in fp32 / bf16 / fp16: bitwise,
+              twice, inside a replayed CUDA graph, and the first kernel
+              (variant "mma") too; timed by graph replay in turns with
+              the mma kernel against its bound, the plain version,
+              torch._int_mm in the same chain and the fp32 matmul; K1 /
+              dQ / dK/dV in fp16
               (csrc/flash_attention_mma_fp16.cu) at ERNIE's attention
               with the fp16 padding bias (-inf) and p 0.1 within
               FLASH_TOL, bitwise twice, timed against SDPA in fp16;
@@ -494,7 +498,8 @@ the result line:
               batches): the eager int8 forward vs Q2's plain version and
               vs fp32; jit.save (74 int8_linear + 12 flash_fwd nodes);
               the predictor at 16 / 1 / 5 rows bitwise the eager int8
-              model, 74 Q2 + 12 K1 launches a run; int8 vs fp32
+              model, 74 Q2 (72 wgmma + 2 split) + 12 K1 launches a
+              run; int8 vs fp32
               predictor in turns, one profiled run, MB; a conv net at
               ImageNet's input through Int8Conv2D; QAT on the
               fine-tuning model (4 steps, convert bitwise);
@@ -9770,15 +9775,23 @@ Q2_REPLACES = ("paddle_tpu/quantization/int8.py:99 _int8_linear_raw (no "
 Q2_TOL_TEXT = ("bitwise: the same fp32 division by x_scale, round half to "
                "even, exact int32 sum, fp32 scale product and bias add, "
                "each rounded on its own")
-# (label, M, K, N): ERNIE's products at 16 x 128 tokens, the pooler and
-# the classifier at the predictor's batches, and the conv net's im2col
+# (label, M, K, N): ERNIE's products at 16 x 128 tokens and at the
+# predictor's 1 and 5 rows (M 128, 640), the pooler and the classifier
+# at 16, 1 and 5 rows, and the conv net's im2col
 Q2_SHAPES = [("ffn in", 2048, 768, 3072), ("ffn out", 2048, 3072, 768),
              ("q / k / v / out", 2048, 768, 768),
+             ("ffn in M 128", 128, 768, 3072),
+             ("ffn out M 128", 128, 3072, 768),
+             ("q / k / v / out M 128", 128, 768, 768),
+             ("ffn in M 640", 640, 768, 3072),
+             ("ffn out M 640", 640, 3072, 768),
+             ("q / k / v / out M 640", 640, 768, 768),
              ("pooler M 16", 16, 768, 768), ("pooler M 1", 1, 768, 768),
              ("pooler M 5", 5, 768, 768), ("classifier M 16", 16, 768, 2),
              ("classifier M 1", 1, 768, 2), ("classifier M 5", 5, 768, 2),
              ("conv1 im2col", 32 * 112 * 112, 3 * 7 * 7, 64)]
 Q2_MAIN = "ffn in"                # the kernels line's shape (fp32 x)
+Q2_SPLIT_MAIN = "pooler M 16"     # the split route's entry in that line
 QUANT_CALIB = 4                   # calibration batches of ERNIE_B x ERNIE_S
 QUANT_LINEARS = 6 * 12 + 2        # ERNIE's Linears: 6 a layer, the pooler,
 #                                   the classifier
@@ -9805,6 +9818,8 @@ def _plain_q2():
     saved = TI.int8_linear
 
     def plain(x, wq, w_scale, bias, x_scale, wt=None):
+        if wq is None:                  # the layers pass their packed wt
+            wq = Q2.unpack_weight(wt, x.shape[-1])
         return Q2.int8_linear_plain(x, wq, w_scale, bias, x_scale)
 
     TI.int8_linear = plain
@@ -9817,29 +9832,52 @@ def _plain_q2():
 def _q2_case(torch, Q2, TI, M, K, N, dtype, gen):
     """Q2 on x (M, K) ~ N(0, 1) in `dtype`, a per-channel int8 weight of
     N(0, 0.02) and a bias, x_scale 0.9 x absmax / 127 (the largest values
-    clip): (inputs, kernel, kernel again, plain)."""
+    clip): (inputs, outputs, plain) with the outputs of the default
+    route twice, of that route inside a CUDA graph replayed twice (each
+    replay's output), and of `variant="mma"` (the first kernel)."""
     x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
     w = 0.02 * torch.randn(K, N, device="cuda", generator=gen)
     wq, ws = TI.quantize_weight(w, 1)
     b = 0.1 * torch.randn(N, device="cuda", generator=gen)
     xs = float(x.float().abs().max()) / 127.0 * 0.9
     args = (x, wq, ws, b, xs, Q2.pack_weight(wq))
-    got = Q2.int8_linear(*args)
-    again = Q2.int8_linear(*args)
+    outs = {"kernel": Q2.int8_linear(*args),
+            "again": Q2.int8_linear(*args),
+            "mma": Q2.int8_linear(*args, variant="mma")}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q2.int8_linear(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = Q2.int8_linear(*args)
+    for r in ("graph replay 1", "graph replay 2"):
+        out.zero_()
+        graph.replay()
+        outs[r] = out.clone()
     want = Q2.int8_linear_plain(*args[:5])
     torch.cuda.synchronize()
-    return args, got, again, want, w
+    del graph, out
+    return args, outs, want, w
 
 
 def _q2_times(torch, Q2, kind, args, w):
-    """Q2 by graph replay, its plain version eagerly, and two yardsticks
-    the port never calls: torch._int_mm inside the same quantize /
-    rescale chain in eager ops (where its shapes allow: M > 16, K and N
-    multiples of 8), and the fp32 torch.matmul it replaces."""
+    """Q2 by graph replay on its default route and on `variant="mma"` in
+    turns (mma, default, default, mma), its plain version eagerly, and
+    two yardsticks the port never calls: torch._int_mm inside the same
+    quantize / rescale chain in eager ops (where its shapes allow: M >
+    16, K and N multiples of 8), and the fp32 torch.matmul it
+    replaces."""
     x, wq, ws, b, xs, wt = args
     M, K = x.shape
     N = wq.shape[1]
-    out = {"ms": _graph_ms(torch, lambda i: Q2.int8_linear(*args), 1),
+    turns = {"mma": [], "default": []}
+    for v in ("mma", None, None, "mma"):
+        turns[v or "default"].append(_graph_ms(
+            torch, lambda i: Q2.int8_linear(*args, variant=v), 1))
+    out = {"ms": sum(turns["default"]) / 2, "mma_ms": sum(turns["mma"]) / 2,
+           "turns_ms": turns,
            "plain_ms": _time_ms(torch, lambda i: Q2.int8_linear_plain(
                *args[:5]), 1, 5)}
     if M > 16 and K % 8 == 0 and N % 8 == 0:
@@ -9860,25 +9898,30 @@ def _q2_times(torch, Q2, kind, args, w):
     flops = 2.0 * M * N * K
     nbytes = _nbytes(x, wq, ws, b) + M * N * x.element_size()
     out["bound_ms"], out["bound_by"] = _bound_ms(kind, flops, nbytes, "int8")
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
     return out
 
 
 def phase_quant_kernels(torch):
     """Q2 (the W8A8 linear, csrc/int8_linear.cu) against its plain version
-    at ERNIE-3.0-base's products (16 x 128 tokens: 768 -> 768 / 3072,
-    3072 -> 768; the pooler and the classifier at 16, 1 and 5 rows, N 2)
-    and the conv net's im2col (401,408 x 147 -> 64), x in fp32, bf16 and
-    fp16: bitwise, twice bitwise; timed (fp32 x at every shape, bf16 /
-    fp16 at the FFN's first product) by graph replay against its bound
-    (int8 operations at 1,979 TOP/s vs bytes), its plain version,
-    torch._int_mm in the same quantize / rescale chain and the fp32
-    matmul it replaces.  Then K1 / dQ / dK/dV in fp16 (the mma kernels,
-    csrc/flash_attention_mma_fp16.cu) at ERNIE's attention (16, 128, 12,
-    64) with the padding bias as O1 hands it (fp16: -1e9 is -inf) and p
-    0.1, within FLASH_TOL of their plain versions from the same (seed,
-    offset), bitwise twice, timed in turns against their bounds, the
-    plain versions and scaled_dot_product_attention in fp16 with the
-    same mask and dropout_p.  Returns the kernels line's entries."""
+    at ERNIE-3.0-base's products (768 -> 768 / 3072, 3072 -> 768 at 16 x
+    128 tokens and at the predictor's 1 and 5 rows, M 128 and 640; the
+    pooler and the classifier at 16, 1 and 5 rows, N 2) and the conv
+    net's im2col (401,408 x 147 -> 64), x in fp32, bf16 and fp16: the
+    default route (wgmma with x quantized once above 64 rows, split over
+    K at 64 and fewer), twice, inside a CUDA graph replayed twice, and
+    `variant="mma"` (the first kernel), each bitwise; timed (fp32 x at
+    every shape, bf16 / fp16 at the FFN's first product) by graph replay
+    in turns with the mma kernel, against its bound (int8 operations at
+    1,979 TOP/s vs bytes), its plain version, torch._int_mm in the same
+    quantize / rescale chain and the fp32 matmul it replaces.  Then K1 /
+    dQ / dK/dV in fp16 (the mma kernels, csrc/flash_attention_mma_fp16.cu)
+    at ERNIE's attention (16, 128, 12, 64) with the padding bias as O1
+    hands it (fp16: -1e9 is -inf) and p 0.1, within FLASH_TOL of their
+    plain versions from the same (seed, offset), bitwise twice, timed in
+    turns against their bounds, the plain versions and
+    scaled_dot_product_attention in fp16 with the same mask and
+    dropout_p.  Returns the kernels line's entries."""
     from paddle_tpu_torch.ops import flash_attention as FA
     from paddle_tpu_torch.ops import int8_linear as Q2
     from paddle_tpu_torch.quantization import int8 as TI
@@ -9887,42 +9930,69 @@ def phase_quant_kernels(torch):
     saved = (dict(Q2.LAUNCHES), _train_counts())
     cases, worst = {}, 0.0
     for label, M, K, N in Q2_SHAPES:
+        p = Q2.plan(M, N, K)
         for dt in ("float32", "bfloat16", "float16"):
-            args, got, again, want, w = _q2_case(
+            args, outs, want, w = _q2_case(
                 torch, Q2, TI, M, K, N, getattr(torch, dt), gen)
-            err = (got.float() - want.float()).abs().max().item()
-            bitwise = _same_bits(torch, got, want)
-            twice = _same_bits(torch, got, again)
-            row = {"shape": [M, K, N], "dtype": dt, "max_abs_err": err,
-                   "bitwise": bitwise, "bitwise_twice": twice}
+            err = (outs["kernel"].float() - want.float()).abs().max().item()
+            bitwise = {k: _same_bits(torch, o, want)
+                       for k, o in outs.items()}
+            row = {"shape": [M, K, N], "dtype": dt, "route": p.route,
+                   "splits": p.splits, "max_abs_err": err,
+                   "bitwise": bitwise}
             if dt == "float32" or label == Q2_MAIN:
                 row.update(_q2_times(torch, Q2, kind, args, w))
             cases[f"{label} {dt}"] = row
             emit({"phase": "quant_kernels", "kernel": "int8_linear",
                   "case": label, **row, "tolerance": Q2_TOL_TEXT})
-            require(bitwise and twice, f"Q2 {label} {dt}: not bitwise "
-                    f"(err {err}, twice {twice})")
+            require(all(bitwise.values()), f"Q2 {label} {dt}: not bitwise "
+                    f"(err {err}, {bitwise})")
             worst = max(worst, err)
-            del args, got, again, want, w
+            del args, outs, want, w
+    keys = ("shape", "route", "splits", "ms", "mma_ms", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "int_mm_chain_ms",
+            "fp32_matmul_ms")
+    shapes = {k: {x: v[x] for x in keys if x in v}
+              for k, v in cases.items() if "ms" in v}
     main = cases[f"{Q2_MAIN} float32"]
-    q2 = {"max_abs_err": worst, "tolerance": Q2_TOL_TEXT,
-          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "int_mm_chain_ms", "fp32_matmul_ms")},
-          "library_ms": None,
-          "library": "none: no one PyTorch call quantizes x, multiplies "
-                     "int8 x int8 and rescales; int_mm_chain_ms is "
-                     "torch._int_mm inside the same chain in eager ops, "
-                     "fp32_matmul_ms the fp32 product Q2 replaces",
+    common = {"max_abs_err": worst, "tolerance": Q2_TOL_TEXT,
+              "library_ms": None,
+              "library": "none: no one PyTorch call quantizes x, "
+                         "multiplies int8 x int8 and rescales; "
+                         "int_mm_chain_ms is torch._int_mm inside the same "
+                         "chain in eager ops, fp32_matmul_ms the fp32 "
+                         "product Q2 replaces",
+              "timing": "CUDA-graph replay, per call, in turns with the "
+                        "mma kernel (mma_ms); plain_ms eager"}
+    q2 = {**common,
+          **{k: main[k] for k in keys[3:] if k in main},
+          "variant": "wgmma: x quantized once into an (M, Kp) int8 "
+                     "scratch, then wgmma m64n128k32 s8 over a 3-stage TMA "
+                     "ring, 128 x 128 tiles; split over K at M <= 64 (the "
+                     "entry int8_linear[split])",
           "shape": "x (2048, 768) fp32 -> 3072, per-channel int8 weight, "
                    "bias",
-          "timing": "CUDA-graph replay, per call; plain_ms eager",
           "bf16_ms": cases[f"{Q2_MAIN} bfloat16"]["ms"],
           "fp16_ms": cases[f"{Q2_MAIN} float16"]["ms"],
-          "shapes": {k: {x: v[x] for x in ("shape", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "int_mm_chain_ms",
-                                           "fp32_matmul_ms") if x in v}
-                     for k, v in cases.items() if "ms" in v}}
+          "shapes": shapes}
+    split = cases[f"{Q2_SPLIT_MAIN} float32"]
+    sp = Q2.plan(*(split["shape"][i] for i in (0, 2, 1)))
+    n_scratch = sp.workspace[0] + sp.semaphores[0]
+    q2_split = {**common,
+                **{k: split[k] for k in keys[2:] if k in split},
+                "max_abs_err": max(v["max_abs_err"] for v in cases.values()
+                                   if v["route"] == "split"),
+                "workspace_memset_ms": _graph_ms(
+                    torch, lambda i: torch.zeros(
+                        n_scratch, dtype=torch.int32, device="cuda"), 1),
+                "variant": "split over K: a block a (128-column tile, K "
+                           "slice), mma.sync m16n8k32 s8, int32 partial "
+                           "sums added into a workspace each call takes "
+                           "zeroed (torch.zeros: one memset, inside ms; "
+                           "workspace_memset_ms alone), the tile's last "
+                           "block (a semaphore) rescales",
+                "shape": "x (16, 768) fp32 -> 768 (the pooler at 16 rows), "
+                         "bias"}
 
     # fp16 K1 / K2 at the ERNIE attention, the bias as O1 casts it
     es = ERNIE_SHAPE
@@ -9984,7 +10054,7 @@ def phase_quant_kernels(torch):
     _set_train_counts(saved[1])
     del q, k, v, do, args
     torch.cuda.empty_cache()
-    return {"int8_linear": q2, **fp16}
+    return {"int8_linear": q2, "int8_linear[split]": q2_split, **fp16}
 
 
 def _program_nodes(program, word):
@@ -9994,11 +10064,14 @@ def _program_nodes(program, word):
 
 def _quant_counts(FA, Q2):
     return {"q2": Q2.LAUNCHES["int8_linear"],
+            "q2_by_route": {k: Q2.LAUNCHES[f"int8_linear_{k}"]
+                            for k in ("quant", "split", "mma")},
             "by_variant": {n: dict(c) for n, c in FA.VARIANT_LAUNCHES.items()}}
 
 
 def _zero_quant_counts(FA, Q2):
-    Q2.LAUNCHES["int8_linear"] = 0
+    for k in Q2.LAUNCHES:
+        Q2.LAUNCHES[k] = 0
     _zero_train_counts()
     _zero_variant_counts(FA)
 
@@ -10124,7 +10197,9 @@ def phase_quant(torch, fp32_path):
     argmax agreement); `jit.save` with InputSpec([None, 128], "int64") x
     2 (74 int8_linear and 12 flash_fwd program nodes); the predictor at
     16, 1 and 5 rows, each bitwise the eager int8 model with exactly 74
-    Q2 and 12 K1 (mma) launches and nothing else; the int8 and the fp32
+    Q2 (72 on wgmma with their quantization passes, the pooler and the
+    classifier split over K) and 12 K1 (mma) launches and nothing else,
+    none on Q2's mma kernel; the int8 and the fp32
     predictor in turns (median of PREDICT_RUNS after PREDICT_WARM),
     examples/s, one profiled int8 run (Q2 / GEMMs / K1 / other, idle
     share), artifact MB; a conv net at ImageNet's input through
@@ -10224,9 +10299,16 @@ def phase_quant(torch, fp32_path):
             equal = bool(np.array_equal(got, eager(bi, bm)))
             checks[b] = {"bitwise_eager_int8": equal, **counts}
             launches[f"predictor batch {b}"] = counts["q2"]
+            launches[f"predictor batch {b}, split route"] = \
+                counts["q2_by_route"]["split"]
             require(equal and got.shape == (b, 2),
                     f"quant predictor batch {b}: not the eager int8 model")
+            # the encoder's 72 products (M = b x 128) on wgmma, each with
+            # its quantization pass; the pooler and the classifier (M = b)
+            # split over K
             require(counts["q2"] == QUANT_LINEARS
+                    and counts["q2_by_route"] == {
+                        "quant": QUANT_LINEARS - 2, "split": 2, "mma": 0}
                     and counts["by_variant"] == _k1_only(FA, L),
                     f"quant predictor batch {b}: launches {counts}")
         report["predictor_checks"] = checks
@@ -10253,9 +10335,12 @@ def phase_quant(torch, fp32_path):
             "fp32_examples_per_sec": ERNIE_B / (ms["fp32"] / 1e3),
             "how": "host clock, numpy in and out, the two predictors in "
                    f"turns, median of {PREDICT_RUNS} after {PREDICT_WARM}"}
-        report["profile_int8_run"] = _predict_profile(
+        prof = report["profile_int8_run"] = _predict_profile(
             torch, run8, ms["int8"],
             {"q2": ("int8_linear",), **PREDICT_KINDS})
+        if "q2_ms" in prof:
+            prof["q2_share_of_device_busy"] = \
+                prof["q2_ms"] / prof["device_busy_ms"]
         del pred, pred32
     report["conv"] = _quant_conv(torch, TI, Q2)
     report["qat"] = _quant_qat(torch, FA)
@@ -10626,6 +10711,7 @@ def main() -> int:
                 f"{PREDICT_POOL * PREDICT_POOL_RUNS} runs on "
                 f"{PREDICT_POOL} threads)")
     q2 = quant_kernels.pop("int8_linear")
+    q2_split = quant_kernels.pop("int8_linear[split]")
     entries.append({
         "name": "int8_linear", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/int8_linear.cu",
@@ -10633,9 +10719,19 @@ def main() -> int:
         "launches": quant_launches[f"predictor batch {ERNIE_B}"],
         "launches_path": f"quant: ernie-3.0-base int8 through jit.save's "
                          f"program, the predictor at batch {ERNIE_B}: "
-                         f"{QUANT_LINEARS} a run (12 layers x 6 Linears, "
-                         f"the pooler, the classifier), counted from 0",
+                         f"{QUANT_LINEARS} a run (12 layers x 6 Linears on "
+                         f"wgmma, the pooler and the classifier split over "
+                         f"K), counted from 0",
         "launches_quant": quant_launches, **q2})
+    entries.append({
+        "name": "int8_linear[split]", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_linear.cu",
+        "replaces": Q2_REPLACES,
+        "launches": quant_launches[f"predictor batch {ERNIE_B}, split "
+                                   f"route"],
+        "launches_path": f"quant: the int8 predictor at batch {ERNIE_B}: "
+                         f"2 a run (the pooler and the classifier at "
+                         f"{ERNIE_B} rows), counted from 0", **q2_split})
     fp16_run = AMP_RUNS[0][0]
     for name, r in quant_kernels.items():
         base = name[:-len(FP16_ROUTE)]

@@ -172,7 +172,14 @@ class GradScaler:
     package's eager rule over `optimizer._parameters`, with host floats
     and counters (`unscale_` reads found_inf back to the host once a
     step).  `jit.TrainStep(loss_scale=scaler)` copies its knobs and runs
-    the rule on the device instead."""
+    the rule on the device instead.
+
+    The gradients are unscaled at most once a step, as in Paddle's
+    scaler (`OptimizerState.UNSCALED`): `unscale_` marks the step,
+    `step` unscales only where the caller did not and takes the mark
+    down, as `update` does.  The JAX package's scaler unscales again in
+    `step` after a finite `unscale_` (g / s^2 for the usual unscale_ ->
+    clip -> step script); the port does not copy that."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
@@ -187,6 +194,7 @@ class GradScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        self._unscaled = False
 
     def scale(self, loss):
         if not self._enable:
@@ -205,13 +213,15 @@ class GradScaler:
                 found = found or not bool(torch.isfinite(g).all())
                 p.grad = g
         self._found_inf = found
+        self._unscaled = True
 
     def step(self, optimizer):
         if not self._enable:
             optimizer.step()
             return
-        if not self._found_inf:
+        if not self._unscaled:
             self.unscale_(optimizer)
+        self._unscaled = False
         if self._found_inf:
             self._cache_founds_step()
         else:
@@ -235,6 +245,7 @@ class GradScaler:
 
     def update(self):
         self._found_inf = False
+        self._unscaled = False
 
     def is_enable(self):
         return self._enable

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (gmm.cu, flash_attention.cu): shared-memory addresses,
-// mbarriers with a wait that traps instead of hanging, TMA tensor loads
-// and the host-side tensor-map encoder, wgmma descriptors of
-// 128-byte-swizzled tiles, the wgmma fences and the m64n128k16 product.
+// kernels (gmm.cu, flash_attention.cu, int8_linear.cu): shared-memory
+// addresses, mbarriers with a wait that traps instead of hanging, TMA
+// tensor loads and the host-side tensor-map encoder, wgmma descriptors
+// of 128-byte-swizzled tiles, the wgmma fences, the bf16 m64n128k16 and
+// the s8 m64n128k32 products.
 //
 // Every function is inline: each kernel source includes this header and
 // is built into its own library.
@@ -115,6 +116,10 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte
 // aligned atoms of 8 rows x 128 bytes).  lbo: bytes between atoms along
 // M / N (used by M- / N-major operands); sbo: bytes between 8-row groups.
+// The atom is counted in bytes, whatever the element: a K-major tile of
+// 8-bit values (128 of K a row) takes the same sbo 1024 as one of bf16
+// (64 a row), and a k32 step of s8 moves 32 bytes along the row as a
+// k16 step of bf16 does.
 __device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
                                             uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
@@ -145,6 +150,12 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int N>
@@ -184,6 +195,38 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128 s32, the warpgroup's accumulator) = A (64 x 32 s8) B (32 x
+// 128 s8) + (scale_d ? d : 0), A and B from shared memory, both K-major
+// (8-bit wgmma has no transpose: A is M x K with K contiguous, B N x K
+// with K contiguous); the sum is exact in 32 bits
+__device__ __forceinline__ void wgmma_m64n128_s8(int (&d)[64], uint64_t da,
+                                                 uint64_t db,
+                                                 int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------- host side
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -213,17 +256,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank <= 5: dims innermost first, strides in bytes
-// of dims 1.. (any order: a (B, S, H, D) tensor is (D, S, H, B) with its
-// own strides), box in elements (innermost 64: one 128-byte swizzle
-// row); elements out of bounds read as zero
-inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box) {
+// A tensor map of rank <= 5 (bf16 unless `type` names another element):
+// dims innermost first, strides in bytes of dims 1.. (any order: a (B,
+// S, H, D) tensor is (D, S, H, B) with its own strides), box in elements
+// (innermost 128 bytes: one swizzle row, 64 bf16 or 128 int8 values);
+// elements out of bounds read as zero
+inline bool make_map(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn != nullptr && rank >= 1 && rank <= 5 &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+         fn(map, type, rank,
             const_cast<void*>(ptr), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -34,11 +34,13 @@ program).  `Int8Conv2D` pads the float input (the resolved padding by
 `F.pad`, so asymmetric "SAME" pads stay exact), takes its im2col and
 runs Q2 a group at a time: Q2 quantizes in its prologue and zero
 padding quantizes to 0, so the int32 sums are the JAX int8
-convolution's.  The layers keep the JAX names `wq`, `w_scale` and
-`bias` in their state dict (the JAX layer holds `wq` and `w_scale` as
-plain attributes, outside its state dict: its `.pdparams` carries the
-bias); Q2's K-contiguous weight copy `wt` is a buffer outside the state
-dict, rebuilt when one is loaded.  `quantize_for_inference` calibrates
+convolution's.  A layer holds its int8 weight once, as Q2's
+K-contiguous `wt` (a buffer outside the state dict; `wq` is a view of
+it).  Its state dict keeps the JAX names `wq` (in the JAX layout),
+`w_scale` and `bias` (the JAX layer holds `wq` and `w_scale` as plain
+attributes, outside its state dict: its `.pdparams` carries the bias):
+`wq` is unpacked when one is saved and packed into `wt` when one is
+loaded.  `quantize_for_inference` calibrates
 on the model's own device (forward pre-hooks reading `float(x.abs()
 .max())`), swaps in place and returns the model in eval mode.
 """
@@ -49,7 +51,7 @@ import torch
 from torch import nn
 
 from ..nn import functional as F
-from ..ops.int8_linear import int8_linear, pack_weight
+from ..ops.int8_linear import int8_linear, pack_weight, unpack_weight
 from ..ops.wo_int8_matmul import wo_int8_matmul, wo_int8_matmul_many
 
 __all__ = ["quantize_for_inference", "Int8Linear", "Int8Conv2D",
@@ -121,25 +123,50 @@ def _f32(t):
 
 
 class _Int8Layer(nn.Module):
-    """The shared part of `Int8Linear` / `Int8Conv2D`: the int8 weight
-    and its scales as buffers (`wq`, `w_scale`), the original bias
-    parameter, x_scale, and Q2's packed weight `wt` (rebuilt by
-    `_pack` after a state dict is loaded)."""
+    """The shared part of `Int8Linear` / `Int8Conv2D`: the int8 weight as
+    Q2's packed `wt` (its only copy) and its scales `w_scale` as
+    buffers, the original bias parameter, x_scale.  `wq` (the JAX
+    layout) is a view of `wt`, and the state dict's `wq` entry is
+    unpacked on save and packed into `wt` on load."""
 
     def __init__(self, weight, channel_axis, bias, x_absmax):
         super().__init__()
         wq, w_scale = quantize_weight(weight.detach(), channel_axis)
-        self.register_buffer("wq", wq)
+        self._wq_shape = tuple(wq.shape)
+        self.register_buffer("wt", self._pack(wq), persistent=False)
         self.register_buffer("w_scale", w_scale)
         self.bias = bias
         self.x_scale = float(max(x_absmax, 1e-12)) / 127.0
-        self.register_buffer("wt", self._pack(), persistent=False)
-        self.register_load_state_dict_post_hook(
-            lambda module, _: module._repack())
 
-    @torch.no_grad()
-    def _repack(self):
-        self.wt = self._pack()
+    @property
+    def wq(self):
+        return self._unpack(self.wt)
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        wq = self.wq.contiguous()
+        destination[prefix + "wq"] = wq if keep_vars else wq.detach()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        key = prefix + "wq"
+        if key in state_dict:
+            wq = state_dict[key]
+            if tuple(wq.shape) != self._wq_shape:
+                error_msgs.append(f"size mismatch for {key}: copying a "
+                                  f"param with shape {tuple(wq.shape)}, "
+                                  f"the shape in current model is "
+                                  f"{self._wq_shape}.")
+            else:
+                with torch.no_grad():
+                    self.wt.copy_(self._pack(wq.to(self.wt.device)))
+            state_dict = {k: v for k, v in state_dict.items() if k != key}
+        else:
+            missing_keys.append(key)
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
 
 
 class Int8Linear(_Int8Layer):
@@ -150,11 +177,15 @@ class Int8Linear(_Int8Layer):
     def __init__(self, linear, x_absmax):
         super().__init__(linear.weight, 1, linear.bias, x_absmax)
 
-    def _pack(self):
-        return pack_weight(self.wq)
+    @staticmethod
+    def _pack(wq):
+        return pack_weight(wq)
+
+    def _unpack(self, wt):
+        return unpack_weight(wt, self._wq_shape[0])
 
     def forward(self, x):
-        return int8_linear(x, self.wq, self.w_scale, _f32(self.bias),
+        return int8_linear(x, None, self.w_scale, _f32(self.bias),
                            self.x_scale, self.wt)
 
 
@@ -170,20 +201,21 @@ class Int8Conv2D(_Int8Layer):
         self._stride = F._pair(conv.stride)
         self._dilation = F._pair(conv.dilation)
 
-    def _group_weights(self):
-        """Per group: wq as `[K, out / groups]`, K = (in / groups) kh
-        kw in im2col's order."""
-        out = self.wq.shape[0]
-        og = out // self._groups
-        return [self.wq[g * og:(g + 1) * og].reshape(og, -1).t()
-                for g in range(self._groups)]
+    def _pack(self, wq):
+        """Per group: wq as `[K, out / groups]` (K = (in / groups) kh kw
+        in im2col's order) packed; the groups' rows stacked."""
+        og = wq.shape[0] // self._groups
+        return torch.cat([pack_weight(wq[g * og:(g + 1) * og]
+                                      .reshape(og, -1).t())
+                          for g in range(self._groups)])
 
-    def _pack(self):
-        return torch.cat([pack_weight(w) for w in self._group_weights()])
+    def _unpack(self, wt):
+        k = self._wq_shape[1] * self._wq_shape[2] * self._wq_shape[3]
+        return wt[:, :k].reshape(self._wq_shape)
 
     def forward(self, x):
         n, c, h, w = x.shape
-        kh, kw = self.wq.shape[2:]
+        kh, kw = self._wq_shape[2:]
         pairs = F._conv_padding(self._padding, (h, w), (kh, kw),
                                 self._stride, self._dilation)
         xp = F._pad_nchw(x, pairs)
@@ -198,14 +230,14 @@ class Int8Conv2D(_Int8Layer):
         k = cols.shape[1] // G
         cols = cols.reshape(n, G, k, ho * wo).permute(1, 0, 3, 2) \
             .reshape(G, n * ho * wo, k)
-        out = self.wq.shape[0]
+        out = self._wq_shape[0]
         og = out // G
         bias = _f32(self.bias)
-        ys = [int8_linear(cols[g], wg, self.w_scale[g * og:(g + 1) * og],
+        ys = [int8_linear(cols[g], None, self.w_scale[g * og:(g + 1) * og],
                           None if bias is None else
                           bias[g * og:(g + 1) * og], self.x_scale,
                           self.wt[g * og:(g + 1) * og])
-              for g, wg in enumerate(self._group_weights())]
+              for g in range(G)]
         y = ys[0] if G == 1 else torch.cat(ys, -1)
         return y.reshape(n, ho * wo, out).permute(0, 2, 1) \
             .reshape(n, out, ho, wo)

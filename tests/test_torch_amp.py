@@ -20,7 +20,10 @@ Tolerances, each with its reason:
   the gradients run the same chain backwards;
 * `GradScaler`: scale and counters exactly equal to JAX's after every
   step, the SGD parameters within 1e-6 of max |JAX| (fp32, the same
-  update written twice);
+  update written twice) up to the first finite step the caller
+  unscaled (the JAX scaler divides those gradients twice), and within
+  1e-6 of the max of a numpy reckoning of the single division after
+  every step;
 * the O2 training step bitwise the same rule applied to copies (the
   fused update's plain version is bitwise the op-by-op rule on the
   CPU).
@@ -363,9 +366,13 @@ SCRIPT = [(None, False), (None, True), (np.inf, False), (np.nan, True),
 def test_grad_scaler_script_matches_jax():
     """`scale` / `unscale_` / `step` / `update` over finite and
     non-finite gradients on a Linear with SGD in both packages: the scale
-    and good / bad counters exactly JAX's after each step, the
-    parameters within the fp32 limit, `state_dict` the same layout and
-    values."""
+    and good / bad counters exactly JAX's after each step (found_inf is
+    decided alike), `state_dict` the same layout and values.  The
+    parameters stay within the fp32 limit of JAX's up to the first step
+    whose caller unscales finite gradients: there the JAX scaler divides
+    them by the scale a second time in `step` and the two part for good.
+    After every step they are within that limit of a numpy reckoning
+    that divides each finite step's gradients by its scale once."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     import paddle_tpu as paddle
@@ -385,11 +392,19 @@ def test_grad_scaler_script_matches_jax():
     x = rng.randn(1).astype(np.float32)
     assert float(np.asarray(js.scale(paddle.to_tensor(x))._data)[0]) == \
         ts.scale(torch.from_numpy(x)).item()
+    ref = {n: p.detach().numpy().copy() for n, p in tl.named_parameters()}
+    parted = False
     for poison, pre in SCRIPT:
         grads = {n: (rng.randn(*p.shape) * 100).astype(np.float32)
                  for n, p in tl.named_parameters()}
         if poison is not None:
             grads["weight"][1, 2] = poison
+        finite = all(np.isfinite(g).all() for g in grads.values())
+        inv = np.float32(1.0 / ts.get_init_loss_scaling())
+        if finite:
+            for n, g in grads.items():
+                ref[n] = ref[n] - np.float32(0.1) * (g * inv)
+        parted = parted or (pre and finite)
         for n, p in jl.named_parameters():
             p.grad = Tensor(jnp.asarray(grads[n]))
         for n, p in tl.named_parameters():
@@ -404,8 +419,13 @@ def test_grad_scaler_script_matches_jax():
         assert ts.state_dict() == js.state_dict()
         jp = {n: np.asarray(p._data) for n, p in jl.named_parameters()}
         for n, p in tl.named_parameters():
-            e = np.abs(p.detach().numpy() - jp[n]).max()
-            assert e <= 1e-6 * np.abs(jp[n]).max(), n
+            got = p.detach().numpy()
+            assert np.abs(got - ref[n]).max() <= \
+                1e-6 * np.abs(ref[n]).max(), n
+            if not parted:
+                assert np.abs(got - jp[n]).max() <= \
+                    1e-6 * np.abs(jp[n]).max(), n
+    assert parted
     assert sorted(ts.state_dict()) == ["bad_steps", "good_steps", "scale"]
     assert ts.get_init_loss_scaling() == js.get_init_loss_scaling() != 1024.0
     t2 = amp.GradScaler()
@@ -414,6 +434,57 @@ def test_grad_scaler_script_matches_jax():
     off = amp.GradScaler(enable=False)
     assert not off.is_enable() and off.get_init_loss_scaling() == 1.0
     assert off.scale(torch.ones(1)).item() == 1.0
+
+
+def test_unscale_then_step_divides_once_where_jax_divides_twice():
+    """`unscale_` -> `step` on finite gradients (the unscale, clip, step
+    script): the port's SGD step moves each parameter by lr g / s, once
+    divided; the JAX scaler's by lr g / s^2, since its `step` unscales
+    again after a finite `unscale_` (a known fact of the reference,
+    pinned here).  A second step without `unscale_` divides once
+    again: the mark lasts one step."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import paddle_tpu as paddle
+    import paddle_tpu.amp as JA
+    import paddle_tpu.nn as jnn
+    import paddle_tpu.optimizer as jopt
+    from paddle_tpu.core.tensor import Tensor
+    paddle.seed(2)
+    jl = jnn.Linear(5, 4)
+    tl = Linear(5, 4, device="cpu")
+    load_reference_arrays(tl, {n: np.asarray(p._data)
+                               for n, p in jl.named_parameters()})
+    jo = jopt.SGD(learning_rate=1.0, parameters=jl.parameters())
+    to = SGD(learning_rate=1.0, parameters=tl.parameters())
+    kw = dict(init_loss_scaling=8.0, incr_every_n_steps=1000)
+    js, ts = JA.GradScaler(**kw), amp.GradScaler(**kw)
+    rng = np.random.RandomState(3)
+    for pre in (True, False):
+        grads = {n: rng.randn(*p.shape).astype(np.float32) * 64
+                 for n, p in tl.named_parameters()}
+        tb = {n: p.detach().numpy().copy() for n, p in tl.named_parameters()}
+        jb = {n: np.asarray(p._data).copy() for n, p in jl.named_parameters()}
+        for n, p in jl.named_parameters():
+            p.grad = Tensor(jnp.asarray(grads[n]))
+        for n, p in tl.named_parameters():
+            p.grad = torch.from_numpy(grads[n].copy())
+        if pre:
+            js.unscale_(jo)
+            ts.unscale_(to)
+        js.step(jo)
+        ts.step(to)
+        js.update()
+        ts.update()
+        for n, p in tl.named_parameters():
+            moved = tb[n] - p.detach().numpy()
+            np.testing.assert_allclose(moved, grads[n] / 8.0, rtol=1e-5,
+                                       atol=1e-5)
+        for n, p in jl.named_parameters():
+            moved = jb[n] - np.asarray(p._data)
+            want = grads[n] / (64.0 if pre else 8.0)
+            np.testing.assert_allclose(moved, want, rtol=1e-5, atol=1e-5)
+        assert ts.state_dict() == js.state_dict()
 
 
 def test_grad_scaler_minimize_matches_jax():

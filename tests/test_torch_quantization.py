@@ -480,6 +480,160 @@ def test_conv2d_nhwc_and_int8_state_dict_names():
     assert torch.equal(q.wt[:, :70], q.wq.t()) and not q.wt[:, 70:].any()
 
 
+def test_int8_layers_hold_the_weight_once_and_round_trip_wq():
+    """An Int8Linear and a grouped Int8Conv2D hold their int8 weight once,
+    as Q2's packed `wt` (no `wq` buffer; `wq` is a view of `wt`): the
+    state dict's `wq` is `quantize_weight`'s in the JAX layout, bitwise;
+    loaded into a layer built from other weights it is packed back into
+    the same `wt` tensor, bitwise; a state dict without `wq` reports it
+    missing."""
+    g = torch.Generator().manual_seed(1)
+    lin = Linear(70, 9, generator=g)
+    conv = Conv2D(4, 6, 3, groups=2, generator=g)
+    for make, w, axis in ((TI.Int8Linear, lin.weight, 1),
+                          (TI.Int8Conv2D, conv.weight, 0)):
+        src = lin if make is TI.Int8Linear else conv
+        q = make(src, 3.0)
+        wq, _ = TI.quantize_weight(w.detach(), axis)
+        assert [n for n, _ in q.named_buffers()] == ["wt", "w_scale"]
+        assert q.wt.dtype == torch.int8 and q.wt.shape[1] % Q2.K_TILE == 0
+        sd = q.state_dict()
+        assert sorted(sd) == ["bias", "w_scale", "wq"]
+        assert torch.equal(sd["wq"], wq) and torch.equal(q.wq, wq)
+        other = make(Linear(70, 9, generator=g) if make is TI.Int8Linear
+                     else Conv2D(4, 6, 3, groups=2, generator=g), 3.0)
+        held = other.wt
+        assert not torch.equal(other.wt, q.wt)
+        other.load_state_dict(sd)
+        assert other.wt is held and torch.equal(other.wt, q.wt)
+        res = other.load_state_dict({k: v for k, v in sd.items()
+                                     if k != "wq"}, strict=False)
+        assert res.missing_keys == ["wq"] and not res.unexpected_keys
+
+
+class _Positional(torch.nn.Module):
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, mask):
+        return self.m(ids, attention_mask=mask)
+
+
+def test_int8_ernie_program_holds_each_int8_weight_once(tmp_path):
+    """The port's tiny int8 ERNIE (`quantize_for_inference` at the
+    default absmax) through jit.save: the `.pt2` program's int8 tensors
+    are the 14 quantized layers' packed weights, each once (their bytes
+    sum to the layers' `wt` bytes, no `[in, out]` copy among them), and
+    the `.pdparams` state dict still carries each `wq` in the JAX
+    layout."""
+    from paddle_tpu_torch.framework import io as tio
+    tm = ErnieForSequenceClassification(
+        ErnieConfig.from_preset("tiny", **NO_DROPOUT), num_classes=2,
+        device="cpu", seed=0)
+    TQ.quantize_for_inference(tm)
+    layers = [m for m in tm.modules() if isinstance(m, TI.Int8Linear)]
+    assert len(layers) == 14
+    path = str(tmp_path / "int8")
+    jit.save(_Positional(tm), path,
+             input_spec=[jit.InputSpec([None, S], "int64")] * 2)
+    program = torch.export.load(path + ".pt2")
+    held = [t for t in list(program.state_dict.values())
+            + list(program.constants.values())
+            if isinstance(t, torch.Tensor) and t.dtype == torch.int8]
+    assert sorted(tuple(t.shape) for t in held) == \
+        sorted(tuple(m.wt.shape) for m in layers)
+    assert sum(t.numel() for t in held) == sum(m.wt.numel() for m in layers)
+    params = tio.load(path + ".pdparams")
+    wqs = {k: v for k, v in params.items() if k.endswith(".wq")}
+    assert len(wqs) == 14
+    for k, v in wqs.items():
+        layer = tm.get_submodule(k[len("m."):-len(".wq")])
+        assert np.array_equal(np.asarray(v), layer.wq.numpy())
+
+
+@pytest.mark.parametrize("M, K, N, route, splits, xq, ws, sems", [
+    (1, 768, 2, "split", 12, None, (2,), (1,)),          # classifier
+    (5, 768, 768, "split", 12, None, (3840,), (6,)),      # pooler
+    (16, 768, 768, "split", 12, None, (12288,), (6,)),
+    (64, 3072, 768, "split", 16, None, (49152,), (6,)),
+    (16, 64, 10, "split", 1, None, None, None),          # one K slice
+    (3, 147, 64, "split", 3, None, (192,), (1,)),
+    (65, 768, 768, "wgmma", 1, (65, 768), None, None),
+    (128, 3072, 768, "wgmma", 1, (128, 3072), None, None),   # 1 row
+    (640, 768, 3072, "wgmma", 1, (640, 768), None, None),    # 5 rows
+    (2048, 768, 3072, "wgmma", 1, (2048, 768), None, None),   # FFN in
+    (2048, 3072, 768, "wgmma", 1, (2048, 3072), None, None),  # FFN out
+    (401408, 147, 64, "wgmma", 1, (401408, 192), None, None),  # im2col
+])
+def test_q2_plan_routes_by_rows(M, K, N, route, splits, xq, ws, sems):
+    """Q2's route by M (split over K at M <= 64, wgmma above), the split
+    count and the scratch each route needs: the wgmma route's (M, Kp)
+    int8 xq, the split route's M x N int32 workspace and a semaphore a
+    128-column tile (none with one K slice)."""
+    p = Q2.plan(M, N, K)
+    assert p == Q2.Plan(route, splits, xq, ws, sems)
+
+
+@pytest.mark.parametrize("rows", [(1, 5, 16, 64), (65, 128, 640, 2048)])
+def test_q2_split_counts_fill_the_card_in_whole_tiles(rows):
+    """Over the split route's shapes: every slice holds whole 64-wide
+    k-tiles and at least one, the count is the one the C side derives
+    from it (ceil(kt / ceil(kt / splits))), and column tiles x slices
+    stay within the card's 132 SMs unless one slice a tile already
+    passes them; above 64 rows the wgmma route, unsplit."""
+    for M in rows:
+        for K in (1, 63, 64, 65, 147, 768, 1000, 3072, 8192):
+            for N in (1, 2, 10, 128, 768, 3072, 20000):
+                p = Q2.plan(M, N, K)
+                if M > Q2.SMALL_M:
+                    assert p == Q2.Plan("wgmma", 1, (M, -(-K // 64) * 64),
+                                        None, None)
+                    continue
+                kt, tiles = -(-K // 64), -(-N // 128)
+                per = -(-kt // p.splits)
+                assert p.route == "split" and 1 <= p.splits <= kt
+                assert -(-kt // per) == p.splits
+                assert tiles * p.splits <= max(132, tiles)
+                assert (p.workspace is None) == (p.splits == 1)
+
+
+def test_q2_variants_on_the_cpu():
+    """`variant=` takes None (the route by M) or "mma": on a CPU x "mma"
+    runs the plain version (bitwise the default), and any other name
+    raises, the routes that M picks included, as on the card."""
+    rng = np.random.RandomState(7)
+    wq, ws = TI.quantize_weight(torch.from_numpy(
+        rng.randn(40, 6).astype(np.float32)), 1)
+    bias = torch.from_numpy(rng.randn(6).astype(np.float32))
+    assert Q2.VARIANTS == ("mma",)
+    for M in (3, 70):
+        x = torch.from_numpy(rng.randn(M, 40).astype(np.float32))
+        want = Q2.int8_linear(x, wq, ws, bias, 0.02)
+        for v in Q2.VARIANTS:
+            got = Q2.int8_linear(x, None, ws, bias, 0.02,
+                                 wt=Q2.pack_weight(wq), variant=v)
+            assert torch.equal(got, want), (M, v)
+        for bad in ("tiles", "split", "wgmma"):
+            with pytest.raises(ValueError, match="variant"):
+                Q2.int8_linear(x, wq, ws, bias, 0.02, variant=bad)
+    assert torch.equal(Q2.unpack_weight(Q2.pack_weight(wq), 40), wq)
+
+
+def test_q2_launch_check_takes_only_pack_weights_layout():
+    """The check a launch runs first takes `pack_weight`'s wt and refuses
+    one padded past K rounded up to 64 (the wgmma route sizes its (M,
+    Kp) scratch from K), one of another type and one not contiguous."""
+    wq = torch.ones(70, 6, dtype=torch.int8)
+    ws, x = torch.ones(6), torch.ones(3, 70)
+    Q2._check(x, Q2.pack_weight(wq), ws, None)
+    for bad in (torch.zeros(6, 192, dtype=torch.int8),
+                Q2.pack_weight(wq).to(torch.int16),
+                torch.zeros(128, 6, dtype=torch.int8).t()):
+        with pytest.raises(ValueError, match="pack_weight"):
+            Q2._check(x, bad, ws, None)
+
+
 # ------------------------------------------------------------ Q2 (plain)
 
 
@@ -578,25 +732,98 @@ def test_int8_ernie_program_holds_q2_and_matches(tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_q2_kernel_matches_its_plain_version_bitwise(dtype):
     """Q2 on the card against its plain version over odd M / N / K (and
-    ERNIE's 2,048 x 768 -> 3,072 with a bias): bitwise, launches
-    counted."""
+    ERNIE's 2,048 x 768 -> 3,072 with a bias, a conv's K 147), on every
+    route: the default (split over K at M <= 64, one slice or several;
+    wgmma above, at a partial 128-row tile and at N 2 too) and
+    `variant="mma"` (the first kernel); launches counted by route; the
+    default route again inside a replayed CUDA graph.  Bitwise
+    throughout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: Q2 has no CPU or interpret mode")
     g = torch.Generator(device="cuda").manual_seed(0)
     dt = getattr(torch, dtype)
-    for M, K, N in ((1, 7, 3), (5, 33, 2), (16, 768, 2), (77, 130, 65),
-                    (2048, 768, 3072), (300, 3072, 768)):
+    for M, K, N in ((1, 7, 3), (5, 33, 2), (16, 768, 2), (64, 3072, 768),
+                    (77, 130, 65), (96, 768, 2), (1000, 147, 64),
+                    (2048, 768, 3072),
+                    (300, 3072, 768)):
         x = torch.randn(M, K, device="cuda", generator=g).to(dt)
         w = torch.randn(K, N, device="cuda", generator=g)
         wq, ws = TI.quantize_weight(w, 1)
+        wt = Q2.pack_weight(wq)
         bias = torch.randn(N, device="cuda", generator=g)
         xs = float(x.float().abs().max()) / 127.0 * 0.9
-        before = Q2.LAUNCHES["int8_linear"]
+        p = Q2.plan(M, N, K)
+        before = dict(Q2.LAUNCHES)
         got = Q2.int8_linear(x, wq, ws, bias, xs)
-        got_nb = Q2.int8_linear(x, wq, ws, None, xs)
+        got_nb = Q2.int8_linear(x, None, ws, None, xs, wt)
+        mma = Q2.int8_linear(x, None, ws, bias, xs, wt, variant="mma")
         torch.cuda.synchronize()
-        assert Q2.LAUNCHES["int8_linear"] == before + 2
+        moved = {k: Q2.LAUNCHES[k] - before[k] for k in before}
+        wg = p.route == "wgmma"
+        assert moved == {"int8_linear": 3, "int8_linear_mma": 1,
+                         "int8_linear_quant": 2 if wg else 0,
+                         "int8_linear_split": 0 if wg else 2}, (M, K, N)
         want = Q2.int8_linear_plain(x, wq, ws, bias, xs)
         want_nb = Q2.int8_linear_plain(x, wq, ws, None, xs)
-        assert torch.equal(got, want), (M, K, N)
-        assert torch.equal(got_nb, want_nb), (M, K, N)
+        assert torch.equal(got, want), (M, K, N, p)
+        assert torch.equal(got_nb, want_nb), (M, K, N, p)
+        assert torch.equal(mma, want), (M, K, N)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            Q2.int8_linear(x, None, ws, bias, xs, wt)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = Q2.int8_linear(x, None, ws, bias, xs, wt)
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (M, K, N, "graph")
+
+
+@pytest.mark.gpu
+def test_q2_split_calls_on_two_streams_at_once():
+    """Split calls (M <= 64, several K slices) on two streams at once, and
+    a graph of one replayed on a third stream meanwhile: each takes its
+    own zeroed workspace, so every output stays bitwise its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: Q2 has no CPU or interpret mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for M, K, N in ((16, 3072, 768), (5, 768, 768), (1, 768, 2)):
+        x = torch.randn(M, K, device="cuda", generator=g)
+        wq, ws = TI.quantize_weight(torch.randn(K, N, device="cuda",
+                                                generator=g), 1)
+        bias = torch.randn(N, device="cuda", generator=g)
+        xs = float(x.abs().max()) / 127.0 * 0.9
+        args = (x, None, ws, bias, xs, Q2.pack_weight(wq))
+        assert Q2.plan(M, N, K).splits > 1
+        cases.append((args, Q2.int8_linear_plain(x, wq, ws, bias, xs)))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        Q2.int8_linear(*cases[0][0])
+        with torch.cuda.graph(graph, stream=side):
+            g_out = Q2.int8_linear(*cases[0][0])
+    torch.cuda.current_stream().wait_stream(side)
+    streams = [torch.cuda.Stream() for _ in range(3)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = {0: [], 1: []}
+    for _ in range(20):
+        for i in (0, 1):
+            with torch.cuda.stream(streams[i]):
+                outs[i] += [Q2.int8_linear(*args) for args, _ in cases]
+        with torch.cuda.stream(streams[2]):
+            graph.replay()
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        for r, out in enumerate(outs[i]):
+            assert torch.equal(out, cases[r % 3][1]), (i, r)
+    assert torch.equal(g_out, cases[0][1])
